@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and ``nvcc``; fails without them. It
+
+1. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. runs each kernel at the shapes the paper config's main path gives it
+   (batch 8), holds it against its plain PyTorch version on the card and
+   times kernel, plain version and the nearest single PyTorch call;
+3. compiles the full-width Spikformer V2-8-512 (224x224x3, T=4, 8 blocks,
+   1000 classes) with int8 weights under ``packed_cuda`` from a seeded
+   ``init`` (fixed gains on the folded kernels keep the IAND residual
+   stream firing), serves seeded requests through ``MicroBatchEngine``,
+   checks that every request completes, that each kernel's launch counter
+   grew by its per-step count times the steps taken, that the final
+   residual stream still fires, and that one bucket-8 batch gives
+   bit-identical logits under ``packed_cuda`` and ``packed_plain`` (the
+   plain versions) on the card.
+
+Prints the kernel table and the serving stats as JSON lines, the card's
+name and power limit, and as its last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+A full report goes to ``build/chip_smoke.json``. Any failed check
+exits non-zero before the last line.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+BATCH = 8
+REQUEST_SIZES = (1, 8, 3, 5, 8)     # 25 images: three bucket-8 steps + one 1
+GAIN, GAIN_RESIDUAL = 4.0, 0.7       # kernel gains; wo/fc2 get both
+FIRING_RATE = 0.2
+REPS = 20
+
+# published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+
+SOURCES = {
+    "tflif": ("src/repro_torch/kernels/csrc/tflif.cu",
+              "src/repro/kernels/tflif.py:65"),
+    "lut_gather": ("src/repro_torch/kernels/csrc/lut_gather.cu",
+                   "src/repro/kernels/spike_matmul.py:173"),
+    "unpack_dot": ("src/repro_torch/kernels/csrc/unpack_dot.cu",
+                   "src/repro/kernels/spike_matmul.py:225"),
+    "stdp": ("src/repro_torch/kernels/csrc/stdp.cu",
+             "src/repro/kernels/stdp_attention.py:45"),
+}
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+
+
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def max_abs_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def time_ms(torch, fn, reps: int = REPS) -> float:
+    """Mean ms per call over ``reps`` calls after a warm-up, by CUDA
+    events."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_phase(torch, dev) -> dict:
+    """Each kernel at its main-path shape against its plain version."""
+    from repro_torch.core.spike import pack_timesteps, unpack_timesteps
+    from repro_torch.kernels import lut_matmul as lut
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
+                                                  spike_matmul_grouped)
+    from repro_torch.kernels.stdp_attention import stdp_attention
+    from repro_torch.kernels.tflif import tflif_fused, tflif_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t, tokens, dim, heads = 4, 196, 512, 8
+    m = BATCH * tokens
+
+    def spikes(*shape):
+        return (torch.rand(shape, generator=gen, device=dev)
+                < FIRING_RATE).to(torch.uint8)
+
+    out = {}
+
+    # TFLIF at fc1's LIF: (4, 8*196*2048) accumulators, per-channel v_th
+    hidden = 4 * dim
+    x = torch.randn((t, m * hidden), generator=gen, device=dev) * 2.0
+    bias = torch.randn(hidden, generator=gen, device=dev) * 0.1
+    vth = 0.5 + torch.rand(hidden, generator=gen, device=dev)
+    got, want = tflif_fused(x, bias, vth), tflif_plain(x, bias, vth)
+    check(torch.equal(got, want), "tflif kernel differs from its plain version")
+    err = max_abs_err(got, want)
+    nbytes = x.numel() * 4 + bias.numel() * 4 + vth.numel() * 4 + got.numel()
+    b_ms, b_by = bound_ms(nbytes, 5 * x.numel(), F32_OPS_PER_S)
+    out["tflif"] = dict(
+        shape=f"x {tuple(x.shape)} f32, per-channel bias/v_th ({hidden},)",
+        max_abs_err=err, firing_rate=float(
+            unpack_timesteps(got, t).mean()),
+        ms=time_ms(torch, lambda: tflif_fused(x, bias, vth)),
+        plain_ms=time_ms(torch, lambda: tflif_plain(x, bias, vth)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # LUT gather at q/k/v: (4, 1568, 64) index bytes x (64, 256, 512) int16
+    xq = pack_timesteps(spikes(t, m, dim))                   # (1, M, 512)
+    idx = lut.plane_indices(xq)[:t].contiguous()
+    w_int = torch.randint(-127, 128, (dim, dim), generator=gen,
+                          device=dev).to(torch.int8)
+    tbl16 = lut.build_lut(w_int)
+    got, want = lut_gather_matmul(idx, tbl16), lut.lut_matmul(idx, tbl16)
+    check(torch.equal(got, want),
+          "lut_gather (int16 table) differs from its plain version")
+    err = max_abs_err(got, want)
+    w_f32 = torch.randn((dim, dim), generator=gen, device=dev)
+    tbl32 = lut.build_lut(w_f32)
+    check(torch.equal(lut_gather_matmul(idx, tbl32),
+                      lut.lut_matmul(idx, tbl32)),
+          "lut_gather (f32 table) differs from its plain version")
+    # conv0 of the main path: SSSC value planes of a batch of 8 images
+    img = torch.randint(0, 256, (BATCH * 112 * 112, 12), generator=gen,
+                        device=dev).to(torch.uint8)
+    idx0 = lut.plane_indices(img[None]).contiguous()
+    tbl0 = lut.build_lut(torch.randint(-127, 128, (12, 64), generator=gen,
+                                       device=dev).to(torch.int8))
+    check(torch.equal(lut_gather_matmul(idx0, tbl0),
+                      lut.lut_matmul(idx0, tbl0)),
+          "lut_gather (conv0 shape) differs from its plain version")
+    planes = unpack_timesteps(xq, t).reshape(t * m, dim)
+    wf = w_int.to(torch.float32)
+    p_, m_, c_ = idx.shape
+    n_ = tbl16.shape[-1]
+    b_ms, b_by = bound_ms(idx.numel() + tbl16.numel() * 2 + p_ * m_ * n_ * 4,
+                          p_ * m_ * c_ * n_, F32_OPS_PER_S)
+    out["lut_gather"] = dict(
+        shape=f"idx {tuple(idx.shape)} u8 x table {tuple(tbl16.shape)} int16",
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: lut_gather_matmul(idx, tbl16)),
+        plain_ms=time_ms(torch, lambda: lut.lut_matmul(idx, tbl16)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.matmul(planes, wf)))
+
+    # grouped unpack dot at fc1: (1, 1568, 512) u8 x (512, 2048)
+    w1 = torch.randint(-127, 128, (dim, hidden), generator=gen,
+                       device=dev).to(torch.float32)
+    got, want = spike_matmul_grouped(xq, w1, t=t), ref.spike_matmul_ref(
+        xq, w1, t=t)
+    check(torch.equal(got, want),
+          "unpack_dot (integer weights) differs from its plain version")
+    err = max_abs_err(got, want)
+    # conv3 (8*14*14 rows, 1024 -> 512) and fc2 (2048 -> 512) of the path
+    for rows, k_in, n_out in ((BATCH * tokens, 4 * 256, dim),
+                              (m, hidden, dim)):
+        xs = pack_timesteps(spikes(t, rows, k_in))
+        ws = torch.randint(-127, 128, (k_in, n_out), generator=gen,
+                           device=dev).to(torch.float32)
+        check(torch.equal(spike_matmul_grouped(xs, ws, t=t),
+                          ref.spike_matmul_ref(xs, ws, t=t)),
+              f"unpack_dot differs from its plain version at K={k_in}")
+    w1f = torch.randn((dim, hidden), generator=gen, device=dev)
+    gotf = spike_matmul_grouped(xq, w1f, t=t)
+    wantf = ref.spike_matmul_ref(xq, w1f, t=t)
+    err_f = float((gotf - wantf).abs().max())
+    # f32 weights: sums of up to 512 terms in another order; tolerance
+    # atol 1e-3 + rtol 1e-5 (|sums| stay below ~100, ulp ~1e-5)
+    check(bool(((gotf - wantf).abs() <= 1e-3 + 1e-5 * wantf.abs()).all()),
+          f"unpack_dot (f32 weights) off by {err_f}")
+    b_ms, b_by = bound_ms(xq.numel() + w1.numel() * 4 + got.numel() * 4,
+                          2 * t * m * dim * hidden, INT8_OPS_PER_S)
+    out["unpack_dot"] = dict(
+        shape=f"x {tuple(xq.shape)} u8 x w {tuple(w1.shape)} int-valued f32,"
+              f" t={t}", max_abs_err=err, max_abs_err_f32_weights=err_f,
+        ms=time_ms(torch, lambda: spike_matmul_grouped(xq, w1, t=t)),
+        plain_ms=time_ms(torch, lambda: ref.spike_matmul_ref(xq, w1, t=t)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.matmul(planes, w1)))
+
+    # STDP at (T*B*heads, N, Dh) = (256, 196, 64)
+    bh, dh = t * BATCH * heads, dim // heads
+    q, k, v = (spikes(bh, tokens, dh).to(torch.float32) for _ in range(3))
+    got = stdp_attention(q, k, v, scale=0.125)
+    want = ref.stdp_attention_ref(q, k, v, scale=0.125)
+    check(torch.equal(got, want), "stdp kernel differs from its plain version")
+    err = max_abs_err(got, want)
+    v8 = v * 0.125
+    check(torch.equal(torch.bmm(torch.bmm(q, k.mT), v8), want),
+          "two bmms do not compute the STDP function")
+    b_ms, b_by = bound_ms(4 * q.numel() * 4, 4 * bh * tokens * tokens * dh,
+                          INT8_OPS_PER_S)
+    out["stdp"] = dict(
+        shape=f"q, k, v {tuple(q.shape)} f32 spikes",
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: stdp_attention(q, k, v, scale=0.125)),
+        plain_ms=time_ms(torch, lambda: ref.stdp_attention_ref(
+            q, k, v, scale=0.125)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(q, k.mT), v8)))
+    ops.reset_launch_counts()     # comparison launches do not count
+    return out
+
+
+class LayerRecorder:
+    """Wraps a backend and records the firing rate of every layer's packed
+    output, in forward order, and of the residual stream the head reads."""
+
+    def __init__(self, inner, t: int):
+        from repro_torch.core.spike import packed_occupancy
+        self.inner, self.t, self.rows = inner, t, []
+        self._occ = packed_occupancy
+
+    def _rec(self, name, out):
+        self.rows.append((name, self._occ(out, self.t)))
+        return out
+
+    def sssc_lif(self, *a, **kw):
+        return self._rec("sssc", self.inner.sssc_lif(*a, **kw))
+
+    def zsc_lif(self, *a, **kw):
+        return self._rec("zsc", self.inner.zsc_lif(*a, **kw))
+
+    def wssl_lif(self, *a, **kw):
+        return self._rec("wssl", self.inner.wssl_lif(*a, **kw))
+
+    def stdp_lif(self, *a, **kw):
+        return self._rec("stdp", self.inner.stdp_lif(*a, **kw))
+
+    def residual(self, *a, **kw):
+        return self._rec("residual", self.inner.residual(*a, **kw))
+
+    def to_tokens(self, x):
+        return self.inner.to_tokens(x)
+
+    def rate(self, x, *, t):
+        self._rec("final_residual", x)
+        return self.inner.rate(x, t=t)
+
+
+OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
+               "stdp_kernel")
+
+
+def profile_phase(torch, model, batch, steps: int = 3) -> dict:
+    """Where one bucket-8 step's time goes: host wall time per synchronised
+    step, device time per kernel by ``torch.profiler`` (CUDA activity), the
+    device's idle share of the wall time, and peak device memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model.step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model.step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            model.step(batch)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append({"kernel": ev.key[:100],
+                         "ours": any(k in ev.key for k in OUR_KERNELS),
+                         "ms_per_step": us / 1e3 / steps,
+                         "launches_per_step": ev.count / steps})
+    rows.sort(key=lambda r: -r["ms_per_step"])
+    device_ms = sum(r["ms_per_step"] for r in rows)
+    ours_ms = sum(r["ms_per_step"] for r in rows if r["ours"])
+    return {
+        "steps": steps, "bucket": int(batch.shape[0]),
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms if rows else "not measured",
+        "our_kernels_ms_per_step": ours_ms if rows else "not measured",
+        "idle_share": 1.0 - device_ms / wall_ms if rows else "not measured",
+        "peak_mem_mib": peak_mib,
+        "launches_per_step": sum(r["launches_per_step"] for r in rows),
+        "by_kernel": rows[:25]}
+
+
+def serve_phase(torch, dev) -> dict:
+    import numpy as np
+    from repro_torch.core.spikformer import (SpikformerConfig,
+                                             fold_inference_params, init)
+    from repro_torch.infer import ExecutionPlan, MicroBatchEngine, compile
+    from repro_torch.infer.compile import lower
+    from repro_torch.infer.quant import map_folded_layers
+    from repro_torch.kernels import ops
+
+    cfg = SpikformerConfig()
+    folded = fold_inference_params(
+        init(torch.Generator().manual_seed(SEED), cfg), cfg)
+
+    def gain(path, layer):
+        g = GAIN * (GAIN_RESIDUAL if path.endswith(("/wo", "/fc2")) else 1.0)
+        return {**layer, "kernel": layer["kernel"] * g}
+
+    folded = map_folded_layers(folded, gain)
+    t0 = time.perf_counter()
+    model = compile(folded, cfg, ExecutionPlan(
+        backend="packed_cuda", weight_dtype="int8", batch_buckets=(1, BATCH)),
+        folded=True, device=dev)
+    compile_s = time.perf_counter() - t0
+    routes = model.plan.routes
+    want_routes = {p: ("unpack" if p in ("scs/conv3",) or "/mlp/" in p
+                       else "lut") for p in routes}
+    check(routes == want_routes,
+          f"routes differ from the paper config's int8 mix: {routes}")
+    warmup_s = model.warmup()
+
+    n_lut = sum(r == "lut" for r in routes.values())
+    per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
+                "lut_gather": n_lut, "unpack_dot": len(routes) - n_lut,
+                "stdp": cfg.depth}
+
+    rng = np.random.default_rng(SEED)
+    requests = [rng.integers(0, 256, (n, cfg.img_size, cfg.img_size,
+                                      cfg.in_channels), dtype=np.uint8)
+                for n in REQUEST_SIZES]
+    engine = MicroBatchEngine(model)
+    ops.reset_launch_counts()
+    reqs = [engine.submit(imgs) for imgs in requests]
+    engine.run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    steps = engine.acct.batches
+    check(all(r.t_done and len(r.labels) == len(r.images)
+              and None not in r.labels for r in reqs),
+          "a request did not complete")
+    expect = {k: v * steps for k, v in per_step.items()}
+    check(launches == expect,
+          f"launch counts {launches} != {steps} steps x {per_step}")
+
+    batch = torch.from_numpy(np.concatenate(requests)[:BATCH]).to(dev)
+    logits = model.step(batch)
+    plain = compile(model.folded, cfg, dataclasses.replace(
+        model.plan, backend="packed_plain"), folded=True, device=dev)
+    logits_plain = plain.step(batch)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(bool((logits != 0).any()), "all logits are zero: the network is "
+          "silent")
+    check(torch.equal(logits, logits_plain),
+          "packed_cuda logits differ from packed_plain on the card: max "
+          f"{float((logits - logits_plain).abs().max())}")
+    labels = logits.argmax(-1).tolist()
+    check(labels == logits_plain.argmax(-1).tolist(), "labels differ")
+
+    rec = LayerRecorder(model.backend, cfg.timesteps)
+    lower(model.folded, cfg, rec)(model.folded, batch)
+    final_occ = rec.rows[-1][1]
+    check(final_occ > 0, "the final residual stream is silent")
+    stats = engine.stats()
+    prof = profile_phase(torch, model, batch)
+    return dict(
+        config="SpikformerConfig() V2-8-512: 224x224x3, T=4, dim 512, "
+               "depth 8, heads 8, 1000 classes; int8, packed_cuda",
+        compile_s=compile_s, warmup_s=warmup_s, steps=steps,
+        per_step_launches=per_step, launches=launches,
+        bucket8_labels=labels, distinct_labels=len(set(labels)),
+        logits_bit_identical_to_plain=True,
+        final_residual_occupancy=final_occ,
+        layer_occupancy=[(n, round(o, 5)) for n, o in rec.rows],
+        stats=stats, profile=prof)
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke.py: src/repro_torch not found next to this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; this smoke test runs only on "
+              "the card", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build = _build.build_all()
+    build_s = time.perf_counter() - t0
+    kind = torch.cuda.get_device_name(0)
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        smi = f"nvidia-smi unavailable: {e}"
+    print(f"device: {kind}; build {build_s:.1f} s", flush=True)
+
+    report = {"device": kind, "nvidia_smi": smi, "build_s": build_s,
+              "versions": {"python": sys.version.split()[0],
+                           "torch": torch.__version__,
+                           "cuda": torch.version.cuda},
+              "build_logs": {k: v["log"] for k, v in build.items()}}
+    out_dir = ROOT / "build"
+    try:
+        report["kernels"] = kernel_phase(torch, dev)
+        report["serve"] = serve_phase(torch, dev)
+    except CheckFailed as e:
+        print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
+        return 1
+    finally:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "chip_smoke.json").write_text(
+            json.dumps(report, indent=1, default=str))
+
+    launches = report["serve"]["launches"]
+    table = []
+    for name, row in report["kernels"].items():
+        source, replaces = SOURCES[name]
+        table.append({"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": launches[name],
+                      **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")},
+                      "shape": row["shape"]})
+    serve = report["serve"]
+    print(json.dumps({"serve": serve["stats"],
+                      "steps": serve["steps"],
+                      "bucket8_labels": serve["bucket8_labels"],
+                      "logits_bit_identical_to_plain": True,
+                      "final_residual_occupancy":
+                          serve["final_residual_occupancy"],
+                      "layer_occupancy": serve["layer_occupancy"]}))
+    prof = serve["profile"]
+    print(json.dumps({"profile": {k: v for k, v in prof.items()
+                                  if k != "by_kernel"},
+                      "top_kernels": [(r["kernel"][:48],
+                                       round(r["ms_per_step"], 4))
+                                      for r in prof["by_kernel"][:8]]}))
+    print(smi)
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,164 @@
+"""Byte-LUT matmul primitives and the route chooser (port of
+``repro.kernels.lut_matmul``).
+
+One packed byte *selects* a precomputed partial sum over its 8-row weight
+chunk: ``table[c, b, :]`` holds the sum of the rows of chunk c whose bit is
+set in byte b, so a spiking matmul becomes gather-and-accumulate. The
+time-packed activations are turned into K-packed index bytes by an 8x8 bit
+transpose (``plane_indices``). The reduction tree is defined: ascending-bit
+folds inside a chunk (``build_lut``), ascending-chunk adds across chunks
+(``lut_matmul``), so every route that replays it is bit-exact. Integer
+kernels give int16 tables accumulated in int32.
+
+``lut_matmul`` is the plain version of the CUDA gather kernel
+(``kernels.spike_matmul.lut_gather_matmul``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+K_CHUNK = 8  # weight rows selected by one byte — the PE fan-in of the paper
+MAX_TABLE_BYTES = 1 << 24  # 16 MiB per-layer table cap
+
+
+def num_k_chunks(k: int) -> int:
+    """Number of 8-row weight chunks (= LUT gather steps) for K input rows."""
+    if k < 1:
+        raise ValueError(f"need k >= 1, got {k}")
+    return -(-k // K_CHUNK)
+
+
+def table_bytes(k: int, n: int, weights_are_int: bool) -> int:
+    """Size of the cached LUT for a (K, N) kernel."""
+    return num_k_chunks(k) * 256 * n * (2 if weights_are_int else 4)
+
+
+def is_int_kernel(w: torch.Tensor) -> bool:
+    return not (w.is_floating_point() or w.is_complex())
+
+
+def _pad_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero-pad the trailing (K) axis up to a multiple of 8."""
+    pad = num_k_chunks(k) * K_CHUNK - k
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def bit_transpose8(b: torch.Tensor) -> torch.Tensor:
+    """Transpose 8x8 bit matrices held as 8 bytes, over leading axes:
+    ``out[..., j]`` bit i == ``b[..., i]`` bit j. Unpack, swap the two bit
+    axes, repack (the reference's wordwise Hacker's Delight form needs
+    logical uint32 shifts that torch's int32 lacks)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=b.device)
+    bits = (b.unsqueeze(-1) >> shifts) & 1               # [..., i, j]
+    return (bits.transpose(-1, -2) << shifts).sum(-1, dtype=torch.uint8)
+
+
+def plane_indices(x_packed: torch.Tensor) -> torch.Tensor:
+    """(G, ..., K) time-packed plane groups -> (G*8, ..., C) per-plane LUT
+    index bytes, C = ceil(K/8): bit i of ``[p, ..., c]`` = plane p of input
+    ``8c + i``. Planes past the live count are zero bytes; callers slice
+    ``[:t]``."""
+    g, k = x_packed.shape[0], x_packed.shape[-1]
+    lead = x_packed.shape[1:-1]
+    c = num_k_chunks(k)
+    x = _pad_k(x_packed, k).reshape(g, *lead, c, K_CHUNK)
+    idx = bit_transpose8(x)                               # [..., j] bit i
+    return torch.movedim(idx, -1, 1).reshape(g * K_CHUNK, *lead, c)
+
+
+def build_lut(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) kernel -> (C, 256, N) chunk-partial-sum table, built by the
+    ascending-bit fold; int16 for integer kernels, f32 otherwise."""
+    k, n = w.shape
+    c = num_k_chunks(k)
+    dt = torch.int16 if is_int_kernel(w) else torch.float32
+    wc = _pad_k(w.to(dt).T, k).T.reshape(c, K_CHUNK, n)
+    codes = torch.arange(256, dtype=torch.int64, device=w.device)
+    bits = ((codes[:, None] >> torch.arange(K_CHUNK, device=w.device)) & 1
+            ).to(dt)                                      # (256, 8)
+    tbl = torch.zeros((c, 256, n), dtype=dt, device=w.device)
+    for i in range(K_CHUNK):
+        tbl = tbl + bits[None, :, i, None] * wc[:, None, i, :]
+    return tbl
+
+
+def lut_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Gather-and-accumulate: (..., C) index bytes x (C, 256, N) table ->
+    (..., N) f32 by the ascending-chunk fold (int32 for int16 tables).
+    The plain version of the CUDA gather kernel."""
+    c = table.shape[0]
+    if idx.shape[-1] != c:
+        raise ValueError(f"index bytes {tuple(idx.shape)} do not match "
+                         f"table {tuple(table.shape)}")
+    acc_dt = torch.float32 if table.is_floating_point() else torch.int32
+    y = table[0][idx[..., 0].long()].to(acc_dt)
+    for cc in range(1, c):
+        y = y + table[cc][idx[..., cc].long()].to(acc_dt)
+    return y.to(torch.float32)
+
+
+def shift_sum_fold(per_plane: torch.Tensor) -> torch.Tensor:
+    """SSSC bit-plane combine in a defined order: (8, ..., N) ->
+    (..., N), ``y = y + per[p] * 2^p`` ascending (exact scaling)."""
+    y = per_plane[0]
+    for p in range(1, 8):
+        y = y + per_plane[p] * float(2.0 ** p)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Route choice
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RouteConstants:
+    """Cost-model constants, in units of one dot FMA. The key set equals
+    the reference's so a plan JSON written by the JAX package loads here;
+    ``choose_cuda_route`` reads only the ``pallas_*`` and
+    ``transpose_cost`` entries (their reference defaults: fitting them for
+    the H100 is later work)."""
+    gather_cost: float = 4.0
+    transpose_cost: float = 2.5
+    unpack_cost: float = 8.0
+    int_gather_discount: float = 0.5
+    cache_bytes: int = 1 << 21
+    cache_penalty: float = 3.0
+    compact_cost: float = 40.0
+    pallas_gather_cost: float = 2.0
+    pallas_dot_cost: float = 1.0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RouteConstants":
+        known = {f.name for f in dataclasses.fields(cls)}
+        bad = set(d) - known
+        if bad:
+            raise ValueError(f"unknown route-constant keys {sorted(bad)}; "
+                             f"expected a subset of {sorted(known)}")
+        return cls(**d)
+
+
+DEFAULT_ROUTE_CONSTANTS = RouteConstants()
+
+
+def choose_cuda_route(*, m: int, k: int, n: int, g: int, t: int,
+                      weights_are_int: bool = False,
+                      max_table_bytes: int = MAX_TABLE_BYTES,
+                      constants: RouteConstants | None = None,
+                      occupancy: float | None = None) -> str:
+    """"lut" or "unpack" for the CUDA kernel pair, by the same formula and
+    constants as the reference's ``choose_pallas_route``, so the routes
+    equal a JAX ``packed_pallas`` plan's. ``occupancy`` is accepted for
+    signature parity and ignored: the gather kernel is dense."""
+    cc = DEFAULT_ROUTE_CONSTANTS if constants is None else constants
+    c = num_k_chunks(k)
+    if table_bytes(k, n, weights_are_int) > max_table_bytes:
+        return "unpack"
+    lut_cost = (t * m * c * n * cc.pallas_gather_cost
+                + g * m * k * cc.transpose_cost)
+    dot_cost = t * m * k * n * cc.pallas_dot_cost
+    return "lut" if lut_cost < dot_cost else "unpack"

@@ -1,0 +1,178 @@
+"""Batched packed-spike entry points — the inference datapath (port of the
+Pallas branch of ``repro.kernels.ops``).
+
+Activations stay packed 8 per uint8 between layers (temporal bits for
+WSSL/ZSC/STDP, value bits for SSSC) and only meet the weights inside a
+kernel. Every entry point dispatches to the four kernel wrappers, which
+launch their CUDA kernel for CUDA operands and run their plain version for
+CPU ones; ``plain=True`` runs the plain versions on any device (the oracle
+route the kernels are held against on the card). The reference's CPU
+``packed`` branch (zero-chunk-skipping gather, the STDP score LUT) is not
+ported yet.
+"""
+from __future__ import annotations
+
+import math
+import types
+
+import torch
+
+from . import lut_matmul as lut
+from . import ref
+from .lut_matmul import choose_cuda_route
+from .spike_matmul import lut_gather_matmul, spike_matmul_grouped
+from .stdp_attention import stdp_attention
+from .tflif import tflif_fused, tflif_plain
+from ..core.lif import TAU, V_TH
+from ..core.spike import num_plane_groups, unpack_timesteps
+
+# kernel name -> wrapper; each wrapper counts its launches in ``.launches``
+KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
+           "unpack_dot": spike_matmul_grouped, "stdp": stdp_attention}
+
+_WRAPPERS = types.SimpleNamespace(
+    tflif=tflif_fused, lut=lut_gather_matmul, unpack=spike_matmul_grouped,
+    stdp=stdp_attention)
+_PLAIN = types.SimpleNamespace(
+    tflif=tflif_plain, lut=lut.lut_matmul, unpack=ref.spike_matmul_ref,
+    stdp=ref.stdp_attention_ref)
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _have_table(table) -> bool:
+    """A real (C, 256, N) table, as opposed to None or a planner flag."""
+    return isinstance(table, torch.Tensor) and table.dim() == 3
+
+
+def _resolve_route_cuda(route, table, *, m, k, n, g, t, weights_are_int,
+                        constants=None) -> str:
+    """"lut" (the gather kernel over a prebuilt table) or "unpack" (the
+    grouped unpack dot kernel), under the contract of the reference's
+    ``_resolve_route_pallas``: None takes "lut" iff a table is given,
+    "auto" consults ``choose_cuda_route``, and a pinned "lut_sparse" runs
+    the dense gather (bitwise identical; there is no skipping kernel)."""
+    if route is None:
+        return "lut" if _have_table(table) else "unpack"
+    if route == "auto":
+        return choose_cuda_route(m=m, k=k, n=n, g=g, t=t,
+                                 weights_are_int=weights_are_int,
+                                 constants=constants)
+    if route not in ("lut", "lut_sparse", "unpack"):
+        raise ValueError(f"unknown packed-matmul route {route!r}")
+    return "lut" if route == "lut_sparse" else route
+
+
+def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
+                 route_constants=None, plain: bool = False):
+    """Packed WSSL: (G, ..., K) uint8 temporal plane groups x (K, N) ->
+    (t, ..., N) f32 per-timestep accumulators (+ ``bias``).
+
+    "lut" gathers from ``table`` (``lut.build_lut(w)``, cached by the route
+    planner) by the bit-transposed index bytes; "unpack" runs the grouped
+    dot, which expands the bits in registers. Both are bit-exact for
+    integer weights; for f32 weights "lut" replays the defined fold exactly
+    and "unpack" is held to a tolerance.
+    """
+    g = x_packed.shape[0]
+    if g != num_plane_groups(t):
+        raise ValueError(f"{g} plane groups cannot hold t={t} timesteps")
+    lead, k = x_packed.shape[1:-1], x_packed.shape[-1]
+    m, n = math.prod(lead), w.shape[-1]
+    impl = _PLAIN if plain else _WRAPPERS
+    resolved = _resolve_route_cuda(route, table, m=m, k=k, n=n, g=g, t=t,
+                                   weights_are_int=lut.is_int_kernel(w),
+                                   constants=route_constants)
+    x2 = x_packed.reshape(g, m, k)
+    if resolved == "lut":
+        tbl = table if _have_table(table) else lut.build_lut(w)
+        idx = lut.plane_indices(x2)[:t].contiguous()           # (t, M, C)
+        per = impl.lut(idx, tbl)                               # (t, M, N)
+    else:
+        per = impl.unpack(x2.contiguous(), w.to(torch.float32), t=t)
+    if bias is not None:
+        per = per + bias.to(per.dtype)
+    return per.reshape(t, *lead, n)
+
+
+def sssc_linear(x_u8, w, bias=None, *, route=None, table=None,
+                route_constants=None, plain: bool = False):
+    """Packed SSSC: (..., K) uint8 pixel values x (K, N) -> (..., N) f32,
+    ``y = sum_p 2^p (plane_p . W)`` with the planes folded in the defined
+    ascending order (``lut.shift_sum_fold``).
+
+    "lut" gathers the 8 value planes from ``table``. "unpack" computes them
+    with the grouped unpack dot kernel (the reference's dedicated
+    ``spike_matmul(mode="shift_sum")`` kernel is not ported yet; for
+    integer weights both are exact, for f32 they agree to rounding).
+    """
+    lead, k = x_u8.shape[:-1], x_u8.shape[-1]
+    x2 = x_u8.reshape(-1, k)
+    m, n = x2.shape[0], w.shape[-1]
+    impl = _PLAIN if plain else _WRAPPERS
+    resolved = _resolve_route_cuda(route, table, m=m, k=k, n=n, g=1, t=8,
+                                   weights_are_int=lut.is_int_kernel(w),
+                                   constants=route_constants)
+    if resolved == "lut":
+        tbl = table if _have_table(table) else lut.build_lut(w)
+        idx = lut.plane_indices(x2[None]).contiguous()         # (8, M, C)
+        per = impl.lut(idx, tbl)                               # (8, M, N)
+    else:
+        per = impl.unpack(x2[None].contiguous(), w.to(torch.float32), t=8)
+    y = lut.shift_sum_fold(per)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y.reshape(*lead, n)
+
+
+def _period_vector(v, lead, device) -> torch.Tensor:
+    """A bias/threshold broadcast against ``lead`` as the shortest vector
+    the TFLIF kernel tiles over the flattened neurons: one value, one per
+    trailing channel, or (only for other broadcasts) one per neuron."""
+    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if v.numel() == 1:
+        return v.reshape(1)
+    if v.dim() == 1 and lead and v.shape[0] == lead[-1]:
+        return v.contiguous()
+    return torch.broadcast_to(v, lead).reshape(-1).contiguous()
+
+
+def tflif_pack(acc, bias=None, *, t: int | None = None, tau: float = TAU,
+               v_th=V_TH, plain: bool = False):
+    """Batched TFLIF: (T, ...) f32 accumulators -> (G, ...) uint8 plane
+    groups. ``bias`` and ``v_th`` broadcast against ``acc.shape[1:]`` (a
+    per-channel ``v_th`` carries the int8 weight-scale fold); ``t`` keeps
+    the first t steps."""
+    if t is not None and t != acc.shape[0]:
+        acc = acc[:t]
+    t = acc.shape[0]
+    lead = tuple(acc.shape[1:])
+    x2 = acc.reshape(t, -1).to(torch.float32).contiguous()
+    b = _period_vector(0.0 if bias is None else bias, lead, acc.device)
+    vth = _period_vector(v_th, lead, acc.device)
+    packed = (_PLAIN if plain else _WRAPPERS).tflif(x2, b, vth, tau=tau)
+    return packed.reshape(packed.shape[0], *lead)
+
+
+def stdp_attention_packed(q_packed, k_packed, v_packed, *, t: int,
+                          scale: float, plain: bool = False):
+    """Packed STDP over (G, ..., N, Dh) uint8 temporal plane groups ->
+    (t, ..., N, Dh) f32. Timesteps attend independently, so all t planes
+    fold into the batch-heads axis of one kernel launch."""
+    lead = q_packed.shape[1:-2]
+    n, dh = q_packed.shape[-2:]
+
+    def unfold(z):
+        planes = unpack_timesteps(z.reshape(z.shape[0], -1, n, dh), t)
+        return planes.reshape(-1, n, dh).contiguous()       # (t*BH, N, Dh)
+
+    out = (_PLAIN if plain else _WRAPPERS).stdp(
+        unfold(q_packed), unfold(k_packed), unfold(v_packed), scale=scale)
+    return out.reshape(t, *lead, n, dh)

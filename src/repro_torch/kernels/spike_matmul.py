@@ -1,0 +1,87 @@
+"""Unified-PE matmuls over packed spikes: the byte-LUT gather and the
+grouped unpack dot (port of ``repro.kernels.spike_matmul``).
+
+``lut_gather_matmul`` launches ``csrc/lut_gather.cu`` (plain version:
+``lut_matmul.lut_matmul``); ``spike_matmul_grouped`` launches
+``csrc/unpack_dot.cu`` (plain version: ``ref.spike_matmul_ref``). Both run
+their plain version for CPU operands.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .lut_matmul import lut_matmul
+from .ref import spike_matmul_ref
+from ..core.spike import num_plane_groups
+
+_LUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p]
+_UNPACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p]
+_GRID_LIMIT = 65535       # gridDim.y / gridDim.z
+
+
+def lut_gather_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(P, M, C) uint8 per-plane index bytes x (C, 256, N) int16 or f32
+    table -> (P, M, N) f32 by the ascending-chunk fold (int32 accumulation
+    for int16 tables). Bit-exact against ``lut_matmul``."""
+    _build.require(idx, "idx", torch.uint8, 3)
+    if table.dtype not in (torch.int16, torch.float32):
+        raise ValueError(f"table must be int16 or float32, got {table.dtype}")
+    _build.require(table, "table", table.dtype, 3)
+    p, m, c = idx.shape
+    if table.shape[0] != c or table.shape[1] != 256:
+        raise ValueError(f"index bytes {tuple(idx.shape)} do not match table "
+                         f"{tuple(table.shape)}")
+    n = table.shape[2]
+    if _build.on_cpu(idx, table):
+        return lut_matmul(idx, table)
+    if p > _GRID_LIMIT or -(-n // 32) > _GRID_LIMIT:
+        raise ValueError(f"gather of {p} planes x {n} columns exceeds the "
+                         "launch grid")
+    out = torch.empty((p, m, n), dtype=torch.float32, device=idx.device)
+    symbol = "lut_gather_i16" if table.dtype == torch.int16 else "lut_gather_f32"
+    fn = _build.kernel_function("lut_gather", symbol, _LUT_ARGTYPES)
+    _build.check("lut_gather", fn(idx.data_ptr(), table.data_ptr(),
+                                  out.data_ptr(), p, m, c, n,
+                                  _build.stream(idx)))
+    lut_gather_matmul.launches += 1
+    return out
+
+
+def spike_matmul_grouped(x_packed: torch.Tensor, w: torch.Tensor, *,
+                         t: int) -> torch.Tensor:
+    """(G, M, K) uint8 plane groups x (K, N) f32 -> (t, M, N) f32 per-plane
+    dots, plane p = bit ``p % 8`` of group ``p // 8``; only the t live
+    planes are computed. Exact for integer-valued weights; f32 weights
+    differ from other summation orders by rounding."""
+    _build.require(x_packed, "x_packed", torch.uint8, 3)
+    _build.require(w, "w", torch.float32, 2)
+    g, m, k = x_packed.shape
+    if w.shape[0] != k:
+        raise ValueError(f"x {tuple(x_packed.shape)} and w {tuple(w.shape)} "
+                         "disagree on K")
+    if g != num_plane_groups(t):
+        raise ValueError(f"{g} plane groups cannot hold t={t} planes")
+    n = w.shape[1]
+    if _build.on_cpu(x_packed, w):
+        return spike_matmul_ref(x_packed, w, t=t)
+    if -(-m // 32) > _GRID_LIMIT:
+        raise ValueError(f"{m} rows exceed the launch grid")
+    out = torch.empty((t, m, n), dtype=torch.float32, device=w.device)
+    fn = _build.kernel_function("unpack_dot", "unpack_dot_launch",
+                                _UNPACK_ARGTYPES)
+    _build.check("unpack_dot", fn(x_packed.data_ptr(), w.data_ptr(),
+                                  out.data_ptr(), t, m, k, n,
+                                  _build.stream(w)))
+    spike_matmul_grouped.launches += 1
+    return out
+
+
+lut_gather_matmul.launches = 0
+spike_matmul_grouped.launches = 0

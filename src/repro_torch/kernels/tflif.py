@@ -1,0 +1,58 @@
+"""TFLIF: bias add + LIF over T timesteps, emitting packed spikes.
+
+Port of ``repro.kernels.tflif.tflif_fused``; the CUDA kernel is
+``csrc/tflif.cu``. ``tflif_fused`` launches it for CUDA operands and runs
+``tflif_plain`` for CPU ones.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import tflif_ref
+from ..core.lif import TAU
+from ..core.spike import num_plane_groups
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+             ctypes.c_void_p]
+
+
+def tflif_plain(x: torch.Tensor, bias: torch.Tensor, v_th: torch.Tensor, *,
+                tau: float = TAU) -> torch.Tensor:
+    """Plain version of ``tflif_fused``, on any device."""
+    m = x.shape[1]
+    return tflif_ref(x, bias.repeat(m // bias.numel()), tau=tau,
+                     v_th=v_th.repeat(m // v_th.numel()))
+
+
+def tflif_fused(x: torch.Tensor, bias: torch.Tensor, v_th: torch.Tensor, *,
+                tau: float = TAU) -> torch.Tensor:
+    """x: (T, M) f32 accumulators; bias, v_th: f32 vectors whose lengths
+    divide M, neuron i reading entry ``i % len`` (a per-channel vector over
+    a channels-last layout, or one value). Returns (ceil(T/8), M) uint8
+    with bit j of group g = the spike at step 8g+j."""
+    _build.require(x, "x", torch.float32, 2)
+    _build.require(bias, "bias", torch.float32, 1)
+    _build.require(v_th, "v_th", torch.float32, 1)
+    t, m = x.shape
+    for name, v in (("bias", bias), ("v_th", v_th)):
+        if v.numel() == 0 or m % v.numel():
+            raise ValueError(f"{name} of length {v.numel()} does not tile "
+                             f"{m} neurons")
+    if _build.on_cpu(x, bias, v_th):
+        return tflif_plain(x, bias, v_th, tau=tau)
+    out = torch.empty((num_plane_groups(t), m), dtype=torch.uint8,
+                      device=x.device)
+    fn = _build.kernel_function("tflif", "tflif_launch", _ARGTYPES)
+    _build.check("tflif", fn(x.data_ptr(), bias.data_ptr(), bias.numel(),
+                             v_th.data_ptr(), v_th.numel(), out.data_ptr(),
+                             t, m, tau, _build.stream(x)))
+    tflif_fused.launches += 1
+    return out
+
+
+tflif_fused.launches = 0
