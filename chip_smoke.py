@@ -5,19 +5,25 @@
 
 Needs one CUDA card and ``nvcc``; fails without them. It
 
-1. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. runs each kernel at the shapes the paper config's main path gives it
+1. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. runs each kernel at the shapes the paper config's paths give it
    (batch 8), holds it against its plain PyTorch version on the card and
    times kernel, plain version and the nearest single PyTorch call;
-3. compiles the full-width Spikformer V2-8-512 (224x224x3, T=4, 8 blocks,
-   1000 classes) with int8 weights under ``packed_cuda`` from a seeded
-   ``init`` (fixed gains on the folded kernels keep the IAND residual
-   stream firing), serves seeded requests through ``MicroBatchEngine``,
-   checks that every request completes, that each kernel's launch counter
-   grew by its per-step count times the steps taken, that the final
-   residual stream still fires, and that one bucket-8 batch gives
-   bit-identical logits under ``packed_cuda`` and ``packed_plain`` (the
-   plain versions) on the card.
+3. drives three paths of the full-width Spikformer V2-8-512 (224x224x3,
+   T=4, 8 blocks, 1000 classes) from one seeded ``init`` (fixed gains on
+   the folded kernels keep the IAND residual stream firing), each with
+   the launch counters set to 0 just before it and read just after:
+   - int8 weights under the default plan, serving seeded requests through
+     ``MicroBatchEngine`` (TFLIF, LUT gather, unpack dot, STDP);
+   - f32 weights with ``route="lut"``, serving the same requests (every
+     layer gathers, the MLP pair runs the fused kernel);
+   - int8 weights with ``route="unpack"``, one bucket-8 step (conv0 runs
+     the shift-sum kernel);
+   and checks every request completes, each counter grew by its per-step
+   count times the steps taken, the final residual stream still fires, and
+   one bucket-8 batch gives bit-identical logits against the plain
+   versions (``packed_plain``) on the card and, for the f32 LUT path,
+   against the unfused MLP step and the float ``reference`` backend.
 
 Prints the kernel table and the serving stats as JSON lines, the card's
 name and power limit, and as its last line
@@ -56,6 +62,10 @@ SOURCES = {
                    "src/repro/kernels/spike_matmul.py:225"),
     "stdp": ("src/repro_torch/kernels/csrc/stdp.cu",
              "src/repro/kernels/stdp_attention.py:45"),
+    "fused_lif_lut": ("src/repro_torch/kernels/csrc/fused_lif_lut.cu",
+                      "src/repro/kernels/fused.py:80"),
+    "shift_sum": ("src/repro_torch/kernels/csrc/shift_sum.cu",
+                  "src/repro/kernels/spike_matmul.py:69"),
 }
 
 
@@ -99,7 +109,10 @@ def kernel_phase(torch, dev) -> dict:
     from repro_torch.core.spike import pack_timesteps, unpack_timesteps
     from repro_torch.kernels import lut_matmul as lut
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
     from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
+                                                  shift_sum_matmul,
+                                                  spike_matmul,
                                                   spike_matmul_grouped)
     from repro_torch.kernels.stdp_attention import stdp_attention
     from repro_torch.kernels.tflif import tflif_fused, tflif_plain
@@ -225,6 +238,71 @@ def kernel_phase(torch, dev) -> dict:
             q, k, v, scale=0.125)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(q, k.mT), v8)))
+
+    # fused fc1 LIF -> fc2 gather: x (4, 1568, 2048), table (256, 256, 512)
+    x1 = torch.randn((t, m, hidden), generator=gen, device=dev) * 2.0
+    w2i = torch.randint(-127, 128, (hidden, dim), generator=gen,
+                        device=dev).to(torch.int8)
+    w2f = torch.randn((hidden, dim), generator=gen, device=dev)
+    tbl2i, tbl2f = lut.build_lut(w2i), lut.build_lut(w2f)
+    for tbl in (tbl2i, tbl2f):
+        (gs, ga), (ws, wa) = (tflif_lut_matmul(x1, bias, tbl, vth),
+                              tflif_lut_plain(x1, bias, tbl, vth))
+        check(torch.equal(gs, ws) and torch.equal(ga, wa),
+              f"fused_lif_lut ({tbl.dtype} table) differs from its plain "
+              "version")
+    err = max(max_abs_err(gs, ws), max_abs_err(ga, wa))
+    fc1_planes = unpack_timesteps(ws, t).reshape(t * m, hidden)
+    nbytes = (x1.numel() * 4 + 2 * hidden * 4 + tbl2f.numel() * 4
+              + gs.numel() + ga.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, t * m * tbl2f.shape[0] * dim,
+                          F32_OPS_PER_S)
+    out["fused_lif_lut"] = dict(
+        shape=f"x {tuple(x1.shape)} f32, per-channel bias/v_th ({hidden},)"
+              f" x table {tuple(tbl2f.shape)} f32 (path A's fc1 -> fc2)",
+        max_abs_err=err, firing_rate=float(fc1_planes.mean()),
+        ms=time_ms(torch, lambda: tflif_lut_matmul(x1, bias, tbl2f, vth)),
+        ms_int16_table=time_ms(torch, lambda: tflif_lut_matmul(
+            x1, bias, tbl2i, vth)),
+        plain_ms=time_ms(torch, lambda: tflif_lut_plain(x1, bias, tbl2f,
+                                                        vth)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.matmul(fc1_planes, w2f)))
+
+    # shift-sum dot at conv0: (8*112*112, 12) pixel bytes x (12, 64)
+    w0i = torch.randint(-127, 128, (12, 64), generator=gen,
+                        device=dev).to(torch.float32)
+    w0f = torch.randn((12, 64), generator=gen, device=dev)
+    got = shift_sum_matmul(img, w0i)
+    want = ref.spike_matmul_ref(img, w0i, mode="shift_sum")
+    check(torch.equal(got, want),
+          "shift_sum (integer weights) differs from its plain version")
+    err = max_abs_err(got, want)
+    gotf = shift_sum_matmul(img, w0f)
+    wantf = ref.spike_matmul_ref(img, w0f, mode="shift_sum")
+    err_f = max_abs_err(gotf, wantf)
+    # f32 weights: the plain version sums 8 per-plane dots scaled by up to
+    # 2^7, so its rounding is ~1e-3 absolute: atol 1e-3 + rtol 1e-5
+    check(bool(((gotf - wantf).abs() <= 1e-3 + 1e-5 * wantf.abs()).all()),
+          f"shift_sum (f32 weights) off by {err_f}")
+    per = spike_matmul(img, w0i, mode="per_plane")
+    check(torch.equal(per, ref.spike_matmul_ref(img, w0i, mode="per_plane")),
+          "per_plane spike_matmul differs from its plain version")
+    xf = img.to(torch.float32)
+    check(torch.equal(torch.matmul(xf, w0i), want),
+          "torch.matmul does not compute the shift-sum function")
+    b_ms, b_by = bound_ms(img.numel() + w0i.numel() * 4 + got.numel() * 4,
+                          2 * img.numel() * 64, F32_OPS_PER_S)
+    out["shift_sum"] = dict(
+        shape=f"x {tuple(img.shape)} u8 x w {tuple(w0i.shape)} int-valued "
+              "f32 (path B's conv0)",
+        max_abs_err=err, max_abs_err_f32_weights=err_f,
+        ms=time_ms(torch, lambda: shift_sum_matmul(img, w0i)),
+        plain_ms=time_ms(torch, lambda: ref.spike_matmul_ref(
+            img, w0i, mode="shift_sum")),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.matmul(img.to(torch.float32),
+                                                       w0i)))
     ops.reset_launch_counts()     # comparison launches do not count
     return out
 
@@ -266,7 +344,7 @@ class LayerRecorder:
 
 
 OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
-               "stdp_kernel")
+               "stdp_kernel", "fused_lif_lut_kernel", "shift_sum_kernel")
 
 
 def profile_phase(torch, model, batch, steps: int = 3) -> dict:
@@ -316,24 +394,85 @@ def profile_phase(torch, model, batch, steps: int = 3) -> dict:
         "by_kernel": rows[:25]}
 
 
-def serve_phase(torch, dev) -> dict:
-    import numpy as np
-    from repro_torch.core.spikformer import (SpikformerConfig,
-                                             fold_inference_params, init)
-    from repro_torch.infer import ExecutionPlan, MicroBatchEngine, compile
-    from repro_torch.infer.compile import lower
+def gained_tree(torch, cfg):
+    """The seeded folded tree with the fixed gains that keep the IAND
+    residual stream firing."""
+    from repro_torch.core.spikformer import fold_inference_params, init
     from repro_torch.infer.quant import map_folded_layers
-    from repro_torch.kernels import ops
-
-    cfg = SpikformerConfig()
-    folded = fold_inference_params(
-        init(torch.Generator().manual_seed(SEED), cfg), cfg)
 
     def gain(path, layer):
         g = GAIN * (GAIN_RESIDUAL if path.endswith(("/wo", "/fc2")) else 1.0)
         return {**layer, "kernel": layer["kernel"] * g}
 
-    folded = map_folded_layers(folded, gain)
+    return map_folded_layers(fold_inference_params(
+        init(torch.Generator().manual_seed(SEED), cfg), cfg), gain)
+
+
+def request_images(cfg) -> list:
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, 256, (n, cfg.img_size, cfg.img_size,
+                                  cfg.in_channels), dtype=np.uint8)
+            for n in REQUEST_SIZES]
+
+
+def check_step_launches(launches: dict, per_step: dict, steps: int) -> None:
+    expect = {k: per_step.get(k, 0) * steps for k in launches}
+    check(launches == expect,
+          f"launch counts {launches} != {steps} steps x {per_step}")
+
+
+def serve_requests(torch, model, requests, per_step: dict) -> dict:
+    """Serve ``requests`` through ``MicroBatchEngine``, the launch counters
+    set to 0 just before and read just after; checks every request
+    completes and each counter grew by its per-step count per step."""
+    from repro_torch.infer import MicroBatchEngine
+    from repro_torch.kernels import ops
+
+    engine = MicroBatchEngine(model)
+    ops.reset_launch_counts()
+    reqs = [engine.submit(imgs) for imgs in requests]
+    engine.run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    steps = engine.acct.batches
+    check(all(r.t_done and len(r.labels) == len(r.images)
+              and None not in r.labels for r in reqs),
+          "a request did not complete")
+    check_step_launches(launches, per_step, steps)
+    return dict(steps=steps, per_step_launches=per_step, launches=launches,
+                stats=engine.stats())
+
+
+def check_logits(torch, logits, others: dict, what: str) -> list:
+    """Finite, non-zero logits, bit-identical to every entry of ``others``
+    (name -> logits of the same batch); returns the labels."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), f"{what}: non-finite logits")
+    check(bool((logits != 0).any()),
+          f"{what}: all logits are zero: the network is silent")
+    for name, other in others.items():
+        check(torch.equal(logits, other),
+              f"{what}: packed_cuda logits differ from {name} on the card: "
+              f"max {float((logits - other).abs().max())}")
+    return logits.argmax(-1).tolist()
+
+
+def final_firing(model, batch) -> tuple:
+    """Per-layer firing rates of ``batch`` in forward order; checks the
+    final residual stream still fires."""
+    from repro_torch.infer.compile import lower
+    rec = LayerRecorder(model.backend, model.cfg.timesteps)
+    lower(model.folded, model.cfg, rec)(model.folded, batch)
+    check(rec.rows[-1][1] > 0, "the final residual stream is silent")
+    return rec.rows[-1][1], [(n, round(o, 5)) for n, o in rec.rows]
+
+
+def serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
+    """The PR 11 path: int8 weights under the default plan (the paper's
+    int8 route mix), served; logits against ``packed_plain``."""
+    from repro_torch.infer import ExecutionPlan, compile
+
     t0 = time.perf_counter()
     model = compile(folded, cfg, ExecutionPlan(
         backend="packed_cuda", weight_dtype="int8", batch_buckets=(1, BATCH)),
@@ -345,61 +484,136 @@ def serve_phase(torch, dev) -> dict:
     check(routes == want_routes,
           f"routes differ from the paper config's int8 mix: {routes}")
     warmup_s = model.warmup()
-
     n_lut = sum(r == "lut" for r in routes.values())
     per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
                 "lut_gather": n_lut, "unpack_dot": len(routes) - n_lut,
                 "stdp": cfg.depth}
+    served = serve_requests(torch, model, requests, per_step)
 
-    rng = np.random.default_rng(SEED)
-    requests = [rng.integers(0, 256, (n, cfg.img_size, cfg.img_size,
-                                      cfg.in_channels), dtype=np.uint8)
-                for n in REQUEST_SIZES]
-    engine = MicroBatchEngine(model)
-    ops.reset_launch_counts()
-    reqs = [engine.submit(imgs) for imgs in requests]
-    engine.run()
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    steps = engine.acct.batches
-    check(all(r.t_done and len(r.labels) == len(r.images)
-              and None not in r.labels for r in reqs),
-          "a request did not complete")
-    expect = {k: v * steps for k, v in per_step.items()}
-    check(launches == expect,
-          f"launch counts {launches} != {steps} steps x {per_step}")
-
-    batch = torch.from_numpy(np.concatenate(requests)[:BATCH]).to(dev)
     logits = model.step(batch)
     plain = compile(model.folded, cfg, dataclasses.replace(
         model.plan, backend="packed_plain"), folded=True, device=dev)
-    logits_plain = plain.step(batch)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(logits).all()), "non-finite logits")
-    check(bool((logits != 0).any()), "all logits are zero: the network is "
-          "silent")
-    check(torch.equal(logits, logits_plain),
-          "packed_cuda logits differ from packed_plain on the card: max "
-          f"{float((logits - logits_plain).abs().max())}")
-    labels = logits.argmax(-1).tolist()
-    check(labels == logits_plain.argmax(-1).tolist(), "labels differ")
-
-    rec = LayerRecorder(model.backend, cfg.timesteps)
-    lower(model.folded, cfg, rec)(model.folded, batch)
-    final_occ = rec.rows[-1][1]
-    check(final_occ > 0, "the final residual stream is silent")
-    stats = engine.stats()
+    labels = check_logits(torch, logits, {"packed_plain": plain.step(batch)},
+                          "int8 default plan")
+    del plain
+    final_occ, layers = final_firing(model, batch)
     prof = profile_phase(torch, model, batch)
     return dict(
         config="SpikformerConfig() V2-8-512: 224x224x3, T=4, dim 512, "
                "depth 8, heads 8, 1000 classes; int8, packed_cuda",
-        compile_s=compile_s, warmup_s=warmup_s, steps=steps,
-        per_step_launches=per_step, launches=launches,
+        compile_s=compile_s, warmup_s=warmup_s, **served,
         bucket8_labels=labels, distinct_labels=len(set(labels)),
-        logits_bit_identical_to_plain=True,
-        final_residual_occupancy=final_occ,
-        layer_occupancy=[(n, round(o, 5)) for n, o in rec.rows],
-        stats=stats, profile=prof)
+        logits_bit_identical_to_plain=True, logits=logits.cpu(),
+        final_residual_occupancy=final_occ, layer_occupancy=layers,
+        profile=prof)
+
+
+def lut_serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
+    """Path A: f32 weights with every layer pinned to the gather, served.
+    Every block runs fc1 -> (LIF + pack + fc2 gather in the fused kernel)
+    -> fc2 LIF. One bucket-8 batch is held bit-identical across
+    packed_cuda, packed_cuda without the fused step, packed_plain and the
+    float reference backend, all compiled from the one resolved plan."""
+    from repro_torch.infer import ExecutionPlan, compile
+
+    t0 = time.perf_counter()
+    model = compile(folded, cfg, ExecutionPlan(
+        backend="packed_cuda", weight_dtype="float32", route="lut",
+        batch_buckets=(1, BATCH)), folded=True, device=dev)
+    compile_s = time.perf_counter() - t0
+    routes = model.plan.routes
+    check(set(routes.values()) == {"lut"} and len(routes) == 4 + 6 * cfg.depth,
+          f"route='lut' left a layer off the gather: {routes}")
+    warmup_s = model.warmup()
+    per_step = {"tflif": len(cfg.scs_channels) + 6 * cfg.depth,
+                "lut_gather": len(cfg.scs_channels) + 5 * cfg.depth,
+                "stdp": cfg.depth, "fused_lif_lut": cfg.depth}
+    served = serve_requests(torch, model, requests, per_step)
+    prof = profile_phase(torch, model, batch)
+
+    logits = model.step(batch)
+    others, seconds = {}, {}
+    for name, backend, options in (
+            ("packed_cuda(fuse_mlp=False)", "packed_cuda",
+             {"fuse_mlp": False}),
+            ("packed_plain", "packed_plain", {}),
+            ("reference", "reference", {})):
+        t0 = time.perf_counter()
+        other = compile(model.folded, cfg, dataclasses.replace(
+            model.plan, backend=backend, backend_options=options),
+            folded=True, device=dev)
+        check(other.plan.routes == routes,
+              f"{name} planned other routes than packed_cuda")
+        others[name] = other.step(batch)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        del other
+        torch.cuda.empty_cache()
+    labels = check_logits(torch, logits, others, "f32 route='lut'")
+    final_occ, layers = final_firing(model, batch)
+    return dict(
+        config="SpikformerConfig() V2-8-512; float32 weights, route='lut', "
+               "packed_cuda", compile_s=compile_s, warmup_s=warmup_s,
+        **served, bucket8_labels=labels, distinct_labels=len(set(labels)),
+        logits_bit_identical_to=sorted(others),
+        parity_compile_and_step_s=seconds,
+        final_residual_occupancy=final_occ, layer_occupancy=layers,
+        profile=prof)
+
+
+def unpack_step_phase(torch, dev, cfg, folded, batch, int8_logits) -> dict:
+    """Path B: int8 weights with every table stripped, one bucket-8 step.
+    conv0 runs the shift-sum kernel, every other linear the unpack dot;
+    logits bit-identical to packed_plain and, int8 sums being exact on
+    every route, to the default plan's."""
+    from repro_torch.infer import ExecutionPlan, compile
+    from repro_torch.kernels import ops
+
+    model = compile(folded, cfg, ExecutionPlan(
+        backend="packed_cuda", weight_dtype="int8", route="unpack"),
+        folded=True, device=dev)
+    check(model.plan.routes == {}, "route='unpack' kept a planned route")
+    model.warmup()
+    per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
+                "unpack_dot": len(cfg.scs_channels) - 1 + 6 * cfg.depth,
+                "stdp": cfg.depth, "shift_sum": 1}
+    ops.reset_launch_counts()
+    logits = model.step(batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_step_launches(launches, per_step, 1)
+    plain = compile(model.folded, cfg, dataclasses.replace(
+        model.plan, backend="packed_plain"), folded=True, device=dev)
+    labels = check_logits(torch, logits, {
+        "packed_plain": plain.step(batch),
+        "the default int8 plan": int8_logits.to(dev)}, "int8 route='unpack'")
+    final_occ, _ = final_firing(model, batch)
+    return dict(
+        config="SpikformerConfig() V2-8-512; int8 weights, route='unpack', "
+               "packed_cuda, one bucket-8 step",
+        steps=1, per_step_launches=per_step, launches=launches,
+        bucket8_labels=labels, final_residual_occupancy=final_occ)
+
+
+def kernel_table(report: dict, paths) -> list:
+    """One row per kernel: what it replaces, its launches on the driven
+    paths, its error against its plain version and its times. Fails if a
+    kernel was launched on no path."""
+    table = []
+    for name, row in report["kernels"].items():
+        source, replaces = SOURCES[name]
+        launches = {p: report[p]["launches"][name] for p in paths
+                    if report[p]["launches"][name]}
+        check(bool(launches), f"{name} was launched on no path")
+        table.append({"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces,
+                      "launches": sum(launches.values()),
+                      "launches_by_path": launches,
+                      **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")},
+                      "shape": row["shape"]})
+    return table
 
 
 def main() -> int:
@@ -413,6 +627,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device; this smoke test runs only on "
               "the card", file=sys.stderr)
         return 2
+    import numpy as np
+    from repro_torch.core.spikformer import SpikformerConfig
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -435,9 +651,23 @@ def main() -> int:
                            "cuda": torch.version.cuda},
               "build_logs": {k: v["log"] for k, v in build.items()}}
     out_dir = ROOT / "build"
+    paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step")
     try:
         report["kernels"] = kernel_phase(torch, dev)
-        report["serve"] = serve_phase(torch, dev)
+        cfg = SpikformerConfig()
+        folded = gained_tree(torch, cfg)
+        requests = request_images(cfg)
+        batch = torch.from_numpy(np.concatenate(requests)[:BATCH]).to(dev)
+        report[paths[0]] = serve_phase(torch, dev, cfg, folded, requests,
+                                       batch)
+        torch.cuda.empty_cache()
+        report[paths[1]] = lut_serve_phase(torch, dev, cfg, folded, requests,
+                                           batch)
+        torch.cuda.empty_cache()
+        report[paths[2]] = unpack_step_phase(
+            torch, dev, cfg, folded, batch,
+            report[paths[0]].pop("logits"))
+        table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
         return 1
@@ -446,30 +676,19 @@ def main() -> int:
         (out_dir / "chip_smoke.json").write_text(
             json.dumps(report, indent=1, default=str))
 
-    launches = report["serve"]["launches"]
-    table = []
-    for name, row in report["kernels"].items():
-        source, replaces = SOURCES[name]
-        table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": launches[name],
-                      **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                             "bound_ms", "bound_by",
-                                             "library_ms")},
-                      "shape": row["shape"]})
-    serve = report["serve"]
-    print(json.dumps({"serve": serve["stats"],
-                      "steps": serve["steps"],
-                      "bucket8_labels": serve["bucket8_labels"],
-                      "logits_bit_identical_to_plain": True,
-                      "final_residual_occupancy":
-                          serve["final_residual_occupancy"],
-                      "layer_occupancy": serve["layer_occupancy"]}))
-    prof = serve["profile"]
-    print(json.dumps({"profile": {k: v for k, v in prof.items()
-                                  if k != "by_kernel"},
-                      "top_kernels": [(r["kernel"][:48],
-                                       round(r["ms_per_step"], 4))
-                                      for r in prof["by_kernel"][:8]]}))
+    for p in paths:
+        r = report[p]
+        print(json.dumps({"path": p, "steps": r["steps"],
+                          "serve": r.get("stats"),
+                          "bucket8_labels": r["bucket8_labels"],
+                          "final_residual_occupancy":
+                              r["final_residual_occupancy"]}))
+        if "profile" in r:
+            prof = r["profile"]
+            print(json.dumps({"path": p, "profile": {
+                k: v for k, v in prof.items() if k != "by_kernel"},
+                "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
+                                for k in prof["by_kernel"][:8]]}))
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

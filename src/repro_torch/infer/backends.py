@@ -1,22 +1,34 @@
-"""The packed execution backend for the BN-folded Spikformer graph (port
-of ``repro.infer.backends.PackedBackend``, Pallas branch).
+"""Execution backends for the BN-folded Spikformer graph (port of
+``repro.infer.backends``; the packed backend is the Pallas branch's).
 
-Spikes are packed uint8 plane groups — a leading axis of G = ceil(T/8)
-bytes per neuron, bit j of group g = timestep 8g+j — dispatched through
-``kernels.ops``: the CUDA kernels for tensors on the card, their plain
-versions on the CPU, or the plain versions everywhere with
-``plain=True``. A layer carrying a ``scale`` leaf is int8: its scale folds
-into the LIF bias and threshold, never the accumulator. A layer carrying a
-``lut`` leaf (the planner's (C, 256, N) table) runs the byte-LUT gather;
-others run the grouped unpack dot.
+  FloatBackend  - spikes are {0,1} f32 tensors with a leading T axis; every
+                  op runs through ``core.unified`` and ``core.lif.tflif``:
+                  the reference the packed route is held to.
+  PackedBackend - spikes are packed uint8 plane groups, a leading axis of
+                  G = ceil(T/8) bytes per neuron, bit j of group g =
+                  timestep 8g+j, dispatched through ``kernels.ops``: the
+                  CUDA kernels for tensors on the card, their plain
+                  versions on the CPU, or the plain versions everywhere
+                  with ``plain=True``.
+
+A layer carrying a ``scale`` leaf is int8: its scale folds into the LIF
+bias and threshold, never the accumulator, in both backends. A layer
+carrying a ``lut`` leaf is LUT-planned: the packed backend gathers from the
+(C, 256, N) table; the float backend, which the planner hands only a True
+flag, replays the same fold on float planes (``lut_matmul_planes``)
+instead of its single dot. So both backends of a parity pair, compiled from
+one plan, give bit-identical logits on the LUT routes and on every int8
+route; only the f32 unpack dot is held to a tolerance.
 """
 from __future__ import annotations
 
 import torch
 
 from . import registry
-from ..core.lif import V_TH
-from ..core.spike import space_to_depth
+from ..core import unified
+from ..core.lif import V_TH, tflif
+from ..core.spike import bitplanes_u8, rate_decode, space_to_depth
+from ..kernels import lut_matmul as lut
 from ..kernels import ops
 
 # set bits of every byte value: the popcount rate readout
@@ -24,15 +36,94 @@ _POPCOUNT = torch.tensor([bin(b).count("1") for b in range(256)],
                          dtype=torch.int32)
 
 
+class FloatBackend:
+    """Reference backend: float spike trains through ``core.unified``."""
+
+    @staticmethod
+    def _acc_and_vth(op, x, kernel, bias, scale):
+        """Pre-LIF accumulator and threshold of ``op(x, kernel, bias)``;
+        int8 layers fold the per-channel scale into the bias and
+        threshold, the float emulation of the packed int8 math."""
+        if scale is None:
+            return op(x, kernel, bias), V_TH
+        acc = op(x, kernel.to(torch.float32), None) + (bias / scale)
+        return acc, V_TH / scale
+
+    # fold-order emulations of the byte-LUT route, with the signatures of
+    # the ``core.unified`` ops they stand in for
+
+    @staticmethod
+    def _wssl_emu(spikes, kernel, bias=None):
+        t, lead, d = spikes.shape[0], spikes.shape[1:-1], spikes.shape[-1]
+        y = lut.lut_matmul_planes(spikes.reshape(t, -1, d), kernel)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return y.reshape(t, *lead, kernel.shape[-1])
+
+    @classmethod
+    def _zsc_emu(cls, spikes, kernel, bias=None):
+        return cls._wssl_emu(space_to_depth(spikes, 2),
+                             kernel.reshape(-1, kernel.shape[-1]), bias)
+
+    @staticmethod
+    def _sssc_emu(image_u8, kernel, bias=None):
+        x = space_to_depth(image_u8, 2)                 # (B, h, w, 4C) u8
+        planes = bitplanes_u8(x).reshape(8, -1, x.shape[-1])
+        y = lut.shift_sum_fold(lut.lut_matmul_planes(planes, kernel))
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return y.reshape(*x.shape[:-1], kernel.shape[-1])
+
+    def sssc_lif(self, images_u8, kernel, bias, *, t: int, scale=None,
+                 lut=None):
+        op = unified.sssc if lut is None else self._sssc_emu
+        y, vth = self._acc_and_vth(op, images_u8, kernel, bias, scale)
+        y = y.unsqueeze(0).expand(t, *y.shape)          # image constant in T
+        return tflif(y, v_th=vth)
+
+    def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None):
+        op = unified.zsc if lut is None else self._zsc_emu
+        y, vth = self._acc_and_vth(op, x, kernel, bias, scale)
+        return tflif(y, v_th=vth)
+
+    def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None):
+        op = unified.wssl if lut is None else self._wssl_emu
+        y, vth = self._acc_and_vth(op, x, kernel, bias, scale)
+        return tflif(y, v_th=vth)
+
+    def stdp_lif(self, q, k, v, *, heads: int, scale: float, t: int):
+        tt, b, n, d = q.shape
+        dh = d // heads
+
+        def to_heads(z):
+            return z.reshape(tt, b, n, heads, dh).permute(0, 1, 3, 2, 4)
+
+        att = unified.stdp(to_heads(q), to_heads(k), to_heads(v), scale=scale)
+        att = tflif(att)                                # (T, B, H, N, dh)
+        return att.permute(0, 1, 3, 2, 4).reshape(tt, b, n, d)
+
+    def residual(self, new, res, mode: str):
+        if mode == "iand":
+            return (1.0 - new) * res
+        return new + res
+
+    def to_tokens(self, x):
+        tt, b, h, w, c = x.shape
+        return x.reshape(tt, b, h * w, c)
+
+    def rate(self, x, *, t: int):
+        return rate_decode(x, axis=0).mean(dim=1)       # (B, D)
+
+
 class PackedBackend:
     """Packed-spike backend. ``plain=True`` runs every kernel's plain
     version even on the card — the oracle the ``packed_cuda`` route is held
-    against."""
+    against. ``fuse_mlp`` runs the MLP's fc1 -> LIF -> fc2 step through the
+    fused kernel wherever fc2 carries a table (``mlp_pair_lif``)."""
 
-    wants_lut_tables = True
-
-    def __init__(self, *, plain: bool = False):
+    def __init__(self, *, plain: bool = False, fuse_mlp: bool = True):
         self.plain = plain
+        self.fuse_mlp = fuse_mlp
 
     def _lif(self, acc, bias, scale):
         """acc (T, ...) -> (G, ...) packed; int8 layers fold their
@@ -67,10 +158,24 @@ class PackedBackend:
         return self._lif(acc, bias, scale)
 
     def mlp_pair_lif(self, x, fc1, fc2, *, t: int):
-        """The fused fc1 -> LIF -> fc2 kernel of the reference
-        (``kernels/fused.py``) is not ported yet: None tells
-        ``forward_folded`` to run the two layers one after the other."""
-        return None
+        """The MLP pair as fc1's matmul, then fc1's LIF, the packing and
+        fc2's gather in one fused kernel (``ops.tflif_lut``), then fc2's
+        LIF: bit-identical to the two-layer path, without fc1's packed
+        spikes making a round trip through device memory. None, which
+        tells ``forward_folded`` to run the two layers, when ``fuse_mlp``
+        is off or fc2 carries no real table."""
+        tbl2 = fc2.get("lut")
+        if not (self.fuse_mlp and ops._have_table(tbl2)):
+            return None
+        scale1 = fc1.get("scale")
+        acc1 = ops.spike_linear(x, self._w(fc1["kernel"], scale1), None, t=t,
+                                table=fc1.get("lut"), plain=self.plain)
+        # fc1's int8 scale folds into its LIF exactly as in ``_lif``
+        b1 = fc1["bias"] if scale1 is None else fc1["bias"] / scale1
+        v1 = V_TH if scale1 is None else V_TH / scale1
+        _, acc2 = ops.tflif_lut(acc1, b1, table=tbl2, v_th=v1, t=t,
+                                plain=self.plain)
+        return self._lif(acc2, fc2["bias"], fc2.get("scale"))
 
     def stdp_lif(self, q, k, v, *, heads: int, scale: float, t: int):
         g, b, n, d = q.shape
@@ -105,6 +210,13 @@ class PackedBackend:
 
 # "packed_cuda" is the counterpart of the reference's "packed_pallas": the
 # CUDA kernels on the card, their plain versions on the CPU. "packed_plain"
-# runs the plain versions on any device: the oracle route.
-registry.register_backend("packed_cuda", PackedBackend)
-registry.register_backend("packed_plain", lambda: PackedBackend(plain=True))
+# runs the plain versions on any device: the oracle route. "reference"
+# needs only the planner's flags, never the tables. Factories take keyword
+# options only, so a misspelled ``backend_options`` key raises TypeError.
+registry.register_backend(
+    "packed_cuda", lambda *, fuse_mlp=True: PackedBackend(fuse_mlp=fuse_mlp))
+registry.register_backend(
+    "packed_plain",
+    lambda *, fuse_mlp=True: PackedBackend(plain=True, fuse_mlp=fuse_mlp))
+registry.register_backend("reference", FloatBackend, wants_lut_tables=False,
+                          aliases=("float",))

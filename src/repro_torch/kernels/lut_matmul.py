@@ -99,6 +99,30 @@ def lut_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return y.to(torch.float32)
 
 
+def lut_matmul_planes(planes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The gather route's fold replayed on unpacked planes: (R, M, K)
+    {0,1} x (K, N) -> (R, M, N) f32 by the same reduction tree as
+    ``build_lut`` + ``lut_matmul`` (an ascending-bit multiply-add fold per
+    chunk, then ascending-chunk adds), elementwise only, so it equals the
+    gather bit for bit. What the reference backend runs for LUT-planned
+    layers. The reference forms all (R, M, C, N) chunk partials at once;
+    this loops chunk by chunk, which keeps every element's op order and
+    bounds memory (fc2 at batch 8 would otherwise take 3.3 GB)."""
+    r, m, k = planes.shape
+    n = w.shape[-1]
+    c = num_k_chunks(k)
+    wf = _pad_k(w.to(torch.float32).T, k).T.reshape(c, K_CHUNK, n)
+    pc = _pad_k(planes.to(torch.float32), k).reshape(r, m, c, K_CHUNK)
+    y = None
+    for cc in range(c):
+        part = torch.zeros((r, m, n), dtype=torch.float32,
+                           device=planes.device)
+        for i in range(K_CHUNK):
+            part = part + pc[:, :, cc, i, None] * wf[cc, i]
+        y = part if y is None else y + part
+    return y
+
+
 def shift_sum_fold(per_plane: torch.Tensor) -> torch.Tensor:
     """SSSC bit-plane combine in a defined order: (8, ..., N) ->
     (..., N), ``y = y + per[p] * 2^p`` ascending (exact scaling)."""

@@ -1,9 +1,9 @@
-"""Batched packed-spike entry points — the inference datapath (port of the
-Pallas branch of ``repro.kernels.ops``).
+"""Batched packed-spike entry points — the inference datapath (port of
+the Pallas branch of ``repro.kernels.ops``).
 
 Activations stay packed 8 per uint8 between layers (temporal bits for
 WSSL/ZSC/STDP, value bits for SSSC) and only meet the weights inside a
-kernel. Every entry point dispatches to the four kernel wrappers, which
+kernel. Every entry point dispatches to the six kernel wrappers, which
 launch their CUDA kernel for CUDA operands and run their plain version for
 CPU ones; ``plain=True`` runs the plain versions on any device (the oracle
 route the kernels are held against on the card). The reference's CPU
@@ -20,7 +20,9 @@ import torch
 from . import lut_matmul as lut
 from . import ref
 from .lut_matmul import choose_cuda_route
-from .spike_matmul import lut_gather_matmul, spike_matmul_grouped
+from .fused import tflif_lut_matmul, tflif_lut_plain
+from .spike_matmul import (lut_gather_matmul, shift_sum_matmul,
+                           spike_matmul_grouped)
 from .stdp_attention import stdp_attention
 from .tflif import tflif_fused, tflif_plain
 from ..core.lif import TAU, V_TH
@@ -28,14 +30,16 @@ from ..core.spike import num_plane_groups, unpack_timesteps
 
 # kernel name -> wrapper; each wrapper counts its launches in ``.launches``
 KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
-           "unpack_dot": spike_matmul_grouped, "stdp": stdp_attention}
+           "unpack_dot": spike_matmul_grouped, "stdp": stdp_attention,
+           "fused_lif_lut": tflif_lut_matmul, "shift_sum": shift_sum_matmul}
 
 _WRAPPERS = types.SimpleNamespace(
     tflif=tflif_fused, lut=lut_gather_matmul, unpack=spike_matmul_grouped,
-    stdp=stdp_attention)
+    stdp=stdp_attention, fused=tflif_lut_matmul, shift_sum=shift_sum_matmul)
 _PLAIN = types.SimpleNamespace(
     tflif=tflif_plain, lut=lut.lut_matmul, unpack=ref.spike_matmul_ref,
-    stdp=ref.stdp_attention_ref)
+    stdp=ref.stdp_attention_ref, fused=tflif_lut_plain,
+    shift_sum=lambda x, w: ref.spike_matmul_ref(x, w, mode="shift_sum"))
 
 
 def launch_counts() -> dict:
@@ -68,6 +72,21 @@ def _resolve_route_cuda(route, table, *, m, k, n, g, t, weights_are_int,
     if route not in ("lut", "lut_sparse", "unpack"):
         raise ValueError(f"unknown packed-matmul route {route!r}")
     return "lut" if route == "lut_sparse" else route
+
+
+def spike_matmul(x_packed, w, *, mode: str = "per_plane",
+                 plain: bool = False):
+    """The 2-D unified-PE dot: (M, K) uint8, bit p of a byte = plane p,
+    x (K, N) weights of any dtype (f32 in the dot). ``mode="per_plane"``
+    -> (8, M, N) f32, one dot per plane; ``mode="shift_sum"`` -> (M, N)
+    f32, the byte read as a value (SSSC)."""
+    if mode not in ("per_plane", "shift_sum"):
+        raise ValueError(f"unknown spike_matmul mode {mode!r}")
+    impl = _PLAIN if plain else _WRAPPERS
+    x2, wf = x_packed.contiguous(), w.to(torch.float32).contiguous()
+    if mode == "shift_sum":
+        return impl.shift_sum(x2, wf)
+    return impl.unpack(x2[None], wf, t=8)       # G=1: all 8 planes
 
 
 def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
@@ -105,13 +124,13 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
 def sssc_linear(x_u8, w, bias=None, *, route=None, table=None,
                 route_constants=None, plain: bool = False):
     """Packed SSSC: (..., K) uint8 pixel values x (K, N) -> (..., N) f32,
-    ``y = sum_p 2^p (plane_p . W)`` with the planes folded in the defined
-    ascending order (``lut.shift_sum_fold``).
+    ``y = sum_p 2^p (plane_p . W)``.
 
-    "lut" gathers the 8 value planes from ``table``. "unpack" computes them
-    with the grouped unpack dot kernel (the reference's dedicated
-    ``spike_matmul(mode="shift_sum")`` kernel is not ported yet; for
-    integer weights both are exact, for f32 they agree to rounding).
+    "lut" gathers the 8 value planes from ``table`` and combines them in
+    the defined ascending order (``lut.shift_sum_fold``), bit-exact for any
+    weights. "unpack" runs the shift-sum kernel, one dot over the byte
+    values, as the reference's Pallas branch does: exact for integer
+    weights, held to a tolerance for f32.
     """
     lead, k = x_u8.shape[:-1], x_u8.shape[-1]
     x2 = x_u8.reshape(-1, k)
@@ -123,10 +142,9 @@ def sssc_linear(x_u8, w, bias=None, *, route=None, table=None,
     if resolved == "lut":
         tbl = table if _have_table(table) else lut.build_lut(w)
         idx = lut.plane_indices(x2[None]).contiguous()         # (8, M, C)
-        per = impl.lut(idx, tbl)                               # (8, M, N)
+        y = lut.shift_sum_fold(impl.lut(idx, tbl))             # (M, N)
     else:
-        per = impl.unpack(x2[None].contiguous(), w.to(torch.float32), t=8)
-    y = lut.shift_sum_fold(per)
+        y = spike_matmul(x2, w, mode="shift_sum", plain=plain)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y.reshape(*lead, n)
@@ -159,6 +177,43 @@ def tflif_pack(acc, bias=None, *, t: int | None = None, tau: float = TAU,
     vth = _period_vector(v_th, lead, acc.device)
     packed = (_PLAIN if plain else _WRAPPERS).tflif(x2, b, vth, tau=tau)
     return packed.reshape(packed.shape[0], *lead)
+
+
+def _channel_vector(v, k: int, device) -> torch.Tensor:
+    """A scalar or (K,) producer bias/threshold as a (K,) f32 vector."""
+    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    return torch.broadcast_to(v, (k,)).contiguous()
+
+
+def tflif_lut(acc, bias=None, *, table, v_th=V_TH, t: int | None = None,
+              tau: float = TAU, plain: bool = False):
+    """Fused LIF -> pack -> byte-LUT matmul over a producer/consumer pair
+    (the MLP's fc1 -> fc2 step).
+
+    ``acc``: (T, ..., K) f32 producer accumulators (producer bias not
+    added: ``bias``, None, a scalar or (K,), enters the LIF charge as in
+    ``tflif_pack``); ``v_th``: scalar or (K,) (the int8 scale fold);
+    ``table``: the consumer's real (C, 256, N) table; ``t`` keeps the first
+    t steps. Returns ``(spikes, acc2)``: spikes (G, ..., K) uint8, the
+    producer's packed output, and acc2 (t, ..., N) f32, the consumer's
+    accumulators (consumer bias not added). One launch of the fused kernel;
+    bit-exact against the unfused composition, so it never changes logits.
+    """
+    if not _have_table(table):
+        raise ValueError("tflif_lut requires a real (C, 256, N) table — "
+                         "the fused step is a gather by definition; build "
+                         "one with lut_matmul.build_lut")
+    if t is not None and t != acc.shape[0]:
+        acc = acc[:t]
+    t = acc.shape[0]
+    lead, k = acc.shape[1:-1], acc.shape[-1]
+    x3 = acc.reshape(t, -1, k).to(torch.float32).contiguous()
+    b = _channel_vector(0.0 if bias is None else bias, k, acc.device)
+    vth = _channel_vector(v_th, k, acc.device)
+    spikes, acc2 = (_PLAIN if plain else _WRAPPERS).fused(
+        x3, b, table.contiguous(), vth, tau=tau)
+    return (spikes.reshape(spikes.shape[0], *lead, k),
+            acc2.reshape(t, *lead, table.shape[-1]))
 
 
 def stdp_attention_packed(q_packed, k_packed, v_packed, *, t: int,

@@ -8,19 +8,40 @@ from __future__ import annotations
 
 import torch
 
-from ..core.spike import num_plane_groups, unpack_timesteps
+from ..core.spike import bitplanes_u8, num_plane_groups, unpack_timesteps
 
 
 def spike_matmul_ref(x_packed: torch.Tensor, w: torch.Tensor, *,
-                     t: int) -> torch.Tensor:
-    """Grouped per-plane dot: (G, M, K) uint8 plane groups x (K, N) ->
-    (t, M, N) f32, plane p = bit ``p % 8`` of group ``p // 8``. Only the
-    ``t`` live planes are computed (the reference's (G, 8, M, N) sliced to
-    ``[:t]``, which is all ``ops.spike_linear`` keeps)."""
-    g, m, k = x_packed.shape
-    planes = unpack_timesteps(x_packed, t)                 # (t, M, K)
-    y = planes.reshape(t * m, k) @ w.to(torch.float32)
-    return y.reshape(t, m, w.shape[-1])
+                     t: int | None = None,
+                     mode: str = "per_plane") -> torch.Tensor:
+    """The unified-PE dot over packed bits.
+
+    (G, M, K) uint8 plane groups ("per_plane" only) -> (t, M, N) f32, plane
+    p = bit ``p % 8`` of group ``p // 8``; only the ``t`` live planes are
+    computed (the reference's (G, 8, M, N) sliced to ``[:t]``, which is all
+    ``ops.spike_linear`` keeps). ``t`` defaults to every plane, 8G.
+
+    (M, K) uint8 -> (8, M, N) per-plane dots for ``mode="per_plane"``, or
+    (M, N) for ``mode="shift_sum"``: the per-plane dots scaled by 2^p and
+    summed, the byte read as a value (the reference's 2-D forms)."""
+    if mode not in ("per_plane", "shift_sum"):
+        raise ValueError(f"unknown spike_matmul mode {mode!r}")
+    wf = w.to(torch.float32)
+    if x_packed.dim() == 3:
+        if mode != "per_plane":
+            raise ValueError("plane groups are temporal: per_plane only")
+        g, m, k = x_packed.shape
+        t = 8 * g if t is None else t
+        planes = unpack_timesteps(x_packed, t)             # (t, M, K)
+        return (planes.reshape(t * m, k) @ wf).reshape(t, m, w.shape[-1])
+    m, k = x_packed.shape
+    planes = bitplanes_u8(x_packed)                        # (8, M, K)
+    per_plane = (planes.reshape(8 * m, k) @ wf).reshape(8, m, w.shape[-1])
+    if mode == "per_plane":
+        return per_plane
+    scales = (2.0 ** torch.arange(8, dtype=torch.float32,
+                                  device=w.device)).reshape(8, 1, 1)
+    return (per_plane * scales).sum(dim=0)
 
 
 def tflif_ref(x: torch.Tensor, bias=None, *, tau: float = 2.0,

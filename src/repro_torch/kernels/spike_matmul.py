@@ -1,10 +1,14 @@
-"""Unified-PE matmuls over packed spikes: the byte-LUT gather and the
-grouped unpack dot (port of ``repro.kernels.spike_matmul``).
+"""Unified-PE matmuls over packed spikes: the byte-LUT gather, the
+grouped unpack dot and the 2-D ``spike_matmul`` (port of
+``repro.kernels.spike_matmul``).
 
 ``lut_gather_matmul`` launches ``csrc/lut_gather.cu`` (plain version:
 ``lut_matmul.lut_matmul``); ``spike_matmul_grouped`` launches
-``csrc/unpack_dot.cu`` (plain version: ``ref.spike_matmul_ref``). Both run
-their plain version for CPU operands.
+``csrc/unpack_dot.cu`` and ``shift_sum_matmul`` launches
+``csrc/shift_sum.cu`` (plain versions: ``ref.spike_matmul_ref``). Each
+runs its plain version for CPU operands. ``spike_matmul`` is the
+reference's 2-D entry point: ``mode="shift_sum"`` is ``shift_sum_matmul``,
+``mode="per_plane"`` the grouped unpack dot at G=1 over all 8 planes.
 """
 from __future__ import annotations
 
@@ -23,6 +27,9 @@ _LUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _UNPACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p]
+_SHIFT_SUM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
 _GRID_LIMIT = 65535       # gridDim.y / gridDim.z
 
 
@@ -83,5 +90,46 @@ def spike_matmul_grouped(x_packed: torch.Tensor, w: torch.Tensor, *,
     return out
 
 
+def shift_sum_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) uint8 x (K, N) f32 -> (M, N) f32 with each byte read as its
+    value: ``sum_p 2^p (plane_p . W)`` in one dot. Exact for
+    integer-valued weights (sums below 2^24); f32 weights differ from the
+    plain version's per-plane sum by rounding."""
+    _build.require(x, "x", torch.uint8, 2)
+    _build.require(w, "w", torch.float32, 2)
+    m, k = x.shape
+    if w.shape[0] != k:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "disagree on K")
+    n = w.shape[1]
+    if _build.on_cpu(x, w):
+        return spike_matmul_ref(x, w, mode="shift_sum")
+    if -(-n // 64) > _GRID_LIMIT:
+        raise ValueError(f"{n} columns exceed the launch grid")
+    out = torch.empty((m, n), dtype=torch.float32, device=w.device)
+    fn = _build.kernel_function("shift_sum", "shift_sum_launch",
+                                _SHIFT_SUM_ARGTYPES)
+    _build.check("shift_sum", fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                 m, k, n, _build.stream(w)))
+    shift_sum_matmul.launches += 1
+    return out
+
+
+def spike_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                 mode: str = "per_plane") -> torch.Tensor:
+    """The reference's 2-D unified-PE dot: (M, K) uint8, bit p of a byte
+    = plane p, x (K, N) f32. ``mode="per_plane"`` -> (8, M, N), one dot
+    per plane (the grouped unpack dot kernel at G=1, t=8);
+    ``mode="shift_sum"`` -> (M, N), the byte read as a value (the
+    shift-sum kernel)."""
+    if mode == "shift_sum":
+        return shift_sum_matmul(x, w)
+    if mode != "per_plane":
+        raise ValueError(f"unknown spike_matmul mode {mode!r}")
+    _build.require(x, "x", torch.uint8, 2)
+    return spike_matmul_grouped(x[None], w, t=8)
+
+
 lut_gather_matmul.launches = 0
 spike_matmul_grouped.launches = 0
+shift_sum_matmul.launches = 0

@@ -1,5 +1,6 @@
-"""The four CUDA kernels against their plain versions on the card, and the
-``packed_cuda`` path against the plain route there.
+"""The six CUDA kernels against their plain versions on the card, and the
+``packed_cuda`` path against the plain route and the reference backend
+there.
 
 Every test here is marked ``gpu`` and takes the ``cuda`` fixture, which
 skips when no card is present, so the same tests are collected everywhere.
@@ -19,7 +20,9 @@ from repro_torch.infer import ExecutionPlan, compile
 from repro_torch.infer.quant import map_folded_layers
 from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
 from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
+                                              shift_sum_matmul, spike_matmul,
                                               spike_matmul_grouped)
 from repro_torch.kernels.stdp_attention import stdp_attention
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
@@ -118,6 +121,54 @@ def test_stdp_kernel_matches_plain(cuda, bh, n, dh):
     assert stdp_attention.launches == 1
 
 
+@pytest.mark.parametrize("int_w", [True, False], ids=["int16", "f32"])
+@pytest.mark.parametrize("t", [1, 4, 8, 9, 17, 33])
+@pytest.mark.parametrize("r,k,n", [(37, 61, 19), (5, 2048, 130),
+                                   (100, 8, 1)])
+def test_fused_lif_lut_kernel_matches_plain(cuda, int_w, t, r, k, n):
+    """Both outputs bit-exact, for ragged rows, columns and K (padded
+    neurons never fire), every register configuration of T, and a
+    membrane that crosses group boundaries."""
+    g = gen(cuda, t * k)
+    x = torch.randn((t, r, k), generator=g, device=cuda) * 1.5
+    bias = torch.randn(k, generator=g, device=cuda) * 0.3
+    vth = 0.5 + torch.rand(k, generator=g, device=cuda)
+    if int_w:
+        w = int_weights(cuda, k, k, n)
+    else:
+        w = torch.randn((k, n), generator=gen(cuda, n), device=cuda)
+    tbl = lut.build_lut(w)
+    spk, acc = tflif_lut_matmul(x, bias, tbl, vth)
+    torch.cuda.synchronize()
+    want_spk, want_acc = tflif_lut_plain(x, bias, tbl, vth)
+    assert torch.equal(spk, want_spk)
+    assert torch.equal(acc, want_acc)
+    assert tflif_lut_matmul.launches == 1
+
+
+@pytest.mark.parametrize("m,k,n", [(100352, 12, 64), (1000, 61, 70),
+                                   (3, 1, 1), (67, 200, 129)])
+def test_shift_sum_kernel_matches_plain(cuda, m, k, n):
+    """Exact for integer-valued weights; f32 weights within atol 1e-3 +
+    rtol 1e-5 (another summation order than the per-plane plain version;
+    at K=200 sums of byte values times normal weights reach ~1e4, ulp
+    ~1e-3)."""
+    x = torch.randint(0, 256, (m, k), generator=gen(cuda, m), device=cuda,
+                      dtype=torch.uint8)
+    wi = int_weights(cuda, k, k, n).to(torch.float32)
+    got = shift_sum_matmul(x, wi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.spike_matmul_ref(x, wi, mode="shift_sum"))
+    wf = torch.randn((k, n), generator=gen(cuda, n), device=cuda)
+    gotf = spike_matmul(x, wf, mode="shift_sum")
+    wantf = ref.spike_matmul_ref(x, wf, mode="shift_sum")
+    torch.testing.assert_close(gotf, wantf, atol=1e-3, rtol=1e-5)
+    assert shift_sum_matmul.launches == 2
+    per = spike_matmul(x, wi, mode="per_plane")
+    assert torch.equal(per, ref.spike_matmul_ref(x, wi, mode="per_plane"))
+    assert spike_matmul_grouped.launches == 1
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((2, 4, 129), device=cuda)
     with pytest.raises(ValueError, match="Dh"):
@@ -128,18 +179,37 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="x must be"):
         tflif_fused(x.double(), torch.zeros(1, device=cuda),
                     torch.ones(1, device=cuda))
+    x3 = torch.zeros((65, 3, 16), device=cuda)
+    k16 = torch.zeros(16, device=cuda)
+    tbl = torch.zeros((2, 256, 4), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="T <= 64"):
+        tflif_lut_matmul(x3, k16, tbl, k16 + 1)
+    with pytest.raises(ValueError, match="several devices"):
+        tflif_lut_matmul(x3[:4], k16, tbl.cpu(), k16 + 1)
+    with pytest.raises(ValueError, match="table must be"):
+        tflif_lut_matmul(x3[:4], k16, tbl.to(torch.int32), k16 + 1)
+    xb = torch.zeros((5, 12), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        shift_sum_matmul(xb, torch.zeros((12, 4)))
+    with pytest.raises(ValueError, match="w must be"):
+        shift_sum_matmul(xb, torch.zeros((12, 4), dtype=torch.float64,
+                                         device=cuda))
+    with pytest.raises(ValueError, match="x must be"):
+        spike_matmul(xb[None], torch.zeros((12, 4), device=cuda),
+                     mode="shift_sum")
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
-def firing_model(cfg, device, backend, seed=2):
+def firing_model(cfg, device, backend, seed=2, **plan):
     folded = fold_inference_params(init(torch.Generator().manual_seed(seed),
                                         cfg), cfg)
     folded = map_folded_layers(folded, lambda p, l: {
         **l, "kernel": l["kernel"] * 4.0 * (
             0.7 if p.endswith(("/wo", "/fc2")) else 1.0)})
+    plan = {"weight_dtype": "int8", "max_table_bytes": 1 << 18, **plan}
     return compile(folded, cfg, ExecutionPlan(
-        backend=backend, weight_dtype="int8", batch_buckets=(4,),
-        max_table_bytes=1 << 18), folded=True, device=device)
+        backend=backend, batch_buckets=(4,), **plan), folded=True,
+        device=device)
 
 
 def test_packed_cuda_matches_plain_route_on_the_card(cuda):
@@ -156,7 +226,8 @@ def test_packed_cuda_matches_plain_route_on_the_card(cuda):
     n_lut = sum(r == "lut" for r in model.plan.routes.values())
     assert ops.launch_counts() == {
         "tflif": 4 + 7 * cfg.depth, "lut_gather": n_lut,
-        "unpack_dot": len(model.plan.routes) - n_lut, "stdp": cfg.depth}
+        "unpack_dot": len(model.plan.routes) - n_lut, "stdp": cfg.depth,
+        "fused_lif_lut": 0, "shift_sum": 0}
     plain = firing_model(cfg, cuda, "packed_plain").step(imgs)
     assert torch.equal(logits, plain)
     assert bool((logits != 0).any())
@@ -165,3 +236,42 @@ def test_packed_cuda_matches_plain_route_on_the_card(cuda):
     # to a few ulp
     torch.testing.assert_close(logits.cpu(), cpu, atol=1e-5, rtol=1e-5)
     assert torch.equal(logits.argmax(-1).cpu(), cpu.argmax(-1))
+
+
+def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
+    """The two route-pinned plans at the reduced config on the card. f32
+    weights with every layer on the gather: one fused launch per block,
+    logits bit-identical across ``packed_cuda``, ``packed_cuda`` unfused,
+    ``packed_plain`` and the ``reference`` backend. int8 with every table
+    stripped: conv0 runs the shift-sum kernel, and logits equal the plain
+    route's."""
+    cfg = SpikformerConfig().scaled()
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (4, 32, 32, 3), dtype=np.uint8))
+    lut_plan = {"weight_dtype": "float32", "route": "lut"}
+    model = firing_model(cfg, cuda, "packed_cuda", **lut_plan)
+    ops.reset_launch_counts()
+    logits = model.step(imgs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "tflif": 4 + 6 * cfg.depth, "lut_gather": 4 + 5 * cfg.depth,
+        "unpack_dot": 0, "stdp": cfg.depth, "fused_lif_lut": cfg.depth,
+        "shift_sum": 0}
+    assert bool((logits != 0).any())
+    for backend, opts in (("packed_cuda", {"fuse_mlp": False}),
+                          ("packed_plain", {}), ("reference", {})):
+        other = firing_model(cfg, cuda, backend, backend_options=opts,
+                             **lut_plan)
+        assert other.plan.routes == model.plan.routes
+        assert torch.equal(other.step(imgs), logits), backend
+
+    unpack = firing_model(cfg, cuda, "packed_cuda", route="unpack")
+    ops.reset_launch_counts()
+    logits = unpack.step(imgs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "tflif": 4 + 7 * cfg.depth, "lut_gather": 0,
+        "unpack_dot": 3 + 6 * cfg.depth, "stdp": cfg.depth,
+        "fused_lif_lut": 0, "shift_sum": 1}
+    plain = firing_model(cfg, cuda, "packed_plain", route="unpack")
+    assert torch.equal(plain.step(imgs), logits)

@@ -1,0 +1,207 @@
+"""The port's fused fc1 -> LIF -> fc2 step (kernel 5) and 2-D
+``spike_matmul`` (kernel 6) against the JAX reference: their plain
+versions, which the CPU runs, against the Pallas kernels they replace in
+interpret mode, and the ``ops`` entry points that reach them against the
+reference's Pallas branch. Inputs come from seeded numpy and go through
+both packages; every comparison is exact unless it states a tolerance and
+its reason."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import lut_matmul as jlut
+from repro.kernels import ops as jops
+from repro.kernels.fused import tflif_lut_matmul as jfused
+from repro.kernels.spike_matmul import spike_matmul as jspike_matmul
+from repro_torch.kernels import lut_matmul as lut
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
+from repro_torch.kernels.spike_matmul import shift_sum_matmul, spike_matmul
+
+# f32 weights, K <= 64. per_plane: each plane's dot of 0-or-w terms, summed
+# in XLA's and torch's own orders; |sums| stay below ~10 (ulp ~1e-6), so
+# atol 1e-5 covers a few roundings. shift_sum: the reference's one dot over
+# byte values against the plain version's per-plane dots scaled by 2^p;
+# each plane's rounding error is scaled by up to 2^7, so the absolute error
+# is about 8 planes x 2^7 x ulp(8) ~ 1e-3 whatever the result's size (5.5e-4
+# measured): atol 1e-3 + rtol 1e-5, the tolerance the card's check holds
+# the kernel to, and the reference's own shift_sum tests' atol.
+F32_TOL = {"per_plane": (1e-5, 1e-6), "shift_sum": (1e-3, 1e-5)}
+
+
+def exact(a, b, msg=""):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=msg)
+
+
+def t_(x):
+    """numpy -> torch on the CPU, dtype kept."""
+    return torch.from_numpy(np.array(x))
+
+
+def weights(seed, k, n, *, int_w):
+    r = np.random.default_rng(seed)
+    if int_w:
+        return r.integers(-127, 128, (k, n)).astype(np.int8)
+    return r.normal(size=(k, n)).astype(np.float32)
+
+
+def lif_inputs(seed, t, r, k):
+    """fc1-like accumulators, bias and a per-channel threshold (the int8
+    scale fold)."""
+    g = np.random.default_rng(seed)
+    x = (g.normal(size=(t, r, k)) * 1.5).astype(np.float32)
+    bias = (g.normal(size=k) * 0.3).astype(np.float32)
+    vth = (0.5 + g.random(k)).astype(np.float32)
+    return x, bias, vth
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: the fused TFLIF -> pack -> LUT gather
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("int_w", [True, False], ids=["int16", "f32"])
+@pytest.mark.parametrize("k", [40, 61])
+@pytest.mark.parametrize("t", [1, 4, 9, 17])
+def test_fused_matches_pallas_kernel(t, k, int_w):
+    """Both outputs exact: the spikes (membrane across group boundaries
+    at T = 9 and 17; K = 61 pads a ragged chunk) and the fc2 accumulators
+    (int32 fold for int16 tables, the defined f32 fold otherwise)."""
+    r, n = 12, 9
+    x, bias, vth = lif_inputs(t * k, t, r, k)
+    w = weights(k + t, k, n, int_w=int_w)
+    tbl = np.asarray(jlut.build_lut(jnp.asarray(w)))
+    want_s, want_a = jfused(jnp.asarray(x), jnp.asarray(bias),
+                            jnp.asarray(tbl), v_th=jnp.asarray(vth),
+                            interpret=True)
+    got_s, got_a = tflif_lut_matmul(t_(x), t_(bias), t_(tbl), t_(vth))
+    assert got_s.dtype == torch.uint8 and got_s.shape == (-(-t // 8), r, k)
+    assert got_a.shape == (t, r, n)
+    exact(got_s, want_s)
+    exact(got_a, want_a)
+    assert ops.launch_counts()["fused_lif_lut"] == 0
+
+
+def test_fused_plain_is_the_unfused_composition():
+    """The plain version equals ``tflif_pack`` then ``spike_linear`` over
+    the table: what ``mlp_pair_lif`` replaces."""
+    t, r, k, n = 4, 7, 24, 5
+    x, bias, vth = lif_inputs(3, t, r, k)
+    w = t_(weights(4, k, n, int_w=False))
+    tbl = lut.build_lut(w)
+    spikes, acc = tflif_lut_plain(t_(x), t_(bias), tbl, t_(vth))
+    exact(spikes, ops.tflif_pack(t_(x), t_(bias), v_th=t_(vth)))
+    exact(acc, ops.spike_linear(spikes, w, t=t, table=tbl))
+
+
+@pytest.mark.parametrize("int_w", [True, False], ids=["int8", "f32"])
+@pytest.mark.parametrize("t", [4, 9])
+def test_tflif_lut_matches_pallas_branch(t, int_w):
+    """``ops.tflif_lut`` over (T, B, N, K) accumulators with a scalar and a
+    per-channel threshold, against the reference's Pallas branch."""
+    k, n = 20, 6
+    x, bias, vth = lif_inputs(20 + t, t, 6, k)
+    x = x.reshape(t, 2, 3, k)
+    w = weights(21, k, n, int_w=int_w)
+    tbl = lut.build_lut(t_(w))
+    jtbl = jnp.asarray(tbl.numpy())
+    for v in (1.0, vth):
+        ws, wa = jops.tflif_lut(jnp.asarray(x), jnp.asarray(bias), table=jtbl,
+                                v_th=jnp.asarray(v), pallas=True)
+        gs, ga = ops.tflif_lut(t_(x), t_(bias), table=tbl,
+                               v_th=v if isinstance(v, float) else t_(v))
+        assert gs.shape == (-(-t // 8), 2, 3, k) and ga.shape == (t, 2, 3, n)
+        exact(gs, ws)
+        exact(ga, wa)
+    ws, wa = jops.tflif_lut(jnp.asarray(x), None, table=jtbl, t=2,
+                            pallas=True)
+    gs, ga = ops.tflif_lut(t_(x), None, table=tbl, t=2, plain=True)
+    exact(gs, ws)
+    exact(ga, wa)
+
+
+def test_tflif_lut_needs_a_real_table():
+    x = torch.zeros((4, 3, 16))
+    for table in (None, True, torch.zeros(3)):
+        with pytest.raises(ValueError, match="requires a real"):
+            ops.tflif_lut(x, table=table)
+
+
+def test_fused_wrapper_checks_its_operands():
+    x, k = torch.zeros((4, 3, 16)), torch.zeros(16)
+    tbl = torch.zeros((2, 256, 5), dtype=torch.int16)
+    with pytest.raises(ValueError, match="x must be"):
+        tflif_lut_matmul(x.double(), k, tbl, k)
+    with pytest.raises(ValueError, match="table must be"):
+        tflif_lut_matmul(x, k, tbl.to(torch.int32), k)
+    with pytest.raises(ValueError, match="must both be"):
+        tflif_lut_matmul(x, k[:8], tbl, k)
+    with pytest.raises(ValueError, match="does not match table"):
+        tflif_lut_matmul(x, k, tbl[:1], k)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the 2-D spike_matmul
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("int_w", [True, False], ids=["int", "f32"])
+@pytest.mark.parametrize("mode", ["shift_sum", "per_plane"])
+@pytest.mark.parametrize("m,k,n", [(50, 12, 16), (9, 64, 33)])
+def test_spike_matmul_matches_pallas_kernel(m, k, n, mode, int_w):
+    """Exact for integer-valued weights (integer sums); f32 weights within
+    ``F32_TOL[mode]``."""
+    x = np.random.default_rng(m * k).integers(0, 256, (m, k), dtype=np.uint8)
+    w = weights(n, k, n, int_w=int_w).astype(np.float32)
+    want = np.asarray(jspike_matmul(jnp.asarray(x), jnp.asarray(w),
+                                    mode=mode, interpret=True))
+    got = spike_matmul(t_(x), t_(w), mode=mode)
+    assert got.shape == want.shape
+    if int_w:
+        exact(got, want)
+    else:
+        atol, rtol = F32_TOL[mode]
+        np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=rtol)
+    exact(ops.spike_matmul(t_(x), t_(w), mode=mode), got)
+
+
+@pytest.mark.parametrize("int_w", [True, False], ids=["int8", "f32"])
+def test_sssc_unpack_route_matches_pallas_branch(int_w):
+    """``ops.sssc_linear(route="unpack")`` is the shift-sum dot on both
+    sides now: exact for int8 weights, ``F32_TOL["shift_sum"]`` for f32
+    (it used to run 8 per-plane dots folded by ``shift_sum_fold``)."""
+    r = np.random.default_rng(31)
+    img = r.integers(0, 256, (2, 3, 4, 12), dtype=np.uint8)
+    w = weights(32, 12, 8, int_w=int_w)
+    bias = r.normal(size=8).astype(np.float32)
+    want = np.asarray(jops.sssc_linear(jnp.asarray(img), jnp.asarray(w),
+                                       jnp.asarray(bias), pallas=True,
+                                       route="unpack"))
+    got = ops.sssc_linear(t_(img), t_(w), t_(bias), route="unpack")
+    assert got.shape == (2, 3, 4, 8)
+    if int_w:
+        exact(got, want)
+    else:
+        atol, rtol = F32_TOL["shift_sum"]
+        np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=rtol)
+    exact(ops.sssc_linear(t_(img), t_(w), t_(bias), route="unpack",
+                          plain=True), got)
+
+
+def test_spike_matmul_wrappers_check_their_operands():
+    x = torch.zeros((5, 12), dtype=torch.uint8)
+    w = torch.zeros((12, 4))
+    with pytest.raises(ValueError, match="x must be"):
+        shift_sum_matmul(x.to(torch.int32), w)
+    with pytest.raises(ValueError, match="x must be"):
+        shift_sum_matmul(x[None], w)
+    with pytest.raises(ValueError, match="w must be"):
+        shift_sum_matmul(x, w.double())
+    with pytest.raises(ValueError, match="disagree on K"):
+        shift_sum_matmul(x, w[:11])
+    with pytest.raises(ValueError, match="x must be"):
+        spike_matmul(x[None], w, mode="per_plane")
+    with pytest.raises(ValueError, match="unknown spike_matmul mode"):
+        spike_matmul(x, w, mode="sum")
+    meta = torch.empty((5, 12), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        shift_sum_matmul(meta, torch.zeros((12, 4), device="meta"))

@@ -333,9 +333,9 @@ def test_spike_linear_matches_pallas_branch(route, int_w):
 
 @pytest.mark.parametrize("route", ["lut", "unpack"])
 def test_sssc_linear_matches_pallas_branch(route):
-    """Integer weights: exact on both routes (the reference's unpack route
-    is its shift_sum kernel, the port's the grouped dot folded in the
-    defined order; every sum is an integer)."""
+    """Integer weights: exact on both routes (the unpack route is the
+    shift-sum kernel on both sides, summed in other orders; every sum is
+    an integer)."""
     r = np.random.default_rng(12)
     img = r.integers(0, 256, (2, 3, 4, 12), dtype=np.uint8)
     w = weights(13, 12, 8, int_w=True)
@@ -387,9 +387,13 @@ def test_cpu_operands_run_plain_versions_and_count_no_launch():
     ops.tflif_pack(torch.ones(t, 9, 5))
     ops.stdp_attention_packed(x[:, None], x[:, None], x[:, None], t=t,
                               scale=0.125)
-    assert ops.launch_counts() == {"tflif": 0, "lut_gather": 0,
-                                   "unpack_dot": 0, "stdp": 0}
-    assert set(ops.KERNELS) == {"tflif", "lut_gather", "unpack_dot", "stdp"}
+    ops.tflif_lut(torch.ones(t, 9, 16), table=lut.build_lut(w))
+    ops.sssc_linear(x[0], w, route="unpack")
+    ops.spike_matmul(x[0], w, mode="per_plane")
+    names = {"tflif", "lut_gather", "unpack_dot", "stdp", "fused_lif_lut",
+             "shift_sum"}
+    assert ops.launch_counts() == dict.fromkeys(names, 0)
+    assert set(ops.KERNELS) == names
 
 
 def test_wrappers_check_dtype_rank_contiguity_and_device():
