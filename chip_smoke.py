@@ -5,9 +5,10 @@
 
 Needs one CUDA card and ``nvcc``; fails without them. It
 
-1. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. runs each kernel at the shapes the paper config's paths give it
-   (batch 8), holds it against its plain PyTorch version on the card and
+1. builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. runs each kernel at the shapes its main path gives it (the Spikformer
+   kernels at batch 8, flash attention at smollm-360m's 2048-token
+   prefill), holds it against its plain PyTorch version on the card and
    times kernel, plain version and the nearest single PyTorch call;
 3. drives three paths of the full-width Spikformer V2-8-512 (224x224x3,
    T=4, 8 blocks, 1000 classes) from one seeded ``init`` (fixed gains on
@@ -23,7 +24,15 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    count times the steps taken, the final residual stream still fires, and
    one bucket-8 batch gives bit-identical logits against the plain
    versions (``packed_plain``) on the card and, for the f32 LUT path,
-   against the unfused MLP step and the float ``reference`` backend.
+   against the unfused MLP step and the float ``reference`` backend;
+4. drives the LM path, counters again set to 0 just before it and read
+   just after: smollm-360m at full width from a seeded ``init_model``,
+   ``Engine(slots=4, cache_len=4096)`` in bf16 serving 8 requests (prompts
+   of 77 to 2048 tokens, 32 new tokens each), every prefill's attention on
+   the flash kernel; checks every request completes and the flash counter
+   grew by 32 layers x 8 prefills, profiles a prefill and decode steps, and
+   holds one f32 prefill's logits on the flash route against the plain
+   route.
 
 Prints the kernel table and the serving stats as JSON lines, the card's
 name and power limit, and as its last line
@@ -48,9 +57,20 @@ GAIN, GAIN_RESIDUAL = 4.0, 0.7       # kernel gains; wo/fc2 get both
 FIRING_RATE = 0.2
 REPS = 20
 
+# the LM path: smollm-360m at full width, 8 requests of these prompt lengths
+LM_ARCH = "smollm-360m"
+LM_HEADS, LM_HEAD_DIM = 15, 64
+LM_PROMPTS = (77, 128, 300, 512, 640, 1000, 1536, 2048)
+LM_MAX_NEW = 32
+LM_SLOTS, LM_CACHE_LEN = 4, 4096
+LM_GATE_LEN = 1000
+FLASH_TOL = 2e-4       # the reference's own flash tests' rtol = atol
+LM_LOGITS_TOL = 1e-4   # f32 prefill logits, flash route against plain
+
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 
 SOURCES = {
@@ -66,6 +86,8 @@ SOURCES = {
                       "src/repro/kernels/fused.py:80"),
     "shift_sum": ("src/repro_torch/kernels/csrc/shift_sum.cu",
                   "src/repro/kernels/spike_matmul.py:69"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:62"),
 }
 
 
@@ -303,8 +325,49 @@ def kernel_phase(torch, dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch.matmul(img.to(torch.float32),
                                                        w0i)))
+    out["flash_attention"] = flash_kernel_phase(torch, dev, gen)
     ops.reset_launch_counts()     # comparison launches do not count
     return out
+
+
+def flash_kernel_phase(torch, dev, gen) -> dict:
+    """Kernel 7 at smollm-360m's longest prefill: q, k, v (15, 2048, 64)
+    bf16, causal, scale 1/8; and once in f32. Held to its plain version
+    (exact softmax in f32 on the same inputs) within atol = rtol = FLASH_TOL:
+    both compute in f32 from the same values, and the online softmax only
+    reorders the sums."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    bh, s, dh = LM_HEADS, LM_PROMPTS[-1], LM_HEAD_DIM
+    scale = dh ** -0.5
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        got = flash_attention(q, k, v, scale=scale)
+        want = flash_attention_ref(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        errs[str(dt).removeprefix("torch.")] = err = max_abs_err(got, want)
+        check(bool(((got - want).abs() <= FLASH_TOL
+                    + FLASH_TOL * want.abs()).all()),
+              f"flash_attention ({dt}) off its plain version by {err}")
+    pairs = s * (s + 1) // 2                      # causal (query, key) pairs
+    nbytes = 3 * q.numel() * q.element_size() + q.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * bh * pairs * dh, BF16_OPS_PER_S)
+    bytes_ms, _ = bound_ms(nbytes, 0, BF16_OPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(
+        shape=f"q, k, v {tuple(q.shape)} bf16, causal, scale {scale} "
+              "(smollm-360m's 2048-token prefill, one layer)",
+        max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+        tolerance=f"atol = rtol = {FLASH_TOL}",
+        ms=time_ms(torch, lambda: flash_attention(q, k, v, scale=scale)),
+        plain_ms=time_ms(torch, lambda: flash_attention_ref(
+            q, k, v, scale=scale)),
+        bound_ms=b_ms, bound_by=b_by, bytes_bound_ms=bytes_ms,
+        library_ms=time_ms(torch, lambda: sdpa(
+            q[None], k[None], v[None], is_causal=True, scale=scale)))
 
 
 class LayerRecorder:
@@ -344,29 +407,38 @@ class LayerRecorder:
 
 
 OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
-               "stdp_kernel", "fused_lif_lut_kernel", "shift_sum_kernel")
+               "stdp_kernel", "fused_lif_lut_kernel", "shift_sum_kernel",
+               "flash_attention_kernel")
 
 
 def profile_phase(torch, model, batch, steps: int = 3) -> dict:
     """Where one bucket-8 step's time goes: host wall time per synchronised
     step, device time per kernel by ``torch.profiler`` (CUDA activity), the
     device's idle share of the wall time, and peak device memory."""
+    return {"bucket": int(batch.shape[0]),
+            **profile_fn(torch, lambda: model.step(batch), steps)}
+
+
+def profile_fn(torch, fn, steps: int) -> dict:
+    """``fn`` once to warm up, ``steps`` times on the host clock (peak
+    memory over those), then ``steps`` times under ``torch.profiler``:
+    wall and device ms per call, device ms by kernel, idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model.step(batch)
+    fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
-        model.step(batch)
+        fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            model.step(batch)
+            fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -384,7 +456,7 @@ def profile_phase(torch, model, batch, steps: int = 3) -> dict:
     device_ms = sum(r["ms_per_step"] for r in rows)
     ours_ms = sum(r["ms_per_step"] for r in rows if r["ours"])
     return {
-        "steps": steps, "bucket": int(batch.shape[0]),
+        "steps": steps,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms if rows else "not measured",
         "our_kernels_ms_per_step": ours_ms if rows else "not measured",
@@ -595,6 +667,130 @@ def unpack_step_phase(torch, dev, cfg, folded, batch, int8_logits) -> dict:
         bucket8_labels=labels, final_residual_occupancy=final_occ)
 
 
+def lm_prompts(vocab: int) -> list:
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n).tolist() for n in LM_PROMPTS]
+
+
+def lm_serve_phase(torch, dev) -> tuple:
+    """The LM path: smollm-360m at full width (32 layers, d_model 960, 15
+    heads over 5 KV heads, vocab 49152) from a seeded ``init_model``,
+    served by ``Engine(slots=4, cache_len=4096)`` in bf16: 8 requests of
+    LM_PROMPTS tokens, 32 new tokens each, after one short warm-up request.
+    The launch counters are set to 0 just before the 8 requests and read
+    just after; every prefill layer runs the flash kernel, nothing else
+    launches one of the port's kernels. Then two profiled windows: the
+    2048-token prefill, and decode steps over the four slots. Returns the
+    report and the engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Engine, Request, summary
+    from repro_torch.nn.module import param_bytes, param_count
+
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_heads, cfg.head_dim) == (LM_HEADS, LM_HEAD_DIM),
+          f"{LM_ARCH} has {cfg.n_heads} heads of {cfg.head_dim}")
+    t0 = time.perf_counter()
+    eng = Engine(cfg, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED,
+                 device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg.vocab)
+    eng.submit(Request(rid=-1, prompt=prompts[0][:16], max_new=2))
+    eng.run()                                         # warm-up
+    eng.done, eng.decode_step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reqs = [Request(rid=i, prompt=p, max_new=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(len(done) == len(reqs)
+          and all(len(r.out) == LM_MAX_NEW and r.t_done for r in reqs),
+          "an LM request did not complete with its 32 tokens")
+    check(all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out),
+          "an LM request holds a token outside the vocabulary")
+    expect = dict.fromkeys(launches, 0)
+    expect["flash_attention"] = cfg.n_layers * len(reqs)
+    check(launches == expect,
+          f"LM launch counts {launches} != {expect} (one flash launch per "
+          "layer and prefill)")
+
+    long = torch.tensor([prompts[-1]], device=dev)
+    prefill = profile_fn(torch, lambda: eng._prefill(long), steps=2)
+    tokens = torch.tensor([[r.out[-1]] for r in reqs[:LM_SLOTS]], device=dev)
+    positions = torch.tensor([len(r.prompt) + LM_MAX_NEW
+                              for r in reqs[:LM_SLOTS]], device=dev)
+    decode = profile_fn(torch, lambda: eng._decode(tokens, positions),
+                        steps=4)
+    ops.reset_launch_counts()
+    return dict(
+        config=f"{LM_ARCH}: 32 layers, d_model 960, 15 heads over 5 KV heads,"
+               " head_dim 64, d_ff 2560, vocab 49152, tied embeddings; "
+               "seeded init_model, f32 params, bf16 compute and cache",
+        params=param_count(eng.params),
+        param_mib=param_bytes(eng.params) / 2 ** 20,
+        init_s=init_s, prompts=list(LM_PROMPTS), max_new=LM_MAX_NEW,
+        slots=LM_SLOTS, cache_len=LM_CACHE_LEN, launches=launches,
+        stats=summary(done, wall_s, eng.decode_step_s),
+        ttft_s={r.rid: r.t_first - r.t_arrival for r in reqs},
+        peak_mem_mib=peak_mib, first_tokens=[r.out[:8] for r in reqs],
+        profile_prefill_2048=prefill, profile_decode=decode), eng
+
+
+def lm_gate_phase(torch, dev, eng) -> dict:
+    """One f32 prefill of the 1000-token prompt through the flash route
+    and through the plain route (the reference's chunked softmax) on the
+    card, with the served model's weights: last-position logits within
+    atol = rtol = LM_LOGITS_TOL. Then 8 greedy tokens of both routes in f32
+    and in bf16, printed; the bf16 tokens are not gated."""
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.nn import transformer as T
+
+    cfg, params = eng.cfg, eng.params
+    prompt = lm_prompts(cfg.vocab)[LM_PROMPTS.index(LM_GATE_LEN)]
+    tokens = torch.tensor([prompt], device=dev)
+    logits = {}
+    for flash in (True, False):
+        cache = T.init_cache(cfg, 1, LM_GATE_LEN, dtype=torch.float32,
+                             device=dev)
+        logits[flash], _, _ = T.model_apply(
+            params, {"tokens": tokens, "cache_pos": 0}, cfg, mode="prefill",
+            cache=cache, compute_dtype=torch.float32, flash=flash)
+    got, want = logits[True], logits[False]
+    torch.cuda.synchronize()
+    check(got.shape == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(got).all()),
+          f"LM prefill logits: shape {tuple(got.shape)} or non-finite")
+    err = max_abs_err(got, want)
+    check(bool(((got - want).abs() <= LM_LOGITS_TOL
+                + LM_LOGITS_TOL * want.abs()).all()),
+          f"f32 prefill logits, flash route against plain: off by {err}")
+    greedy = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for flash in (True, False):
+            e = Engine(cfg, slots=1, cache_len=LM_GATE_LEN + 8, params=params,
+                       compute_dtype=dt, cache_dtype=dt, device=dev,
+                       flash=flash)
+            e.submit(Request(rid=0, prompt=prompt, max_new=8))
+            greedy[f"{str(dt).removeprefix('torch.')}/"
+                   f"{'flash' if flash else 'plain'}"] = e.run()[0].out
+    return dict(prompt_len=LM_GATE_LEN, max_abs_err=err,
+                tolerance=f"atol = rtol = {LM_LOGITS_TOL}",
+                logits_absmax=float(want.abs().max()), greedy=greedy,
+                greedy_agree={dt: greedy[f"{dt}/flash"] == greedy[f"{dt}/plain"]
+                              for dt in ("float32", "bfloat16")})
+
+
 def kernel_table(report: dict, paths) -> list:
     """One row per kernel: what it replaces, its launches on the driven
     paths, its error against its plain version and its times. Fails if a
@@ -651,7 +847,8 @@ def main() -> int:
                            "cuda": torch.version.cuda},
               "build_logs": {k: v["log"] for k, v in build.items()}}
     out_dir = ROOT / "build"
-    paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step")
+    paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step",
+             "lm_serve")
     try:
         report["kernels"] = kernel_phase(torch, dev)
         cfg = SpikformerConfig()
@@ -667,6 +864,9 @@ def main() -> int:
         report[paths[2]] = unpack_step_phase(
             torch, dev, cfg, folded, batch,
             report[paths[0]].pop("logits"))
+        torch.cuda.empty_cache()
+        report[paths[3]], lm_engine = lm_serve_phase(torch, dev)
+        report["lm_gate"] = lm_gate_phase(torch, dev, lm_engine)
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -676,7 +876,7 @@ def main() -> int:
         (out_dir / "chip_smoke.json").write_text(
             json.dumps(report, indent=1, default=str))
 
-    for p in paths:
+    for p in paths[:3]:
         r = report[p]
         print(json.dumps({"path": p, "steps": r["steps"],
                           "serve": r.get("stats"),
@@ -689,6 +889,17 @@ def main() -> int:
                 k: v for k, v in prof.items() if k != "by_kernel"},
                 "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                                 for k in prof["by_kernel"][:8]]}))
+    lm = report["lm_serve"]
+    print(json.dumps({"path": "lm_serve", "serve": lm["stats"],
+                      "peak_mem_mib": lm["peak_mem_mib"],
+                      "launches": lm["launches"]}))
+    for window in ("profile_prefill_2048", "profile_decode"):
+        prof = lm[window]
+        print(json.dumps({"path": "lm_serve", window: {
+            k: v for k, v in prof.items() if k != "by_kernel"},
+            "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
+                            for k in prof["by_kernel"][:8]]}))
+    print(json.dumps({"lm_gate": report["lm_gate"]}))
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ from . import registry
 from .quant import WEIGHT_DTYPES, map_folded_layers, quantize_folded
 from ..core import spikformer
 from ..core.spikformer import SpikformerConfig, fold_inference_params
+from ..device import resolve_device
 from ..kernels import lut_matmul
 from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
 
@@ -321,17 +322,6 @@ class CompiledModel:
     def classify(self, images_u8) -> torch.Tensor:
         """(N, H, W, C) uint8 -> (N,) int32 argmax class ids."""
         return self.logits(images_u8).argmax(dim=-1).to(torch.int32)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; without one, fail and name the CPU
-    option."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain versions of the kernels on the "
-                           "CPU")
-    return device
 
 
 def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,

@@ -1,9 +1,9 @@
-"""Batched packed-spike entry points — the inference datapath (port of
-the Pallas branch of ``repro.kernels.ops``).
+"""Batched packed-spike entry points — the inference datapath — and the
+LM stack's attention (port of the Pallas branch of ``repro.kernels.ops``).
 
 Activations stay packed 8 per uint8 between layers (temporal bits for
 WSSL/ZSC/STDP, value bits for SSSC) and only meet the weights inside a
-kernel. Every entry point dispatches to the six kernel wrappers, which
+kernel. Every entry point dispatches to the seven kernel wrappers, which
 launch their CUDA kernel for CUDA operands and run their plain version for
 CPU ones; ``plain=True`` runs the plain versions on any device (the oracle
 route the kernels are held against on the card). The reference's CPU
@@ -19,6 +19,7 @@ import torch
 
 from . import lut_matmul as lut
 from . import ref
+from .flash_attention import flash_attention as _flash
 from .lut_matmul import choose_cuda_route
 from .fused import tflif_lut_matmul, tflif_lut_plain
 from .spike_matmul import (lut_gather_matmul, shift_sum_matmul,
@@ -31,15 +32,18 @@ from ..core.spike import num_plane_groups, unpack_timesteps
 # kernel name -> wrapper; each wrapper counts its launches in ``.launches``
 KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
            "unpack_dot": spike_matmul_grouped, "stdp": stdp_attention,
-           "fused_lif_lut": tflif_lut_matmul, "shift_sum": shift_sum_matmul}
+           "fused_lif_lut": tflif_lut_matmul, "shift_sum": shift_sum_matmul,
+           "flash_attention": _flash}
 
 _WRAPPERS = types.SimpleNamespace(
     tflif=tflif_fused, lut=lut_gather_matmul, unpack=spike_matmul_grouped,
-    stdp=stdp_attention, fused=tflif_lut_matmul, shift_sum=shift_sum_matmul)
+    stdp=stdp_attention, fused=tflif_lut_matmul, shift_sum=shift_sum_matmul,
+    flash=_flash)
 _PLAIN = types.SimpleNamespace(
     tflif=tflif_plain, lut=lut.lut_matmul, unpack=ref.spike_matmul_ref,
     stdp=ref.stdp_attention_ref, fused=tflif_lut_plain,
-    shift_sum=lambda x, w: ref.spike_matmul_ref(x, w, mode="shift_sum"))
+    shift_sum=lambda x, w: ref.spike_matmul_ref(x, w, mode="shift_sum"),
+    flash=ref.flash_attention_ref)
 
 
 def launch_counts() -> dict:
@@ -231,3 +235,14 @@ def stdp_attention_packed(q_packed, k_packed, v_packed, *, t: int,
     out = (_PLAIN if plain else _WRAPPERS).stdp(
         unfold(q_packed), unfold(k_packed), unfold(v_packed), scale=scale)
     return out.reshape(t, *lead, n, dh)
+
+
+def flash_attention(q, k, v, *, scale: float, causal: bool = True,
+                    plain: bool = False):
+    """Softmax attention (the LM stack's kernel). q: (BH, Nq, Dh); k, v:
+    (BH, Nkv, Dh), f32 or bf16; causal over absolute positions (query i at
+    ``Nkv - Nq + i``). Returns (BH, Nq, Dh) f32; callers cast to their
+    compute dtype."""
+    return (_PLAIN if plain else _WRAPPERS).flash(
+        q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+        causal=causal)

@@ -73,3 +73,19 @@ def stdp_attention_ref(q, k, v, *, scale: float) -> torch.Tensor:
     """q, k, v: (BH, N, Dh) -> (Q K^T) V * scale."""
     s = torch.einsum("bnd,bmd->bnm", q.to(torch.float32), k.to(torch.float32))
     return torch.einsum("bnm,bmd->bnd", s, v.to(torch.float32)) * scale
+
+
+def flash_attention_ref(q, k, v, *, scale: float,
+                        causal: bool = True) -> torch.Tensor:
+    """q: (BH, Nq, Dh); k, v: (BH, Nkv, Dh) -> (BH, Nq, Dh) f32. Exact
+    softmax attention; causal over absolute positions, query i at
+    ``Nkv - Nq + i``."""
+    nq, nkv = q.shape[1], k.shape[1]
+    s = torch.einsum("bnd,bmd->bnm", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        qpos = (nkv - nq) + torch.arange(nq, device=q.device)[:, None]
+        kpos = torch.arange(nkv, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bnm,bmd->bnd", p, v.to(torch.float32))

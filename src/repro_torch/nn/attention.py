@@ -1,0 +1,283 @@
+"""Attention for the LM stack (port of ``repro.nn.attention``: GQA, RoPE /
+partial RoPE, QK-norm, QKV bias, the linear KV cache).
+
+Full-sequence causal attention whose positions are the default contiguous
+ones (train and prefill without a cache, and prefill into a linear cache at
+``cache_pos == 0``) runs ``kernels.ops.flash_attention``, the kernel that
+the reference names as the TPU form of ``chunked_attention``'s schedule.
+Every other case (decode, prefill at an offset, per-row positions) is the
+reference's plain chunked softmax, in torch. Sliding windows, ring caches,
+M-RoPE and cross-attention are not ported yet.
+
+Conventions: x is (B, S, D); caches are (B, KV, S_cache, Dh); all softmax
+math in f32. Unlike the reference, whose arrays are immutable,
+``cache_update`` writes the cache in place and returns it.
+"""
+from __future__ import annotations
+
+import torch
+
+from .layers import apply_rope, linear, linear_init, rmsnorm, rmsnorm_init
+from .module import KeyStream
+from ..kernels import ops
+
+NEG_INF = -1e30
+
+
+def attn_init(gen, cfg, dtype=torch.float32):
+    ks = KeyStream(gen)
+    dh = cfg.head_dim
+    p = {
+        "wq": linear_init(ks(), cfg.d_model, cfg.n_heads * dh,
+                          bias=cfg.qkv_bias, dtype=dtype),
+        "wk": linear_init(ks(), cfg.d_model, cfg.n_kv_heads * dh,
+                          bias=cfg.qkv_bias, dtype=dtype),
+        "wv": linear_init(ks(), cfg.d_model, cfg.n_kv_heads * dh,
+                          bias=cfg.qkv_bias, dtype=dtype),
+        "wo": linear_init(ks(), cfg.n_heads * dh, cfg.d_model, bias=False,
+                          dtype=dtype),
+    }
+    if cfg.qk_norm:
+        dev = p["wq"]["kernel"].device
+        p["q_norm"] = rmsnorm_init(dh, dtype, dev)
+        p["k_norm"] = rmsnorm_init(dh, dtype, dev)
+    return p
+
+
+def _project_qkv(p, x, cfg, *, compute_dtype):
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    q = linear(p["wq"], x, compute_dtype=compute_dtype).reshape(
+        b, s, cfg.n_heads, dh)
+    k = linear(p["wk"], x, compute_dtype=compute_dtype).reshape(
+        b, s, cfg.n_kv_heads, dh)
+    v = linear(p["wv"], x, compute_dtype=compute_dtype).reshape(
+        b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    return q, k, v
+
+
+def _rope(q, k, cfg, positions):
+    if cfg.use_rope:
+        q = apply_rope(q, positions, theta=cfg.rope_theta,
+                       rotary_frac=cfg.rotary_frac)
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       rotary_frac=cfg.rotary_frac)
+    return q, k
+
+
+def _decode_grouped(q, k, v, *, scale, causal, q_positions, k_positions):
+    """One-token attention without expanding KV to the q heads.
+
+    q: (B, Hq, 1, Dh); k, v: (B, KV, S, Dh); positions per row, (B, 1) and
+    (B, S). Products of the stored dtype, accumulated in f32 (the
+    reference's ``preferred_element_type``)."""
+    b, hq, _, dh = q.shape
+    kvh = k.shape[1]
+    qg = q.reshape(b, kvh, hq // kvh, dh)
+    s = torch.einsum("bkgd,bksd->bkgs", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale            # (B, KV, g, S)
+    qp = q_positions[:, None, None, :]                       # (B, 1, 1, 1)
+    kp = k_positions[:, None, None, :]                       # (B, 1, 1, S)
+    mask = kp >= 0
+    if causal:
+        mask = mask & (qp >= kp)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgs,bksd->bkgd", p.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(b, hq, 1, dh).to(q.dtype)
+
+
+def _flash(q, k, v, *, scale, causal):
+    """Contiguous-position attention through the flash kernel: KV expanded
+    to the q heads (the reference's ``jnp.repeat(k, g, axis=1)``), heads
+    folded into the kernel's batch axis, operands in their common dtype."""
+    b, hq, sq, dh = q.shape
+    g = hq // k.shape[1]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    skv = k.shape[2]
+    out = ops.flash_attention(q.to(dt).reshape(b * hq, sq, dh),
+                              k.to(dt).reshape(b * hq, skv, dh),
+                              v.to(dt).reshape(b * hq, skv, dh),
+                              scale=scale, causal=causal)
+    return out.reshape(b, hq, sq, dh).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, scale: float, causal: bool = True,
+                      q_positions=None, k_positions=None, chunk: int = 512,
+                      flash: bool = True):
+    """Attention of q (B, Hq, Sq, Dh) over k, v (B, KV, Skv, Dh), GQA via
+    Hq = KV * group.
+
+    q_positions: (Sq,) or per-row (B, Sq) absolute query positions;
+    k_positions: (Skv,) or per-row (B, Skv) key positions, negative for an
+    empty cache slot. Left as None they are the contiguous default, query i
+    at ``Skv - Sq + i`` and key j at j; then, for Sq > 1 (and Sq <= Skv
+    when causal), ``flash=True`` runs the flash kernel. Otherwise the
+    reference's plain schedule: one-token decode without the GQA expansion,
+    or softmax over q chunks of ``chunk`` rows (the rows are independent,
+    so the chunking bounds memory and changes no value).
+    """
+    b, hq, sq, dh = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if (flash and sq > 1 and q_positions is None and k_positions is None
+            and (not causal or sq <= skv)):
+        return _flash(q, k, v, scale=scale, causal=causal)
+
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(sq, device=dev) + (skv - sq)
+    if k_positions is None:
+        k_positions = torch.arange(skv, device=dev)
+    q_positions = torch.atleast_2d(q_positions).expand(b, sq)
+    k_positions = torch.atleast_2d(k_positions).expand(b, skv)
+    if sq == 1:
+        return _decode_grouped(q, k, v, scale=scale, causal=causal,
+                               q_positions=q_positions,
+                               k_positions=k_positions)
+    g = hq // kvh
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    kp = k_positions[:, None, None, :]                      # (B, 1, 1, Skv)
+    cq = sq // max(1, sq // chunk)
+    outs = []
+    for qc, qpos in zip(q.split(cq, dim=2), q_positions.split(cq, dim=1)):
+        s = torch.einsum("bhcd,bhsd->bhcs", qc.to(torch.float32), kf) * scale
+        qp = qpos[:, None, :, None]                         # (B, 1, cq, 1)
+        mask = kp >= 0
+        if causal:
+            mask = mask & (qp >= kp)
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bhcs,bhsd->bhcd",
+                                 p.to(v.dtype).to(torch.float32), vf
+                                 ).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(batch: int, kv_heads: int, length: int, head_dim: int,
+                  dtype=torch.bfloat16, device=None):
+    """Linear KV cache. ``positions`` is per row (B, length): the absolute
+    position stored in each slot (-1 = empty), so one decode step can serve
+    a continuous-batching pool whose rows sit at different offsets."""
+    return {
+        "k": torch.zeros((batch, kv_heads, length, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, kv_heads, length, head_dim), dtype=dtype,
+                         device=device),
+        "positions": torch.full((batch, length), -1, dtype=torch.int32,
+                                device=device),
+    }
+
+
+def cache_update(cache, k_new, v_new, pos):
+    """Write (B, KV, S_new, Dh) at absolute position ``pos`` of a linear
+    cache, in place, and return the cache.
+
+    ``pos`` is an int (all rows aligned: one contiguous slice, which must
+    fit) or a (B,) integer tensor (continuous batching: a per-row scatter).
+    As in the reference's scatter, a row's writes past the cache's end are
+    dropped."""
+    length = cache["k"].shape[2]
+    s_new = k_new.shape[2]
+    if isinstance(pos, int):
+        if pos < 0 or pos + s_new > length:
+            raise ValueError(f"{s_new} tokens at position {pos} do not fit a "
+                             f"cache of {length}")
+        cache["k"][:, :, pos:pos + s_new] = k_new
+        cache["v"][:, :, pos:pos + s_new] = v_new
+        cache["positions"][:, pos:pos + s_new] = torch.arange(
+            pos, pos + s_new, dtype=torch.int32, device=k_new.device)
+        return cache
+
+    b = cache["k"].shape[0]
+    abs_pos = (pos.to(torch.int64)[:, None]
+               + torch.arange(s_new, device=pos.device))     # (B, s_new)
+    rows = torch.arange(b, device=pos.device)[:, None]
+    k_rows = k_new.transpose(1, 2)                           # (B, s, KV, Dh)
+    v_rows = v_new.transpose(1, 2)
+    if s_new == 1:
+        # one slot a row: a write past the end rewrites the last slot with
+        # its own contents, so no host sync is needed to drop it
+        valid = abs_pos < length
+        slot = abs_pos.clamp(max=length - 1)
+        keep = valid[:, :, None, None]
+        cache["k"][rows, :, slot] = torch.where(
+            keep, k_rows.to(cache["k"].dtype), cache["k"][rows, :, slot])
+        cache["v"][rows, :, slot] = torch.where(
+            keep, v_rows.to(cache["v"].dtype), cache["v"][rows, :, slot])
+        cache["positions"][rows, slot] = torch.where(
+            valid, abs_pos.to(torch.int32), cache["positions"][rows, slot])
+        return cache
+    valid = abs_pos < length
+    r, j = rows.expand_as(abs_pos)[valid], abs_pos[valid]
+    src = valid.nonzero(as_tuple=True)
+    cache["k"][r, :, j] = k_rows[src].to(cache["k"].dtype)
+    cache["v"][r, :, j] = v_rows[src].to(cache["v"].dtype)
+    cache["positions"][r, j] = j.to(torch.int32)
+    return cache
+
+
+def attend_cache(q, cache, *, scale: float, q_positions, chunk: int = 512):
+    """Attention of q (B, Hq, Sq, Dh) against a linear cache."""
+    return chunked_attention(
+        q, cache["k"], cache["v"], scale=scale, causal=True,
+        q_positions=q_positions, k_positions=cache["positions"], chunk=chunk)
+
+
+# ---------------------------------------------------------------------------
+# the full attention block
+# ---------------------------------------------------------------------------
+
+
+def attn_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
+               compute_dtype=torch.bfloat16, chunk: int = 512,
+               flash: bool = True):
+    """Self-attention; returns (out, cache). ``positions`` (B, S) are
+    ``cache_pos + arange(S)`` per row, as ``model_apply`` builds them;
+    ``cache_pos`` is an int or, for continuous-batching decode, a (B,)
+    tensor. Modes:
+      - train/prefill: cache=None -> self-attention over x;
+      - prefill with a cache at cache_pos=0 -> fills the cache, attends;
+      - decode: x is (B, 1, D), cache_pos the current position(s).
+    ``flash=False`` runs the plain chunked softmax everywhere.
+    """
+    b, s, _ = x.shape
+    scale = cfg.head_dim ** -0.5
+    q, k, v = _project_qkv(p, x, cfg, compute_dtype=compute_dtype)
+    q, k = _rope(q, k, cfg, positions)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    aligned = isinstance(cache_pos, int)
+
+    if cache is None:
+        contiguous = aligned and cache_pos == 0
+        out = chunked_attention(
+            q, k, v, scale=scale, causal=cfg.causal,
+            q_positions=None if contiguous else positions[0], chunk=chunk,
+            flash=flash)
+    else:
+        cache = cache_update(cache, k, v, cache_pos)
+        if flash and aligned and cache_pos == 0 and s > 1:
+            # a prompt into a linear cache: slot j holds position j, so the
+            # slots past the prompt are masked by causality (empty or
+            # stale) and attention over the cache is attention over the
+            # prompt's own stored keys
+            out = chunked_attention(
+                q, cache["k"][:, :, :s], cache["v"][:, :, :s], scale=scale,
+                causal=True, chunk=chunk)
+        else:
+            qpos = (cache_pos if aligned else cache_pos[:, None]) \
+                + torch.arange(s, device=x.device)
+            out = attend_cache(q, cache, scale=scale, q_positions=qpos,
+                               chunk=chunk)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return linear(p["wo"], out, compute_dtype=compute_dtype), cache

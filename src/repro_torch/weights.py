@@ -1,4 +1,5 @@
-"""The weight bridge: parameter trees of the JAX reference into the port.
+"""The weight bridge: parameter trees of the JAX reference into the port
+(the Spikformer trees, and the LM trees with ``lm_from_reference``).
 
 ``from_reference`` takes a reference tree — training params, a
 ``fold_inference_params`` tree or a ``quantize_folded`` tree — whose leaves
@@ -11,6 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
+from .nn.transformer import require_dense
+
 
 def from_reference(tree, device="cpu"):
     if isinstance(tree, dict):
@@ -18,3 +22,25 @@ def from_reference(tree, device="cpu"):
     if isinstance(tree, bool):          # a planner flag, not a weight
         return tree
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def lm_from_reference(tree, cfg, device=None):
+    """``repro.nn.transformer.init_model``'s tree, numpy leaves, as the
+    port's LM parameters on ``device`` (default: the card). The layout is
+    the same in both packages (stacked (L, ...) layers), so this checks the
+    shapes the config implies and copies the leaves, dtypes kept."""
+    require_dense(cfg)
+    device = resolve_device(device)
+    want = {"embed/embedding": (cfg.padded_vocab, cfg.d_model),
+            "layers/attn/wq/kernel": (cfg.n_layers, cfg.d_model,
+                                      cfg.n_heads * cfg.head_dim),
+            "layers/attn/wk/kernel": (cfg.n_layers, cfg.d_model,
+                                      cfg.n_kv_heads * cfg.head_dim)}
+    for path, shape in want.items():
+        leaf = tree
+        for key in path.split("/"):
+            leaf = leaf[key]
+        if tuple(np.shape(leaf)) != shape:
+            raise ValueError(f"{path} is {tuple(np.shape(leaf))}, the config "
+                             f"{cfg.name} needs {shape}")
+    return from_reference(tree, device)

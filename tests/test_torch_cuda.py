@@ -1,6 +1,6 @@
-"""The six CUDA kernels against their plain versions on the card, and the
+"""The seven CUDA kernels against their plain versions on the card, the
 ``packed_cuda`` path against the plain route and the reference backend
-there.
+there, and the LM stack's prefill through the flash kernel.
 
 Every test here is marked ``gpu`` and takes the ``cuda`` fixture, which
 skips when no card is present, so the same tests are collected everywhere.
@@ -25,6 +25,7 @@ from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
                                               shift_sum_matmul, spike_matmul,
                                               spike_matmul_grouped)
 from repro_torch.kernels.stdp_attention import stdp_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 
 pytestmark = pytest.mark.gpu
@@ -197,6 +198,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="x must be"):
         spike_matmul(xb[None], torch.zeros((12, 4), device=cuda),
                      mode="shift_sum")
+    qa = torch.zeros((2, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="Dh in"):
+        flash_attention(qa, qa, qa, scale=1.0)
+    qb = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        flash_attention(qb, qb.cpu(), qb, scale=1.0)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
@@ -227,7 +234,7 @@ def test_packed_cuda_matches_plain_route_on_the_card(cuda):
     assert ops.launch_counts() == {
         "tflif": 4 + 7 * cfg.depth, "lut_gather": n_lut,
         "unpack_dot": len(model.plan.routes) - n_lut, "stdp": cfg.depth,
-        "fused_lif_lut": 0, "shift_sum": 0}
+        "fused_lif_lut": 0, "shift_sum": 0, "flash_attention": 0}
     plain = firing_model(cfg, cuda, "packed_plain").step(imgs)
     assert torch.equal(logits, plain)
     assert bool((logits != 0).any())
@@ -256,7 +263,7 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
     assert ops.launch_counts() == {
         "tflif": 4 + 6 * cfg.depth, "lut_gather": 4 + 5 * cfg.depth,
         "unpack_dot": 0, "stdp": cfg.depth, "fused_lif_lut": cfg.depth,
-        "shift_sum": 0}
+        "shift_sum": 0, "flash_attention": 0}
     assert bool((logits != 0).any())
     for backend, opts in (("packed_cuda", {"fuse_mlp": False}),
                           ("packed_plain", {}), ("reference", {})):
@@ -272,6 +279,65 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
     assert ops.launch_counts() == {
         "tflif": 4 + 7 * cfg.depth, "lut_gather": 0,
         "unpack_dot": 3 + 6 * cfg.depth, "stdp": cfg.depth,
-        "fused_lif_lut": 0, "shift_sum": 1}
+        "fused_lif_lut": 0, "shift_sum": 1, "flash_attention": 0}
     plain = firing_model(cfg, cuda, "packed_plain", route="unpack")
     assert torch.equal(plain.step(imgs), logits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh,nq,nkv,dh,causal", [
+    (3, 128, 128, 32, True), (3, 64, 256, 64, True), (3, 1, 512, 32, True),
+    (3, 200, 200, 64, True), (3, 100, 333, 128, True), (2, 77, 77, 64, True),
+    (2, 100, 333, 64, False), (15, 2048, 2048, 64, True),
+    (4, 1000, 1000, 128, False)])
+def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
+    """Kernel 7 against its plain version (exact softmax in f32 on the same
+    values) within atol = rtol = 2e-4, the reference's flash tolerance;
+    ragged lengths pad both the query and the key tiles."""
+    g = gen(cuda, nq + nkv + dh)
+    q, k, v = (torch.randn((bh, n, dh), generator=g, device=cuda).to(dtype)
+               for n in (nq, nkv, nkv))
+    got = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, scale=dh ** -0.5, causal=causal)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    assert flash_attention.launches == 1
+
+
+def test_lm_prefill_runs_the_flash_kernel(cuda):
+    """The reduced smollm config in f32 on the card: a prefill into a cache
+    launches the flash kernel once a layer, its logits and the decode step
+    after it agree with the plain route, and the engine serves on the
+    card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config("smollm-360m").reduced()
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=gen(cuda, 1),
+                         device=cuda)
+    out = {}
+    for flash in (True, False):
+        ops.reset_launch_counts()
+        cache = T.init_cache(cfg, 2, 96, dtype=torch.float32)
+        pre, cache, _ = T.model_apply(
+            params, {"tokens": toks, "cache_pos": 0}, cfg, mode="prefill",
+            cache=cache, compute_dtype=torch.float32, flash=flash)
+        dec, _, _ = T.model_apply(
+            params, {"tokens": toks[:, :1],
+                     "cache_pos": torch.tensor([77, 80], device=cuda)},
+            cfg, mode="decode", cache=cache, compute_dtype=torch.float32,
+            flash=flash)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == (
+            cfg.n_layers if flash else 0)
+        out[flash] = (pre, dec)
+    for got, want in zip(out[True], out[False]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    eng = Engine(cfg, slots=2, cache_len=96)
+    for i, n in enumerate((5, 77, 30)):
+        eng.submit(Request(rid=i, prompt=list(range(n)), max_new=4))
+    assert [len(r.out) for r in eng.run()] == [4, 4, 4]

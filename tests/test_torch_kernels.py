@@ -390,8 +390,10 @@ def test_cpu_operands_run_plain_versions_and_count_no_launch():
     ops.tflif_lut(torch.ones(t, 9, 16), table=lut.build_lut(w))
     ops.sssc_linear(x[0], w, route="unpack")
     ops.spike_matmul(x[0], w, mode="per_plane")
+    qkv = torch.ones(2, 9, 32)
+    ops.flash_attention(qkv, qkv, qkv, scale=0.125)
     names = {"tflif", "lut_gather", "unpack_dot", "stdp", "fused_lif_lut",
-             "shift_sum"}
+             "shift_sum", "flash_attention"}
     assert ops.launch_counts() == dict.fromkeys(names, 0)
     assert set(ops.KERNELS) == names
 
