@@ -5,17 +5,20 @@
 
 Needs one CUDA card and ``nvcc``; fails without them. It
 
-1. builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. runs each kernel at the shapes its main path gives it (the Spikformer
-   kernels at batch 8, flash attention at smollm-360m's 2048-token
-   prefill), holds it against its plain PyTorch version on the card and
-   times kernel, plain version and the nearest single PyTorch call;
+   kernels at batch 8, packed STDP on the backend's plane-group layout,
+   bf16 flash attention on the tensor cores at smollm-360m's 2048-token
+   prefill with its 15 heads over 5 KV heads read in place, and the f32
+   instantiations of STDP and flash attention on the CUDA cores), holds it
+   against its plain PyTorch version on the card and times kernel, plain
+   version and the nearest single PyTorch call;
 3. drives three paths of the full-width Spikformer V2-8-512 (224x224x3,
    T=4, 8 blocks, 1000 classes) from one seeded ``init`` (fixed gains on
    the folded kernels keep the IAND residual stream firing), each with
    the launch counters set to 0 just before it and read just after:
    - int8 weights under the default plan, serving seeded requests through
-     ``MicroBatchEngine`` (TFLIF, LUT gather, unpack dot, STDP);
+     ``MicroBatchEngine`` (TFLIF, LUT gather, unpack dot, packed STDP);
    - f32 weights with ``route="lut"``, serving the same requests (every
      layer gathers, the MLP pair runs the fused kernel);
    - int8 weights with ``route="unpack"``, one bucket-8 step (conv0 runs
@@ -29,10 +32,11 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    just after: smollm-360m at full width from a seeded ``init_model``,
    ``Engine(slots=4, cache_len=4096)`` in bf16 serving 8 requests (prompts
    of 77 to 2048 tokens, 32 new tokens each), every prefill's attention on
-   the flash kernel; checks every request completes and the flash counter
-   grew by 32 layers x 8 prefills, profiles a prefill and decode steps, and
-   holds one f32 prefill's logits on the flash route against the plain
-   route.
+   the bf16 tensor-core flash kernel; checks every request completes and
+   its counter grew by 32 layers x 8 prefills, profiles a prefill and
+   decode steps; then, counters at 0 again, holds one f32 prefill's logits
+   on the flash route (the f32 flash kernel, once a layer) against the
+   plain route.
 
 Prints the kernel table and the serving stats as JSON lines, the card's
 name and power limit, and as its last line
@@ -82,13 +86,22 @@ SOURCES = {
                    "src/repro/kernels/spike_matmul.py:225"),
     "stdp": ("src/repro_torch/kernels/csrc/stdp.cu",
              "src/repro/kernels/stdp_attention.py:45"),
+    "stdp_packed": ("src/repro_torch/kernels/csrc/stdp_packed.cu",
+                    "src/repro/kernels/stdp_attention.py:45"),
     "fused_lif_lut": ("src/repro_torch/kernels/csrc/fused_lif_lut.cu",
                       "src/repro/kernels/fused.py:80"),
     "shift_sum": ("src/repro_torch/kernels/csrc/shift_sum.cu",
                   "src/repro/kernels/spike_matmul.py:69"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_tc": (
+        "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        "src/repro/kernels/flash_attention.py:62"),
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:62"),
 }
+# kernels that no driven path launches: f32 STDP serves f32 operands of any
+# value (the packed datapath runs the packed entry); it is still built,
+# held to its plain version and timed
+OFF_PATH = ("stdp",)
 
 
 class CheckFailed(Exception):
@@ -136,7 +149,8 @@ def kernel_phase(torch, dev) -> dict:
                                                   shift_sum_matmul,
                                                   spike_matmul,
                                                   spike_matmul_grouped)
-    from repro_torch.kernels.stdp_attention import stdp_attention
+    from repro_torch.kernels.stdp_attention import (
+        stdp_attention, stdp_attention_packed, stdp_attention_packed_plain)
     from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -261,6 +275,36 @@ def kernel_phase(torch, dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(q, k.mT), v8)))
 
+    # packed STDP at the same work: (G, B, H, N, Dh) = (1, 8, 8, 196, 64)
+    # plane groups, the permuted view of (1, 8, 196, 512) that the backend's
+    # ``to_heads`` passes, t = 4
+    qp, kp, vp = (pack_timesteps(spikes(t, BATCH, tokens, dim)).reshape(
+        1, BATCH, tokens, heads, dh).permute(0, 1, 3, 2, 4)
+        for _ in range(3))
+    got = stdp_attention_packed(qp, kp, vp, t=t, scale=0.125)
+    want = stdp_attention_packed_plain(qp, kp, vp, t=t, scale=0.125)
+    check(torch.equal(got, want),
+          "stdp_packed kernel differs from its plain version")
+    err = max_abs_err(got, want)
+    qf, kf, vf = (unpack_timesteps(z.reshape(1, -1, tokens, dh), t).reshape(
+        -1, tokens, dh).contiguous() for z in (qp, kp, vp))
+    vf8 = vf * 0.125
+    check(torch.equal(torch.bmm(torch.bmm(qf, kf.mT), vf8).reshape(
+        got.shape), want), "two bmms do not compute the packed STDP function")
+    nbytes = 3 * qp.numel() + got.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * t * BATCH * heads * tokens * tokens * dh,
+                          BF16_OPS_PER_S)
+    out["stdp_packed"] = dict(
+        shape=f"q, k, v {tuple(qp.shape)} u8 plane groups (permuted view),"
+              f" t={t}", max_abs_err=err,
+        ms=time_ms(torch, lambda: stdp_attention_packed(qp, kp, vp, t=t,
+                                                        scale=0.125)),
+        plain_ms=time_ms(torch, lambda: stdp_attention_packed_plain(
+            qp, kp, vp, t=t, scale=0.125)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(qf, kf.mT),
+                                                    vf8)))
+
     # fused fc1 LIF -> fc2 gather: x (4, 1568, 2048), table (256, 256, 512)
     x1 = torch.randn((t, m, hidden), generator=gen, device=dev) * 2.0
     w2i = torch.randint(-127, 128, (hidden, dim), generator=gen,
@@ -325,49 +369,79 @@ def kernel_phase(torch, dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch.matmul(img.to(torch.float32),
                                                        w0i)))
-    out["flash_attention"] = flash_kernel_phase(torch, dev, gen)
+    out.update(flash_kernel_phase(torch, dev, gen))
     ops.reset_launch_counts()     # comparison launches do not count
     return out
 
 
 def flash_kernel_phase(torch, dev, gen) -> dict:
-    """Kernel 7 at smollm-360m's longest prefill: q, k, v (15, 2048, 64)
-    bf16, causal, scale 1/8; and once in f32. Held to its plain version
-    (exact softmax in f32 on the same inputs) within atol = rtol = FLASH_TOL:
-    both compute in f32 from the same values, and the online softmax only
-    reorders the sums."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    """Kernel 7 at smollm-360m's longest prefill, causal, scale 1/8, held
+    to its plain version (exact softmax in f32 on the same values) within
+    atol = rtol = FLASH_TOL. bf16, the serving path, on the tensor cores: q
+    (1, 15, 2048, 64) transposed from (1, 2048, 15, 64), k and v the first
+    2048 rows of a (1, 5, 4096, 64) cache, read in place (group 3); the
+    library yardstick is SDPA on KV expanded to the 15 heads beforehand.
+    f32 on the CUDA cores at (15, 2048, 64), the gate route."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
 
-    bh, s, dh = LM_HEADS, LM_PROMPTS[-1], LM_HEAD_DIM
+    kvh = 5
+    h, s, dh = LM_HEADS, LM_PROMPTS[-1], LM_HEAD_DIM
     scale = dh ** -0.5
-    errs = {}
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn((bh, s, dh), generator=gen, device=dev).to(dt)
-                   for _ in range(3))
-        got = flash_attention(q, k, v, scale=scale)
-        want = flash_attention_ref(q, k, v, scale=scale)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = s * (s + 1) // 2                      # causal (query, key) pairs
+    ops_n = 4 * h * pairs * dh
+
+    def held(got, want, what):
         torch.cuda.synchronize()
-        errs[str(dt).removeprefix("torch.")] = err = max_abs_err(got, want)
+        err = max_abs_err(got, want)
         check(bool(((got - want).abs() <= FLASH_TOL
                     + FLASH_TOL * want.abs()).all()),
-              f"flash_attention ({dt}) off its plain version by {err}")
-    pairs = s * (s + 1) // 2                      # causal (query, key) pairs
-    nbytes = 3 * q.numel() * q.element_size() + q.numel() * 4
-    b_ms, b_by = bound_ms(nbytes, 4 * bh * pairs * dh, BF16_OPS_PER_S)
-    bytes_ms, _ = bound_ms(nbytes, 0, BF16_OPS_PER_S)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    return dict(
-        shape=f"q, k, v {tuple(q.shape)} bf16, causal, scale {scale} "
+              f"flash_attention ({what}) off its plain version by {err}")
+        return err
+
+    q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((1, kvh, 2 * s, dh), generator=gen, device=dev).to(
+        torch.bfloat16)[:, :, :s] for _ in range(2))
+    err = held(flash_attention(q, k, v, scale=scale),
+               flash_attention_plain(q, k, v, scale=scale), "bf16")
+    qc = q.contiguous()
+    ke, ve = (z.repeat_interleave(h // kvh, dim=1).contiguous()
+              for z in (k, v))
+    nbytes = (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, ops_n, BF16_OPS_PER_S)
+    tc = dict(
+        shape=f"q {tuple(q.shape)} bf16 (transposed view) over k, v "
+              f"{tuple(k.shape)} bf16 (cache slices), causal, scale {scale} "
               "(smollm-360m's 2048-token prefill, one layer)",
-        max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
-        tolerance=f"atol = rtol = {FLASH_TOL}",
+        max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
         ms=time_ms(torch, lambda: flash_attention(q, k, v, scale=scale)),
-        plain_ms=time_ms(torch, lambda: flash_attention_ref(
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(
             q, k, v, scale=scale)),
-        bound_ms=b_ms, bound_by=b_by, bytes_bound_ms=bytes_ms,
+        bound_ms=b_ms, bound_by=b_by,
+        bytes_bound_ms=bound_ms(nbytes, 0, BF16_OPS_PER_S)[0],
+        library_ms=time_ms(torch, lambda: sdpa(qc, ke, ve, is_causal=True,
+                                               scale=scale)))
+    tc["ms_again"] = time_ms(torch, lambda: flash_attention(q, k, v,
+                                                           scale=scale))
+
+    q3, k3, v3 = (torch.randn((h, s, dh), generator=gen, device=dev)
+                  for _ in range(3))
+    err = held(flash_attention(q3, k3, v3, scale=scale),
+               flash_attention_plain(q3, k3, v3, scale=scale), "f32")
+    nbytes = 4 * q3.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, ops_n, F32_OPS_PER_S)
+    f32 = dict(
+        shape=f"q, k, v {tuple(q3.shape)} f32, causal, scale {scale}",
+        max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
+        ms=time_ms(torch, lambda: flash_attention(q3, k3, v3, scale=scale)),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(
+            q3, k3, v3, scale=scale)),
+        bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: sdpa(
-            q[None], k[None], v[None], is_causal=True, scale=scale)))
+            q3[None], k3[None], v3[None], is_causal=True, scale=scale)))
+    return {"flash_attention_tc": tc, "flash_attention_f32": f32}
 
 
 class LayerRecorder:
@@ -407,8 +481,8 @@ class LayerRecorder:
 
 
 OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
-               "stdp_kernel", "fused_lif_lut_kernel", "shift_sum_kernel",
-               "flash_attention_kernel")
+               "stdp_kernel", "stdp_packed_kernel", "fused_lif_lut_kernel",
+               "shift_sum_kernel", "flash_attention_kernel", "flash_tc_kernel")
 
 
 def profile_phase(torch, model, batch, steps: int = 3) -> dict:
@@ -559,7 +633,7 @@ def serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
     n_lut = sum(r == "lut" for r in routes.values())
     per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
                 "lut_gather": n_lut, "unpack_dot": len(routes) - n_lut,
-                "stdp": cfg.depth}
+                "stdp_packed": cfg.depth}
     served = serve_requests(torch, model, requests, per_step)
 
     logits = model.step(batch)
@@ -599,7 +673,7 @@ def lut_serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
     warmup_s = model.warmup()
     per_step = {"tflif": len(cfg.scs_channels) + 6 * cfg.depth,
                 "lut_gather": len(cfg.scs_channels) + 5 * cfg.depth,
-                "stdp": cfg.depth, "fused_lif_lut": cfg.depth}
+                "stdp_packed": cfg.depth, "fused_lif_lut": cfg.depth}
     served = serve_requests(torch, model, requests, per_step)
     prof = profile_phase(torch, model, batch)
 
@@ -648,7 +722,7 @@ def unpack_step_phase(torch, dev, cfg, folded, batch, int8_logits) -> dict:
     model.warmup()
     per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
                 "unpack_dot": len(cfg.scs_channels) - 1 + 6 * cfg.depth,
-                "stdp": cfg.depth, "shift_sum": 1}
+                "stdp_packed": cfg.depth, "shift_sum": 1}
     ops.reset_launch_counts()
     logits = model.step(batch)
     torch.cuda.synchronize()
@@ -720,10 +794,10 @@ def lm_serve_phase(torch, dev) -> tuple:
     check(all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out),
           "an LM request holds a token outside the vocabulary")
     expect = dict.fromkeys(launches, 0)
-    expect["flash_attention"] = cfg.n_layers * len(reqs)
+    expect["flash_attention_tc"] = cfg.n_layers * len(reqs)
     check(launches == expect,
-          f"LM launch counts {launches} != {expect} (one flash launch per "
-          "layer and prefill)")
+          f"LM launch counts {launches} != {expect} (one tensor-core flash "
+          "launch per layer and prefill)")
 
     long = torch.tensor([prompts[-1]], device=dev)
     prefill = profile_fn(torch, lambda: eng._prefill(long), steps=2)
@@ -751,8 +825,11 @@ def lm_gate_phase(torch, dev, eng) -> dict:
     """One f32 prefill of the 1000-token prompt through the flash route
     and through the plain route (the reference's chunked softmax) on the
     card, with the served model's weights: last-position logits within
-    atol = rtol = LM_LOGITS_TOL. Then 8 greedy tokens of both routes in f32
-    and in bf16, printed; the bf16 tokens are not gated."""
+    atol = rtol = LM_LOGITS_TOL. The counters are set to 0 just before the
+    flash-route prefill and read just after it: one f32 flash launch a
+    layer. Then 8 greedy tokens of both routes in f32 and in bf16, printed;
+    the bf16 tokens are not gated."""
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import Engine, Request
     from repro_torch.nn import transformer as T
 
@@ -763,9 +840,18 @@ def lm_gate_phase(torch, dev, eng) -> dict:
     for flash in (True, False):
         cache = T.init_cache(cfg, 1, LM_GATE_LEN, dtype=torch.float32,
                              device=dev)
+        ops.reset_launch_counts()
         logits[flash], _, _ = T.model_apply(
             params, {"tokens": tokens, "cache_pos": 0}, cfg, mode="prefill",
             cache=cache, compute_dtype=torch.float32, flash=flash)
+        torch.cuda.synchronize()
+        if flash:
+            launches = ops.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect["flash_attention_f32"] = cfg.n_layers
+    check(launches == expect,
+          f"f32 gate launch counts {launches} != {expect} (one f32 flash "
+          "launch per layer)")
     got, want = logits[True], logits[False]
     torch.cuda.synchronize()
     check(got.shape == (1, 1, cfg.padded_vocab)
@@ -784,7 +870,8 @@ def lm_gate_phase(torch, dev, eng) -> dict:
             e.submit(Request(rid=0, prompt=prompt, max_new=8))
             greedy[f"{str(dt).removeprefix('torch.')}/"
                    f"{'flash' if flash else 'plain'}"] = e.run()[0].out
-    return dict(prompt_len=LM_GATE_LEN, max_abs_err=err,
+    ops.reset_launch_counts()
+    return dict(prompt_len=LM_GATE_LEN, launches=launches, max_abs_err=err,
                 tolerance=f"atol = rtol = {LM_LOGITS_TOL}",
                 logits_absmax=float(want.abs().max()), greedy=greedy,
                 greedy_agree={dt: greedy[f"{dt}/flash"] == greedy[f"{dt}/plain"]
@@ -794,13 +881,14 @@ def lm_gate_phase(torch, dev, eng) -> dict:
 def kernel_table(report: dict, paths) -> list:
     """One row per kernel: what it replaces, its launches on the driven
     paths, its error against its plain version and its times. Fails if a
-    kernel was launched on no path."""
+    kernel of a path was launched on no path."""
     table = []
     for name, row in report["kernels"].items():
         source, replaces = SOURCES[name]
         launches = {p: report[p]["launches"][name] for p in paths
                     if report[p]["launches"][name]}
-        check(bool(launches), f"{name} was launched on no path")
+        check(bool(launches) != (name in OFF_PATH),
+              f"{name} was launched on {launches or 'no path'}")
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces,
                       "launches": sum(launches.values()),
@@ -848,7 +936,7 @@ def main() -> int:
               "build_logs": {k: v["log"] for k, v in build.items()}}
     out_dir = ROOT / "build"
     paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step",
-             "lm_serve")
+             "lm_serve", "lm_gate")
     try:
         report["kernels"] = kernel_phase(torch, dev)
         cfg = SpikformerConfig()
@@ -866,7 +954,7 @@ def main() -> int:
             report[paths[0]].pop("logits"))
         torch.cuda.empty_cache()
         report[paths[3]], lm_engine = lm_serve_phase(torch, dev)
-        report["lm_gate"] = lm_gate_phase(torch, dev, lm_engine)
+        report[paths[4]] = lm_gate_phase(torch, dev, lm_engine)
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)

@@ -1,8 +1,10 @@
 // Flash attention: softmax attention with an online softmax over KV tiles,
-// causal or not, f32 math on bf16 or f32 operands, f32 output.
+// causal or not, f32 operands and math on the CUDA cores, f32 output.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
-// flash_attention. q: (BH, Nq, Dh); k, v: (BH, Nkv, Dh); query row i sits at
+// flash_attention for f32 operands (bf16 operands run the tensor-core kernel
+// csrc/flash_attention_tc.cu). q: (BH, Nq, Dh); k, v: (BH, Nkv, Dh);
+// query row i sits at
 // position Nkv - Nq + i, key j at position j. Per KV tile, as the reference:
 // s = (q * scale) . k in f32 (q scaled before the dot), masked entries set
 // to NEG_INF = -1e30 (not -inf), m_new = max(m, rowmax s),
@@ -12,12 +14,11 @@
 // the non-causal case with KV padding; this kernel masks it, which is the
 // exact softmax of flash_attention_ref).
 //
-// Bound on this card: at smollm's prefill (15 heads, 2048 tokens, Dh 64,
-// bf16) the causal product is ~8e9 flops for ~16 MB moved, far above the
-// bf16 tensor cores' ridge (~295 flop/byte): the least time is the
-// operations' at 989 TFLOP/s. This first kernel runs on the f32 units
-// (67 TFLOP/s) and reads its tiles from shared memory, so it stays well
-// above that bound until a wgmma/TMA version lands.
+// Bound on this card: at smollm's prefill shape (15 heads, 2048 tokens,
+// Dh 64) the causal product is ~8e9 flops for ~31 MB of f32 moved, above
+// the f32 units' ridge (~20 flop/byte): the least time is the operations'
+// at 67 TFLOP/s. f32 operands are the oracle and gate route (the serving
+// path is bf16), so this kernel stays the simple CUDA-core design.
 // Design: one block of 256 threads per (64-query tile, bh). The scaled Q
 // tile stays in shared memory; KV tiles of 64 keys are staged in ascending
 // order, so the first tile of every row holds key 0, which every row may
@@ -32,7 +33,6 @@
 // rows carry a one-float pad so the score loop is free of bank conflicts.
 // Numerics: expf (not __expf) and no fast-math flags.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,9 +41,6 @@ constexpr int BQ = 64, BKV = 64, THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <int DH>
 constexpr int smem_floats() {
@@ -235,17 +232,14 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// q: (bh, nq, dh); k, v: (bh, nkv, dh), all bf16 (is_bf16 = 1) or all f32,
-// contiguous; out: (bh, nq, dh) f32. dh in {32, 64, 128}; nkv >= 1, and
-// nq <= nkv when causal.
+// q: (bh, nq, dh); k, v: (bh, nkv, dh), all f32, contiguous; out:
+// (bh, nq, dh) f32. dh in {32, 64, 128}; nkv >= 1, and nq <= nkv when
+// causal.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, float* out, int bh,
-                                      int nq, int nkv, int dh, int is_bf16,
-                                      float scale, int causal, void* stream) {
+                                      int nq, int nkv, int dh, float scale,
+                                      int causal, void* stream) {
   if (bh == 0 || nq == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_dh<__nv_bfloat16>(q, k, v, out, bh, nq, nkv, dh,
-                                            scale, causal, s)
-                 : launch_dh<float>(q, k, v, out, bh, nq, nkv, dh, scale,
-                                    causal, s);
+  return launch_dh<float>(q, k, v, out, bh, nq, nkv, dh, scale, causal,
+                          (cudaStream_t)stream);
 }

@@ -1,7 +1,12 @@
 """Flash attention: softmax attention streamed over KV tiles with an online
-softmax (port of ``repro.kernels.flash_attention``). ``flash_attention``
-launches ``csrc/flash_attention.cu`` for CUDA operands and runs
-``ref.flash_attention_ref`` for CPU ones."""
+softmax (port of ``repro.kernels.flash_attention``).
+
+``flash_attention`` takes grouped-query heads and strided operands and
+dispatches on the operands' dtype: bf16 launches the tensor-core kernel
+``csrc/flash_attention_tc.cu`` (wgmma, TMA), which reads each KV head in
+place; f32 launches the CUDA-core kernel ``csrc/flash_attention.cu`` on KV
+expanded to the q heads. CPU operands run the plain version,
+``flash_attention_plain``. Each kernel's wrapper counts its launches."""
 from __future__ import annotations
 
 import ctypes
@@ -11,49 +16,140 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-             ctypes.c_void_p]
-HEAD_DIMS = (32, 64, 128)   # the kernel's instantiations
+_F32_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_TC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                + [ctypes.c_longlong] * 9
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+HEAD_DIMS = (32, 64, 128)   # both kernels' instantiations
 DTYPES = (torch.float32, torch.bfloat16)
-_GRID_LIMIT = 65535         # gridDim.y
+_GRID_LIMIT = 65535         # gridDim.y of the f32 kernel
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True) -> torch.Tensor:
-    """q: (BH, Nq, Dh); k, v: (BH, Nkv, Dh), all f32 or all bf16 ->
-    (BH, Nq, Dh) f32. Causal over absolute positions: query i sits at
-    ``Nkv - Nq + i``, so causal calls need ``Nq <= Nkv`` (otherwise a row
-    would see no key)."""
+def _grouped(q, k, v):
+    """The operands as (B, Hq, Nq, Dh) and (B, KV, Nkv, Dh) views, checked:
+    3-d (BH, N, Dh) operands are one batch of BH heads."""
     for name, z in (("q", q), ("k", k), ("v", v)):
         if z.dtype not in DTYPES or z.dtype != q.dtype:
             raise ValueError(f"{name} must be f32 or bf16 like q, got "
                              f"{z.dtype} (q {q.dtype})")
-        _build.require(z, name, q.dtype, 3)
-    bh, nq, dh = q.shape
-    nkv = k.shape[1]
-    if v.shape != k.shape or k.shape[0] != bh or k.shape[2] != dh:
+        if z.dim() not in (3, 4) or z.dim() != q.dim():
+            raise ValueError(f"{name} must be 3-d (BH, N, Dh) or 4-d (B, H, "
+                             f"N, Dh) like q, got {z.dim()}-d")
+        if z.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in Dh")
+    if q.dim() == 3:
+        q, k, v = q[None], k[None], v[None]
+    b, hq, nq, dh = q.shape
+    kvh, nkv = k.shape[1], k.shape[2]
+    if (v.shape != k.shape or k.shape[0] != b or k.shape[3] != dh
+            or kvh == 0 or hq % kvh):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if nkv == 0 or (causal and nq > nkv):
+                         f"match q {tuple(q.shape)} (q heads a multiple of "
+                         "KV heads)")
+    if nkv == 0:
+        raise ValueError("every query needs a key: Nkv=0")
+    return q, k, v
+
+
+def flash_attention_plain(q, k, v, *, scale: float, causal: bool = True):
+    """The plain version: KV expanded to the q heads (``repeat_interleave``,
+    the reference's ``jnp.repeat``) and ``ref.flash_attention_ref``.
+    Shapes as ``flash_attention``."""
+    q4, k4, v4 = _grouped(q, k, v)
+    b, hq, nq, dh = q4.shape
+    g = hq // k4.shape[1]
+    k4, v4 = k4.repeat_interleave(g, dim=1), v4.repeat_interleave(g, dim=1)
+    out = flash_attention_ref(q4.reshape(b * hq, nq, dh),
+                              k4.reshape(b * hq, -1, dh),
+                              v4.reshape(b * hq, -1, dh), scale=scale,
+                              causal=causal)
+    return out.reshape(q.shape[:-1] + (dh,))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True) -> torch.Tensor:
+    """q: (B, Hq, Nq, Dh); k, v: (B, KV, Nkv, Dh), Hq a multiple of KV, q
+    head h reading KV head ``h // (Hq // KV)``; or all three 3-d (BH, N,
+    Dh). All f32 or all bf16, any strides with a unit last stride. Returns
+    f32 of q's shape. Causal over absolute positions: query i sits at
+    ``Nkv - Nq + i``, so causal calls need ``Nq <= Nkv`` (otherwise a row
+    would see no key)."""
+    q4, k4, v4 = _grouped(q, k, v)
+    nq, nkv, dh = q4.shape[2], k4.shape[2], q4.shape[3]
+    if causal and nq > nkv:
         raise ValueError(f"every query needs a key: Nq={nq}, Nkv={nkv}, "
                          f"causal={causal}")
     if _build.on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, scale=scale, causal=causal)
-    if dh not in HEAD_DIMS or bh > _GRID_LIMIT:
-        raise ValueError(f"the flash kernel takes Dh in {HEAD_DIMS} and at "
-                         f"most {_GRID_LIMIT} batch-heads, got "
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal)
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the flash kernels take Dh in {HEAD_DIMS}, got "
                          f"{tuple(q.shape)}")
-    out = torch.empty((bh, nq, dh), dtype=torch.float32, device=q.device)
-    fn = _build.kernel_function("flash_attention", "flash_attention_launch",
-                                _ARGTYPES)
-    _build.check("flash_attention", fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nq,
-        nkv, dh, int(q.dtype == torch.bfloat16), scale, int(causal),
-        _build.stream(q)))
-    flash_attention.launches += 1
+    fn = flash_attention_tc if q.dtype == torch.bfloat16 else \
+        flash_attention_f32
+    return fn(q4, k4, v4, scale=scale, causal=causal).reshape(
+        q.shape[:-1] + (dh,))
+
+
+def _tma_ready(z: torch.Tensor) -> torch.Tensor:
+    """``z`` with the layout TMA takes: a 16-byte aligned base and every
+    stride a positive multiple of 8 elements (16 bytes of bf16); otherwise
+    a contiguous copy."""
+    ok = z.data_ptr() % 16 == 0 and all(
+        s > 0 and s % 8 == 0
+        for s, n in zip(z.stride()[:-1], z.shape[:-1]) if n > 1)
+    return z if ok else z.contiguous()
+
+
+def _strides(z: torch.Tensor) -> list:
+    """(batch, head, row) element strides, those of size-1 dimensions
+    replaced by a valid one (they multiply index 0 only)."""
+    return [s if n > 1 else 8 * z.shape[-1]
+            for s, n in zip(z.stride()[:3], z.shape[:3])]
+
+
+def flash_attention_tc(q, k, v, *, scale: float, causal: bool = True):
+    """The tensor-core kernel on CUDA bf16 operands, (B, Hq, Nq, Dh) over
+    (B, KV, Nkv, Dh), read in place -> (B, Hq, Nq, Dh) f32."""
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    if k.stride() != v.stride():
+        k, v = k.contiguous(), v.contiguous()
+    b, hq, nq, dh = q.shape
+    kvh, nkv = k.shape[1], k.shape[2]
+    out = torch.empty((b, hq, nq, dh), dtype=torch.float32, device=q.device)
+    fn = _build.kernel_function("flash_attention_tc",
+                                "flash_attention_tc_launch", _TC_ARGTYPES)
+    _build.check("flash_attention_tc", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, kvh,
+        nq, nkv, dh, *_strides(q), *_strides(k), *_strides(v), scale,
+        int(causal), _build.stream(q)))
+    flash_attention_tc.launches += 1
     return out
 
 
-flash_attention.launches = 0
+def flash_attention_f32(q, k, v, *, scale: float, causal: bool = True):
+    """The CUDA-core kernel on CUDA f32 operands: KV expanded to the q
+    heads and every operand made contiguous (BH, N, Dh), as the kernel
+    takes them -> (B, Hq, Nq, Dh) f32."""
+    b, hq, nq, dh = q.shape
+    g = hq // k.shape[1]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    nkv = k.shape[2]
+    if b * hq > _GRID_LIMIT:
+        raise ValueError(f"the f32 flash kernel takes at most {_GRID_LIMIT} "
+                         f"batch-heads, got {b * hq}")
+    q3, k3, v3 = (z.reshape(b * hq, -1, dh).contiguous() for z in (q, k, v))
+    out = torch.empty((b, hq, nq, dh), dtype=torch.float32, device=q.device)
+    fn = _build.kernel_function("flash_attention", "flash_attention_launch",
+                                _F32_ARGTYPES)
+    _build.check("flash_attention", fn(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), b * hq,
+        nq, nkv, dh, scale, int(causal), _build.stream(q)))
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_tc.launches = 0
+flash_attention_f32.launches = 0

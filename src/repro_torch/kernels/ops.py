@@ -3,7 +3,7 @@ LM stack's attention (port of the Pallas branch of ``repro.kernels.ops``).
 
 Activations stay packed 8 per uint8 between layers (temporal bits for
 WSSL/ZSC/STDP, value bits for SSSC) and only meet the weights inside a
-kernel. Every entry point dispatches to the seven kernel wrappers, which
+kernel. Every entry point dispatches to the kernel wrappers, which
 launch their CUDA kernel for CUDA operands and run their plain version for
 CPU ones; ``plain=True`` runs the plain versions on any device (the oracle
 route the kernels are held against on the card). The reference's CPU
@@ -19,31 +19,36 @@ import torch
 
 from . import lut_matmul as lut
 from . import ref
-from .flash_attention import flash_attention as _flash
+from .flash_attention import (flash_attention as _flash,
+                              flash_attention_f32, flash_attention_plain,
+                              flash_attention_tc)
 from .lut_matmul import choose_cuda_route
 from .fused import tflif_lut_matmul, tflif_lut_plain
 from .spike_matmul import (lut_gather_matmul, shift_sum_matmul,
                            spike_matmul_grouped)
-from .stdp_attention import stdp_attention
+from .stdp_attention import (stdp_attention, stdp_attention_packed as
+                             _stdp_packed, stdp_attention_packed_plain)
 from .tflif import tflif_fused, tflif_plain
 from ..core.lif import TAU, V_TH
-from ..core.spike import num_plane_groups, unpack_timesteps
+from ..core.spike import num_plane_groups
 
 # kernel name -> wrapper; each wrapper counts its launches in ``.launches``
 KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
            "unpack_dot": spike_matmul_grouped, "stdp": stdp_attention,
-           "fused_lif_lut": tflif_lut_matmul, "shift_sum": shift_sum_matmul,
-           "flash_attention": _flash}
+           "stdp_packed": _stdp_packed, "fused_lif_lut": tflif_lut_matmul,
+           "shift_sum": shift_sum_matmul,
+           "flash_attention_tc": flash_attention_tc,
+           "flash_attention_f32": flash_attention_f32}
 
 _WRAPPERS = types.SimpleNamespace(
     tflif=tflif_fused, lut=lut_gather_matmul, unpack=spike_matmul_grouped,
-    stdp=stdp_attention, fused=tflif_lut_matmul, shift_sum=shift_sum_matmul,
-    flash=_flash)
+    stdp_packed=_stdp_packed, fused=tflif_lut_matmul,
+    shift_sum=shift_sum_matmul, flash=_flash)
 _PLAIN = types.SimpleNamespace(
     tflif=tflif_plain, lut=lut.lut_matmul, unpack=ref.spike_matmul_ref,
-    stdp=ref.stdp_attention_ref, fused=tflif_lut_plain,
+    stdp_packed=stdp_attention_packed_plain, fused=tflif_lut_plain,
     shift_sum=lambda x, w: ref.spike_matmul_ref(x, w, mode="shift_sum"),
-    flash=ref.flash_attention_ref)
+    flash=flash_attention_plain)
 
 
 def launch_counts() -> dict:
@@ -223,26 +228,21 @@ def tflif_lut(acc, bias=None, *, table, v_th=V_TH, t: int | None = None,
 def stdp_attention_packed(q_packed, k_packed, v_packed, *, t: int,
                           scale: float, plain: bool = False):
     """Packed STDP over (G, ..., N, Dh) uint8 temporal plane groups ->
-    (t, ..., N, Dh) f32. Timesteps attend independently, so all t planes
-    fold into the batch-heads axis of one kernel launch."""
-    lead = q_packed.shape[1:-2]
-    n, dh = q_packed.shape[-2:]
-
-    def unfold(z):
-        planes = unpack_timesteps(z.reshape(z.shape[0], -1, n, dh), t)
-        return planes.reshape(-1, n, dh).contiguous()       # (t*BH, N, Dh)
-
-    out = (_PLAIN if plain else _WRAPPERS).stdp(
-        unfold(q_packed), unfold(k_packed), unfold(v_packed), scale=scale)
-    return out.reshape(t, *lead, n, dh)
+    (t, ..., N, Dh) f32. Timesteps attend independently; one launch of the
+    packed kernel reads the plane bits straight from the bytes (the plain
+    version unpacks them and folds the t planes into the batch-heads
+    axis)."""
+    return (_PLAIN if plain else _WRAPPERS).stdp_packed(
+        q_packed, k_packed, v_packed, t=t, scale=scale)
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,
                     plain: bool = False):
-    """Softmax attention (the LM stack's kernel). q: (BH, Nq, Dh); k, v:
-    (BH, Nkv, Dh), f32 or bf16; causal over absolute positions (query i at
-    ``Nkv - Nq + i``). Returns (BH, Nq, Dh) f32; callers cast to their
+    """Softmax attention (the LM stack's kernel). q: (B, Hq, Nq, Dh); k, v:
+    (B, KV, Nkv, Dh) with Hq a multiple of KV (grouped-query heads read in
+    place), or all three (BH, N, Dh); f32 or bf16, any strides with a unit
+    last stride; causal over absolute positions (query i at
+    ``Nkv - Nq + i``). Returns f32 of q's shape; callers cast to their
     compute dtype."""
-    return (_PLAIN if plain else _WRAPPERS).flash(
-        q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
-        causal=causal)
+    return (_PLAIN if plain else _WRAPPERS).flash(q, k, v, scale=scale,
+                                                  causal=causal)

@@ -91,20 +91,14 @@ def _decode_grouped(q, k, v, *, scale, causal, q_positions, k_positions):
 
 
 def _flash(q, k, v, *, scale, causal):
-    """Contiguous-position attention through the flash kernel: KV expanded
-    to the q heads (the reference's ``jnp.repeat(k, g, axis=1)``), heads
-    folded into the kernel's batch axis, operands in their common dtype."""
-    b, hq, sq, dh = q.shape
-    g = hq // k.shape[1]
-    if g > 1:
-        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    """Contiguous-position attention through the flash kernel, operands in
+    their common dtype. The kernel maps each q head to its KV head (the
+    reference's ``jnp.repeat(k, g, axis=1)``) and reads strided views in
+    place, so neither the GQA expansion nor a cache slice is copied."""
     dt = torch.promote_types(q.dtype, k.dtype)
-    skv = k.shape[2]
-    out = ops.flash_attention(q.to(dt).reshape(b * hq, sq, dh),
-                              k.to(dt).reshape(b * hq, skv, dh),
-                              v.to(dt).reshape(b * hq, skv, dh),
-                              scale=scale, causal=causal)
-    return out.reshape(b, hq, sq, dh).to(q.dtype)
+    out = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), scale=scale,
+                              causal=causal)
+    return out.to(q.dtype)
 
 
 def chunked_attention(q, k, v, *, scale: float, causal: bool = True,

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain versions on the card, the
+"""The CUDA kernels against their plain versions on the card, the
 ``packed_cuda`` path against the plain route and the reference backend
 there, and the LM stack's prefill through the flash kernel.
 
@@ -24,8 +24,13 @@ from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
 from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
                                               shift_sum_matmul, spike_matmul,
                                               spike_matmul_grouped)
-from repro_torch.kernels.stdp_attention import stdp_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.stdp_attention import (stdp_attention,
+                                                stdp_attention_packed,
+                                                stdp_attention_packed_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_f32,
+                                                 flash_attention_plain,
+                                                 flash_attention_tc)
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 
 pytestmark = pytest.mark.gpu
@@ -122,6 +127,28 @@ def test_stdp_kernel_matches_plain(cuda, bh, n, dh):
     assert stdp_attention.launches == 1
 
 
+@pytest.mark.parametrize("t", [1, 4, 9, 17])
+@pytest.mark.parametrize("n", [1, 65, 196])
+@pytest.mark.parametrize("dh", [7, 64, 128])
+def test_stdp_packed_kernel_matches_plain(cuda, t, n, dh):
+    """Bit-exact against unpacking and ``stdp_attention_ref``: {0,1}
+    planes, integer scores and sums. Dh = 7 takes the byte loads, the
+    others the 4-byte loads; the permuted (G, B, H, N, dh) view is the
+    backend's ``to_heads`` layout, read in place."""
+    x = [spikes(cuda, 10 * t + i, t, 2, n, 3 * dh) for i in range(3)]
+    q, k, v = (pack_timesteps(z).reshape(-1, 2, n, 3, dh).permute(
+        0, 1, 3, 2, 4) for z in x)                      # (G, 2, 3, N, Dh)
+    got = stdp_attention_packed(q, k, v, t=t, scale=0.125)
+    torch.cuda.synchronize()
+    assert got.shape == (t, 2, 3, n, dh)
+    assert torch.equal(got, stdp_attention_packed_plain(q, k, v, t=t,
+                                                        scale=0.125))
+    assert torch.equal(stdp_attention_packed(
+        q.contiguous(), k.contiguous(), v.contiguous(), t=t, scale=0.125),
+        got)
+    assert stdp_attention_packed.launches == 2
+
+
 @pytest.mark.parametrize("int_w", [True, False], ids=["int16", "f32"])
 @pytest.mark.parametrize("t", [1, 4, 8, 9, 17, 33])
 @pytest.mark.parametrize("r,k,n", [(37, 61, 19), (5, 2048, 130),
@@ -174,6 +201,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((2, 4, 129), device=cuda)
     with pytest.raises(ValueError, match="Dh"):
         stdp_attention(q, q, q, scale=1.0)
+    qp = torch.zeros((1, 2, 5, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        stdp_attention_packed(qp, qp.cpu(), qp, t=4, scale=1.0)
+    with pytest.raises(ValueError, match="exact only"):
+        stdp_attention_packed(*[torch.zeros((1, 2, 2049), dtype=torch.uint8,
+                                            device=cuda)] * 3, t=4, scale=1.0)
     x = torch.zeros((4, 6), device=cuda)
     with pytest.raises(ValueError, match="several devices"):
         tflif_fused(x, torch.zeros(1), torch.ones(1, device=cuda))
@@ -233,8 +266,9 @@ def test_packed_cuda_matches_plain_route_on_the_card(cuda):
     n_lut = sum(r == "lut" for r in model.plan.routes.values())
     assert ops.launch_counts() == {
         "tflif": 4 + 7 * cfg.depth, "lut_gather": n_lut,
-        "unpack_dot": len(model.plan.routes) - n_lut, "stdp": cfg.depth,
-        "fused_lif_lut": 0, "shift_sum": 0, "flash_attention": 0}
+        "unpack_dot": len(model.plan.routes) - n_lut, "stdp": 0,
+        "stdp_packed": cfg.depth, "fused_lif_lut": 0, "shift_sum": 0,
+        "flash_attention_tc": 0, "flash_attention_f32": 0}
     plain = firing_model(cfg, cuda, "packed_plain").step(imgs)
     assert torch.equal(logits, plain)
     assert bool((logits != 0).any())
@@ -262,8 +296,9 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "tflif": 4 + 6 * cfg.depth, "lut_gather": 4 + 5 * cfg.depth,
-        "unpack_dot": 0, "stdp": cfg.depth, "fused_lif_lut": cfg.depth,
-        "shift_sum": 0, "flash_attention": 0}
+        "unpack_dot": 0, "stdp": 0, "stdp_packed": cfg.depth,
+        "fused_lif_lut": cfg.depth, "shift_sum": 0, "flash_attention_tc": 0,
+        "flash_attention_f32": 0}
     assert bool((logits != 0).any())
     for backend, opts in (("packed_cuda", {"fuse_mlp": False}),
                           ("packed_plain", {}), ("reference", {})):
@@ -278,8 +313,9 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "tflif": 4 + 7 * cfg.depth, "lut_gather": 0,
-        "unpack_dot": 3 + 6 * cfg.depth, "stdp": cfg.depth,
-        "fused_lif_lut": 0, "shift_sum": 1, "flash_attention": 0}
+        "unpack_dot": 3 + 6 * cfg.depth, "stdp": 0,
+        "stdp_packed": cfg.depth, "fused_lif_lut": 0, "shift_sum": 1,
+        "flash_attention_tc": 0, "flash_attention_f32": 0}
     plain = firing_model(cfg, cuda, "packed_plain", route="unpack")
     assert torch.equal(plain.step(imgs), logits)
 
@@ -294,7 +330,8 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
 def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
     """Kernel 7 against its plain version (exact softmax in f32 on the same
     values) within atol = rtol = 2e-4, the reference's flash tolerance;
-    ragged lengths pad both the query and the key tiles."""
+    ragged lengths pad both the query and the key tiles. bf16 runs the
+    tensor-core kernel, f32 the CUDA-core one."""
     g = gen(cuda, nq + nkv + dh)
     q, k, v = (torch.randn((bh, n, dh), generator=g, device=cuda).to(dtype)
                for n in (nq, nkv, nkv))
@@ -303,7 +340,39 @@ def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
     want = ref.flash_attention_ref(q, k, v, scale=dh ** -0.5, causal=causal)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
-    assert flash_attention.launches == 1
+    bf16 = dtype == torch.bfloat16
+    assert flash_attention_tc.launches == int(bf16)
+    assert flash_attention_f32.launches == int(not bf16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,kvh,nq,nkv,dh,causal", [
+    (1, 15, 5, 2048, 2048, 64, True), (2, 6, 2, 200, 200, 64, True),
+    (2, 6, 2, 100, 333, 128, False), (3, 3, 1, 77, 300, 32, True)])
+def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
+                                                      kvh, nq, nkv, dh,
+                                                      causal):
+    """Grouped-query heads (group Hq / KV) and the LM path's layouts, read
+    in place: q transposed from (B, S, Hq, Dh) and k, v the first rows of
+    a longer (B, KV, L, Dh) cache, against the plain version (KV expanded)
+    within 2e-4."""
+    g = gen(cuda, hq * nkv + dh)
+    q = torch.randn((b, nq, hq, dh), generator=g, device=cuda).to(
+        dtype).transpose(1, 2)
+    cache = [torch.randn((b, kvh, nkv + 50, dh), generator=g,
+                         device=cuda).to(dtype) for _ in range(2)]
+    k, v = (c[:, :, :nkv] for c in cache)
+    got = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q.cpu(), k.cpu(), v.cpu(), scale=dh ** -0.5,
+                                 causal=causal)
+    assert got.shape == (b, hq, nq, dh)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(
+        got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             scale=dh ** -0.5, causal=causal),
+        atol=0, rtol=0)
 
 
 def test_lm_prefill_runs_the_flash_kernel(cuda):
@@ -332,7 +401,7 @@ def test_lm_prefill_runs_the_flash_kernel(cuda):
             cfg, mode="decode", cache=cache, compute_dtype=torch.float32,
             flash=flash)
         torch.cuda.synchronize()
-        assert ops.launch_counts()["flash_attention"] == (
+        assert ops.launch_counts()["flash_attention_f32"] == (
             cfg.n_layers if flash else 0)
         out[flash] = (pre, dec)
     for got, want in zip(out[True], out[False]):

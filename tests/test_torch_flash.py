@@ -1,8 +1,10 @@
 """Kernel 7, flash attention: the port's wrapper on CPU operands (its plain
 version, the exact softmax of ``flash_attention_ref``) against the JAX
 Pallas kernel in interpret mode and against the reference's
-``flash_attention_ref``, on seeded numpy inputs. The CUDA kernel itself is
-held to the same plain version on the card (``test_torch_cuda.py``,
+``flash_attention_ref``, on seeded numpy inputs; grouped-query heads and
+strided views against the expanded call; and a plain emulation of the bf16
+tensor-core kernel's numeric scheme. The CUDA kernels themselves are held
+to the same plain version on the card (``test_torch_cuda.py``,
 ``chip_smoke.py``).
 
 Tolerance: atol = rtol = 2e-4, the reference's own flash tests'. The
@@ -18,7 +20,9 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ref import flash_attention_ref as jref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_f32,
+                                                 flash_attention_tc)
 from repro_torch.kernels.ref import flash_attention_ref
 
 TOL = 2e-4
@@ -90,10 +94,15 @@ def test_bf16_operands_compute_in_f32():
 
 
 @pytest.mark.parametrize("case", ["dtype_mix", "int", "rank", "shape",
-                                  "strided", "no_key", "causal_nq_gt_nkv"])
+                                  "strided", "no_key", "causal_nq_gt_nkv",
+                                  "group", "rank_mix"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     q, k, v = t_(*qkv(3, 2, 8, 8, 32))
-    if case == "dtype_mix":
+    if case == "group":                 # 3 q heads over 2 KV heads
+        q, k, v = q.repeat(3, 1, 1)[None, :3], k[None], v[None]
+    elif case == "rank_mix":
+        q = q[None]
+    elif case == "dtype_mix":
         k = k.to(torch.bfloat16)
     elif case == "int":
         q, k, v = (x.to(torch.int32) for x in (q, k, v))
@@ -116,8 +125,10 @@ def test_cpu_calls_count_no_launch():
     q, k, v = t_(*qkv(5, 2, 16, 16, 32))
     flash_attention(q, k, v, scale=0.125)
     ops.flash_attention(q, k, v, scale=0.125)
-    assert ops.launch_counts()["flash_attention"] == 0
-    assert ops.KERNELS["flash_attention"] is flash_attention
+    assert ops.launch_counts()["flash_attention_tc"] == 0
+    assert ops.launch_counts()["flash_attention_f32"] == 0
+    assert ops.KERNELS["flash_attention_tc"] is flash_attention_tc
+    assert ops.KERNELS["flash_attention_f32"] is flash_attention_f32
 
 
 def test_ref_matches_reference_ref():
@@ -127,3 +138,102 @@ def test_ref_matches_reference_ref():
     for causal in (True, False):
         close(flash_attention_ref(*t_(q, k, v), scale=0.2, causal=causal),
               jref(q, k, v, scale=0.2, causal=causal))
+
+
+@pytest.mark.parametrize("b,hq,kvh,nq,nkv,dh,causal", [
+    (1, 15, 5, 77, 77, 64, True), (2, 6, 2, 50, 120, 32, True),
+    (2, 4, 1, 40, 33, 64, False)])
+def test_grouped_heads_and_strided_views_match_the_expanded_call(
+        b, hq, kvh, nq, nkv, dh, causal):
+    """The LM path's call: q transposed from (B, S, Hq, Dh), k and v the
+    first Nkv rows of a longer (B, KV, L, Dh) cache, q head h on KV head
+    h // (Hq // KV). Against the 3-d call on KV expanded to the q heads
+    and made contiguous, and against the Pallas kernel in interpret mode
+    on the same expanded values."""
+    r = np.random.default_rng(hq * nkv + dh)
+    q = r.normal(size=(b, nq, hq, dh)).astype(np.float32)
+    cache = r.normal(size=(2, b, kvh, nkv + 9, dh)).astype(np.float32)
+    tq = torch.from_numpy(q).transpose(1, 2)
+    tk, tv = (torch.from_numpy(c)[:, :, :nkv] for c in cache)
+    assert not tq.is_contiguous() and not tk.is_contiguous()
+    got = ops.flash_attention(tq, tk, tv, scale=dh ** -0.5, causal=causal)
+    assert got.shape == (b, hq, nq, dh) and got.dtype == torch.float32
+    g = hq // kvh
+    eq = np.ascontiguousarray(q.transpose(0, 2, 1, 3)).reshape(b * hq, nq, dh)
+    ek, ev = (np.repeat(c[:, :, :nkv], g, axis=1).reshape(b * hq, nkv, dh)
+              for c in cache)
+    want = flash_attention(*t_(eq, ek, ev), scale=dh ** -0.5, causal=causal)
+    close(got.reshape(b * hq, nq, dh), want)
+    close(got, ops.flash_attention(tq, tk, tv, scale=dh ** -0.5,
+                                   causal=causal, plain=True))
+    if causal:
+        close(want, jflash(eq, ek, ev, scale=dh ** -0.5, interpret=True))
+
+
+def emulate_tensor_core_scheme(q, k, v, *, scale, causal, split=True,
+                               bkv=64):
+    """The bf16 tensor-core kernel's arithmetic, in torch on the CPU: bf16
+    q, k, v; s = (q k^T) in f32 from the exact bf16 products, times scale
+    after the product; masked entries -1e30; ascending 64-key tiles with
+    the reference's online-softmax update; p split into bf16 p_hi and
+    p_lo = bf16(p - p_hi), both multiplied by the bf16 v into f32
+    (``split=False`` rounds p once)."""
+    q, k, v = (x.to(torch.bfloat16).to(torch.float32) for x in (q, k, v))
+    bh, nq, dh = q.shape
+    nkv = k.shape[1]
+    qpos = (nkv - nq) + torch.arange(nq)[:, None]
+    m = torch.full((bh, nq, 1), -1e30)
+    l = torch.zeros((bh, nq, 1))
+    acc = torch.zeros((bh, nq, dh))
+    for k0 in range(0, nkv, bkv):
+        kt, vt = k[:, k0:k0 + bkv], v[:, k0:k0 + bkv]
+        s = torch.einsum("bnd,bmd->bnm", q, kt) * scale
+        if causal:
+            kpos = k0 + torch.arange(kt.shape[1])[None, :]
+            s = torch.where(qpos >= kpos, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        pv = torch.einsum("bnm,bmd->bnd", hi, vt)
+        if split:
+            lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+            pv = pv + torch.einsum("bnm,bmd->bnd", lo, vt)
+        acc = acc * alpha + pv
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+@pytest.mark.parametrize("bh,nq,nkv,dh,causal", [
+    (3, 200, 200, 64, True), (2, 100, 333, 64, False),
+    (15, 2048, 2048, 64, True)])
+def test_tensor_core_scheme_holds_the_flash_tolerance(bh, nq, nkv, dh,
+                                                      causal):
+    """With p split into two bf16 terms, the kernel's scheme stays within
+    atol = rtol = 2e-4 of ``flash_attention_ref`` on the same bf16 values,
+    at the card tests' shapes and smollm's 2048-token prefill (the
+    reference is taken one head at a time to bound memory)."""
+    q, k, v = (x.to(torch.bfloat16) for x in t_(*qkv(nq + dh, bh, nq, nkv,
+                                                      dh)))
+    got = emulate_tensor_core_scheme(q, k, v, scale=dh ** -0.5,
+                                     causal=causal)
+    for h in range(bh):
+        want = flash_attention_ref(q[h:h + 1], k[h:h + 1], v[h:h + 1],
+                                   scale=dh ** -0.5, causal=causal)
+        close(got[h:h + 1], want)
+
+
+def test_unsplit_p_breaks_the_flash_tolerance():
+    """Why the kernel splits p: rounding p to bf16 once (relative error up
+    to 2^-9 a weight) misses 2e-4 on the early causal rows, where a few
+    keys share the weight."""
+    q, k, v = (x.to(torch.bfloat16) for x in t_(*qkv(264, 3, 200, 200,
+                                                      64)))
+    want = flash_attention_ref(q, k, v, scale=0.125)
+    got = emulate_tensor_core_scheme(q, k, v, scale=0.125, causal=True,
+                                     split=False)
+    excess = (got - want).abs() - (TOL + TOL * want.abs())
+    assert float(excess.max()) > 0
+    split = emulate_tensor_core_scheme(q, k, v, scale=0.125, causal=True)
+    assert float(((split - want).abs() - (TOL + TOL * want.abs())).max()) <= 0

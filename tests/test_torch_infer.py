@@ -359,7 +359,7 @@ def test_dispatches_per_step_match_the_plan(monkeypatch):
     model = compile(from_reference(to_numpy(jtree)), cfg, ExecutionPlan(
         weight_dtype="int8", batch_buckets=(2,), max_table_bytes=1 << 18),
         folded=True, device="cpu")
-    calls = dict.fromkeys(("tflif", "lut", "unpack", "stdp"), 0)
+    calls = dict.fromkeys(("tflif", "lut", "unpack", "stdp_packed"), 0)
     for name in calls:
         fn = getattr(ops._WRAPPERS, name)
 
@@ -372,7 +372,7 @@ def test_dispatches_per_step_match_the_plan(monkeypatch):
     n_lut = sum(r == "lut" for r in model.plan.routes.values())
     assert calls == {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
                      "lut": n_lut, "unpack": len(model.plan.routes) - n_lut,
-                     "stdp": cfg.depth}
+                     "stdp_packed": cfg.depth}
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 

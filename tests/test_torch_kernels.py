@@ -25,7 +25,8 @@ from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
                                               spike_matmul_grouped)
-from repro_torch.kernels.stdp_attention import stdp_attention
+from repro_torch.kernels.stdp_attention import (stdp_attention,
+                                                stdp_attention_packed)
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 
 # f32 weights through the unpack dot: the same products summed in another
@@ -373,6 +374,55 @@ def test_stdp_attention_packed_matches_pallas_branch(t):
     exact(got, want)
 
 
+@pytest.mark.parametrize("t", [1, 4, 9, 17])
+@pytest.mark.parametrize("n,dh", [(1, 7), (1, 64), (1, 128), (65, 7),
+                                  (65, 64), (65, 128), (196, 7), (196, 64),
+                                  (196, 128)])
+def test_stdp_packed_entry_matches_reference_exactly(t, n, dh):
+    """The packed STDP entry on CPU operands (its plain version) against
+    the reference's ``ops.stdp_attention_packed`` on its CPU route, bit
+    for bit; the operands are the backend's layout, a permuted (G, B, H,
+    N, Dh) view of (G, B, N, H * Dh)."""
+    x = packed_spikes(t * 1000 + n + dh, t, 2, n, 2 * dh)   # (G, 2, N, 2Dh)
+    qkv = [x, np.roll(x, 1, axis=2), np.roll(x, 3, axis=3)]
+    views = [z.reshape(-1, 2, n, 2, dh).transpose(0, 1, 3, 2, 4)
+             for z in qkv]
+    want = jops.stdp_attention_packed(*map(jnp.asarray, views), t=t,
+                                      scale=0.125)
+    got = stdp_attention_packed(*(t_(z).reshape(-1, 2, n, 2, dh).permute(
+        0, 1, 3, 2, 4) for z in qkv), t=t, scale=0.125)
+    assert got.shape == (t, 2, 2, n, dh)
+    exact(got, want)
+    assert float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", ["n_dh", "dh", "devices", "groups",
+                                  "dtype"])
+def test_stdp_packed_wrapper_refuses_what_is_not_exact(case):
+    """N * Dh >= 2^24 or Dh > 2048 would leave exact fp16 scores or f32
+    sums; operands on two devices have no kernel; the group count must
+    hold t planes; operands are uint8."""
+    z = torch.zeros((1, 2, 8, 16), dtype=torch.uint8)
+    q = k = v = z
+    if case == "n_dh":
+        q = k = v = torch.zeros((1, 1, 2 ** 14, 2 ** 10),
+                                dtype=torch.uint8).expand(1, 1, 2 ** 14,
+                                                          2 ** 10)
+    elif case == "dh":
+        q = k = v = torch.zeros((1, 1, 2, 2049), dtype=torch.uint8)
+    elif case == "devices":
+        k = torch.empty(z.shape, dtype=torch.uint8, device="meta")
+    elif case == "groups":
+        q = k = v = torch.zeros((2, 2, 8, 16), dtype=torch.uint8)
+    else:
+        q = z.to(torch.float32)
+    match = {"n_dh": "exact only", "dh": "exact only",
+             "devices": "several devices", "groups": "plane groups",
+             "dtype": "uint8"}[case]
+    with pytest.raises(ValueError, match=match):
+        stdp_attention_packed(q, k, v, t=4, scale=0.125)
+
+
 # ---------------------------------------------------------------------------
 # wrapper hygiene
 # ---------------------------------------------------------------------------
@@ -392,8 +442,9 @@ def test_cpu_operands_run_plain_versions_and_count_no_launch():
     ops.spike_matmul(x[0], w, mode="per_plane")
     qkv = torch.ones(2, 9, 32)
     ops.flash_attention(qkv, qkv, qkv, scale=0.125)
-    names = {"tflif", "lut_gather", "unpack_dot", "stdp", "fused_lif_lut",
-             "shift_sum", "flash_attention"}
+    names = {"tflif", "lut_gather", "unpack_dot", "stdp", "stdp_packed",
+             "fused_lif_lut", "shift_sum", "flash_attention_tc",
+             "flash_attention_f32"}
     assert ops.launch_counts() == dict.fromkeys(names, 0)
     assert set(ops.KERNELS) == names
 

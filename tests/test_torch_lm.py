@@ -25,6 +25,7 @@ from repro.nn import layers as jlayers
 from repro.nn import module as jmodule
 from repro.nn import transformer as JT
 from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as flash_kernels
 from repro_torch.launch import serve
 from repro_torch.launch.serve import Engine, Request
 from repro_torch.nn import attention as attn
@@ -317,7 +318,7 @@ def test_prefill_attention_routes_through_flash(cfgs, trees, monkeypatch):
     cache = T.init_cache(cfg, 1, 32, dtype=torch.float32, device="cpu")
     T.model_apply(tp, {"tokens": toks, "cache_pos": 0}, cfg, mode="prefill",
                   cache=cache, **F32)
-    assert calls == [(cfg.n_heads, 10, cfg.head_dim)] * cfg.n_layers
+    assert calls == [(1, cfg.n_heads, 10, cfg.head_dim)] * cfg.n_layers
     T.model_apply(tp, {"tokens": toks}, cfg, mode="train", **F32)
     assert len(calls) == 2 * cfg.n_layers
     calls.clear()
@@ -329,6 +330,37 @@ def test_prefill_attention_routes_through_flash(cfgs, trees, monkeypatch):
                   cache=T.init_cache(cfg, 1, 32, dtype=torch.float32,
                                      device="cpu"), flash=False, **F32)
     assert calls == []
+
+
+def test_bf16_prefill_reaches_flash_without_copies(cfgs, trees, monkeypatch):
+    """The main path's prefill (bf16 compute over a bf16 cache) hands the
+    flash wrapper the transposed q and the cache slices as views that the
+    tensor-core kernel's TMA reads in place: ``_tma_ready`` returns each
+    operand itself and k and v share strides, so no copy precedes the
+    kernel, and KV arrives unexpanded."""
+    _, cfg = cfgs
+    _, tp = trees
+    got = []
+    real = attn.ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        got.append((q, k, v))
+        return real(q, k, v, **kw)
+    monkeypatch.setattr(attn.ops, "flash_attention", spy)
+    toks = torch.arange(10)[None] % cfg.vocab
+    cache = T.init_cache(cfg, 1, 32, dtype=torch.bfloat16, device="cpu")
+    T.model_apply(tp, {"tokens": toks, "cache_pos": 0}, cfg, mode="prefill",
+                  cache=cache, compute_dtype=torch.bfloat16)
+    assert len(got) == cfg.n_layers
+    for q, k, v in got:
+        assert q.dtype == k.dtype == v.dtype == torch.bfloat16
+        assert k.shape == (1, cfg.n_kv_heads, 10, cfg.head_dim)
+        assert not q.is_contiguous()      # the (B, S, H, Dh) transpose
+        # slices of the 32-slot cache, not copies of them
+        assert not k.is_contiguous() and not v.is_contiguous()
+        for z in (q, k, v):
+            assert flash_kernels._tma_ready(z) is z
+        assert k.stride() == v.stride()
 
 
 def test_engine_matches_reference_engine(cfgs):
