@@ -5,12 +5,15 @@
 
 Needs one CUDA card and ``nvcc``; fails without them. It
 
-1. builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. runs each kernel at the shapes its main path gives it (the Spikformer
-   kernels at batch 8, packed STDP on the backend's plane-group layout,
+   kernels at batch 8, the grouped unpack dot on the int8 tensor cores
+   over the plan's K-major weights, packed STDP on the backend's
+   plane-group layout,
    bf16 flash attention on the tensor cores at smollm-360m's 2048-token
    prefill with its 15 heads over 5 KV heads read in place, and the f32
-   instantiations of STDP and flash attention on the CUDA cores), holds it
+   kernels of the unpack dot, STDP and flash attention on the CUDA cores),
+   holds it
    against its plain PyTorch version on the card and times kernel, plain
    version and the nearest single PyTorch call;
 3. drives three paths of the full-width Spikformer V2-8-512 (224x224x3,
@@ -18,16 +21,18 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    the folded kernels keep the IAND residual stream firing), each with
    the launch counters set to 0 just before it and read just after:
    - int8 weights under the default plan, serving seeded requests through
-     ``MicroBatchEngine`` (TFLIF, LUT gather, unpack dot, packed STDP);
+     ``MicroBatchEngine`` (TFLIF, LUT gather, int8 unpack dot, packed
+     STDP);
    - f32 weights with ``route="lut"``, serving the same requests (every
      layer gathers, the MLP pair runs the fused kernel);
    - int8 weights with ``route="unpack"``, one bucket-8 step (conv0 runs
-     the shift-sum kernel);
+     the shift-sum kernel, every other layer the int8 unpack dot);
    and checks every request completes, each counter grew by its per-step
    count times the steps taken, the final residual stream still fires, and
    one bucket-8 batch gives bit-identical logits against the plain
    versions (``packed_plain``) on the card and, for the f32 LUT path,
-   against the unfused MLP step and the float ``reference`` backend;
+   against the unfused MLP step and the float ``reference`` backend; each
+   path's bucket-8 step is profiled;
 4. drives the LM path, counters again set to 0 just before it and read
    just after: smollm-360m at full width from a seeded ``init_model``,
    ``Engine(slots=4, cache_len=4096)`` in bf16 serving 8 requests (prompts
@@ -84,6 +89,8 @@ SOURCES = {
                    "src/repro/kernels/spike_matmul.py:173"),
     "unpack_dot": ("src/repro_torch/kernels/csrc/unpack_dot.cu",
                    "src/repro/kernels/spike_matmul.py:225"),
+    "unpack_dot_s8": ("src/repro_torch/kernels/csrc/unpack_dot_s8.cu",
+                      "src/repro/kernels/spike_matmul.py:225"),
     "stdp": ("src/repro_torch/kernels/csrc/stdp.cu",
              "src/repro/kernels/stdp_attention.py:45"),
     "stdp_packed": ("src/repro_torch/kernels/csrc/stdp_packed.cu",
@@ -99,9 +106,10 @@ SOURCES = {
                             "src/repro/kernels/flash_attention.py:62"),
 }
 # kernels that no driven path launches: f32 STDP serves f32 operands of any
-# value (the packed datapath runs the packed entry); it is still built,
-# held to its plain version and timed
-OFF_PATH = ("stdp",)
+# value (the packed datapath runs the packed entry), the f32 unpack dot f32
+# weights (every driven unpack layer is int8); both are still built, held
+# to their plain versions and timed
+OFF_PATH = ("stdp", "unpack_dot")
 
 
 class CheckFailed(Exception):
@@ -145,10 +153,12 @@ def kernel_phase(torch, dev) -> dict:
     from repro_torch.kernels import lut_matmul as lut
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
-    from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
+    from repro_torch.kernels.spike_matmul import (kmajor_weights,
+                                                  lut_gather_matmul,
                                                   shift_sum_matmul,
                                                   spike_matmul,
-                                                  spike_matmul_grouped)
+                                                  spike_matmul_grouped,
+                                                  spike_matmul_grouped_s8)
     from repro_torch.kernels.stdp_attention import (
         stdp_attention, stdp_attention_packed, stdp_attention_packed_plain)
     from repro_torch.kernels.tflif import tflif_fused, tflif_plain
@@ -219,23 +229,50 @@ def kernel_phase(torch, dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch.matmul(planes, wf)))
 
-    # grouped unpack dot at fc1: (1, 1568, 512) u8 x (512, 2048)
-    w1 = torch.randint(-127, 128, (dim, hidden), generator=gen,
-                       device=dev).to(torch.float32)
-    got, want = spike_matmul_grouped(xq, w1, t=t), ref.spike_matmul_ref(
-        xq, w1, t=t)
+    # grouped unpack dot on the int8 tensor cores at fc1: (1, 1568, 512) u8
+    # x (512, 2048) int8, the K-major copy made as the plan makes it, once
+    w1i = torch.randint(-127, 128, (dim, hidden), generator=gen,
+                        device=dev).to(torch.int8)
+    w1 = w1i.to(torch.float32)
+    w1k = kmajor_weights(w1i)
+    got = spike_matmul_grouped_s8(xq, w1k, t=t)
+    want = ref.spike_matmul_ref(xq, w1, t=t)
     check(torch.equal(got, want),
-          "unpack_dot (integer weights) differs from its plain version")
+          "unpack_dot_s8 differs from its plain version")
     err = max_abs_err(got, want)
     # conv3 (8*14*14 rows, 1024 -> 512) and fc2 (2048 -> 512) of the path
     for rows, k_in, n_out in ((BATCH * tokens, 4 * 256, dim),
                               (m, hidden, dim)):
         xs = pack_timesteps(spikes(t, rows, k_in))
         ws = torch.randint(-127, 128, (k_in, n_out), generator=gen,
-                           device=dev).to(torch.float32)
-        check(torch.equal(spike_matmul_grouped(xs, ws, t=t),
-                          ref.spike_matmul_ref(xs, ws, t=t)),
-              f"unpack_dot differs from its plain version at K={k_in}")
+                           device=dev).to(torch.int8)
+        check(torch.equal(spike_matmul_grouped_s8(xs, kmajor_weights(ws),
+                                                  t=t),
+                          ref.spike_matmul_ref(xs, ws.to(torch.float32),
+                                               t=t)),
+              f"unpack_dot_s8 differs from its plain version at K={k_in}")
+    planes_s8 = planes.to(torch.int8)
+    check(torch.equal(torch._int_mm(planes_s8, w1i).to(torch.float32),
+                      want.reshape(t * m, hidden)),
+          "torch._int_mm does not compute the unpack dot")
+    b_ms, b_by = bound_ms(xq.numel() + w1i.numel() + got.numel() * 4,
+                          2 * t * m * dim * hidden, INT8_OPS_PER_S)
+    out["unpack_dot_s8"] = dict(
+        shape=f"x {tuple(xq.shape)} u8 x w {tuple(w1i.shape)} int8 (K-major"
+              f" copy {tuple(w1k.shape)}), t={t} (fc1)", max_abs_err=err,
+        ms=time_ms(torch, lambda: spike_matmul_grouped_s8(xq, w1k, t=t)),
+        plain_ms=time_ms(torch, lambda: ref.spike_matmul_ref(xq, w1, t=t)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.matmul(planes, w1)),
+        library_int8_ms=time_ms(torch, lambda: torch._int_mm(planes_s8,
+                                                             w1i)))
+
+    # the f32 grouped unpack dot (off the driven paths) at the same shape
+    got, want = spike_matmul_grouped(xq, w1, t=t), ref.spike_matmul_ref(
+        xq, w1, t=t)
+    check(torch.equal(got, want),
+          "unpack_dot (integer weights) differs from its plain version")
+    err = max_abs_err(got, want)
     w1f = torch.randn((dim, hidden), generator=gen, device=dev)
     gotf = spike_matmul_grouped(xq, w1f, t=t)
     wantf = ref.spike_matmul_ref(xq, w1f, t=t)
@@ -481,7 +518,7 @@ class LayerRecorder:
 
 
 OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
-               "stdp_kernel", "stdp_packed_kernel", "fused_lif_lut_kernel",
+               "unpack_dot_s8_kernel", "stdp_kernel", "stdp_packed_kernel", "fused_lif_lut_kernel",
                "shift_sum_kernel", "flash_attention_kernel", "flash_tc_kernel")
 
 
@@ -632,7 +669,7 @@ def serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
     warmup_s = model.warmup()
     n_lut = sum(r == "lut" for r in routes.values())
     per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
-                "lut_gather": n_lut, "unpack_dot": len(routes) - n_lut,
+                "lut_gather": n_lut, "unpack_dot_s8": len(routes) - n_lut,
                 "stdp_packed": cfg.depth}
     served = serve_requests(torch, model, requests, per_step)
 
@@ -709,9 +746,9 @@ def lut_serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
 
 def unpack_step_phase(torch, dev, cfg, folded, batch, int8_logits) -> dict:
     """Path B: int8 weights with every table stripped, one bucket-8 step.
-    conv0 runs the shift-sum kernel, every other linear the unpack dot;
-    logits bit-identical to packed_plain and, int8 sums being exact on
-    every route, to the default plan's."""
+    conv0 runs the shift-sum kernel, every other linear the int8 unpack
+    dot; logits bit-identical to packed_plain and, int8 sums being exact on
+    every route, to the default plan's. Then the step is profiled."""
     from repro_torch.infer import ExecutionPlan, compile
     from repro_torch.kernels import ops
 
@@ -721,7 +758,7 @@ def unpack_step_phase(torch, dev, cfg, folded, batch, int8_logits) -> dict:
     check(model.plan.routes == {}, "route='unpack' kept a planned route")
     model.warmup()
     per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
-                "unpack_dot": len(cfg.scs_channels) - 1 + 6 * cfg.depth,
+                "unpack_dot_s8": len(cfg.scs_channels) - 1 + 6 * cfg.depth,
                 "stdp_packed": cfg.depth, "shift_sum": 1}
     ops.reset_launch_counts()
     logits = model.step(batch)
@@ -733,12 +770,15 @@ def unpack_step_phase(torch, dev, cfg, folded, batch, int8_logits) -> dict:
     labels = check_logits(torch, logits, {
         "packed_plain": plain.step(batch),
         "the default int8 plan": int8_logits.to(dev)}, "int8 route='unpack'")
+    del plain
     final_occ, _ = final_firing(model, batch)
+    prof = profile_phase(torch, model, batch)
     return dict(
         config="SpikformerConfig() V2-8-512; int8 weights, route='unpack', "
                "packed_cuda, one bucket-8 step",
         steps=1, per_step_launches=per_step, launches=launches,
-        bucket8_labels=labels, final_residual_occupancy=final_occ)
+        bucket8_labels=labels, final_residual_occupancy=final_occ,
+        profile=prof)
 
 
 def lm_prompts(vocab: int) -> list:
@@ -896,6 +936,8 @@ def kernel_table(report: dict, paths) -> list:
                       **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms")},
+                      **{k: row[k] for k in ("library_int8_ms",
+                                             "ms_int16_table") if k in row},
                       "shape": row["shape"]})
     return table
 

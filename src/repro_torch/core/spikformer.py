@@ -117,7 +117,8 @@ def forward_folded(folded: dict, images_u8: torch.Tensor,
 
     def wssl(z, layer):
         return backend.wssl_lif(z, layer["kernel"], layer["bias"], t=t,
-                                scale=layer.get("scale"), lut=layer.get("lut"))
+                                scale=layer.get("scale"), lut=layer.get("lut"),
+                                kmajor=layer.get("kernel_kmajor"))
 
     c0 = folded["scs"]["conv0"]
     x = backend.sssc_lif(images_u8, c0["kernel"], c0["bias"], t=t,
@@ -125,7 +126,8 @@ def forward_folded(folded: dict, images_u8: torch.Tensor,
     for i in range(1, len(cfg.scs_channels)):
         ci = folded["scs"][f"conv{i}"]
         x = backend.zsc_lif(x, ci["kernel"], ci["bias"], t=t,
-                            scale=ci.get("scale"), lut=ci.get("lut"))
+                            scale=ci.get("scale"), lut=ci.get("lut"),
+                            kmajor=ci.get("kernel_kmajor"))
     x = backend.to_tokens(x)
 
     for i in range(cfg.depth):

@@ -12,7 +12,11 @@
                   with ``plain=True``.
 
 A layer carrying a ``scale`` leaf is int8: its scale folds into the LIF
-bias and threshold, never the accumulator, in both backends. A layer
+bias and threshold, never the accumulator, in both backends. The packed
+backend hands int8 kernels to the matmul as they are (the unpack route
+runs them on the int8 tensor cores, over the ``kernel_kmajor`` leaf the
+planner caches; the gather route reads only its table); the float backend
+casts them to f32. A layer
 carrying a ``lut`` leaf is LUT-planned: the packed backend gathers from the
 (C, 256, N) table; the float backend, which the planner hands only a True
 flag, replays the same fold on float planes (``lut_matmul_planes``)
@@ -81,12 +85,14 @@ class FloatBackend:
         y = y.unsqueeze(0).expand(t, *y.shape)          # image constant in T
         return tflif(y, v_th=vth)
 
-    def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None):
+    def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
+                kmajor=None):
         op = unified.zsc if lut is None else self._zsc_emu
         y, vth = self._acc_and_vth(op, x, kernel, bias, scale)
         return tflif(y, v_th=vth)
 
-    def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None):
+    def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
+                 kmajor=None):
         op = unified.wssl if lut is None else self._wssl_emu
         y, vth = self._acc_and_vth(op, x, kernel, bias, scale)
         return tflif(y, v_th=vth)
@@ -134,27 +140,27 @@ class PackedBackend:
         return ops.tflif_pack(acc, bias / scale, v_th=V_TH / scale,
                               plain=self.plain)
 
-    @staticmethod
-    def _w(kernel, scale):
-        """How a kernel enters the packed matmul: int8 as f32 integers."""
-        return kernel if scale is None else kernel.to(torch.float32)
+    # Kernels enter the matmuls as the tree holds them: an int8 kernel is
+    # cast to f32 only inside the f32 consumers (the shift-sum dot of
+    # conv0's SSSC, the plain versions), never on the gather or s8 routes.
 
     def sssc_lif(self, images_u8, kernel, bias, *, t: int, scale=None,
                  lut=None):
         x = space_to_depth(images_u8, 2)                # (B,H/2,W/2,4C) u8
-        acc = ops.sssc_linear(x, self._w(kernel, scale), None, table=lut,
-                              plain=self.plain)
+        acc = ops.sssc_linear(x, kernel, None, table=lut, plain=self.plain)
         acc = acc.unsqueeze(0).expand(t, *acc.shape)    # image constant in T
         return self._lif(acc, bias, scale)              # (G,B,H/2,W/2,F) u8
 
-    def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None):
-        acc = ops.spike_linear(space_to_depth(x, 2), self._w(kernel, scale),
-                               None, t=t, table=lut, plain=self.plain)
+    def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
+                kmajor=None):
+        acc = ops.spike_linear(space_to_depth(x, 2), kernel, None, t=t,
+                               table=lut, w_kmajor=kmajor, plain=self.plain)
         return self._lif(acc, bias, scale)
 
-    def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None):
-        acc = ops.spike_linear(x, self._w(kernel, scale), None, t=t,
-                               table=lut, plain=self.plain)
+    def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
+                 kmajor=None):
+        acc = ops.spike_linear(x, kernel, None, t=t, table=lut,
+                               w_kmajor=kmajor, plain=self.plain)
         return self._lif(acc, bias, scale)
 
     def mlp_pair_lif(self, x, fc1, fc2, *, t: int):
@@ -168,8 +174,10 @@ class PackedBackend:
         if not (self.fuse_mlp and ops._have_table(tbl2)):
             return None
         scale1 = fc1.get("scale")
-        acc1 = ops.spike_linear(x, self._w(fc1["kernel"], scale1), None, t=t,
-                                table=fc1.get("lut"), plain=self.plain)
+        acc1 = ops.spike_linear(x, fc1["kernel"], None, t=t,
+                                table=fc1.get("lut"),
+                                w_kmajor=fc1.get("kernel_kmajor"),
+                                plain=self.plain)
         # fc1's int8 scale folds into its LIF exactly as in ``_lif``
         b1 = fc1["bias"] if scale1 is None else fc1["bias"] / scale1
         v1 = V_TH if scale1 is None else V_TH / scale1

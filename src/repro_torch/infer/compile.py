@@ -6,6 +6,8 @@ compilation is the pass pipeline
 
     fold_bn  ->  quantize_weights  ->  plan_route_tables  ->  lower
 
+(``route="unpack"`` strips the tables instead of planning routes).
+
 over the folded tree, and the result holds the resolved plan (per-layer
 routes filled in). A plan's JSON has the reference's schema, so a plan the
 JAX package wrote loads here and replays its routes.
@@ -34,6 +36,7 @@ from ..core.spikformer import SpikformerConfig, fold_inference_params
 from ..device import resolve_device
 from ..kernels import lut_matmul
 from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
+from ..kernels.spike_matmul import kmajor_weights
 
 ROUTES = ("auto", "unpack", "lut")
 
@@ -150,7 +153,9 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
     ``choose_cuda_route`` (or ``force`` pins one route everywhere, or a
     pinned ``routes`` mapping is replayed); LUT layers get their
     (C, 256, N) table built once into a ``lut`` leaf (a True flag with
-    ``build_tables=False``). A pinned "lut_sparse" needs its calibrated
+    ``build_tables=False``), and int8 unpack layers their K-major copy
+    (``with_kmajor``; none with ``build_tables=False``). A pinned
+    "lut_sparse" needs its calibrated
     occupancy, as in the reference, and runs the dense gather here.
     Returns ``(annotated_tree, routes)``."""
     t = cfg.timesteps
@@ -187,19 +192,33 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
             raise ValueError(f"route 'lut_sparse' for {path!r} requires a "
                              "calibrated occupancy in layer_occupancy")
         plan[path] = route
-        layer = {k2: v for k2, v in layer.items() if k2 != "lut"}
+        layer = {k2: v for k2, v in layer.items()
+                 if k2 not in ("lut", "kernel_kmajor")}
         if route in ("lut", "lut_sparse"):
             layer["lut"] = lut_matmul.build_lut(wq) if build_tables else True
+        elif build_tables:
+            layer = with_kmajor(path, layer)
         return layer
 
     return map_folded_layers(folded, annotate), plan
 
 
+def with_kmajor(path: str, layer: dict) -> dict:
+    """An unpack-routed layer with its ``kernel_kmajor`` leaf: the (N, K)
+    K-major copy of an int8 kernel, the B operand of the int8 tensor-core
+    dot, built once here and never per call. f32 kernels and conv0 (its
+    SSSC runs the shift-sum dot in f32) get none."""
+    if path == "scs/conv0" or layer["kernel"].dtype != torch.int8:
+        return layer
+    return {**layer, "kernel_kmajor": kmajor_weights(layer["kernel"])}
+
+
 def strip_lut_annotations(folded):
-    """Remove every ``lut`` leaf: what ``route="unpack"`` uses to pin the
-    unpack route even on a tree a previous planner annotated."""
-    return map_folded_layers(
-        folded, lambda _, l: {k: v for k, v in l.items() if k != "lut"})
+    """Remove every ``lut`` and ``kernel_kmajor`` leaf: what
+    ``route="unpack"`` uses to pin the unpack route even on a tree a
+    previous planner annotated."""
+    return map_folded_layers(folded, lambda _, l: {
+        k: v for k, v in l.items() if k not in ("lut", "kernel_kmajor")})
 
 
 def lower(folded, cfg: SpikformerConfig, backend):
@@ -366,6 +385,8 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
             force="lut" if plan.route == "lut" else None)
     else:
         tree = strip_lut_annotations(tree)
+        if spec.wants_lut_tables:
+            tree = map_folded_layers(tree, with_kmajor)
         routes = {}
 
     resolved = dataclasses.replace(plan, weight_dtype=weight_dtype,

@@ -19,8 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("tflif", "lut_gather", "unpack_dot", "stdp", "stdp_packed",
-           "fused_lif_lut", "shift_sum", "flash_attention",
+SOURCES = ("tflif", "lut_gather", "unpack_dot", "unpack_dot_s8", "stdp",
+           "stdp_packed", "fused_lif_lut", "shift_sum", "flash_attention",
            "flash_attention_tc")
 # -Xptxas -v reports registers, shared memory and spills per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

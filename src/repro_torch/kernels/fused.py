@@ -24,7 +24,13 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_float, ctypes.c_void_p]
 MAX_T = 64                # csrc/fused_lif_lut.cu's register budget per thread
-_GRID_LIMIT = 65535       # gridDim.y
+_GRID_LIMIT = 65535       # gridDim.y: row tiles
+
+
+def _rows_per_block(t: int) -> int:
+    """Rows a block of the kernel owns: 1024 / TT, TT the power of two
+    (4 to 64) that holds t steps."""
+    return 1024 // max(4, 1 << (t - 1).bit_length())
 
 
 def tflif_lut_plain(x: torch.Tensor, bias: torch.Tensor, table: torch.Tensor,
@@ -61,9 +67,9 @@ def tflif_lut_matmul(x: torch.Tensor, bias: torch.Tensor, table: torch.Tensor,
     n = table.shape[2]
     if _build.on_cpu(x, bias, table, v_th):
         return tflif_lut_plain(x, bias, table, v_th, tau=tau)
-    if t > MAX_T or -(-n // 32) > _GRID_LIMIT:
+    if t > MAX_T or -(-r // _rows_per_block(t)) > _GRID_LIMIT:
         raise ValueError(f"fused kernel takes T <= {MAX_T} and at most "
-                         f"{32 * _GRID_LIMIT} columns, got T={t}, N={n}")
+                         f"{_GRID_LIMIT} row tiles, got T={t}, R={r}")
     spikes = torch.empty((num_plane_groups(t), r, k), dtype=torch.uint8,
                          device=x.device)
     acc = torch.empty((t, r, n), dtype=torch.float32, device=x.device)

@@ -24,8 +24,9 @@ from .flash_attention import (flash_attention as _flash,
                               flash_attention_tc)
 from .lut_matmul import choose_cuda_route
 from .fused import tflif_lut_matmul, tflif_lut_plain
-from .spike_matmul import (lut_gather_matmul, shift_sum_matmul,
-                           spike_matmul_grouped)
+from .spike_matmul import (kmajor_weights, lut_gather_matmul,
+                           shift_sum_matmul, spike_matmul_grouped,
+                           spike_matmul_grouped_s8)
 from .stdp_attention import (stdp_attention, stdp_attention_packed as
                              _stdp_packed, stdp_attention_packed_plain)
 from .tflif import tflif_fused, tflif_plain
@@ -34,7 +35,8 @@ from ..core.spike import num_plane_groups
 
 # kernel name -> wrapper; each wrapper counts its launches in ``.launches``
 KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
-           "unpack_dot": spike_matmul_grouped, "stdp": stdp_attention,
+           "unpack_dot": spike_matmul_grouped,
+           "unpack_dot_s8": spike_matmul_grouped_s8, "stdp": stdp_attention,
            "stdp_packed": _stdp_packed, "fused_lif_lut": tflif_lut_matmul,
            "shift_sum": shift_sum_matmul,
            "flash_attention_tc": flash_attention_tc,
@@ -42,10 +44,11 @@ KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
 
 _WRAPPERS = types.SimpleNamespace(
     tflif=tflif_fused, lut=lut_gather_matmul, unpack=spike_matmul_grouped,
-    stdp_packed=_stdp_packed, fused=tflif_lut_matmul,
-    shift_sum=shift_sum_matmul, flash=_flash)
+    unpack_s8=spike_matmul_grouped_s8, stdp_packed=_stdp_packed,
+    fused=tflif_lut_matmul, shift_sum=shift_sum_matmul, flash=_flash)
 _PLAIN = types.SimpleNamespace(
     tflif=tflif_plain, lut=lut.lut_matmul, unpack=ref.spike_matmul_ref,
+    unpack_s8=lambda x, wk, t: ref.spike_matmul_ref(x, wk.T, t=t),
     stdp_packed=stdp_attention_packed_plain, fused=tflif_lut_plain,
     shift_sum=lambda x, w: ref.spike_matmul_ref(x, w, mode="shift_sum"),
     flash=flash_attention_plain)
@@ -99,15 +102,17 @@ def spike_matmul(x_packed, w, *, mode: str = "per_plane",
 
 
 def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
-                 route_constants=None, plain: bool = False):
+                 w_kmajor=None, route_constants=None, plain: bool = False):
     """Packed WSSL: (G, ..., K) uint8 temporal plane groups x (K, N) ->
     (t, ..., N) f32 per-timestep accumulators (+ ``bias``).
 
     "lut" gathers from ``table`` (``lut.build_lut(w)``, cached by the route
     planner) by the bit-transposed index bytes; "unpack" runs the grouped
-    dot, which expands the bits in registers. Both are bit-exact for
-    integer weights; for f32 weights "lut" replays the defined fold exactly
-    and "unpack" is held to a tolerance.
+    dot, which expands the bits on chip: on the int8 tensor cores for int8
+    ``w`` (over ``w_kmajor``, the (N, K) copy the planner caches; built
+    here when absent), on the f32 units otherwise. Both routes are
+    bit-exact for integer weights; for f32 weights "lut" replays the
+    defined fold exactly and "unpack" is held to a tolerance.
     """
     g = x_packed.shape[0]
     if g != num_plane_groups(t):
@@ -123,6 +128,9 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
         tbl = table if _have_table(table) else lut.build_lut(w)
         idx = lut.plane_indices(x2)[:t].contiguous()           # (t, M, C)
         per = impl.lut(idx, tbl)                               # (t, M, N)
+    elif w.dtype == torch.int8:
+        wk = kmajor_weights(w) if w_kmajor is None else w_kmajor
+        per = impl.unpack_s8(x2.contiguous(), wk, t=t)
     else:
         per = impl.unpack(x2.contiguous(), w.to(torch.float32), t=t)
     if bias is not None:

@@ -4,9 +4,12 @@ grouped unpack dot and the 2-D ``spike_matmul`` (port of
 
 ``lut_gather_matmul`` launches ``csrc/lut_gather.cu`` (plain version:
 ``lut_matmul.lut_matmul``); ``spike_matmul_grouped`` launches
-``csrc/unpack_dot.cu`` and ``shift_sum_matmul`` launches
-``csrc/shift_sum.cu`` (plain versions: ``ref.spike_matmul_ref``). Each
-runs its plain version for CPU operands. ``spike_matmul`` is the
+``csrc/unpack_dot.cu`` (f32 weights, the CUDA cores),
+``spike_matmul_grouped_s8`` launches ``csrc/unpack_dot_s8.cu`` (int8
+weights in the K-major layout ``kmajor_weights`` builds, the int8 tensor
+cores) and ``shift_sum_matmul`` launches ``csrc/shift_sum.cu`` (plain
+versions: ``ref.spike_matmul_ref``). Each runs its plain version for CPU
+operands. ``spike_matmul`` is the
 reference's 2-D entry point: ``mode="shift_sum"`` is ``shift_sum_matmul``,
 ``mode="per_plane"`` the grouped unpack dot at G=1 over all 8 planes.
 """
@@ -27,10 +30,17 @@ _LUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _UNPACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p]
+_UNPACK_S8_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_void_p]
 _SHIFT_SUM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
 _GRID_LIMIT = 65535       # gridDim.y / gridDim.z
+# int8 sums are exact in s32 and in their f32 conversion while
+# 127 * K < 2^24
+MAX_S8_K = 132104
+_ROW_ALIGN = 16           # bytes: TMA's row stride and base alignment
 
 
 def lut_gather_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -90,6 +100,61 @@ def spike_matmul_grouped(x_packed: torch.Tensor, w: torch.Tensor, *,
     return out
 
 
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 kernel -> its (N, K) K-major copy, the B operand of the
+    int8 tensor-core dot. Equal to ``w.T``; its rows start 16 bytes apart
+    (a view of zero-padded (N, ceil(K/16)*16) storage), as TMA needs.
+    Built once per layer at plan time, never per call."""
+    if w.dtype != torch.int8 or w.dim() != 2:
+        raise ValueError(f"w must be a 2-d torch.int8 kernel, got "
+                         f"{w.dim()}-d {w.dtype}")
+    k, n = w.shape
+    pad = -(-k // _ROW_ALIGN) * _ROW_ALIGN
+    kt = torch.zeros((n, pad), dtype=torch.int8, device=w.device)
+    kt[:, :k] = w.T
+    return kt[:, :k]
+
+
+def spike_matmul_grouped_s8(x_packed: torch.Tensor, w_kmajor: torch.Tensor,
+                            *, t: int) -> torch.Tensor:
+    """(G, M, K) uint8 plane groups x (N, K) int8 K-major weights (from
+    ``kmajor_weights``) -> (t, M, N) f32 per-plane dots, plane p = bit
+    ``p % 8`` of group ``p // 8``. Bit-exact against the plain version,
+    ``spike_matmul_ref`` on ``w_kmajor.T`` in f32: every sum is an integer
+    below 2^24, so K must stay below ``MAX_S8_K``."""
+    _build.require(x_packed, "x_packed", torch.uint8, 3)
+    if w_kmajor.dtype != torch.int8 or w_kmajor.dim() != 2:
+        raise ValueError(f"w_kmajor must be a 2-d torch.int8 tensor, got "
+                         f"{w_kmajor.dim()}-d {w_kmajor.dtype}: f32 weights "
+                         "take spike_matmul_grouped")
+    g, m, k = x_packed.shape
+    n = w_kmajor.shape[0]
+    if w_kmajor.shape[1] != k:
+        raise ValueError(f"x {tuple(x_packed.shape)} and K-major w "
+                         f"{tuple(w_kmajor.shape)} disagree on K")
+    if k >= MAX_S8_K:
+        raise ValueError(f"int8 sums are exact only for K < {MAX_S8_K}, "
+                         f"got K={k}")
+    if g != num_plane_groups(t):
+        raise ValueError(f"{g} plane groups cannot hold t={t} planes")
+    if _build.on_cpu(x_packed, w_kmajor):
+        return spike_matmul_ref(x_packed, w_kmajor.T, t=t)
+    if (w_kmajor.stride(1) != 1 or w_kmajor.stride(0) % _ROW_ALIGN
+            or w_kmajor.data_ptr() % _ROW_ALIGN):
+        raise ValueError("w_kmajor needs a unit column stride and rows 16 "
+                         "bytes apart: build it with kmajor_weights")
+    if -(-m // (128 // min(t, 8))) > _GRID_LIMIT:
+        raise ValueError(f"{m} rows exceed the launch grid")
+    out = torch.empty((t, m, n), dtype=torch.float32, device=x_packed.device)
+    fn = _build.kernel_function("unpack_dot_s8", "unpack_dot_s8_launch",
+                                _UNPACK_S8_ARGTYPES)
+    _build.check("unpack_dot_s8", fn(
+        x_packed.data_ptr(), w_kmajor.data_ptr(), out.data_ptr(), t, m, k, n,
+        w_kmajor.stride(0), _build.stream(x_packed)))
+    spike_matmul_grouped_s8.launches += 1
+    return out
+
+
 def shift_sum_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) uint8 x (K, N) f32 -> (M, N) f32 with each byte read as its
     value: ``sum_p 2^p (plane_p . W)`` in one dot. Exact for
@@ -132,4 +197,5 @@ def spike_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
 lut_gather_matmul.launches = 0
 spike_matmul_grouped.launches = 0
+spike_matmul_grouped_s8.launches = 0
 shift_sum_matmul.launches = 0

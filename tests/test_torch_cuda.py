@@ -21,9 +21,11 @@ from repro_torch.infer.quant import map_folded_layers
 from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
-from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
+from repro_torch.kernels.spike_matmul import (kmajor_weights,
+                                              lut_gather_matmul,
                                               shift_sum_matmul, spike_matmul,
-                                              spike_matmul_grouped)
+                                              spike_matmul_grouped,
+                                              spike_matmul_grouped_s8)
 from repro_torch.kernels.stdp_attention import (stdp_attention,
                                                 stdp_attention_packed,
                                                 stdp_attention_packed_plain)
@@ -113,6 +115,25 @@ def test_unpack_dot_kernel_matches_plain(cuda, t, m, k, n):
     assert spike_matmul_grouped.launches == 2
 
 
+@pytest.mark.parametrize("t", [1, 4, 8, 9, 17])
+@pytest.mark.parametrize("m,k,n", [(21, 40, 13), (130, 512, 70),
+                                   (33, 61, 129), (1568, 2048, 512)])
+def test_unpack_dot_s8_kernel_matches_plain(cuda, t, m, k, n):
+    """The int8 tensor-core kernel bit-exact against its plain version
+    (the f32 matmul of the unpacked planes by the int-valued weights):
+    ragged rows and columns, K not a multiple of 16 (K = 61 takes the byte
+    loads), the tail group at T > 8, and fc2 of the paper config at batch
+    8 (1568 rows, K 2048)."""
+    x = packed(cuda, t, t, m, k)
+    w = int_weights(cuda, m, k, n)
+    got = spike_matmul_grouped_s8(x, kmajor_weights(w), t=t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.spike_matmul_ref(x, w.to(torch.float32),
+                                                 t=t))
+    assert spike_matmul_grouped_s8.launches == 1
+    assert spike_matmul_grouped.launches == 0
+
+
 @pytest.mark.parametrize("bh,n,dh", [(256, 196, 64), (3, 100, 32),
                                      (2, 1, 128), (5, 65, 7)])
 def test_stdp_kernel_matches_plain(cuda, bh, n, dh):
@@ -174,6 +195,31 @@ def test_fused_lif_lut_kernel_matches_plain(cuda, int_w, t, r, k, n):
     assert tflif_lut_matmul.launches == 1
 
 
+@pytest.mark.parametrize("int_w", [True, False], ids=["int16", "f32"])
+@pytest.mark.parametrize("t", [1, 4, 9])
+@pytest.mark.parametrize("r,k", [(300, 2048), (37, 61), (600, 100)])
+def test_fused_lif_lut_kernel_full_cluster(cuda, int_w, t, r, k):
+    """N = 300 takes 10 column tiles of 32: a full cluster of 8 (one chunk
+    of each group's LIF a block) and a second cluster whose 6 blocks past N
+    run only their LIF share. K = 100 ends in a half chunk, K = 61 in a
+    ragged one. Both outputs bit-exact."""
+    n = 300
+    g = gen(cuda, 7 * t + k)
+    x = torch.randn((t, r, k), generator=g, device=cuda) * 1.5
+    bias = torch.randn(k, generator=g, device=cuda) * 0.3
+    vth = 0.5 + torch.rand(k, generator=g, device=cuda)
+    if int_w:
+        w = int_weights(cuda, k, k, n)
+    else:
+        w = torch.randn((k, n), generator=gen(cuda, n), device=cuda)
+    tbl = lut.build_lut(w)
+    spk, acc = tflif_lut_matmul(x, bias, tbl, vth)
+    torch.cuda.synchronize()
+    want_spk, want_acc = tflif_lut_plain(x, bias, tbl, vth)
+    assert torch.equal(spk, want_spk)
+    assert torch.equal(acc, want_acc)
+
+
 @pytest.mark.parametrize("m,k,n", [(100352, 12, 64), (1000, 61, 70),
                                    (3, 1, 1), (67, 200, 129)])
 def test_shift_sum_kernel_matches_plain(cuda, m, k, n):
@@ -231,6 +277,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="x must be"):
         spike_matmul(xb[None], torch.zeros((12, 4), device=cuda),
                      mode="shift_sum")
+    xs = torch.zeros((1, 3, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        spike_matmul_grouped_s8(xs, torch.zeros((4, 16), device=cuda), t=4)
+    with pytest.raises(ValueError, match="rows 16"):
+        spike_matmul_grouped_s8(xs[..., :12].contiguous(), torch.zeros(
+            (4, 12), dtype=torch.int8, device=cuda), t=4)
     qa = torch.zeros((2, 8, 48), device=cuda)
     with pytest.raises(ValueError, match="Dh in"):
         flash_attention(qa, qa, qa, scale=1.0)
@@ -265,8 +317,8 @@ def test_packed_cuda_matches_plain_route_on_the_card(cuda):
     torch.cuda.synchronize()
     n_lut = sum(r == "lut" for r in model.plan.routes.values())
     assert ops.launch_counts() == {
-        "tflif": 4 + 7 * cfg.depth, "lut_gather": n_lut,
-        "unpack_dot": len(model.plan.routes) - n_lut, "stdp": 0,
+        "tflif": 4 + 7 * cfg.depth, "lut_gather": n_lut, "unpack_dot": 0,
+        "unpack_dot_s8": len(model.plan.routes) - n_lut, "stdp": 0,
         "stdp_packed": cfg.depth, "fused_lif_lut": 0, "shift_sum": 0,
         "flash_attention_tc": 0, "flash_attention_f32": 0}
     plain = firing_model(cfg, cuda, "packed_plain").step(imgs)
@@ -296,7 +348,8 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "tflif": 4 + 6 * cfg.depth, "lut_gather": 4 + 5 * cfg.depth,
-        "unpack_dot": 0, "stdp": 0, "stdp_packed": cfg.depth,
+        "unpack_dot": 0, "unpack_dot_s8": 0, "stdp": 0,
+        "stdp_packed": cfg.depth,
         "fused_lif_lut": cfg.depth, "shift_sum": 0, "flash_attention_tc": 0,
         "flash_attention_f32": 0}
     assert bool((logits != 0).any())
@@ -312,8 +365,8 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
     logits = unpack.step(imgs)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "tflif": 4 + 7 * cfg.depth, "lut_gather": 0,
-        "unpack_dot": 3 + 6 * cfg.depth, "stdp": 0,
+        "tflif": 4 + 7 * cfg.depth, "lut_gather": 0, "unpack_dot": 0,
+        "unpack_dot_s8": 3 + 6 * cfg.depth, "stdp": 0,
         "stdp_packed": cfg.depth, "fused_lif_lut": 0, "shift_sum": 1,
         "flash_attention_tc": 0, "flash_attention_f32": 0}
     plain = firing_model(cfg, cuda, "packed_plain", route="unpack")

@@ -82,6 +82,81 @@ def test_fused_matches_pallas_kernel(t, k, int_w):
     assert ops.launch_counts()["fused_lif_lut"] == 0
 
 
+def fused_schedule(x, bias, table, vth, *, rows, bn, tau=2.0, group=8,
+                   max_cluster=8):
+    """Plain emulation of ``csrc/fused_lif_lut.cu``'s schedule: per row
+    tile of ``rows`` rows, the LIF runs once, group by group of ``group``
+    chunks, each chunk's share taken by one rank of the cluster of column
+    tiles (index bytes kept per (step, row, chunk)); then each column tile
+    of ``bn`` columns folds its (256, bn) table slabs in ascending chunk
+    order, int32 for int16 tables, f32 from chunk 0's entry otherwise."""
+    t, r, k = x.shape
+    c_n, _, n = table.shape
+    tiles = max(1, -(-n // bn))
+    cluster = min(max_cluster, tiles)
+    acc_dt = torch.float32 if table.is_floating_point() else torch.int32
+    spikes = torch.zeros((-(-t // 8), r, k), dtype=torch.uint8)
+    out = torch.empty((t, r, n))
+    pad = c_n * 8 - k
+    xp = torch.nn.functional.pad(x, (0, pad))
+    bp = torch.nn.functional.pad(bias, (0, pad))
+    vp = torch.nn.functional.pad(vth, (0, pad), value=1.0)
+    for r0 in range(0, r, rows):
+        rr = slice(r0, min(r, r0 + rows))
+        idx = torch.zeros((t, rr.stop - r0, c_n), dtype=torch.uint8)
+        for g0 in range(0, c_n, group):
+            for rank in range(cluster):
+                for c in range(g0 + rank, min(g0 + group, c_n), cluster):
+                    kk = slice(8 * c, 8 * c + 8)
+                    v = torch.zeros((rr.stop - r0, 8))
+                    for step in range(t):
+                        h = v + (xp[step, rr, kk] + bp[kk] - v) / tau
+                        s = h >= vp[kk]
+                        v = torch.where(s, 0.0, h)
+                        bits = s.to(torch.uint8) << torch.arange(
+                            8, dtype=torch.uint8)
+                        idx[step, :, c] = bits.sum(-1, dtype=torch.uint8)
+                        live = s[:, :min(8, k - 8 * c)].to(torch.uint8)
+                        spikes[step // 8, rr, 8 * c:8 * c + live.shape[1]] |= (
+                            live << (step % 8))
+        for j in range(tiles):
+            cols = slice(j * bn, min(n, (j + 1) * bn))
+            a = None
+            for c in range(c_n):
+                g = table[c, :, cols][idx[:, :, c].long()].to(acc_dt)
+                a = g if c == 0 else a + g
+            out[:, rr, cols] = a.to(torch.float32)
+    return spikes, out
+
+
+@pytest.mark.parametrize("int_w", [True, False], ids=["int16", "f32"])
+@pytest.mark.parametrize("k,n", [(61, 37), (133, 9)])
+@pytest.mark.parametrize("t", [1, 4, 9, 17])
+def test_fused_slab_schedule_matches_plain_and_pallas(t, k, n, int_w):
+    """Kernel 5's schedule (LIF once per row tile shared across the
+    cluster, slabs of column tiles folded in ascending chunk order) gives
+    both outputs of ``tflif_lut_plain`` and of the Pallas kernel in
+    interpret mode bit for bit: at the kernel's own tile (1024 / TT rows,
+    32 columns) and at small tiles that cut rows, columns and chunk groups
+    (K = 133: 17 chunks, three groups; N = 37 not a multiple of 8)."""
+    r = 21
+    x, bias, vth = lif_inputs(t * k + n, t, r, k)
+    w = weights(k + n, k, n, int_w=int_w)
+    tbl = np.asarray(jlut.build_lut(jnp.asarray(w)))
+    want_s, want_a = jfused(jnp.asarray(x), jnp.asarray(bias),
+                            jnp.asarray(tbl), v_th=jnp.asarray(vth),
+                            interpret=True)
+    plain_s, plain_a = tflif_lut_plain(t_(x), t_(bias), t_(tbl), t_(vth))
+    exact(plain_s, want_s)
+    exact(plain_a, want_a)
+    tt = max(4, 1 << (t - 1).bit_length())
+    for rows, bn in ((1024 // tt, 32), (8, 8), (5, 4)):
+        got_s, got_a = fused_schedule(t_(x), t_(bias), t_(tbl), t_(vth),
+                                      rows=rows, bn=bn)
+        exact(got_s, want_s, f"spikes, tile ({rows}, {bn})")
+        exact(got_a, want_a, f"accumulators, tile ({rows}, {bn})")
+
+
 def test_fused_plain_is_the_unfused_composition():
     """The plain version equals ``tflif_pack`` then ``spike_linear`` over
     the table: what ``mlp_pair_lif`` replaces."""

@@ -352,14 +352,16 @@ def test_port_fold_feeds_the_same_spikes_as_the_reference_fold():
 def test_dispatches_per_step_match_the_plan(monkeypatch):
     """Each kernel wrapper is reached once per layer it serves: LIFs =
     4 SCS + 7 per block (q, k, v, attention, wo, fc1, fc2), gathers = LUT
-    layers, unpack dots = unpack layers, STDP = one per block. chip_smoke.py
-    holds the card's launch counters to the same formula."""
+    layers, int8 unpack dots = unpack layers (all on the s8 wrapper, none
+    on the f32 one), STDP = one per block. chip_smoke.py holds the card's
+    launch counters to the same formula."""
     cfg = SpikformerConfig().scaled()
     jtree = jquantize(firing_tree(JConfig().scaled()))
     model = compile(from_reference(to_numpy(jtree)), cfg, ExecutionPlan(
         weight_dtype="int8", batch_buckets=(2,), max_table_bytes=1 << 18),
         folded=True, device="cpu")
-    calls = dict.fromkeys(("tflif", "lut", "unpack", "stdp_packed"), 0)
+    calls = dict.fromkeys(("tflif", "lut", "unpack", "unpack_s8",
+                           "stdp_packed"), 0)
     for name in calls:
         fn = getattr(ops._WRAPPERS, name)
 
@@ -371,7 +373,8 @@ def test_dispatches_per_step_match_the_plan(monkeypatch):
     model.step(images(cfg, 2))
     n_lut = sum(r == "lut" for r in model.plan.routes.values())
     assert calls == {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
-                     "lut": n_lut, "unpack": len(model.plan.routes) - n_lut,
+                     "lut": n_lut, "unpack": 0,
+                     "unpack_s8": len(model.plan.routes) - n_lut,
                      "stdp_packed": cfg.depth}
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 

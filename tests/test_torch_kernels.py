@@ -442,9 +442,9 @@ def test_cpu_operands_run_plain_versions_and_count_no_launch():
     ops.spike_matmul(x[0], w, mode="per_plane")
     qkv = torch.ones(2, 9, 32)
     ops.flash_attention(qkv, qkv, qkv, scale=0.125)
-    names = {"tflif", "lut_gather", "unpack_dot", "stdp", "stdp_packed",
-             "fused_lif_lut", "shift_sum", "flash_attention_tc",
-             "flash_attention_f32"}
+    names = {"tflif", "lut_gather", "unpack_dot", "unpack_dot_s8", "stdp",
+             "stdp_packed", "fused_lif_lut", "shift_sum",
+             "flash_attention_tc", "flash_attention_f32"}
     assert ops.launch_counts() == dict.fromkeys(names, 0)
     assert set(ops.KERNELS) == names
 
