@@ -7,7 +7,10 @@ Needs one CUDA card and ``nvcc``; fails without them. It
 
 1. builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. runs each kernel at the shapes its main path gives it (the Spikformer
-   kernels at batch 8, the grouped unpack dot on the int8 tensor cores
+   kernels at batch 8: TFLIF at fc1 and, through a stride-0 view, at
+   conv0; the LUT gather's packed entry at q/k/v, path A's fc1 with an f32
+   table and conv0, each also through the index-byte entry; the grouped
+   unpack dot on the int8 tensor cores
    over the plan's K-major weights, packed STDP on the backend's
    plane-group layout,
    bf16 flash attention on the tensor cores at smollm-360m's 2048-token
@@ -15,7 +18,9 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    kernels of the unpack dot, STDP and flash attention on the CUDA cores),
    holds it
    against its plain PyTorch version on the card and times kernel, plain
-   version and the nearest single PyTorch call;
+   version and the nearest single PyTorch call (TFLIF and the gather by
+   their device time under ``torch.profiler``: a call's host cost exceeds
+   the kernel's own time);
 3. drives three paths of the full-width Spikformer V2-8-512 (224x224x3,
    T=4, 8 blocks, 1000 classes) from one seeded ``init`` (fixed gains on
    the folded kernels keep the IAND residual stream firing), each with
@@ -147,6 +152,33 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, name: str = "", reps: int = REPS) -> float:
+    """Device ms by ``torch.profiler`` (CUDA activity) over ``reps`` calls
+    after a warm-up: with ``name``, the mean time of one launch of the
+    kernels whose name holds it (the kernel alone, free of the host's
+    launch cost, which exceeds some kernels' own time); without, the time
+    of every kernel a call launches, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and name in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+            n += ev.count
+    check(n >= reps, f"device_ms: {n} launches of {name!r} in {reps} calls")
+    return us / 1e3 / (n if name else reps)
+
+
 def kernel_phase(torch, dev) -> dict:
     """Each kernel at its main-path shape against its plain version."""
     from repro_torch.core.spike import pack_timesteps, unpack_timesteps
@@ -155,6 +187,8 @@ def kernel_phase(torch, dev) -> dict:
     from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
     from repro_torch.kernels.spike_matmul import (kmajor_weights,
                                                   lut_gather_matmul,
+                                                  lut_gather_packed,
+                                                  lut_gather_packed_plain,
                                                   shift_sum_matmul,
                                                   spike_matmul,
                                                   spike_matmul_grouped,
@@ -183,51 +217,99 @@ def kernel_phase(torch, dev) -> dict:
     err = max_abs_err(got, want)
     nbytes = x.numel() * 4 + bias.numel() * 4 + vth.numel() * 4 + got.numel()
     b_ms, b_by = bound_ms(nbytes, 5 * x.numel(), F32_OPS_PER_S)
+    # conv0's LIF through ops.tflif_pack: the (8, 112, 112, 64)
+    # accumulators expanded over T, read in place by the kernel
+    acc0 = torch.randn((BATCH, 112, 112, 64), generator=gen, device=dev) * 40
+    acc0x = acc0.unsqueeze(0).expand(t, *acc0.shape)
+    b0 = torch.randn(64, generator=gen, device=dev)
+    got0 = ops.tflif_pack(acc0x, b0)
+    want0 = ops.tflif_pack(acc0x.contiguous(), b0, plain=True)
+    check(torch.equal(got0, want0),
+          "tflif kernel (conv0, stride-0 x) differs from its plain version")
     out["tflif"] = dict(
-        shape=f"x {tuple(x.shape)} f32, per-channel bias/v_th ({hidden},)",
-        max_abs_err=err, firing_rate=float(
-            unpack_timesteps(got, t).mean()),
-        ms=time_ms(torch, lambda: tflif_fused(x, bias, vth)),
+        shape=f"x {tuple(x.shape)} f32, per-channel bias/v_th ({hidden},); "
+              f"conv0: x {tuple(acc0x.shape)} expanded over T (stride 0)",
+        max_abs_err=max(err, max_abs_err(got0, want0)),
+        firing_rate=float(unpack_timesteps(got, t).mean()),
+        ms=device_ms(torch, lambda: tflif_fused(x, bias, vth), "tflif_kernel"),
+        ms_events=time_ms(torch, lambda: tflif_fused(x, bias, vth)),
+        ms_conv0_stride0=device_ms(torch, lambda: ops.tflif_pack(acc0x, b0),
+                                   "tflif_kernel"),
         plain_ms=time_ms(torch, lambda: tflif_plain(x, bias, vth)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del acc0, acc0x, got0, want0
 
-    # LUT gather at q/k/v: (4, 1568, 64) index bytes x (64, 256, 512) int16
+    # LUT gather, packed entry (the one the driven paths call), at q/k/v:
+    # (1, 1568, 512) packed spikes, t = 4, x (64, 256, 512) int16; every
+    # shape also through the index-byte entry, all held bit-exact to
+    # lut_matmul over plane_indices
     xq = pack_timesteps(spikes(t, m, dim))                   # (1, M, 512)
     idx = lut.plane_indices(xq)[:t].contiguous()
     w_int = torch.randint(-127, 128, (dim, dim), generator=gen,
                           device=dev).to(torch.int8)
     tbl16 = lut.build_lut(w_int)
-    got, want = lut_gather_matmul(idx, tbl16), lut.lut_matmul(idx, tbl16)
-    check(torch.equal(got, want),
-          "lut_gather (int16 table) differs from its plain version")
-    err = max_abs_err(got, want)
+    errs = []
+
+    def held(x8, tt, tbl, what):
+        want = lut.lut_matmul(lut.plane_indices(x8)[:tt], tbl)
+        got = lut_gather_packed(x8, tbl, t=tt)
+        check(torch.equal(got, want),
+              f"lut_gather ({what}, packed entry) differs from its plain "
+              "version")
+        ix = lut.plane_indices(x8)[:tt].contiguous()
+        check(torch.equal(lut_gather_matmul(ix, tbl), want),
+              f"lut_gather ({what}, index bytes) differs from its plain "
+              "version")
+        errs.append(max_abs_err(got, want))
+
+    held(xq, t, tbl16, "q/k/v, int16 table")
     w_f32 = torch.randn((dim, dim), generator=gen, device=dev)
-    tbl32 = lut.build_lut(w_f32)
-    check(torch.equal(lut_gather_matmul(idx, tbl32),
-                      lut.lut_matmul(idx, tbl32)),
-          "lut_gather (f32 table) differs from its plain version")
+    held(xq, t, lut.build_lut(w_f32), "q/k/v, f32 table")
+    # path A's fc1: the same spikes x (64, 256, 2048) f32 (128 MiB)
+    w1f = torch.randn((dim, hidden), generator=gen, device=dev)
+    tbl1 = lut.build_lut(w1f)
+    held(xq, t, tbl1, "fc1, f32 table")
     # conv0 of the main path: SSSC value planes of a batch of 8 images
     img = torch.randint(0, 256, (BATCH * 112 * 112, 12), generator=gen,
                         device=dev).to(torch.uint8)
-    idx0 = lut.plane_indices(img[None]).contiguous()
+    img3 = img[None]
     tbl0 = lut.build_lut(torch.randint(-127, 128, (12, 64), generator=gen,
                                        device=dev).to(torch.int8))
-    check(torch.equal(lut_gather_matmul(idx0, tbl0),
-                      lut.lut_matmul(idx0, tbl0)),
-          "lut_gather (conv0 shape) differs from its plain version")
+    tbl0f = lut.build_lut(torch.randn((12, 64), generator=gen, device=dev))
+    held(img3, 8, tbl0, "conv0, int16 table")
+    held(img3, 8, tbl0f, "conv0, f32 table")
     planes = unpack_timesteps(xq, t).reshape(t * m, dim)
     wf = w_int.to(torch.float32)
-    p_, m_, c_ = idx.shape
-    n_ = tbl16.shape[-1]
-    b_ms, b_by = bound_ms(idx.numel() + tbl16.numel() * 2 + p_ * m_ * n_ * 4,
-                          p_ * m_ * c_ * n_, F32_OPS_PER_S)
+    c_, n_ = tbl16.shape[0], tbl16.shape[-1]
+    b_ms, b_by = bound_ms(xq.numel() + tbl16.numel() * 2 + t * m * n_ * 4,
+                          t * m * c_ * n_, F32_OPS_PER_S)
+    b1_ms, _ = bound_ms(xq.numel() + tbl1.numel() * 4
+                        + t * m * hidden * 4, t * m * c_ * hidden,
+                        F32_OPS_PER_S)
     out["lut_gather"] = dict(
-        shape=f"idx {tuple(idx.shape)} u8 x table {tuple(tbl16.shape)} int16",
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: lut_gather_matmul(idx, tbl16)),
-        plain_ms=time_ms(torch, lambda: lut.lut_matmul(idx, tbl16)),
+        shape=f"x {tuple(xq.shape)} u8 packed spikes, t={t} x table "
+              f"{tuple(tbl16.shape)} int16 (q/k/v); also fc1's f32 table "
+              f"{tuple(tbl1.shape)} and conv0's value planes "
+              f"{tuple(img3.shape)}, t=8, x tables {tuple(tbl0.shape)}",
+        max_abs_err=max(errs),
+        ms=device_ms(torch, lambda: lut_gather_packed(xq, tbl16, t=t),
+                     "lut_gather_kernel"),
+        ms_index_entry=device_ms(torch, lambda: lut_gather_matmul(idx, tbl16),
+                                 "lut_gather_kernel"),
+        ms_events=time_ms(torch, lambda: lut_gather_packed(xq, tbl16, t=t)),
+        plain_ms=time_ms(torch, lambda: lut_gather_packed_plain(xq, tbl16,
+                                                                t=t)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.matmul(planes, wf)))
+        library_ms=time_ms(torch, lambda: torch.matmul(planes, wf)),
+        ms_fc1_f32=device_ms(torch, lambda: lut_gather_packed(xq, tbl1, t=t),
+                             "lut_gather_kernel"),
+        bound_ms_fc1_f32=b1_ms,
+        library_ms_fc1_f32=time_ms(torch, lambda: torch.matmul(planes, w1f)),
+        ms_conv0_int16=device_ms(torch, lambda: lut_gather_packed(
+            img3, tbl0, t=8), "lut_gather_kernel"),
+        ms_conv0_f32=device_ms(torch, lambda: lut_gather_packed(
+            img3, tbl0f, t=8), "lut_gather_kernel"))
+    del tbl1
 
     # grouped unpack dot on the int8 tensor cores at fc1: (1, 1568, 512) u8
     # x (512, 2048) int8, the K-major copy made as the plan makes it, once
@@ -525,9 +607,16 @@ OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
 def profile_phase(torch, model, batch, steps: int = 3) -> dict:
     """Where one bucket-8 step's time goes: host wall time per synchronised
     step, device time per kernel by ``torch.profiler`` (CUDA activity), the
-    device's idle share of the wall time, and peak device memory."""
-    return {"bucket": int(batch.shape[0]),
-            **profile_fn(torch, lambda: model.step(batch), steps)}
+    device's idle share of the wall time, and peak device memory. Checks
+    that every gather of the step ran the packed entry (the kernel's third
+    template argument), which forms its index bytes on chip."""
+    prof = profile_fn(torch, lambda: model.step(batch), steps)
+    for row in prof["by_kernel"]:
+        if "lut_gather_kernel<" in row["kernel"]:
+            args = row["kernel"].split("lut_gather_kernel<")[1].split(",")
+            check(args[2].strip() == "true",
+                  f"a step's gather ran the index-byte entry: {row['kernel']}")
+    return {"bucket": int(batch.shape[0]), **prof}
 
 
 def profile_fn(torch, fn, steps: int) -> dict:
@@ -566,11 +655,15 @@ def profile_fn(torch, fn, steps: int) -> dict:
     rows.sort(key=lambda r: -r["ms_per_step"])
     device_ms = sum(r["ms_per_step"] for r in rows)
     ours_ms = sum(r["ms_per_step"] for r in rows if r["ours"])
+    glue = [r for r in rows if not r["ours"]]
     return {
         "steps": steps,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms if rows else "not measured",
         "our_kernels_ms_per_step": ours_ms if rows else "not measured",
+        "glue_ms_per_step": (sum(r["ms_per_step"] for r in glue) if rows
+                             else "not measured"),
+        "glue_launches_per_step": sum(r["launches_per_step"] for r in glue),
         "idle_share": 1.0 - device_ms / wall_ms if rows else "not measured",
         "peak_mem_mib": peak_mib,
         "launches_per_step": sum(r["launches_per_step"] for r in rows),
@@ -918,6 +1011,13 @@ def lm_gate_phase(torch, dev, eng) -> dict:
                               for dt in ("float32", "bfloat16")})
 
 
+# readings beyond the contract's keys, kept in the kernels line
+EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
+              "ms_conv0_stride0", "ms_index_entry", "ms_fc1_f32",
+              "bound_ms_fc1_f32", "library_ms_fc1_f32", "ms_conv0_int16",
+              "ms_conv0_f32")
+
+
 def kernel_table(report: dict, paths) -> list:
     """One row per kernel: what it replaces, its launches on the driven
     paths, its error against its plain version and its times. Fails if a
@@ -936,8 +1036,7 @@ def kernel_table(report: dict, paths) -> list:
                       **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "library_ms")},
-                      **{k: row[k] for k in ("library_int8_ms",
-                                             "ms_int16_table") if k in row},
+                      **{k: row[k] for k in EXTRA_KEYS if k in row},
                       "shape": row["shape"]})
     return table
 

@@ -26,6 +26,8 @@ route; only the f32 unpack dot is held to a tolerance.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import registry
@@ -34,6 +36,7 @@ from ..core.lif import V_TH, tflif
 from ..core.spike import bitplanes_u8, rate_decode, space_to_depth
 from ..kernels import lut_matmul as lut
 from ..kernels import ops
+from ..kernels.fused import fused_fits
 
 # set bits of every byte value: the popcount rate readout
 _POPCOUNT = torch.tensor([bin(b).count("1") for b in range(256)],
@@ -169,9 +172,13 @@ class PackedBackend:
         LIF: bit-identical to the two-layer path, without fc1's packed
         spikes making a round trip through device memory. None, which
         tells ``forward_folded`` to run the two layers, when ``fuse_mlp``
-        is off or fc2 carries no real table."""
+        is off, fc2 carries no real table, or the fused kernel cannot take
+        the shape (``fused_fits``: more than 64 steps or row tiles past the
+        grid); the decision does not depend on the device."""
         tbl2 = fc2.get("lut")
-        if not (self.fuse_mlp and ops._have_table(tbl2)):
+        rows = math.prod(x.shape[1:-1])
+        if not (self.fuse_mlp and ops._have_table(tbl2)
+                and fused_fits(t, rows)):
             return None
         scale1 = fc1.get("scale")
         acc1 = ops.spike_linear(x, fc1["kernel"], None, t=t,

@@ -33,6 +33,14 @@ def _rows_per_block(t: int) -> int:
     return 1024 // max(4, 1 << (t - 1).bit_length())
 
 
+def fused_fits(t: int, r: int) -> bool:
+    """Whether the kernel takes T = ``t`` steps over ``r`` rows: T <= MAX_T
+    (its registers hold every step) and at most ``_GRID_LIMIT`` row tiles.
+    The wrapper refuses anything else on the card; ``mlp_pair_lif`` then
+    runs the two layers instead, which is bit-identical."""
+    return 1 <= t <= MAX_T and -(-r // _rows_per_block(t)) <= _GRID_LIMIT
+
+
 def tflif_lut_plain(x: torch.Tensor, bias: torch.Tensor, table: torch.Tensor,
                     v_th: torch.Tensor, *, tau: float = TAU):
     """Plain version of ``tflif_lut_matmul``, on any device: the
@@ -67,7 +75,7 @@ def tflif_lut_matmul(x: torch.Tensor, bias: torch.Tensor, table: torch.Tensor,
     n = table.shape[2]
     if _build.on_cpu(x, bias, table, v_th):
         return tflif_lut_plain(x, bias, table, v_th, tau=tau)
-    if t > MAX_T or -(-r // _rows_per_block(t)) > _GRID_LIMIT:
+    if not fused_fits(t, r):
         raise ValueError(f"fused kernel takes T <= {MAX_T} and at most "
                          f"{_GRID_LIMIT} row tiles, got T={t}, R={r}")
     spikes = torch.empty((num_plane_groups(t), r, k), dtype=torch.uint8,

@@ -24,7 +24,8 @@ from .flash_attention import (flash_attention as _flash,
                               flash_attention_tc)
 from .lut_matmul import choose_cuda_route
 from .fused import tflif_lut_matmul, tflif_lut_plain
-from .spike_matmul import (kmajor_weights, lut_gather_matmul,
+from .spike_matmul import (MAX_S8_K, kmajor_weights, lut_gather_matmul,
+                           lut_gather_packed, lut_gather_packed_plain,
                            shift_sum_matmul, spike_matmul_grouped,
                            spike_matmul_grouped_s8)
 from .stdp_attention import (stdp_attention, stdp_attention_packed as
@@ -43,11 +44,12 @@ KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
            "flash_attention_f32": flash_attention_f32}
 
 _WRAPPERS = types.SimpleNamespace(
-    tflif=tflif_fused, lut=lut_gather_matmul, unpack=spike_matmul_grouped,
+    tflif=tflif_fused, lut=lut_gather_packed, unpack=spike_matmul_grouped,
     unpack_s8=spike_matmul_grouped_s8, stdp_packed=_stdp_packed,
     fused=tflif_lut_matmul, shift_sum=shift_sum_matmul, flash=_flash)
 _PLAIN = types.SimpleNamespace(
-    tflif=tflif_plain, lut=lut.lut_matmul, unpack=ref.spike_matmul_ref,
+    tflif=tflif_plain, lut=lut_gather_packed_plain,
+    unpack=ref.spike_matmul_ref,
     unpack_s8=lambda x, wk, t: ref.spike_matmul_ref(x, wk.T, t=t),
     stdp_packed=stdp_attention_packed_plain, fused=tflif_lut_plain,
     shift_sum=lambda x, w: ref.spike_matmul_ref(x, w, mode="shift_sum"),
@@ -107,10 +109,13 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
     (t, ..., N) f32 per-timestep accumulators (+ ``bias``).
 
     "lut" gathers from ``table`` (``lut.build_lut(w)``, cached by the route
-    planner) by the bit-transposed index bytes; "unpack" runs the grouped
+    planner) by the bit-transposed index bytes, which the gather kernel
+    forms from the packed spikes itself; "unpack" runs the grouped
     dot, which expands the bits on chip: on the int8 tensor cores for int8
     ``w`` (over ``w_kmajor``, the (N, K) copy the planner caches; built
-    here when absent), on the f32 units otherwise. Both routes are
+    here when absent; at K >= ``MAX_S8_K``, where int8 sums may leave the
+    exact range, in f32 as the reference computes them), on the f32 units
+    otherwise. Both routes are
     bit-exact for integer weights; for f32 weights "lut" replays the
     defined fold exactly and "unpack" is held to a tolerance.
     """
@@ -126,9 +131,8 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
     x2 = x_packed.reshape(g, m, k)
     if resolved == "lut":
         tbl = table if _have_table(table) else lut.build_lut(w)
-        idx = lut.plane_indices(x2)[:t].contiguous()           # (t, M, C)
-        per = impl.lut(idx, tbl)                               # (t, M, N)
-    elif w.dtype == torch.int8:
+        per = impl.lut(x2.contiguous(), tbl, t=t)              # (t, M, N)
+    elif w.dtype == torch.int8 and k < MAX_S8_K:
         wk = kmajor_weights(w) if w_kmajor is None else w_kmajor
         per = impl.unpack_s8(x2.contiguous(), wk, t=t)
     else:
@@ -158,8 +162,8 @@ def sssc_linear(x_u8, w, bias=None, *, route=None, table=None,
                                    constants=route_constants)
     if resolved == "lut":
         tbl = table if _have_table(table) else lut.build_lut(w)
-        idx = lut.plane_indices(x2[None]).contiguous()         # (8, M, C)
-        y = lut.shift_sum_fold(impl.lut(idx, tbl))             # (M, N)
+        # the 8 value bits of a byte are 8 planes of one group
+        y = lut.shift_sum_fold(impl.lut(x2[None].contiguous(), tbl, t=8))
     else:
         y = spike_matmul(x2, w, mode="shift_sum", plain=plain)
     if bias is not None:
@@ -184,12 +188,16 @@ def tflif_pack(acc, bias=None, *, t: int | None = None, tau: float = TAU,
     """Batched TFLIF: (T, ...) f32 accumulators -> (G, ...) uint8 plane
     groups. ``bias`` and ``v_th`` broadcast against ``acc.shape[1:]`` (a
     per-channel ``v_th`` carries the int8 weight-scale fold); ``t`` keeps
-    the first t steps."""
+    the first t steps. ``acc`` may be expanded over T (stride 0, as SSSC
+    conv0's image-constant accumulators are): the kernel reads its one row
+    for every step, and no copy is made."""
     if t is not None and t != acc.shape[0]:
         acc = acc[:t]
     t = acc.shape[0]
     lead = tuple(acc.shape[1:])
-    x2 = acc.reshape(t, -1).to(torch.float32).contiguous()
+    x2 = acc.reshape(t, -1).to(torch.float32)     # a view where it can be
+    if x2.shape[1] > 1 and x2.stride(1) != 1:
+        x2 = x2.contiguous()      # a stride-0 step axis is taken as it is
     b = _period_vector(0.0 if bias is None else bias, lead, acc.device)
     vth = _period_vector(v_th, lead, acc.device)
     packed = (_PLAIN if plain else _WRAPPERS).tflif(x2, b, vth, tau=tau)

@@ -2,8 +2,10 @@
 grouped unpack dot and the 2-D ``spike_matmul`` (port of
 ``repro.kernels.spike_matmul``).
 
-``lut_gather_matmul`` launches ``csrc/lut_gather.cu`` (plain version:
-``lut_matmul.lut_matmul``); ``spike_matmul_grouped`` launches
+``lut_gather_matmul`` launches ``csrc/lut_gather.cu`` over index bytes
+(plain version: ``lut_matmul.lut_matmul``) and ``lut_gather_packed`` the
+same kernel over packed spikes, forming the index bytes on chip (plain
+version: ``lut_gather_packed_plain``); ``spike_matmul_grouped`` launches
 ``csrc/unpack_dot.cu`` (f32 weights, the CUDA cores),
 ``spike_matmul_grouped_s8`` launches ``csrc/unpack_dot_s8.cu`` (int8
 weights in the K-major layout ``kmajor_weights`` builds, the int8 tensor
@@ -20,13 +22,16 @@ import ctypes
 import torch
 
 from . import _build
-from .lut_matmul import lut_matmul
+from .lut_matmul import lut_matmul, num_k_chunks, plane_indices
 from .ref import spike_matmul_ref
 from ..core.spike import num_plane_groups
 
 _LUT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p]
+_LUT_PACKED_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p]
 _UNPACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p]
@@ -43,32 +48,77 @@ MAX_S8_K = 132104
 _ROW_ALIGN = 16           # bytes: TMA's row stride and base alignment
 
 
+def _lut_table(table: torch.Tensor) -> None:
+    if table.dtype not in (torch.int16, torch.float32):
+        raise ValueError(f"table must be int16 or float32, got {table.dtype}")
+    _build.require(table, "table", table.dtype, 3)
+    if table.shape[1] != 256:
+        raise ValueError(f"table {tuple(table.shape)} is not (C, 256, N)")
+
+
+def _lut_launch(symbol: str, argtypes, table: torch.Tensor,
+                src: torch.Tensor, shape, *dims) -> torch.Tensor:
+    """Launch one entry of ``csrc/lut_gather.cu`` (sizes are C ints);
+    both entries count as ``lut_gather_matmul.launches``."""
+    if max(shape) >= 2 ** 31:
+        raise ValueError(f"gather of shape {shape} exceeds the kernel's "
+                         "32-bit sizes")
+    out = torch.empty(shape, dtype=torch.float32, device=src.device)
+    suffix = "i16" if table.dtype == torch.int16 else "f32"
+    fn = _build.kernel_function("lut_gather", f"{symbol}_{suffix}", argtypes)
+    _build.check("lut_gather", fn(src.data_ptr(), table.data_ptr(),
+                                  out.data_ptr(), *dims,
+                                  _build.stream(src)))
+    lut_gather_matmul.launches += 1
+    return out
+
+
 def lut_gather_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """(P, M, C) uint8 per-plane index bytes x (C, 256, N) int16 or f32
     table -> (P, M, N) f32 by the ascending-chunk fold (int32 accumulation
     for int16 tables). Bit-exact against ``lut_matmul``."""
     _build.require(idx, "idx", torch.uint8, 3)
-    if table.dtype not in (torch.int16, torch.float32):
-        raise ValueError(f"table must be int16 or float32, got {table.dtype}")
-    _build.require(table, "table", table.dtype, 3)
+    _lut_table(table)
     p, m, c = idx.shape
-    if table.shape[0] != c or table.shape[1] != 256:
+    if table.shape[0] != c:
         raise ValueError(f"index bytes {tuple(idx.shape)} do not match table "
                          f"{tuple(table.shape)}")
-    n = table.shape[2]
     if _build.on_cpu(idx, table):
         return lut_matmul(idx, table)
-    if p > _GRID_LIMIT or -(-n // 32) > _GRID_LIMIT:
-        raise ValueError(f"gather of {p} planes x {n} columns exceeds the "
-                         "launch grid")
-    out = torch.empty((p, m, n), dtype=torch.float32, device=idx.device)
-    symbol = "lut_gather_i16" if table.dtype == torch.int16 else "lut_gather_f32"
-    fn = _build.kernel_function("lut_gather", symbol, _LUT_ARGTYPES)
-    _build.check("lut_gather", fn(idx.data_ptr(), table.data_ptr(),
-                                  out.data_ptr(), p, m, c, n,
-                                  _build.stream(idx)))
-    lut_gather_matmul.launches += 1
-    return out
+    n = table.shape[2]
+    return _lut_launch("lut_gather", _LUT_ARGTYPES, table, idx, (p, m, n),
+                       p, m, c, n)
+
+
+def lut_gather_packed_plain(x_packed: torch.Tensor, table: torch.Tensor, *,
+                            t: int) -> torch.Tensor:
+    """Plain version of ``lut_gather_packed``, on any device: the 8x8 bit
+    transpose in torch (``plane_indices``), then ``lut_matmul``."""
+    return lut_matmul(plane_indices(x_packed)[:t], table)
+
+
+def lut_gather_packed(x_packed: torch.Tensor, table: torch.Tensor, *,
+                      t: int) -> torch.Tensor:
+    """(G, M, K) uint8 packed spikes (plane p = bit ``p % 8`` of group
+    ``p // 8``; for SSSC, G = 1 and the 8 value bits of a byte) x
+    (ceil(K/8), 256, N) int16 or f32 table -> (t, M, N) f32: the gather of
+    ``lut_gather_matmul`` over the index bytes ``plane_indices`` would
+    form, formed inside the kernel. Bit-exact against
+    ``lut_gather_packed_plain``; launches count as
+    ``lut_gather_matmul.launches``."""
+    _build.require(x_packed, "x_packed", torch.uint8, 3)
+    _lut_table(table)
+    g, m, k = x_packed.shape
+    if table.shape[0] != num_k_chunks(k):
+        raise ValueError(f"x {tuple(x_packed.shape)} does not match table "
+                         f"{tuple(table.shape)}")
+    if g != num_plane_groups(t):
+        raise ValueError(f"{g} plane groups cannot hold t={t} planes")
+    if _build.on_cpu(x_packed, table):
+        return lut_gather_packed_plain(x_packed, table, t=t)
+    n = table.shape[2]
+    return _lut_launch("lut_gather_packed", _LUT_PACKED_ARGTYPES, table,
+                       x_packed, (t, m, n), t, g, m, k, n)
 
 
 def spike_matmul_grouped(x_packed: torch.Tensor, w: torch.Tensor, *,

@@ -23,6 +23,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
 from repro_torch.kernels.spike_matmul import (kmajor_weights,
                                               lut_gather_matmul,
+                                              lut_gather_packed,
+                                              lut_gather_packed_plain,
                                               shift_sum_matmul, spike_matmul,
                                               spike_matmul_grouped,
                                               spike_matmul_grouped_s8)
@@ -71,33 +73,69 @@ def int_weights(dev, seed, k, n):
 
 @pytest.mark.parametrize("t", [1, 4, 8, 9, 17])
 def test_tflif_kernel_matches_plain(cuda, t):
+    """Periods of M, one value and one per channel; M = 1101 (no 16-byte
+    loads: scalar path) and 1100 (16-byte loads); x expanded over T
+    (step stride 0), taken without a copy; inputs and thresholds near the
+    subnormal range, where the power-of-two tau shortcut must round as the
+    divide does; and a tau that is not a power of two."""
     g = gen(cuda, t)
-    for m, period in ((1100, 1100), (96 * 13, 96), (5, 1)):
+    calls = 0
+    for m, period in ((1100, 1100), (96 * 13, 96), (5, 1), (1101, 367)):
         x = torch.randn((t, m), generator=g, device=cuda) * 2
         bias = torch.randn(period, generator=g, device=cuda) * 0.2
         vth = 0.5 + torch.rand(period, generator=g, device=cuda)
         got = tflif_fused(x, bias, vth)
         torch.cuda.synchronize()
         assert torch.equal(got, tflif_plain(x, bias, vth)), (m, period)
-    assert tflif_fused.launches == 3
+        calls += 1
+        row = torch.randn((1, m), generator=g, device=cuda) * 2
+        xs = row.expand(t, m)                       # stride 0 over T
+        assert t == 1 or xs.stride(0) == 0
+        got = tflif_fused(xs, bias, vth)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tflif_plain(xs.contiguous(), bias, vth)), m
+        calls += 1
+        tiny = torch.randn((t, m), generator=g, device=cuda) * 1e-38
+        for tau in (2.0, 0.5, 3.0):
+            got = tflif_fused(tiny, bias * 1e-38, vth * 3e-39, tau=tau)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tflif_plain(tiny, bias * 1e-38,
+                                                vth * 3e-39, tau=tau)), tau
+            calls += 1
+    assert tflif_fused.launches == calls
+
+
+LUT_SHAPES = [(4, 37, 100, 19), (8, 1, 12, 64), (4, 70, 2400, 130),
+              (1, 300, 8, 1), (17, 50, 100, 9), (9, 600, 1100, 72)]
+# the main path's shapes at batch 8: q/k/v, path A's fc1, conv0's value
+# planes (C = 2)
+LUT_MAIN = [(4, 1568, 512, 512), (4, 1568, 512, 2048), (8, 100352, 12, 64)]
 
 
 @pytest.mark.parametrize("int_w", [True, False], ids=["int16", "f32"])
-@pytest.mark.parametrize("p,m,k,n", [(4, 37, 100, 19), (8, 1, 12, 64),
-                                     (4, 70, 2400, 130), (1, 300, 8, 1)])
+@pytest.mark.parametrize("p,m,k,n", LUT_SHAPES + LUT_MAIN)
 def test_lut_gather_kernel_matches_plain(cuda, int_w, p, m, k, n):
-    """Ragged rows and columns, and more chunks than one staging pass of
-    index bytes (C = 300 > 128)."""
+    """Both entries, index bytes and packed spikes, bit-exact against the
+    plain versions: ragged rows and columns (odd N reads the table with
+    plain loads), K not a multiple of 8, planes past one block (P = 9, 17),
+    a slab ring longer than its stages (C = 300 and 138 > 128), and the
+    main path's shapes."""
     if int_w:
         w = int_weights(cuda, k, k, n)
     else:
         w = torch.randn((k, n), generator=gen(cuda, k), device=cuda)
-    idx = lut.plane_indices(packed(cuda, m, p, m, k))[:p].contiguous()
+    x = packed(cuda, m, p, m, k)
+    idx = lut.plane_indices(x)[:p].contiguous()
     tbl = lut.build_lut(w)
+    want = lut.lut_matmul(idx, tbl)
     got = lut_gather_matmul(idx, tbl)
     torch.cuda.synchronize()
-    assert torch.equal(got, lut.lut_matmul(idx, tbl))
-    assert lut_gather_matmul.launches == 1
+    assert torch.equal(got, want)
+    got = lut_gather_packed(x, tbl, t=p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(lut_gather_packed_plain(x, tbl, t=p), want)
+    assert lut_gather_matmul.launches == 2
 
 
 @pytest.mark.parametrize("t", [1, 4, 8, 9, 17])
@@ -370,6 +408,27 @@ def test_route_pinned_plans_match_plain_and_reference_on_the_card(cuda):
         "stdp_packed": cfg.depth, "fused_lif_lut": 0, "shift_sum": 1,
         "flash_attention_tc": 0, "flash_attention_f32": 0}
     plain = firing_model(cfg, cuda, "packed_plain", route="unpack")
+    assert torch.equal(plain.step(imgs), logits)
+
+
+def test_lut_plan_past_the_fused_kernels_steps_runs_two_layers(cuda):
+    """At T = 65 the fused MLP kernel cannot hold every step in registers:
+    a ``route="lut"`` step then runs fc1 and fc2 as two layers on the card
+    (no fused launch, one more gather a block) and gives the plain route's
+    logits bit for bit."""
+    cfg = SpikformerConfig().scaled(timesteps=65)
+    imgs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (4, 32, 32, 3), dtype=np.uint8))
+    lut_plan = {"weight_dtype": "float32", "route": "lut"}
+    model = firing_model(cfg, cuda, "packed_cuda", **lut_plan)
+    ops.reset_launch_counts()
+    logits = model.step(imgs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["fused_lif_lut"] == 0
+    assert counts["lut_gather"] == 4 + 6 * cfg.depth
+    assert bool((logits != 0).any())
+    plain = firing_model(cfg, cuda, "packed_plain", **lut_plan)
     assert torch.equal(plain.step(imgs), logits)
 
 

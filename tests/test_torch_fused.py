@@ -14,6 +14,8 @@ from repro.kernels import lut_matmul as jlut
 from repro.kernels import ops as jops
 from repro.kernels.fused import tflif_lut_matmul as jfused
 from repro.kernels.spike_matmul import spike_matmul as jspike_matmul
+from repro_torch.infer.backends import PackedBackend
+from repro_torch.kernels import fused
 from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
@@ -155,6 +157,34 @@ def test_fused_slab_schedule_matches_plain_and_pallas(t, k, n, int_w):
                                       rows=rows, bn=bn)
         exact(got_s, want_s, f"spikes, tile ({rows}, {bn})")
         exact(got_a, want_a, f"accumulators, tile ({rows}, {bn})")
+
+
+def test_fused_range_guard_sends_long_trains_to_two_layers():
+    """``fused_fits`` is the one range test of the fused kernel: T <= 64
+    (its registers hold every step) and at most 65,535 row tiles. Outside
+    it ``mlp_pair_lif`` returns None on any device, so ``forward_folded``
+    runs fc1 and fc2 as two layers (bit-identical) instead of the kernel
+    raising on the card."""
+    r_max = fused._GRID_LIMIT * fused._rows_per_block(4)
+    assert fused.fused_fits(64, 100) and not fused.fused_fits(65, 100)
+    assert fused.fused_fits(4, r_max) and not fused.fused_fits(4, r_max + 1)
+    k, n = 16, 8
+    fc1 = {"kernel": torch.ones(8, k), "bias": torch.zeros(k)}
+    w2 = torch.ones(k, n)
+    fc2 = {"kernel": w2, "bias": torch.zeros(n), "lut": lut.build_lut(w2)}
+    backend = PackedBackend()
+    assert backend.mlp_pair_lif(torch.zeros((9, 1, 3, 8), dtype=torch.uint8),
+                                fc1, fc2, t=65) is None
+    wide = torch.zeros((1, 1, 1, 8), dtype=torch.uint8).expand(
+        1, 1, r_max + 1, 8)                         # rows past the grid
+    assert backend.mlp_pair_lif(wide, fc1, fc2, t=4) is None
+    x4 = torch.full((1, 1, 3, 8), 5, dtype=torch.uint8)
+    fused_out = backend.mlp_pair_lif(x4, fc1, fc2, t=4)
+    assert fused_out is not None
+    two = backend.wssl_lif(backend.wssl_lif(x4, fc1["kernel"], fc1["bias"],
+                                            t=4),
+                           w2, fc2["bias"], t=4, lut=fc2["lut"])
+    exact(fused_out, two)
 
 
 def test_fused_plain_is_the_unfused_composition():

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import spike as jspike
 from repro.core.spikformer import SpikformerConfig as JConfig
 from repro.core.spikformer import fold_inference_params as jfold
 from repro.core.spikformer import init as jinit
@@ -30,7 +31,7 @@ from repro_torch.core.spikformer import SpikformerConfig
 from repro_torch.infer import ExecutionPlan, compile
 from repro_torch.infer.compile import lower
 from repro_torch.infer.quant import map_folded_layers
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spike_matmul import (MAX_S8_K, kmajor_weights,
                                               spike_matmul_grouped_s8)
 from repro_torch.weights import from_reference
@@ -115,6 +116,28 @@ def test_s8_scheme_matches_pallas_grouped_kernel(t, k):
     exact(got, want)
     exact(unpack_timesteps(xt, t), spikes)
     exact(spike_matmul_grouped_s8(xt, wk, t=t), want)
+    assert ops.launch_counts()["unpack_dot_s8"] == 0
+
+
+@pytest.mark.parametrize("t", [4, 9])
+def test_int8_layer_past_the_s8_range_runs_in_f32(t):
+    """An int8 unpack layer with K >= MAX_S8_K, where int8 sums may leave
+    the range in which the s8 kernel is exact, goes to the f32 grouped
+    unpack dot (on the CPU its plain version) instead of raising, as the
+    reference computes every unpack layer in f32: the result equals
+    ``spike_matmul_ref`` on the f32 cast. The s8 wrapper keeps its own
+    refusal."""
+    r = np.random.default_rng(t)
+    k = MAX_S8_K
+    spikes = (r.random((t, 2, k)) < 0.3).astype(np.uint8)
+    x = torch.from_numpy(np.asarray(jax.device_get(jspike.pack_timesteps(
+        jnp.asarray(spikes)))).copy())
+    w = torch.from_numpy(r.integers(-127, 128, (k, 3)).astype(np.int8))
+    ops.reset_launch_counts()
+    got = ops.spike_linear(x, w, t=t, route="unpack")
+    assert got.shape == (t, 2, 3)
+    exact(got, ref.spike_matmul_ref(x, w.to(torch.float32), t=t))
+    exact(ops.spike_linear(x, w, t=t, route="unpack", plain=True), got)
     assert ops.launch_counts()["unpack_dot_s8"] == 0
 
 
