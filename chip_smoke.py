@@ -18,26 +18,38 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    kernels of the unpack dot, STDP and flash attention on the CUDA cores),
    holds it
    against its plain PyTorch version on the card and times kernel, plain
-   version and the nearest single PyTorch call (TFLIF and the gather by
-   their device time under ``torch.profiler``: a call's host cost exceeds
-   the kernel's own time);
-3. drives three paths of the full-width Spikformer V2-8-512 (224x224x3,
+   version and the nearest single PyTorch call (the kernel by its device
+   time under ``torch.profiler`` and the library call by CUDA events
+   around a captured graph of its calls, since a call's host cost exceeds
+   some kernels' own time; ``ms_events`` keeps the CUDA-event view of the
+   kernel, the plain version is timed by CUDA events);
+3. drives four paths of the full-width Spikformer V2-8-512 (224x224x3,
    T=4, 8 blocks, 1000 classes) from one seeded ``init`` (fixed gains on
    the folded kernels keep the IAND residual stream firing), each with
-   the launch counters set to 0 just before it and read just after:
-   - int8 weights under the default plan, serving seeded requests through
-     ``MicroBatchEngine`` (TFLIF, LUT gather, int8 unpack dot, packed
-     STDP);
-   - f32 weights with ``route="lut"``, serving the same requests (every
+   the launch counts set to 0 just before it and read just after (the
+   wrappers' counters, which eager steps and captures tick, plus each
+   captured graph's launches times its replays; a graphed model must
+   launch nothing eagerly):
+   - int8 weights under the default plan, served with ``jit=True`` (one
+     CUDA graph a bucket) through ``MicroBatchEngine`` (TFLIF, LUT gather,
+     int8 unpack dot, packed STDP);
+   - f32 weights with ``route="lut"``, the same requests, graphed (every
      layer gathers, the MLP pair runs the fused kernel);
-   - int8 weights with ``route="unpack"``, one bucket-8 step (conv0 runs
-     the shift-sum kernel, every other layer the int8 unpack dot);
-   and checks every request completes, each counter grew by its per-step
+   - int8 weights with ``route="unpack"``, one graphed bucket-8 step
+     (conv0 runs the shift-sum kernel, every other layer the int8 unpack
+     dot);
+   - the route fit: ``repro_torch.launch.autotune_routes``' int8 ``--cuda
+     --fast`` fit on the card (fragment in ``build/routes_int8.json``),
+     then the int8 model under the reference's and the fitted constants,
+     each eager and graphed, serving the requests, profiled, and timed
+     layer by layer with ``profile_step``;
+   and checks every request completes, each count grew by its per-step
    count times the steps taken, the final residual stream still fires, and
-   one bucket-8 batch gives bit-identical logits against the plain
-   versions (``packed_plain``) on the card and, for the f32 LUT path,
-   against the unfused MLP step and the float ``reference`` backend; each
-   path's bucket-8 step is profiled;
+   one bucket-8 batch gives bit-identical logits across the graph replay,
+   the eager step and the plain versions (``packed_plain``) on the card
+   and, for the f32 LUT path, the unfused MLP step and the float
+   ``reference`` backend; each path's bucket-8 step is profiled graphed
+   and eager;
 4. drives the LM path, counters again set to 0 just before it and read
    just after: smollm-360m at full width from a seeded ``init_model``,
    ``Engine(slots=4, cache_len=4096)`` in bf16 serving 8 requests (prompts
@@ -48,8 +60,11 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    on the flash route (the f32 flash kernel, once a layer) against the
    plain route.
 
-Prints the kernel table and the serving stats as JSON lines, the card's
-name and power limit, and as its last line
+Prints the serving stats and profiles as JSON lines, the fitted route
+constants (``route_fit``) and the 2x2 of constants x ``jit``
+(``route_cells``: device and wall ms, idle share, images/s, peak memory,
+launches a step, ``profile_step``'s per-route sums), the card's name and
+power limit, the kernel table, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A full report goes to ``build/chip_smoke.json``. Any failed check
 exits non-zero before the last line.
@@ -179,6 +194,15 @@ def device_ms(torch, fn, name: str = "", reps: int = REPS) -> float:
     return us / 1e3 / (n if name else reps)
 
 
+def graph_ms(torch, fn, reps: int = REPS) -> float:
+    """Device ms per call of ``fn`` (a library call) by CUDA events around
+    the replay of one CUDA graph of ``reps`` captured calls, best of three
+    replays: the host's launch cost stays out, as in the route fit's
+    ``graph_time``."""
+    from repro_torch.launch.autotune_routes import graph_time
+    return graph_time(fn, inner=reps, repeats=3) * 1e3
+
+
 def kernel_phase(torch, dev) -> dict:
     """Each kernel at its main-path shape against its plain version."""
     from repro_torch.core.spike import pack_timesteps, unpack_timesteps
@@ -300,11 +324,11 @@ def kernel_phase(torch, dev) -> dict:
         plain_ms=time_ms(torch, lambda: lut_gather_packed_plain(xq, tbl16,
                                                                 t=t)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.matmul(planes, wf)),
+        library_ms=graph_ms(torch, lambda: torch.matmul(planes, wf)),
         ms_fc1_f32=device_ms(torch, lambda: lut_gather_packed(xq, tbl1, t=t),
                              "lut_gather_kernel"),
         bound_ms_fc1_f32=b1_ms,
-        library_ms_fc1_f32=time_ms(torch, lambda: torch.matmul(planes, w1f)),
+        library_ms_fc1_f32=graph_ms(torch, lambda: torch.matmul(planes, w1f)),
         ms_conv0_int16=device_ms(torch, lambda: lut_gather_packed(
             img3, tbl0, t=8), "lut_gather_kernel"),
         ms_conv0_f32=device_ms(torch, lambda: lut_gather_packed(
@@ -342,11 +366,14 @@ def kernel_phase(torch, dev) -> dict:
     out["unpack_dot_s8"] = dict(
         shape=f"x {tuple(xq.shape)} u8 x w {tuple(w1i.shape)} int8 (K-major"
               f" copy {tuple(w1k.shape)}), t={t} (fc1)", max_abs_err=err,
-        ms=time_ms(torch, lambda: spike_matmul_grouped_s8(xq, w1k, t=t)),
+        ms=device_ms(torch, lambda: spike_matmul_grouped_s8(xq, w1k, t=t),
+                     "unpack_dot_s8_kernel"),
+        ms_events=time_ms(torch, lambda: spike_matmul_grouped_s8(xq, w1k,
+                                                                 t=t)),
         plain_ms=time_ms(torch, lambda: ref.spike_matmul_ref(xq, w1, t=t)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.matmul(planes, w1)),
-        library_int8_ms=time_ms(torch, lambda: torch._int_mm(planes_s8,
+        library_ms=graph_ms(torch, lambda: torch.matmul(planes, w1)),
+        library_int8_ms=graph_ms(torch, lambda: torch._int_mm(planes_s8,
                                                              w1i)))
 
     # the f32 grouped unpack dot (off the driven paths) at the same shape
@@ -368,10 +395,12 @@ def kernel_phase(torch, dev) -> dict:
     out["unpack_dot"] = dict(
         shape=f"x {tuple(xq.shape)} u8 x w {tuple(w1.shape)} int-valued f32,"
               f" t={t}", max_abs_err=err, max_abs_err_f32_weights=err_f,
-        ms=time_ms(torch, lambda: spike_matmul_grouped(xq, w1, t=t)),
+        ms=device_ms(torch, lambda: spike_matmul_grouped(xq, w1, t=t),
+                     "unpack_dot_kernel"),
+        ms_events=time_ms(torch, lambda: spike_matmul_grouped(xq, w1, t=t)),
         plain_ms=time_ms(torch, lambda: ref.spike_matmul_ref(xq, w1, t=t)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.matmul(planes, w1)))
+        library_ms=graph_ms(torch, lambda: torch.matmul(planes, w1)))
 
     # STDP at (T*B*heads, N, Dh) = (256, 196, 64)
     bh, dh = t * BATCH * heads, dim // heads
@@ -388,11 +417,14 @@ def kernel_phase(torch, dev) -> dict:
     out["stdp"] = dict(
         shape=f"q, k, v {tuple(q.shape)} f32 spikes",
         max_abs_err=err,
-        ms=time_ms(torch, lambda: stdp_attention(q, k, v, scale=0.125)),
+        ms=device_ms(torch, lambda: stdp_attention(q, k, v, scale=0.125),
+                     "stdp_kernel"),
+        ms_events=time_ms(torch, lambda: stdp_attention(q, k, v,
+                                                        scale=0.125)),
         plain_ms=time_ms(torch, lambda: ref.stdp_attention_ref(
             q, k, v, scale=0.125)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(q, k.mT), v8)))
+        library_ms=graph_ms(torch, lambda: torch.bmm(torch.bmm(q, k.mT), v8)))
 
     # packed STDP at the same work: (G, B, H, N, Dh) = (1, 8, 8, 196, 64)
     # plane groups, the permuted view of (1, 8, 196, 512) that the backend's
@@ -416,12 +448,14 @@ def kernel_phase(torch, dev) -> dict:
     out["stdp_packed"] = dict(
         shape=f"q, k, v {tuple(qp.shape)} u8 plane groups (permuted view),"
               f" t={t}", max_abs_err=err,
-        ms=time_ms(torch, lambda: stdp_attention_packed(qp, kp, vp, t=t,
-                                                        scale=0.125)),
+        ms=device_ms(torch, lambda: stdp_attention_packed(
+            qp, kp, vp, t=t, scale=0.125), "stdp_packed_kernel"),
+        ms_events=time_ms(torch, lambda: stdp_attention_packed(
+            qp, kp, vp, t=t, scale=0.125)),
         plain_ms=time_ms(torch, lambda: stdp_attention_packed_plain(
             qp, kp, vp, t=t, scale=0.125)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.bmm(torch.bmm(qf, kf.mT),
+        library_ms=graph_ms(torch, lambda: torch.bmm(torch.bmm(qf, kf.mT),
                                                     vf8)))
 
     # fused fc1 LIF -> fc2 gather: x (4, 1568, 2048), table (256, 256, 512)
@@ -446,13 +480,16 @@ def kernel_phase(torch, dev) -> dict:
         shape=f"x {tuple(x1.shape)} f32, per-channel bias/v_th ({hidden},)"
               f" x table {tuple(tbl2f.shape)} f32 (path A's fc1 -> fc2)",
         max_abs_err=err, firing_rate=float(fc1_planes.mean()),
-        ms=time_ms(torch, lambda: tflif_lut_matmul(x1, bias, tbl2f, vth)),
-        ms_int16_table=time_ms(torch, lambda: tflif_lut_matmul(
-            x1, bias, tbl2i, vth)),
+        ms=device_ms(torch, lambda: tflif_lut_matmul(x1, bias, tbl2f, vth),
+                     "fused_lif_lut_kernel"),
+        ms_events=time_ms(torch, lambda: tflif_lut_matmul(x1, bias, tbl2f,
+                                                          vth)),
+        ms_int16_table=device_ms(torch, lambda: tflif_lut_matmul(
+            x1, bias, tbl2i, vth), "fused_lif_lut_kernel"),
         plain_ms=time_ms(torch, lambda: tflif_lut_plain(x1, bias, tbl2f,
                                                         vth)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.matmul(fc1_planes, w2f)))
+        library_ms=graph_ms(torch, lambda: torch.matmul(fc1_planes, w2f)))
 
     # shift-sum dot at conv0: (8*112*112, 12) pixel bytes x (12, 64)
     w0i = torch.randint(-127, 128, (12, 64), generator=gen,
@@ -482,11 +519,13 @@ def kernel_phase(torch, dev) -> dict:
         shape=f"x {tuple(img.shape)} u8 x w {tuple(w0i.shape)} int-valued "
               "f32 (path B's conv0)",
         max_abs_err=err, max_abs_err_f32_weights=err_f,
-        ms=time_ms(torch, lambda: shift_sum_matmul(img, w0i)),
+        ms=device_ms(torch, lambda: shift_sum_matmul(img, w0i),
+                     "shift_sum_kernel"),
+        ms_events=time_ms(torch, lambda: shift_sum_matmul(img, w0i)),
         plain_ms=time_ms(torch, lambda: ref.spike_matmul_ref(
             img, w0i, mode="shift_sum")),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: torch.matmul(img.to(torch.float32),
+        library_ms=graph_ms(torch, lambda: torch.matmul(img.to(torch.float32),
                                                        w0i)))
     out.update(flash_kernel_phase(torch, dev, gen))
     ops.reset_launch_counts()     # comparison launches do not count
@@ -535,15 +574,18 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
               f"{tuple(k.shape)} bf16 (cache slices), causal, scale {scale} "
               "(smollm-360m's 2048-token prefill, one layer)",
         max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
-        ms=time_ms(torch, lambda: flash_attention(q, k, v, scale=scale)),
+        ms=device_ms(torch, lambda: flash_attention(q, k, v, scale=scale),
+                     "flash_tc_kernel"),
+        ms_events=time_ms(torch, lambda: flash_attention(q, k, v,
+                                                         scale=scale)),
         plain_ms=time_ms(torch, lambda: flash_attention_plain(
             q, k, v, scale=scale)),
         bound_ms=b_ms, bound_by=b_by,
         bytes_bound_ms=bound_ms(nbytes, 0, BF16_OPS_PER_S)[0],
-        library_ms=time_ms(torch, lambda: sdpa(qc, ke, ve, is_causal=True,
+        library_ms=graph_ms(torch, lambda: sdpa(qc, ke, ve, is_causal=True,
                                                scale=scale)))
-    tc["ms_again"] = time_ms(torch, lambda: flash_attention(q, k, v,
-                                                           scale=scale))
+    tc["ms_again"] = device_ms(torch, lambda: flash_attention(
+        q, k, v, scale=scale), "flash_tc_kernel")
 
     q3, k3, v3 = (torch.randn((h, s, dh), generator=gen, device=dev)
                   for _ in range(3))
@@ -554,11 +596,14 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     f32 = dict(
         shape=f"q, k, v {tuple(q3.shape)} f32, causal, scale {scale}",
         max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
-        ms=time_ms(torch, lambda: flash_attention(q3, k3, v3, scale=scale)),
+        ms=device_ms(torch, lambda: flash_attention(q3, k3, v3, scale=scale),
+                     "flash_attention_kernel"),
+        ms_events=time_ms(torch, lambda: flash_attention(q3, k3, v3,
+                                                         scale=scale)),
         plain_ms=time_ms(torch, lambda: flash_attention_plain(
             q3, k3, v3, scale=scale)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: sdpa(
+        library_ms=graph_ms(torch, lambda: sdpa(
             q3[None], k3[None], v3[None], is_causal=True, scale=scale)))
     return {"flash_attention_tc": tc, "flash_attention_f32": f32}
 
@@ -604,13 +649,14 @@ OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
                "shift_sum_kernel", "flash_attention_kernel", "flash_tc_kernel")
 
 
-def profile_phase(torch, model, batch, steps: int = 3) -> dict:
-    """Where one bucket-8 step's time goes: host wall time per synchronised
+def profile_phase(torch, step, batch, steps: int = 3) -> dict:
+    """Where one bucket-8 step's time goes (``step(batch)``: a model's
+    graphed step, or its eager lowering): host wall time per synchronised
     step, device time per kernel by ``torch.profiler`` (CUDA activity), the
     device's idle share of the wall time, and peak device memory. Checks
     that every gather of the step ran the packed entry (the kernel's third
     template argument), which forms its index bytes on chip."""
-    prof = profile_fn(torch, lambda: model.step(batch), steps)
+    prof = profile_fn(torch, lambda: step(batch), steps)
     for row in prof["by_kernel"]:
         if "lut_gather_kernel<" in row["kernel"]:
             args = row["kernel"].split("lut_gather_kernel<")[1].split(",")
@@ -692,32 +738,113 @@ def request_images(cfg) -> list:
             for n in REQUEST_SIZES]
 
 
+def per_step_launches(cfg, routes: dict) -> dict:
+    """Kernel launches a step makes under ``routes`` (empty for
+    ``route="unpack"``): a LIF a layer and attention, the gather a lut
+    layer, the fused kernel where fc2 gathers (it runs fc1's LIF and fc2's
+    gather), the int8 unpack dot every other unpack layer, the shift-sum
+    dot an unpack conv0, packed STDP a block."""
+    paths = [f"scs/conv{i}" for i in range(len(cfg.scs_channels))] + [
+        f"blocks/b{i}/{w}" for i in range(cfg.depth)
+        for w in ("ssa/wq", "ssa/wk", "ssa/wv", "ssa/wo", "mlp/fc1",
+                  "mlp/fc2")]
+    route = {p: routes.get(p, "unpack") for p in paths}
+    fused = sum(route[f"blocks/b{i}/mlp/fc2"] == "lut"
+                for i in range(cfg.depth))
+    n_lut = sum(r == "lut" for r in route.values())
+    counts = {"tflif": len(paths) + cfg.depth - fused,
+              "lut_gather": n_lut - fused, "fused_lif_lut": fused,
+              "unpack_dot_s8": len(paths) - n_lut
+              - (route["scs/conv0"] == "unpack"),
+              "shift_sum": int(route["scs/conv0"] == "unpack"),
+              "stdp_packed": cfg.depth}
+    return {k: v for k, v in counts.items() if v}
+
+
 def check_step_launches(launches: dict, per_step: dict, steps: int) -> None:
     expect = {k: per_step.get(k, 0) * steps for k in launches}
     check(launches == expect,
           f"launch counts {launches} != {steps} steps x {per_step}")
 
 
-def serve_requests(torch, model, requests, per_step: dict) -> dict:
-    """Serve ``requests`` through ``MicroBatchEngine``, the launch counters
-    set to 0 just before and read just after; checks every request
-    completes and each counter grew by its per-step count per step."""
-    from repro_torch.infer import MicroBatchEngine
+def reset_counts(model) -> None:
+    """Every launch count to 0: the wrappers' and the model's replays."""
     from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    model.reset_graph_launch_counts()
+
+
+def read_counts(torch, model) -> dict:
+    """Launches since ``reset_counts``: the wrappers' counters (eager
+    steps) plus each captured graph's launches times its replays; a
+    graphed model must have launched nothing eagerly."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    eager, graphed = ops.launch_counts(), model.graph_launch_counts()
+    if model.jit:
+        check(not any(eager.values()),
+              f"a graphed model launched kernels eagerly: {eager}")
+    return {k: eager[k] + graphed.get(k, 0) for k in eager}
+
+
+def serve_requests(torch, model, requests, per_step: dict) -> dict:
+    """Serve ``requests`` through ``MicroBatchEngine``, the launch counts
+    set to 0 just before and read just after; checks every request
+    completes and each kernel was launched its per-step count a step."""
+    from repro_torch.infer import MicroBatchEngine
 
     engine = MicroBatchEngine(model)
-    ops.reset_launch_counts()
+    reset_counts(model)
     reqs = [engine.submit(imgs) for imgs in requests]
     engine.run()
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = read_counts(torch, model)
     steps = engine.acct.batches
     check(all(r.t_done and len(r.labels) == len(r.images)
               and None not in r.labels for r in reqs),
           "a request did not complete")
     check_step_launches(launches, per_step, steps)
-    return dict(steps=steps, per_step_launches=per_step, launches=launches,
-                stats=engine.stats())
+    return dict(steps=steps, jit=model.jit, per_step_launches=per_step,
+                launches=launches, stats=engine.stats(),
+                engine_ms_per_step=engine.acct.wall_s * 1e3 / steps,
+                model_step_ms_per_step=engine.acct.busy_s * 1e3 / steps)
+
+
+def engine_host_ms(requests, reps: int = 5) -> dict:
+    """Host ms of the engine's per-step numpy work on one bucket-8 batch:
+    ``assemble_batch`` and ``batch_occupancy`` (the pixel-bit popcount
+    behind ``stats()["occupancy"]``), each the mean of ``reps`` calls."""
+    import numpy as np
+    from repro_torch.infer.engine import assemble_batch, batch_occupancy
+
+    images = list(np.concatenate(requests)[:BATCH])
+    out = {}
+    for name, fn in (("assemble_batch", lambda: assemble_batch(images,
+                                                                BATCH)),
+                     ("batch_occupancy", lambda: batch_occupancy(images))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def eager_step(model):
+    """The model's step lowered eagerly over its own tree."""
+    from repro_torch.infer.compile import lower
+    fwd = lower(model.folded, model.cfg, model.backend, jit=False)
+    return lambda batch: fwd(model.folded, batch)
+
+
+def check_graph_logits(torch, model, batch, what: str):
+    """The graphed step's logits of ``batch``, held bit-identical to the
+    eager step's of the same tree."""
+    graph = model.step(batch)
+    eager = eager_step(model)(batch)
+    torch.cuda.synchronize()
+    check(model.jit and torch.equal(graph, eager),
+          f"{what}: graph replay logits differ from the eager step's")
+    return graph
 
 
 def check_logits(torch, logits, others: dict, what: str) -> list:
@@ -739,14 +866,17 @@ def final_firing(model, batch) -> tuple:
     final residual stream still fires."""
     from repro_torch.infer.compile import lower
     rec = LayerRecorder(model.backend, model.cfg.timesteps)
-    lower(model.folded, model.cfg, rec)(model.folded, batch)
+    lower(model.folded, model.cfg, rec, jit=False)(model.folded, batch)
     check(rec.rows[-1][1] > 0, "the final residual stream is silent")
     return rec.rows[-1][1], [(n, round(o, 5)) for n, o in rec.rows]
 
 
 def serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
     """The PR 11 path: int8 weights under the default plan (the paper's
-    int8 route mix), served; logits against ``packed_plain``."""
+    int8 route mix), served with ``jit=True`` (one CUDA graph a bucket);
+    one batch's graph logits against the eager step's and
+    ``packed_plain``'s. Both the graphed and the eager step are
+    profiled."""
     from repro_torch.infer import ExecutionPlan, compile
 
     t0 = time.perf_counter()
@@ -760,36 +890,37 @@ def serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
     check(routes == want_routes,
           f"routes differ from the paper config's int8 mix: {routes}")
     warmup_s = model.warmup()
-    n_lut = sum(r == "lut" for r in routes.values())
-    per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
-                "lut_gather": n_lut, "unpack_dot_s8": len(routes) - n_lut,
-                "stdp_packed": cfg.depth}
-    served = serve_requests(torch, model, requests, per_step)
+    served = serve_requests(torch, model, requests,
+                            per_step_launches(cfg, routes))
 
-    logits = model.step(batch)
+    logits = check_graph_logits(torch, model, batch, "int8 default plan")
     plain = compile(model.folded, cfg, dataclasses.replace(
-        model.plan, backend="packed_plain"), folded=True, device=dev)
+        model.plan, backend="packed_plain"), folded=True, device=dev,
+        jit=False)
     labels = check_logits(torch, logits, {"packed_plain": plain.step(batch)},
                           "int8 default plan")
     del plain
     final_occ, layers = final_firing(model, batch)
-    prof = profile_phase(torch, model, batch)
+    prof = profile_phase(torch, model.step, batch)
+    prof_eager = profile_phase(torch, eager_step(model), batch)
     return dict(
         config="SpikformerConfig() V2-8-512: 224x224x3, T=4, dim 512, "
-               "depth 8, heads 8, 1000 classes; int8, packed_cuda",
+               "depth 8, heads 8, 1000 classes; int8, packed_cuda, jit=True",
         compile_s=compile_s, warmup_s=warmup_s, **served,
         bucket8_labels=labels, distinct_labels=len(set(labels)),
-        logits_bit_identical_to_plain=True, logits=logits.cpu(),
+        logits_bit_identical_to=["eager step", "packed_plain"],
+        logits=logits.cpu(),
         final_residual_occupancy=final_occ, layer_occupancy=layers,
-        profile=prof)
+        profile=prof, profile_eager=prof_eager)
 
 
 def lut_serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
-    """Path A: f32 weights with every layer pinned to the gather, served.
-    Every block runs fc1 -> (LIF + pack + fc2 gather in the fused kernel)
-    -> fc2 LIF. One bucket-8 batch is held bit-identical across
-    packed_cuda, packed_cuda without the fused step, packed_plain and the
-    float reference backend, all compiled from the one resolved plan."""
+    """Path A: f32 weights with every layer pinned to the gather, served
+    with ``jit=True``. Every block runs fc1 -> (LIF + pack + fc2 gather in
+    the fused kernel) -> fc2 LIF. One bucket-8 batch is held bit-identical
+    across the graph replay, the eager step, packed_cuda without the fused
+    step, packed_plain and the float reference backend, all compiled from
+    the one resolved plan."""
     from repro_torch.infer import ExecutionPlan, compile
 
     t0 = time.perf_counter()
@@ -801,13 +932,12 @@ def lut_serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
     check(set(routes.values()) == {"lut"} and len(routes) == 4 + 6 * cfg.depth,
           f"route='lut' left a layer off the gather: {routes}")
     warmup_s = model.warmup()
-    per_step = {"tflif": len(cfg.scs_channels) + 6 * cfg.depth,
-                "lut_gather": len(cfg.scs_channels) + 5 * cfg.depth,
-                "stdp_packed": cfg.depth, "fused_lif_lut": cfg.depth}
-    served = serve_requests(torch, model, requests, per_step)
-    prof = profile_phase(torch, model, batch)
+    served = serve_requests(torch, model, requests,
+                            per_step_launches(cfg, routes))
+    prof = profile_phase(torch, model.step, batch)
+    prof_eager = profile_phase(torch, eager_step(model), batch)
 
-    logits = model.step(batch)
+    logits = check_graph_logits(torch, model, batch, "f32 route='lut'")
     others, seconds = {}, {}
     for name, backend, options in (
             ("packed_cuda(fuse_mlp=False)", "packed_cuda",
@@ -817,7 +947,7 @@ def lut_serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
         t0 = time.perf_counter()
         other = compile(model.folded, cfg, dataclasses.replace(
             model.plan, backend=backend, backend_options=options),
-            folded=True, device=dev)
+            folded=True, device=dev, jit=False)
         check(other.plan.routes == routes,
               f"{name} planned other routes than packed_cuda")
         others[name] = other.step(batch)
@@ -829,49 +959,149 @@ def lut_serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
     final_occ, layers = final_firing(model, batch)
     return dict(
         config="SpikformerConfig() V2-8-512; float32 weights, route='lut', "
-               "packed_cuda", compile_s=compile_s, warmup_s=warmup_s,
-        **served, bucket8_labels=labels, distinct_labels=len(set(labels)),
-        logits_bit_identical_to=sorted(others),
+               "packed_cuda, jit=True", compile_s=compile_s,
+        warmup_s=warmup_s, **served, bucket8_labels=labels,
+        distinct_labels=len(set(labels)),
+        logits_bit_identical_to=["eager step", *sorted(others)],
         parity_compile_and_step_s=seconds,
         final_residual_occupancy=final_occ, layer_occupancy=layers,
-        profile=prof)
+        profile=prof, profile_eager=prof_eager)
 
 
 def unpack_step_phase(torch, dev, cfg, folded, batch, int8_logits) -> dict:
-    """Path B: int8 weights with every table stripped, one bucket-8 step.
-    conv0 runs the shift-sum kernel, every other linear the int8 unpack
-    dot; logits bit-identical to packed_plain and, int8 sums being exact on
-    every route, to the default plan's. Then the step is profiled."""
+    """Path B: int8 weights with every table stripped, one graphed
+    bucket-8 step. conv0 runs the shift-sum kernel, every other linear the
+    int8 unpack dot; logits bit-identical to the eager step's,
+    packed_plain's and, int8 sums being exact on every route, the default
+    plan's. Then the graphed and the eager step are profiled."""
     from repro_torch.infer import ExecutionPlan, compile
-    from repro_torch.kernels import ops
 
     model = compile(folded, cfg, ExecutionPlan(
         backend="packed_cuda", weight_dtype="int8", route="unpack"),
         folded=True, device=dev)
     check(model.plan.routes == {}, "route='unpack' kept a planned route")
     model.warmup()
-    per_step = {"tflif": len(cfg.scs_channels) + 7 * cfg.depth,
-                "unpack_dot_s8": len(cfg.scs_channels) - 1 + 6 * cfg.depth,
-                "stdp_packed": cfg.depth, "shift_sum": 1}
-    ops.reset_launch_counts()
+    per_step = per_step_launches(cfg, {})
+    reset_counts(model)
     logits = model.step(batch)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches = read_counts(torch, model)
     check_step_launches(launches, per_step, 1)
+    check_graph_logits(torch, model, batch, "int8 route='unpack'")
     plain = compile(model.folded, cfg, dataclasses.replace(
-        model.plan, backend="packed_plain"), folded=True, device=dev)
+        model.plan, backend="packed_plain"), folded=True, device=dev,
+        jit=False)
     labels = check_logits(torch, logits, {
         "packed_plain": plain.step(batch),
         "the default int8 plan": int8_logits.to(dev)}, "int8 route='unpack'")
     del plain
     final_occ, _ = final_firing(model, batch)
-    prof = profile_phase(torch, model, batch)
+    prof = profile_phase(torch, model.step, batch)
+    prof_eager = profile_phase(torch, eager_step(model), batch)
     return dict(
         config="SpikformerConfig() V2-8-512; int8 weights, route='unpack', "
-               "packed_cuda, one bucket-8 step",
-        steps=1, per_step_launches=per_step, launches=launches,
-        bucket8_labels=labels, final_residual_occupancy=final_occ,
-        profile=prof)
+               "packed_cuda, jit=True, one bucket-8 step",
+        steps=1, jit=model.jit, per_step_launches=per_step,
+        launches=launches, bucket8_labels=labels,
+        final_residual_occupancy=final_occ, profile=prof,
+        profile_eager=prof_eager)
+
+
+def route_phase(torch, dev, cfg, folded, requests, batch,
+                int8_logits) -> dict:
+    """The route autotuner fitted on the card, then the int8 model
+    compiled four times: the reference's and the fitted constants, each
+    with ``jit=False`` and ``jit=True``. The fit is the int8 ``--cuda
+    --fast`` one of ``repro_torch.launch.autotune_routes``; its fragment
+    goes to ``build/routes_int8.json`` and is served through
+    ``ExecutionPlan.from_json``. Each of the four serves the requests
+    (launch counts gated), gives logits bit-identical to ``packed_plain``
+    (and, for a graph, to its eager step), is profiled at bucket 8 and
+    timed layer by layer by ``profile_step``. One model is alive at a
+    time."""
+    from repro_torch.infer import ExecutionPlan, compile
+    from repro_torch.launch import autotune_routes as tune
+
+    t0 = time.perf_counter()
+    samples = tune.measure_cuda_grid(tune.cuda_grid(fast=True),
+                                     weight_dtype="int8", repeats=2, inner=5,
+                                     seed=SEED)
+    fitted = tune.fit_cuda_constants(samples)
+    fit_s = time.perf_counter() - t0
+    text = json.dumps(tune.plan_fragment(fitted, "int8"), indent=1,
+                      sort_keys=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "routes_int8.json").write_text(text + "\n")
+    plans = {"reference": ExecutionPlan(weight_dtype="int8",
+                                        batch_buckets=(1, BATCH)),
+             "fitted": dataclasses.replace(ExecutionPlan.from_json(text),
+                                           batch_buckets=(1, BATCH))}
+    check(plans["fitted"].weight_dtype == "int8",
+          "the fitted fragment lost its weight dtype")
+    fit_keys = ("pallas_gather_cost", "pallas_dot_cost", "transpose_cost")
+    cells, routes_by = [], {}
+    for name, plan in plans.items():
+        plain = compile(folded, cfg, dataclasses.replace(
+            plan, backend="packed_plain"), folded=True, device=dev,
+            jit=False)
+        want = plain.step(batch)
+        torch.cuda.synchronize()
+        routes_by[name] = plain.plan.routes
+        del plain
+        torch.cuda.empty_cache()
+        for jit in (False, True):
+            t0 = time.perf_counter()
+            model = compile(folded, cfg, plan, folded=True, device=dev,
+                            jit=jit)
+            compile_s = time.perf_counter() - t0
+            check(model.plan.routes == routes_by[name],
+                  f"{name}: packed_cuda planned other routes than "
+                  "packed_plain")
+            per_step = per_step_launches(cfg, model.plan.routes)
+            warmup_s = model.warmup()
+            served = serve_requests(torch, model, requests, per_step)
+            logits = (check_graph_logits(torch, model, batch, name) if jit
+                      else model.step(batch))
+            check_logits(torch, logits, {
+                "packed_plain": want, "the default int8 plan": int8_logits.to(
+                    dev)}, f"int8, {name} constants, jit={jit}")
+            prof = profile_phase(torch, model.step, batch)
+            rows = model.profile_step(batch)
+            cells.append(dict(
+                constants=name, jit=jit, compile_s=compile_s,
+                warmup_s=warmup_s, per_step_launches=per_step,
+                steps=served["steps"], launches=served["launches"],
+                images_per_s=served["stats"]["fps"],
+                engine_ms_per_step=served["engine_ms_per_step"],
+                model_step_ms_per_step=served["model_step_ms_per_step"],
+                serve=served["stats"],
+                wall_ms=prof["wall_ms_per_step"],
+                device_ms=prof["device_ms_per_step"],
+                idle_share=prof["idle_share"],
+                peak_mem_mib=prof["peak_mem_mib"],
+                profiled_launches_per_step=prof["launches_per_step"],
+                by_kernel=[(r["kernel"][:48], r["ms_per_step"],
+                            r["launches_per_step"])
+                           for r in prof["by_kernel"][:10]],
+                profile_step_s=sum(r["seconds"] for r in rows),
+                profile_step_routes=tune.route_sums(rows)))
+            del model
+            torch.cuda.empty_cache()
+    launches = {}
+    for c in cells:
+        for k, v in c["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    route_counts = {name: {r: list(rs.values()).count(r)
+                           for r in sorted(set(rs.values()))}
+                    for name, rs in routes_by.items()}
+    return dict(
+        config="SpikformerConfig() V2-8-512; int8, packed_cuda, buckets "
+               "(1, 8); reference vs fitted route constants x jit",
+        fit_s=fit_s, fit_samples=samples, fitted=fitted.to_dict(),
+        fitted_keys={k: getattr(fitted, k) for k in fit_keys},
+        fit_agreement=tune.cuda_agreement(samples, fitted),
+        fragment=json.loads(text), routes=routes_by,
+        route_counts=route_counts, cells=cells, launches=launches,
+        engine_host_ms=engine_host_ms(requests))
 
 
 def lm_prompts(vocab: int) -> list:
@@ -1077,7 +1307,7 @@ def main() -> int:
               "build_logs": {k: v["log"] for k, v in build.items()}}
     out_dir = ROOT / "build"
     paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step",
-             "lm_serve", "lm_gate")
+             "int8_route_fit", "lm_serve", "lm_gate")
     try:
         report["kernels"] = kernel_phase(torch, dev)
         cfg = SpikformerConfig()
@@ -1086,16 +1316,19 @@ def main() -> int:
         batch = torch.from_numpy(np.concatenate(requests)[:BATCH]).to(dev)
         report[paths[0]] = serve_phase(torch, dev, cfg, folded, requests,
                                        batch)
+        int8_logits = report[paths[0]].pop("logits")
         torch.cuda.empty_cache()
         report[paths[1]] = lut_serve_phase(torch, dev, cfg, folded, requests,
                                            batch)
         torch.cuda.empty_cache()
-        report[paths[2]] = unpack_step_phase(
-            torch, dev, cfg, folded, batch,
-            report[paths[0]].pop("logits"))
+        report[paths[2]] = unpack_step_phase(torch, dev, cfg, folded, batch,
+                                             int8_logits)
         torch.cuda.empty_cache()
-        report[paths[3]], lm_engine = lm_serve_phase(torch, dev)
-        report[paths[4]] = lm_gate_phase(torch, dev, lm_engine)
+        report[paths[3]] = route_phase(torch, dev, cfg, folded, requests,
+                                       batch, int8_logits)
+        torch.cuda.empty_cache()
+        report[paths[4]], lm_engine = lm_serve_phase(torch, dev)
+        report[paths[5]] = lm_gate_phase(torch, dev, lm_engine)
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -1107,17 +1340,29 @@ def main() -> int:
 
     for p in paths[:3]:
         r = report[p]
-        print(json.dumps({"path": p, "steps": r["steps"],
+        print(json.dumps({"path": p, "steps": r["steps"], "jit": r["jit"],
                           "serve": r.get("stats"),
                           "bucket8_labels": r["bucket8_labels"],
                           "final_residual_occupancy":
                               r["final_residual_occupancy"]}))
-        if "profile" in r:
-            prof = r["profile"]
-            print(json.dumps({"path": p, "profile": {
+        for window in ("profile", "profile_eager"):
+            prof = r[window]
+            print(json.dumps({"path": p, window: {
                 k: v for k, v in prof.items() if k != "by_kernel"},
                 "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                                 for k in prof["by_kernel"][:8]]}))
+    fit = report["int8_route_fit"]
+    print(json.dumps({"route_fit": {
+        k: fit[k] for k in ("fitted_keys", "fit_agreement", "fit_s",
+                            "route_counts", "engine_host_ms")},
+        "fitted_routes": fit["routes"]["fitted"]}))
+    print(json.dumps({"route_cells": [
+        {k: c[k] for k in ("constants", "jit", "device_ms", "wall_ms",
+                           "idle_share", "images_per_s", "engine_ms_per_step",
+                           "model_step_ms_per_step", "peak_mem_mib",
+                           "per_step_launches", "profiled_launches_per_step",
+                           "profile_step_s", "profile_step_routes")}
+        for c in fit["cells"]]}))
     lm = report["lm_serve"]
     print(json.dumps({"path": "lm_serve", "serve": lm["stats"],
                       "peak_mem_mib": lm["peak_mem_mib"],

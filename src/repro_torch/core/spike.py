@@ -11,13 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_SHIFTS = torch.arange(8, dtype=torch.uint8)
+from ..device import constant
 
 
 def _shifts(x: torch.Tensor, ndim: int) -> torch.Tensor:
     """The 8 bit positions shaped (8, 1, ..., 1) for ``ndim`` trailing axes,
-    on ``x``'s device."""
-    return _SHIFTS.to(x.device).reshape((8,) + (1,) * ndim)
+    on ``x``'s device (made there once)."""
+    shifts = constant("shifts_u8", x.device, lambda d: torch.arange(
+        8, dtype=torch.uint8, device=d))
+    return shifts.reshape((8,) + (1,) * ndim)
 
 
 def num_plane_groups(t: int) -> int:

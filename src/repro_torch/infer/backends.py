@@ -34,6 +34,7 @@ from . import registry
 from ..core import unified
 from ..core.lif import V_TH, tflif
 from ..core.spike import bitplanes_u8, rate_decode, space_to_depth
+from ..device import constant
 from ..kernels import lut_matmul as lut
 from ..kernels import ops
 from ..kernels.fused import fused_fits
@@ -219,7 +220,8 @@ class PackedBackend:
     def rate(self, x, *, t: int):
         # popcount readout: exact integer counts, then the reference's
         # divide by t and mean over tokens
-        counts = _POPCOUNT.to(x.device)[x.long()].sum(dim=0)
+        popcount = constant("popcount_i32", x.device, _POPCOUNT.to)
+        counts = popcount[x.long()].sum(dim=0)
         return (counts.to(torch.float32) / float(t)).mean(dim=1)
 
 

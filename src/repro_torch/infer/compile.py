@@ -17,13 +17,19 @@ JAX package wrote loads here and replays its routes.
                                                batch_buckets=(1, 8)))
     logits = model.logits(images_u8)      # on the card
 
-``compile(..., device="cpu")`` runs every kernel's plain version on the CPU.
+``jit=True`` (the default, as in the reference) lowers the step on the card
+to one CUDA graph per bucket (``GraphedStep``), the counterpart of the
+reference's one ``jax.jit`` executable per bucket; ``jit=False`` runs it
+eagerly. ``compile(..., device="cpu")`` runs every kernel's plain version
+on the CPU, eagerly whatever ``jit`` says. ``CompiledModel.profile_step``
+times every layer of one eager step.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -34,7 +40,7 @@ from .quant import WEIGHT_DTYPES, map_folded_layers, quantize_folded
 from ..core import spikformer
 from ..core.spikformer import SpikformerConfig, fold_inference_params
 from ..device import resolve_device
-from ..kernels import lut_matmul
+from ..kernels import lut_matmul, ops
 from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
 from ..kernels.spike_matmul import kmajor_weights
 
@@ -141,6 +147,19 @@ def quantize_weights(tree, weight_dtype: str | None):
                   else "float32")
 
 
+def layer_shape(cfg: SpikformerConfig, path: str, batch_size: int) -> tuple:
+    """The packed-route matmul shape ``(m, live planes, groups)`` the step
+    gives the layer at ``path`` at ``batch_size``: what route planning
+    keys on. conv0 is SSSC, its 8 value planes in one group."""
+    t = cfg.timesteps
+    g = -(-t // 8)
+    if path.startswith("scs/conv"):
+        i = int(path.removeprefix("scs/conv"))
+        m = batch_size * (cfg.img_size // 2 ** (i + 1)) ** 2
+        return (m, 8, 1) if i == 0 else (m, t, g)
+    return batch_size * cfg.tokens, t, g
+
+
 def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
                       max_table_bytes: int = lut_matmul.MAX_TABLE_BYTES,
                       build_tables: bool = True,
@@ -158,23 +177,13 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
     "lut_sparse" needs its calibrated
     occupancy, as in the reference, and runs the dense gather here.
     Returns ``(annotated_tree, routes)``."""
-    t = cfg.timesteps
-    g = -(-t // 8)
     occ_map = layer_occupancy or {}
     plan = {}
-
-    def shapes_for(path):
-        """Packed-route matmul shape (m, live planes, groups) at ``path``."""
-        if path.startswith("scs/conv"):
-            i = int(path.removeprefix("scs/conv"))
-            m = batch_size * (cfg.img_size // 2 ** (i + 1)) ** 2
-            return (m, 8, 1) if i == 0 else (m, t, g)   # conv0 is SSSC
-        return batch_size * cfg.tokens, t, g
 
     def annotate(path, layer):
         wq = layer["kernel"]
         if routes is None:
-            m, tt, gg = shapes_for(path)
+            m, tt, gg = layer_shape(cfg, path, batch_size)
             k, n = wq.shape
             route = force or choose_cuda_route(
                 m=m, k=k, n=n, g=gg, t=tt,
@@ -221,13 +230,223 @@ def strip_lut_annotations(folded):
         k: v for k, v in l.items() if k not in ("lut", "kernel_kmajor")})
 
 
-def lower(folded, cfg: SpikformerConfig, backend):
-    """Pass 4: the annotated tree becomes one eager step callable."""
+def linear_layer_paths(cfg: SpikformerConfig) -> list:
+    """Layer paths in forward-call order: the order one ``forward_folded``
+    pass reaches each spiking linear (``map_folded_layers`` walks the same
+    paths in tree order)."""
+    paths = [f"scs/conv{i}" for i in range(len(cfg.scs_channels))]
+    for i in range(cfg.depth):
+        paths += [f"blocks/b{i}/ssa/{w}" for w in ("wq", "wk", "wv", "wo")]
+        paths += [f"blocks/b{i}/mlp/fc1", f"blocks/b{i}/mlp/fc2"]
+    return paths
+
+
+def profile_layer_paths(cfg: SpikformerConfig) -> list:
+    """Every timed op of one profiled forward, in call order: the spiking
+    linears with each block's STDP attention (``blocks/b{i}/ssa/stdp``)
+    where ``forward_folded`` calls it. The two-layer MLP is assumed: the
+    profiling backend exposes no ``mlp_pair_lif``."""
+    paths = [f"scs/conv{i}" for i in range(len(cfg.scs_channels))]
+    for i in range(cfg.depth):
+        paths += [f"blocks/b{i}/ssa/{w}" for w in ("wq", "wk", "wv")]
+        paths += [f"blocks/b{i}/ssa/stdp", f"blocks/b{i}/ssa/wo"]
+        paths += [f"blocks/b{i}/mlp/fc1", f"blocks/b{i}/mlp/fc2"]
+    return paths
+
+
+class _LayerTimer:
+    """A backend wrapper that times every dataflow layer between two
+    barriers (``sync``: ``torch.cuda.synchronize`` on the card), so a
+    layer's time is its own, not its neighbours' queue. Appends ``(t0,
+    t1)`` to ``trace`` in forward-call order. It exposes no
+    ``mlp_pair_lif``, so the two-layer MLP runs and the op sequence is
+    ``profile_layer_paths``. Bookkeeping ops (residual, to_tokens, rate)
+    run untimed."""
+
+    def __init__(self, inner, *, clock=time.perf_counter, sync=lambda: None):
+        self._inner = inner
+        self._clock = clock
+        self._sync = sync
+        self.trace: list[tuple] = []
+
+    def _timed(self, fn, *args, **kw):
+        self._sync()
+        t0 = self._clock()
+        out = fn(*args, **kw)
+        self._sync()
+        self.trace.append((t0, self._clock()))
+        return out
+
+    def sssc_lif(self, *args, **kw):
+        return self._timed(self._inner.sssc_lif, *args, **kw)
+
+    def zsc_lif(self, *args, **kw):
+        return self._timed(self._inner.zsc_lif, *args, **kw)
+
+    def wssl_lif(self, *args, **kw):
+        return self._timed(self._inner.wssl_lif, *args, **kw)
+
+    def stdp_lif(self, *args, **kw):
+        return self._timed(self._inner.stdp_lif, *args, **kw)
+
+    def residual(self, *args, **kw):
+        return self._inner.residual(*args, **kw)
+
+    def to_tokens(self, *args, **kw):
+        return self._inner.to_tokens(*args, **kw)
+
+    def rate(self, *args, **kw):
+        return self._inner.rate(*args, **kw)
+
+
+def _failed_at(err: BaseException) -> str:
+    """The innermost frame of ``err``'s traceback outside torch: the op
+    that stopped a capture."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if "/torch/" not in f.filename]
+    if not frames:
+        return "an unknown op"
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} in {f.name}: {f.line}"
+
+
+class _BucketGraph:
+    """One bucket's captured step: the graph, its static uint8 input and
+    f32 logits, a pinned staging buffer for host images, and the kernel
+    launches its capture recorded (each replay launches them again)."""
+
+    def __init__(self, graph, static_in, out, launches):
+        self.graph = graph
+        self.static_in = static_in
+        self.out = out
+        self.launches = launches
+        self.host = torch.empty(static_in.shape, dtype=torch.uint8,
+                                pin_memory=True)
+        self.copied = torch.cuda.Event()
+        self.replays = 0
+
+    def load(self, images: torch.Tensor) -> None:
+        """Copy a batch into the static input: from the card in place, from
+        the host through the pinned buffer without a host wait (only the
+        previous copy out of that buffer must be done before it is
+        refilled)."""
+        if images.device.type == "cuda":
+            self.static_in.copy_(images)
+            return
+        self.copied.synchronize()
+        self.host.copy_(images)
+        self.static_in.copy_(self.host, non_blocking=True)
+        self.copied.record()
+
+
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """The one side stream a device's warm-ups and graph captures run on:
+    cuBLAS keeps a workspace for every stream it has run on, so a new
+    stream a capture would leave one more behind each time."""
+    device = torch.device(device)
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+class GraphedStep:
+    """``jit=True``: the eager step ``fwd`` over ``folded`` replayed as one
+    CUDA graph per batch size, captured at first use (``warmup`` captures
+    every bucket). A capture first runs the step once eagerly on a side
+    stream, so kernels are built, their attributes set and the step's
+    constants made before anything records; the buckets share one graph
+    memory pool. A call copies the images into the bucket's static input,
+    replays its graph and returns a clone of its logits, which the next
+    replay would overwrite. A capture that fails raises and names the op;
+    nothing then runs eagerly in its place. On the CPU the step runs
+    eagerly.
+
+    The graphs hold the addresses of the tree's tensors and of their own
+    pool: the kernels' TMA descriptors, encoded on the host at capture,
+    point there. That is right because the tree's weights, tables and
+    K-major copies never move and the pool replays the same addresses;
+    ``folded`` must be the tree the step was lowered over."""
+
+    def __init__(self, fwd, folded):
+        self._fwd = fwd
+        self.folded = folded
+        self.device = folded["head"]["kernel"].device
+        self.graphs: dict[int, _BucketGraph] = {}
+        self._pool = None
+
+    def capture(self, shape) -> _BucketGraph:
+        shape = tuple(int(d) for d in shape)
+        dev = self.device
+        static_in = torch.zeros(shape, dtype=torch.uint8, device=dev)
+        side = capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._fwd(self.folded, static_in)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        failure, out = None, None
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                try:
+                    out = self._fwd(self.folded, static_in)
+                except Exception as e:      # noqa: BLE001  (raised below)
+                    failure = e
+        except Exception as e:              # noqa: BLE001  an invalid capture
+            failure = failure or e
+        if failure is not None:
+            raise RuntimeError(
+                f"CUDA graph capture of the batch-{shape[0]} step failed at "
+                f"{_failed_at(failure)}: {failure}") from failure
+        launches = {k: v - before[k] for k, v in ops.launch_counts().items()
+                    if v != before[k]}
+        self.graphs[shape[0]] = _BucketGraph(graph, static_in, out, launches)
+        return self.graphs[shape[0]]
+
+    def __call__(self, folded_tree, images):
+        if folded_tree is not self.folded:
+            raise ValueError("a graphed step replays the tree it was lowered "
+                             "over; lower again for another tree")
+        if self.device.type != "cuda":
+            return self._fwd(folded_tree, images.to(self.device))
+        bucket = self.graphs.get(images.shape[0])
+        if bucket is None:
+            bucket = self.capture(images.shape)
+        bucket.load(images)
+        bucket.graph.replay()
+        bucket.replays += 1
+        with torch.inference_mode():
+            return bucket.out.clone()
+
+    def launch_counts(self) -> dict:
+        """Kernel launches the replays made since the last reset: each
+        bucket's captured launches times its replays."""
+        counts: dict = {}
+        for g in self.graphs.values():
+            for name, n in g.launches.items():
+                counts[name] = counts.get(name, 0) + n * g.replays
+        return counts
+
+    def reset_launch_counts(self) -> None:
+        for g in self.graphs.values():
+            g.replays = 0
+
+
+def lower(folded, cfg: SpikformerConfig, backend, *, jit: bool = True):
+    """Pass 4: the annotated tree becomes one step callable: eager with
+    ``jit=False``, else a ``GraphedStep`` (one CUDA graph per bucket on the
+    card, eager on the CPU). Callers that wrap the backend to record or
+    time each layer pass ``jit=False``: a replay runs no Python."""
     def fwd(folded_tree, images):
         with torch.inference_mode():
             return spikformer.forward_folded(folded_tree, images, cfg,
                                              backend=backend)
-    return fwd
+    return GraphedStep(fwd, folded) if jit else fwd
 
 
 def to_device(tree, device):
@@ -271,37 +490,67 @@ def plan_chunks(n: int, buckets) -> list:
 class CompiledModel:
     """A Spikformer lowered under an ``ExecutionPlan`` onto one device.
     ``plan`` is the resolved plan (``weight_dtype`` concrete, ``routes``
-    filled in), whose JSON replays this compilation."""
+    filled in), whose JSON replays this compilation. ``jit`` is how the
+    step was lowered: one CUDA graph per bucket on the card, or eager."""
 
     def __init__(self, *, cfg, backend, folded, plan: ExecutionPlan, fwd,
-                 device: torch.device):
+                 device: torch.device, jit: bool = True):
         self.cfg = cfg
         self.backend = backend
         self.folded = folded
         self.plan = plan
         self.device = device
+        self.jit = jit
         self._fwd = fwd
         self.buckets = plan.batch_buckets
+
+    # -- shapes ---------------------------------------------------------------
 
     @property
     def batch_size(self) -> int:
         """The largest bucket (the planning shape)."""
         return self.buckets[-1]
 
+    @property
+    def weight_dtype(self) -> str:
+        return self.plan.weight_dtype
+
     def input_shape(self, bucket: int | None = None):
         c = self.cfg
         b = self.batch_size if bucket is None else bucket
         return (b, c.img_size, c.img_size, c.in_channels)
 
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket covering ``n`` rows (the largest bucket when
+        none does: the caller chunks)."""
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
     def plan_chunks(self, n: int) -> list:
         return plan_chunks(n, self.buckets)
+
+    # -- execution ------------------------------------------------------------
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _images(self, images_u8) -> torch.Tensor:
+        """numpy or tensor images as a uint8 tensor: on the model's device
+        for an eager step; a graphed step takes host images as they are
+        and copies them into its static input itself."""
+        if isinstance(images_u8, np.ndarray):
+            images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
+        images_u8 = images_u8.to(dtype=torch.uint8)
+        if isinstance(self._fwd, GraphedStep):
+            return images_u8
+        return images_u8.to(self.device)
+
     def warmup(self) -> float:
-        """Run every bucket once on zeros; returns seconds."""
+        """Run every bucket once on zeros (capturing its graph under
+        ``jit``); returns seconds."""
         t0 = time.perf_counter()
         for b in self.buckets:
             self._fwd(self.folded, torch.zeros(self.input_shape(b),
@@ -313,21 +562,17 @@ class CompiledModel:
     def step(self, images_u8) -> torch.Tensor:
         """One step; images (numpy or tensor) must already be a whole
         bucket. Returns (bucket, classes) f32 logits on the model's
-        device."""
+        device, a tensor of their own."""
         if images_u8.shape[0] not in self.buckets:
             raise ValueError(
                 f"batch of {images_u8.shape[0]} is not a bucket "
                 f"{self.buckets}; pad to one (the engine does this)")
-        if isinstance(images_u8, np.ndarray):
-            images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
-        return self._fwd(self.folded, images_u8.to(self.device, torch.uint8))
+        return self._fwd(self.folded, self._images(images_u8))
 
     def logits(self, images_u8) -> torch.Tensor:
         """(N, H, W, C) uint8, any N >= 1 -> (N, classes) f32, dispatched
         in bucket-shaped chunks whose pad rows are dropped."""
-        if isinstance(images_u8, np.ndarray):
-            images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
-        images_u8 = images_u8.to(self.device, torch.uint8)
+        images_u8 = self._images(images_u8)
         outs, i = [], 0
         for rows, b in self.plan_chunks(images_u8.shape[0]):
             chunk = images_u8[i:i + rows]
@@ -342,15 +587,77 @@ class CompiledModel:
         """(N, H, W, C) uint8 -> (N,) int32 argmax class ids."""
         return self.logits(images_u8).argmax(dim=-1).to(torch.int32)
 
+    def graph_launch_counts(self) -> dict:
+        """Kernel launches made by graph replays since the last reset (the
+        wrappers' counters tick only when a step runs or is captured)."""
+        if isinstance(self._fwd, GraphedStep):
+            return self._fwd.launch_counts()
+        return {}
+
+    def reset_graph_launch_counts(self) -> None:
+        if isinstance(self._fwd, GraphedStep):
+            self._fwd.reset_launch_counts()
+
+    # -- profiling ------------------------------------------------------------
+
+    def profile_step(self, images_u8=None, *, tracer=None,
+                     clock=time.perf_counter) -> list:
+        """Per-layer times of one eager forward, each op between two
+        barriers (``torch.cuda.synchronize`` on the card). One row per
+        ``profile_layer_paths`` entry::
+
+            {"path": "blocks/b0/ssa/wq", "route": "lut", "seconds": 1.3e-4,
+             "occupancy": None}
+
+        ``route`` is the resolved plan's decision ("stdp" for attention,
+        "unpack" where the plan holds none); ``occupancy`` the plan's
+        calibrated chunk occupancy or None. Images default to zeros at the
+        largest bucket; a batch that is not a bucket raises. The rows are
+        relative weights of eager ops, not a prediction of the graphed
+        step. With a ``tracer`` (any object with ``enabled`` and
+        ``span(category, name, **kw)``), each row is also a ``("layer",
+        path)`` span."""
+        if images_u8 is None:
+            images_u8 = torch.zeros(self.input_shape(), dtype=torch.uint8)
+        if images_u8.shape[0] not in self.buckets:
+            raise ValueError(
+                f"profile batch of {images_u8.shape[0]} is not a bucket "
+                f"{self.buckets}; profiling times the shapes serving runs")
+        images = self._images(images_u8).to(self.device)
+        timer = _LayerTimer(self.backend, clock=clock, sync=self._sync)
+        lower(self.folded, self.cfg, timer, jit=False)(self.folded, images)
+        self._sync()
+        paths = profile_layer_paths(self.cfg)
+        if len(timer.trace) != len(paths):
+            raise RuntimeError(
+                f"layer-timing trace has {len(timer.trace)} entries but the "
+                f"config has {len(paths)} timed ops")
+        routes = self.plan.routes or {}
+        occ_all = self.plan.layer_occupancy or {}
+        rows = []
+        for path, (t0, t1) in zip(paths, timer.trace):
+            occ = occ_all.get(path)
+            default = "stdp" if path.endswith("/stdp") else "unpack"
+            rows.append({"path": path, "route": routes.get(path, default),
+                         "seconds": t1 - t0, "occupancy": occ})
+            if tracer is not None and tracer.enabled:
+                tracer.span("layer", path, t0=t0, t1=t1, occupancy=occ,
+                            value=t1 - t0)
+        return rows
+
+    def __call__(self, images_u8):
+        return self.logits(images_u8)
+
 
 def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
-            *, folded: bool = False, device=None,
+            *, folded: bool = False, device=None, jit: bool = True,
             **plan_overrides) -> CompiledModel:
     """Run the pass pipeline under ``plan`` on ``device`` (default: the
     card) and return a ``CompiledModel``. ``params`` is a training tree
     unless ``folded=True`` (a ``fold_inference_params`` tree, possibly
-    quantized or annotated). ``plan_overrides`` are ``dataclasses.replace``
-    fields on the plan."""
+    quantized or annotated). ``jit`` lowers the step to one CUDA graph per
+    bucket on the card (``GraphedStep``; the CPU runs eagerly either way).
+    ``plan_overrides`` are ``dataclasses.replace`` fields on the plan."""
     plan = ExecutionPlan() if plan is None else plan
     if plan_overrides:
         plan = dataclasses.replace(plan, **plan_overrides)
@@ -392,4 +699,5 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
     resolved = dataclasses.replace(plan, weight_dtype=weight_dtype,
                                    routes=routes)
     return CompiledModel(cfg=cfg, backend=backend, folded=tree, plan=resolved,
-                         fwd=lower(tree, cfg, backend), device=device)
+                         fwd=lower(tree, cfg, backend, jit=jit),
+                         device=device, jit=jit)

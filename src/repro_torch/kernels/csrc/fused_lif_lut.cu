@@ -387,6 +387,10 @@ int launch(const float* x, const float* bias, const float* vth,
   p.tau = tau;
   p.inv_tau = p.tau_pow2 ? 1.f / tau : 0.f;
   const cudaStream_t s = (cudaStream_t)stream;
+  // The map is encoded on the host at each launch and passed by value, so
+  // a CUDA graph that captures this launch keeps it, with the table's
+  // address of that moment. Replays are right because a plan's tables
+  // never move once built.
   CUtensorMap map = {};
   const bool tma = n > 0 && ((long long)n * sizeof(Tab)) % 16 == 0 &&
                    (uintptr_t)table % 16 == 0;

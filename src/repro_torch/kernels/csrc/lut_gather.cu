@@ -480,6 +480,10 @@ int launch_one(Params p, cudaStream_t s) {
   // one block an SM (the accumulators take its registers), each walking
   // tiles until none is left
   const int grid = p.tiles < sm_count() ? p.tiles : sm_count();
+  // The map is encoded on the host at each launch and passed by value, so
+  // a CUDA graph that captures this launch keeps it, with the table's
+  // address of that moment. Replays are right because a plan's tables
+  // never move once built.
   CUtensorMap map = {};
   if (TMA && !slab_map<I16>(&map, p)) return (int)cudaErrorInvalidValue;
   kernel<<<grid, THREADS, smem, s>>>(map, p);

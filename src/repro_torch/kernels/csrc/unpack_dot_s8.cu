@@ -288,6 +288,10 @@ extern "C" int unpack_dot_s8_launch(const uint8_t* x, const int8_t* w_kt,
     return (int)cudaErrorInvalidValue;
   EncodeTiled encode = encoder();
   if (!encode) return (int)cudaErrorInvalidValue;
+  // The map is encoded on the host at each launch and passed by value, so
+  // a CUDA graph that captures this launch keeps it, with the K-major
+  // weights' address of that moment. Replays are right because a plan's
+  // K-major copies never move once built.
   CUtensorMap map;
   const cuuint64_t gdim[2] = {(cuuint64_t)k, (cuuint64_t)n};
   const cuuint64_t gstride[1] = {(cuuint64_t)ldw};

@@ -33,6 +33,7 @@ from .stdp_attention import (stdp_attention, stdp_attention_packed as
 from .tflif import tflif_fused, tflif_plain
 from ..core.lif import TAU, V_TH
 from ..core.spike import num_plane_groups
+from ..device import constant
 
 # kernel name -> wrapper; each wrapper counts its launches in ``.launches``
 KERNELS = {"tflif": tflif_fused, "lut_gather": lut_gather_matmul,
@@ -171,11 +172,24 @@ def sssc_linear(x_u8, w, bias=None, *, route=None, table=None,
     return y.reshape(*lead, n)
 
 
+def _filled(v, n: int, device) -> torch.Tensor:
+    """``v`` as an (n,) f32 vector on ``device``: a Python number becomes a
+    constant made there once (no host-to-device copy a call), a tensor is
+    broadcast."""
+    if isinstance(v, torch.Tensor):
+        return torch.broadcast_to(v.to(device, torch.float32), (n,))
+    v = float(v)
+    return constant(("filled_f32", v, n), device, lambda d: torch.full(
+        (n,), v, dtype=torch.float32, device=d))
+
+
 def _period_vector(v, lead, device) -> torch.Tensor:
     """A bias/threshold broadcast against ``lead`` as the shortest vector
     the TFLIF kernel tiles over the flattened neurons: one value, one per
     trailing channel, or (only for other broadcasts) one per neuron."""
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if not isinstance(v, torch.Tensor):
+        return _filled(v, 1, device)
+    v = v.to(device, torch.float32)
     if v.numel() == 1:
         return v.reshape(1)
     if v.dim() == 1 and lead and v.shape[0] == lead[-1]:
@@ -206,8 +220,7 @@ def tflif_pack(acc, bias=None, *, t: int | None = None, tau: float = TAU,
 
 def _channel_vector(v, k: int, device) -> torch.Tensor:
     """A scalar or (K,) producer bias/threshold as a (K,) f32 vector."""
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
-    return torch.broadcast_to(v, (k,)).contiguous()
+    return _filled(v, k, device).contiguous()
 
 
 def tflif_lut(acc, bias=None, *, table, v_th=V_TH, t: int | None = None,

@@ -17,6 +17,7 @@ from repro_torch.core.spike import pack_timesteps
 from repro_torch.core.spikformer import (SpikformerConfig,
                                          fold_inference_params, init)
 from repro_torch.infer import ExecutionPlan, compile
+from repro_torch.infer.compile import lower
 from repro_torch.infer.quant import map_folded_layers
 from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops, ref
@@ -36,6 +37,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
                                                  flash_attention_tc)
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
+from repro_torch.launch import autotune_routes as tune
 
 pytestmark = pytest.mark.gpu
 
@@ -330,7 +332,10 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
-def firing_model(cfg, device, backend, seed=2, **plan):
+def firing_model(cfg, device, backend, seed=2, jit=False, buckets=(4,),
+                 **plan):
+    """The seeded reduced model with gains that keep it firing; eager
+    unless ``jit``, so a step's launches tick the counters once."""
     folded = fold_inference_params(init(torch.Generator().manual_seed(seed),
                                         cfg), cfg)
     folded = map_folded_layers(folded, lambda p, l: {
@@ -338,8 +343,8 @@ def firing_model(cfg, device, backend, seed=2, **plan):
             0.7 if p.endswith(("/wo", "/fc2")) else 1.0)})
     plan = {"weight_dtype": "int8", "max_table_bytes": 1 << 18, **plan}
     return compile(folded, cfg, ExecutionPlan(
-        backend=backend, batch_buckets=(4,), **plan), folded=True,
-        device=device)
+        backend=backend, batch_buckets=buckets, **plan), folded=True,
+        device=device, jit=jit)
 
 
 def test_packed_cuda_matches_plain_route_on_the_card(cuda):
@@ -522,3 +527,119 @@ def test_lm_prefill_runs_the_flash_kernel(cuda):
     for i, n in enumerate((5, 77, 30)):
         eng.submit(Request(rid=i, prompt=list(range(n)), max_new=4))
     assert [len(r.out) for r in eng.run()] == [4, 4, 4]
+
+
+# ---------------------------------------------------------------------------
+# jit=True: one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+GRAPH_PLANS = {"int8": {}, "lut": {"weight_dtype": "float32", "route": "lut"},
+               "unpack": {"route": "unpack"}}
+
+
+@pytest.mark.parametrize("name", sorted(GRAPH_PLANS))
+def test_graph_replay_equals_the_eager_step(cuda, name):
+    """On the int8 default plan, path A and path B at the reduced config,
+    each bucket's replayed graph gives the eager step's logits bit for bit,
+    from host images and from images on the card; a capture records one
+    step's launches, and replays count them once each."""
+    cfg = SpikformerConfig().scaled()
+    plan = GRAPH_PLANS[name]
+    graphed = firing_model(cfg, cuda, "packed_cuda", jit=True,
+                           buckets=(1, 4), **plan)
+    eager = firing_model(cfg, cuda, "packed_cuda", buckets=(1, 4), **plan)
+    imgs = np.random.default_rng(5).integers(0, 256, (4, 32, 32, 3),
+                                             dtype=np.uint8)
+    want_one = eager.step(imgs[:1])
+    ops.reset_launch_counts()
+    want = eager.step(imgs)
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in ops.launch_counts().items() if v}
+    graphed.warmup()
+    assert graphed._fwd.graphs[4].launches == per_step
+    graphed.reset_graph_launch_counts()
+    ops.reset_launch_counts()
+    for images in (imgs, torch.from_numpy(imgs).to(cuda)):
+        got = graphed.step(images)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+    assert torch.equal(graphed.step(imgs[:1]), want_one)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert graphed.graph_launch_counts() == {k: 3 * v for k, v in
+                                             per_step.items()}
+    assert bool((want != 0).any())
+
+
+def test_graph_replay_order_and_returned_logits(cuda):
+    """bucket 8 -> bucket 1 -> an eager step of the same tree -> bucket 8
+    give the same logits each time, and two steps return tensors of their
+    own: the second replay does not overwrite the first step's logits."""
+    cfg = SpikformerConfig().scaled()
+    model = firing_model(cfg, cuda, "packed_cuda", jit=True, buckets=(1, 8))
+    rng = np.random.default_rng(6)
+    a, b = (rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+            for _ in range(2))
+    eager = lower(model.folded, cfg, model.backend, jit=False)
+    first = model.step(a)
+    one = model.step(a[:1])
+    again = eager(model.folded, torch.from_numpy(a).to(cuda))
+    last = model.step(a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(last, again)
+    assert torch.equal(one, eager(model.folded,
+                                  torch.from_numpy(a[:1]).to(cuda)))
+    other = model.step(b)
+    torch.cuda.synchronize()
+    assert other.data_ptr() != last.data_ptr()
+    assert torch.equal(last, again)
+    assert not torch.equal(other, last)
+    assert torch.equal(model.logits(np.concatenate([a, b])),
+                       torch.cat([again, other]))
+
+
+class HostCopy:
+    """A backend whose rate readout copies a Python number to the card each
+    step: legal eagerly, refused inside a graph capture."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def rate(self, x, *, t):
+        one = torch.tensor([1.0], device=x.device)
+        return self.inner.rate(x, t=t) * one
+
+
+def test_capture_that_meets_a_host_copy_raises(cuda):
+    """The capture names the op that stopped it and raises; nothing runs
+    eagerly in its place, and a second call raises again."""
+    cfg = SpikformerConfig().scaled()
+    model = firing_model(cfg, cuda, "packed_cuda", buckets=(4,))
+    step = lower(model.folded, cfg, HostCopy(model.backend), jit=True)
+    imgs = torch.zeros((4, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="graph capture") as err:
+            step(model.folded, imgs)
+        assert "in rate" in str(err.value)
+        assert step.graphs == {}
+    torch.cuda.synchronize()
+    # the card is usable afterwards
+    assert bool(torch.isfinite(model.step(imgs)).all())
+
+
+def test_fit_cuda_constants_on_the_card(cuda):
+    """The card fit's samples are device times, positive, and its
+    constants finite and positive, in the dot kernel's unit."""
+    grid = tune.cuda_grid(SpikformerConfig().scaled(), batch=4)
+    for dtype in ("int8", "float32"):
+        samples = tune.measure_cuda_grid(grid, weight_dtype=dtype,
+                                         repeats=2, inner=3)
+        assert all(s["cuda_lut_s"] > 0 and s["cuda_dot_s"] > 0
+                   for s in samples)
+        fitted = tune.fit_cuda_constants(samples)
+        assert fitted.pallas_dot_cost == 1.0
+        for key in ("pallas_gather_cost", "transpose_cost"):
+            v = getattr(fitted, key)
+            assert np.isfinite(v) and v > 0, (dtype, key, v)

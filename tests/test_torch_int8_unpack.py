@@ -260,8 +260,8 @@ def test_int8_plans_carry_kmajor_copies_on_their_unpack_layers(fields):
     jtap, tap = Tap(jmodel.backend), Tap(model.backend)
     jlogits = jlower(jmodel.folded, jcfg, jtap, jit=False)(
         jmodel.folded, jnp.asarray(imgs))
-    logits = lower(model.folded, cfg, tap)(model.folded,
-                                           torch.from_numpy(imgs))
+    logits = lower(model.folded, cfg, tap, jit=False)(
+        model.folded, torch.from_numpy(imgs))
     assert [n for n, _ in tap.rows] == [n for n, _ in jtap.rows]
     for i, ((n, got), (_, want)) in enumerate(zip(tap.rows, jtap.rows)):
         exact(got, want, f"layer {i} ({n})")

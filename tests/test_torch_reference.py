@@ -291,8 +291,8 @@ def test_reference_backend_matches_jax_reference(name, over, dtype, route):
     jrec, rec = Recorder(jmodel.backend), Recorder(model.backend)
     jlower(jmodel.folded, jcfg, jrec, jit=False)(jmodel.folded,
                                                  jnp.asarray(imgs))
-    logits = lower(model.folded, cfg, rec)(model.folded,
-                                           torch.from_numpy(imgs))
+    logits = lower(model.folded, cfg, rec, jit=False)(
+        model.folded, torch.from_numpy(imgs))
     assert [n for n, _ in rec.rows] == [n for n, _ in jrec.rows]
     for i, ((n, got), (_, want)) in enumerate(zip(rec.rows, jrec.rows)):
         assert got.dtype == want.dtype, (i, n)
@@ -328,9 +328,9 @@ def test_reference_equals_packed_cuda_in_the_port(name, over, dtype, route):
 
     frec, prec = (Recorder(models[k].backend) for k in ("reference",
                                                         "packed_cuda"))
-    lower(models["reference"].folded, cfg, frec)(
+    lower(models["reference"].folded, cfg, frec, jit=False)(
         models["reference"].folded, torch.from_numpy(imgs))
-    lower(models["packed_cuda"].folded, cfg, prec)(
+    lower(models["packed_cuda"].folded, cfg, prec, jit=False)(
         models["packed_cuda"].folded, torch.from_numpy(imgs))
     for i, ((n, f), (_, p)) in enumerate(zip(frec.rows, prec.rows)):
         want = p if n == "rate" else pack_timesteps(torch.from_numpy(f))
