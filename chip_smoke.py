@@ -85,6 +85,8 @@ REQUEST_SIZES = (1, 8, 3, 5, 8)     # 25 images: three bucket-8 steps + one 1
 GAIN, GAIN_RESIDUAL = 4.0, 0.7       # kernel gains; wo/fc2 get both
 FIRING_RATE = 0.2
 REPS = 20
+PROFILE_TRIES = 3
+PROFILE_WINDOWS: dict = {}   # kernel counter -> device_ms windows
 
 # the LM path: smollm-360m at full width, 8 requests of these prompt lengths
 LM_ARCH = "smollm-360m"
@@ -167,31 +169,54 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, name: str = "", reps: int = REPS) -> float:
-    """Device ms by ``torch.profiler`` (CUDA activity) over ``reps`` calls
-    after a warm-up: with ``name``, the mean time of one launch of the
-    kernels whose name holds it (the kernel alone, free of the host's
-    launch cost, which exceeds some kernels' own time); without, the time
-    of every kernel a call launches, per call."""
+def device_ms(torch, fn, name: str, reps: int = REPS) -> float:
+    """Device ms of one launch of the kernels whose name holds ``name``, by
+    ``torch.profiler`` (CUDA activity) over ``reps`` calls after a warm-up:
+    the kernel alone, free of the host's launch cost, which exceeds some
+    kernels' own time. Each call must launch one of the port's kernels, by
+    the wrappers' own counts over the window: a window in which the
+    wrappers launched anything but ``reps`` fails at once. A window in
+    which the profiler shows fewer of those launches than were made (its
+    records are not always complete) is taken again, up to PROFILE_TRIES
+    windows in all; every window's count goes into PROFILE_WINDOWS, under
+    the kernel's counter, for ``build/chip_smoke.json``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and name in ev.key:
-            t = getattr(ev, "self_device_time_total", None)
-            us += ev.self_cuda_time_total if t is None else t
-            n += ev.count
-    check(n >= reps, f"device_ms: {n} launches of {name!r} in {reps} calls")
-    return us / 1e3 / (n if name else reps)
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        with ops.recording_launches() as launched:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        check(len(launched) == 1 and sum(launched.values()) == reps,
+              f"device_ms: the wrappers launched {launched} in {reps} calls "
+              f"timed as {name!r}")
+        [counter] = launched
+        us, n = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and name in ev.key:
+                t = getattr(ev, "self_device_time_total", None)
+                us += ev.self_cuda_time_total if t is None else t
+                n += ev.count
+        seen.append(n)
+        check(n <= reps, f"device_ms: the profiler shows {n} launches of "
+              f"{name!r}, the wrappers made {reps}")
+        if n == reps:
+            break
+    PROFILE_WINDOWS.setdefault(counter, []).append(
+        {"kernel": name, "launched": reps, "seen": seen,
+         "windows": len(seen)})
+    check(n == reps, f"device_ms: the profiler showed {seen} of {reps} "
+          f"launches of {name!r} in {PROFILE_TRIES} windows")
+    return us / 1e3 / n
 
 
 def graph_ms(torch, fn, reps: int = REPS) -> float:
@@ -811,21 +836,34 @@ def serve_requests(torch, model, requests, per_step: dict) -> dict:
 
 def engine_host_ms(requests, reps: int = 5) -> dict:
     """Host ms of the engine's per-step numpy work on one bucket-8 batch:
-    ``assemble_batch`` and ``batch_occupancy`` (the pixel-bit popcount
-    behind ``stats()["occupancy"]``), each the mean of ``reps`` calls."""
+    ``assemble_batch``, and the occupancy stat two ways, the port's byte
+    popcount (``batch_occupancy``) and the reference's mean over
+    ``np.unpackbits`` (written out here: the port never imports the
+    reference), each the mean of ``reps`` calls; checks both give the
+    same float."""
     import numpy as np
     from repro_torch.infer.engine import assemble_batch, batch_occupancy
 
     images = list(np.concatenate(requests)[:BATCH])
-    out = {}
+
+    def unpackbits_occupancy():
+        arr = np.asarray(images, np.uint8)
+        return float(np.unpackbits(arr.reshape(-1)).mean())
+
+    out, values = {}, {}
     for name, fn in (("assemble_batch", lambda: assemble_batch(images,
                                                                 BATCH)),
-                     ("batch_occupancy", lambda: batch_occupancy(images))):
-        fn()
+                     ("batch_occupancy", lambda: batch_occupancy(images)),
+                     ("batch_occupancy_unpackbits", unpackbits_occupancy)):
+        values[name] = fn()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    check(values["batch_occupancy"] == values["batch_occupancy_unpackbits"],
+          f"popcount occupancy {values['batch_occupancy']!r} != unpackbits "
+          f"{values['batch_occupancy_unpackbits']!r}")
+    out["occupancy"] = values["batch_occupancy"]
     return out
 
 
@@ -1104,6 +1142,263 @@ def route_phase(torch, dev, cfg, folded, requests, batch,
         engine_host_ms=engine_host_ms(requests))
 
 
+SERVE_TRACE = ROOT / "build" / "serve_trace.jsonl"
+
+
+def graph_counts(torch, models) -> tuple:
+    """``(eager, graphed)`` launch counts since ``reset_counts``: the
+    wrappers' counters, and the sum over ``models`` of each captured
+    graph's launches times its replays."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    graphed: dict = {}
+    for m in models:
+        for k, v in m.graph_launch_counts().items():
+            graphed[k] = graphed.get(k, 0) + v
+    return ops.launch_counts(), graphed
+
+
+def check_served_labels(torch, model, summary, make_images) -> int:
+    """Every completed request's labels equal ``model.classify`` of its
+    images, regenerated from the run's image stream (with no rejection,
+    arrival k is request k); returns the number of distinct labels, or
+    None where admission control rejected requests (rids then skip
+    arrivals). An accepted request never goes unanswered."""
+    import numpy as np
+    trace, client = summary["trace"], summary["client"]
+    check(summary["requests_dropped"] == 0,
+          f"accepted requests were dropped: {summary}")
+    if summary["requests_rejected"]:
+        return None
+    images = [make_images(k, a.n_images) for k, a in enumerate(trace)]
+    want = model.classify(np.concatenate(images)).tolist()
+    by_rid = {r.rid: r.labels for r in client.done}
+    check(sorted(by_rid) == list(range(len(trace))),
+          "a request of the trace did not complete")
+    i = 0
+    for k, imgs in enumerate(images):
+        check(by_rid[k] == want[i:i + len(imgs)],
+              f"request {k}: served labels {by_rid[k]} != classify "
+              f"{want[i:i + len(imgs)]}")
+        i += len(imgs)
+    return len(set(want))
+
+
+def open_loop_row(summary) -> dict:
+    """The open-loop numbers a serving run reports."""
+    keys = ("requests_offered", "requests_rejected", "requests_dropped",
+            "offered_rps", "elapsed_s", "images_completed", "completed_fps",
+            "goodput_fps", "slo_ms", "slo_attainment", "latency_p50_s",
+            "latency_p95_s", "latency_p99_s", "dispersion_index")
+    rt = summary["runtime"]
+    return {**{k: summary.get(k) for k in keys},
+            "batches": rt["batches"], "pad_waste": rt["pad_waste"],
+            "step_fps": rt["fps"], "queue_depth_peak": rt["queue_depth_peak"],
+            # host-clock share of the run spent inside model steps (summed
+            # over replicas): an upper bound on the card's busy share
+            "step_share": summary["client"].acct.busy_s
+            / summary["elapsed_s"]}
+
+
+def serving_stack_phase(torch, dev, cfg, folded) -> dict:
+    """The serving stack through ``repro_torch.launch.serve_spikformer``'s
+    entry points, on the int8 default plan at V2-8-512, graphed, buckets
+    (1, 8), serving the gained tree:
+
+    - the closed loop (``main_closed``: 12 requests of 3 images);
+    - ``--async`` with the reference's defaults (Poisson, rps 60, 1-3
+      images a request, 3 s, SLO 100 ms, max wait 10 ms) under the
+      reference's ``--smoke`` contract, then rps 150 and 300 ungated;
+    - ``--async --replicas 2 --trace-out build/serve_trace.jsonl`` under
+      the smoke contract (goodput >= 60 images/s, no replica failure), the
+      span file read back with the port's ``load_spans_jsonl``;
+    - a fleet of two serving the rps-60 trace while ``swap`` rolls a fresh
+      compile of the same tree across it.
+
+    Labels equal ``model.classify`` in every run. Launch gates, the swap
+    run's too: a graphed run launches nothing eagerly but the fleet
+    replicas' own warm-ups (each bucket of each replica, and of each swap
+    candidate: one eager run and one capture, each one step's launches,
+    then one replay), and the replays' launches equal the plan's per-step
+    counts times the steps."""
+    import numpy as np
+    from repro_torch.infer import ExecutionPlan, compile
+    from repro_torch.launch import serve_spikformer as cli
+    from repro_torch.obs import load_spans_jsonl
+    from repro_torch.serve import ServeFleet, ServePolicy, image_maker
+    from repro_torch.serve import poisson_trace, run_open_loop
+
+    t0 = time.perf_counter()
+    model = compile(folded, cfg, ExecutionPlan(
+        backend="packed_cuda", weight_dtype="int8", batch_buckets=(1, BATCH)),
+        folded=True, device=dev)
+    compile_s = time.perf_counter() - t0 + model.warmup()
+    per_step = per_step_launches(cfg, model.plan.routes)
+    buckets = ["--buckets", f"1,{BATCH}"]
+    shape = model.input_shape()[1:]
+    total: dict = {}
+
+    def gate(models, steps, captures=0):
+        eager, graphed = graph_counts(torch, models)
+        want_eager = {k: per_step.get(k, 0) * captures for k in eager}
+        check(eager == want_eager,
+              f"eager launches {eager} != {captures} capture steps x "
+              f"{per_step}: a graphed replica launched eagerly")
+        check_step_launches({k: graphed.get(k, 0) for k in eager}, per_step,
+                            steps)
+        for k in eager:
+            total[k] = total.get(k, 0) + eager[k] + graphed.get(k, 0)
+        return {k: eager[k] + graphed.get(k, 0) for k in eager if
+                eager[k] + graphed.get(k, 0)}
+
+    out = {"config": "SpikformerConfig() V2-8-512; int8 default plan, "
+                     "packed_cuda, jit=True, buckets (1, 8)",
+           "compile_and_warmup_s": compile_s, "per_step_launches": per_step}
+
+    # the closed loop
+    args = cli.parse_args(buckets + ["--requests", "12",
+                                     "--images-per-request", "3", "--smoke"])
+    reset_counts(model)
+    closed = cli.main_closed(model, args, compile_s)
+    eng = closed["client"]
+    launches = gate([model], eng.acct.batches)
+    rng = np.random.default_rng(args.seed + 1)
+    images = [rng.integers(0, 256, (3, *shape), dtype=np.uint8)
+              for _ in range(12)]
+    want = model.classify(np.concatenate(images)).tolist()
+    got = [lab for r in sorted(eng.done, key=lambda r: r.rid)
+           for lab in r.labels]
+    check(got == want, "closed loop: served labels differ from classify")
+    out["closed"] = {k: closed[k] for k in (
+        "requests", "images", "batches", "fps", "pad_waste",
+        "latency_p50_s", "latency_p99_s")}
+    out["closed"].update(launches=launches, distinct_labels=len(set(want)))
+
+    # the open loop, one runtime, rps 60 (gated) then 150 and 300
+    out["async"] = []
+    for rps in (60, 150, 300):
+        args = cli.parse_args(buckets + ["--async", "--rps", str(rps)]
+                              + (["--smoke"] if rps == 60 else []))
+        reset_counts(model)
+        summary = cli.main_async(model, args, compile_s)
+        launches = gate([model], summary["runtime"]["batches"])
+        distinct = check_served_labels(torch, model, summary, image_maker(
+            shape, seed=args.seed + 2))
+        check(rps != 60 or distinct is not None,
+              "the rps-60 run rejected requests")
+        out["async"].append({"rps": rps, "gated": rps == 60,
+                             **open_loop_row(summary), "launches": launches,
+                             "distinct_labels": distinct})
+
+    # a fleet of two thread-backed replicas on the one card, traced
+    SERVE_TRACE.parent.mkdir(exist_ok=True)
+    args = cli.parse_args(buckets + ["--async", "--replicas", "2", "--smoke",
+                                     "--trace-out", str(SERVE_TRACE)])
+    reset_counts(model)
+    summary = cli.main_async(model, args, compile_s)
+    fleet = summary["client"]
+    reps = [r.model for r in fleet.replicas]
+    check(all(m.folded is model.folded and m._fwd is not model._fwd
+              for m in reps), "fleet replicas must share the tree, not the "
+          "graphed step")
+    warm = len(model.buckets)            # warm-up replays a replica
+    launches = gate(reps, summary["runtime"]["batches"] + warm * len(reps),
+                    captures=2 * warm * len(reps))
+    for rep in fleet.replicas:
+        counts = rep.model.graph_launch_counts()
+        check(counts == {k: v * (rep.steps + warm)
+                         for k, v in per_step.items()},
+              f"replica {rep.idx}: replays {counts} != {rep.steps} steps "
+              f"+ {warm} warm-up replays x {per_step}")
+    health = summary["health"]
+    check(all(r["failures"] == 0 for r in health["replicas"]),
+          f"a replica failed: {health}")
+    distinct = check_served_labels(torch, model, summary, image_maker(
+        shape, seed=args.seed + 2))
+    check(distinct is not None, "the fleet run rejected requests")
+    header, spans = load_spans_jsonl(SERVE_TRACE)
+    chains: dict = {}
+    for s in spans:
+        if s.category == "request":
+            chains.setdefault(s.rid, []).append(s.name)
+    check(header["dropped_spans"] == 0 and sorted(chains) ==
+          sorted(r.rid for r in fleet.done) and all(
+              c == ["admit", "queue", "complete"] for c in chains.values()),
+          "the span trace lacks a request's admit -> queue -> complete")
+    step_rows = sum(s.value for s in spans if s.name == "step")
+    check(step_rows == summary["images_completed"],
+          f"step spans carry {step_rows} rows, {summary['images_completed']}"
+          " images completed")
+    out["fleet"] = {**open_loop_row(summary), "launches": launches,
+                    "distinct_labels": distinct,
+                    "replica_stats": summary["runtime"]["replica_stats"],
+                    "trace": {"path": str(SERVE_TRACE.relative_to(ROOT)),
+                              "spans": len(spans),
+                              "requests": len(chains),
+                              "dropped_spans": header["dropped_spans"]}}
+
+    # a hot swap under the same load: a fresh compile of the same tree
+    new = compile(folded, cfg, model.plan, folded=True, device=dev)
+    new.warmup()
+    trace = poisson_trace(rps=60.0, duration_s=3.0, seed=SEED + 1,
+                          images_per_request=(1, 3))
+    swapped = {}
+
+    def swap_midway(fleet):
+        time.sleep(1.0)
+        t = time.perf_counter()
+        fleet.swap(new, timeout=120)
+        swapped["s"] = time.perf_counter() - t
+
+    import threading
+    reset_counts(model)
+    with ServeFleet(model, replicas=2, policy=ServePolicy(
+            max_wait_ms=10.0, slo_ms=100.0)) as fleet:
+        old = [r.model for r in fleet.replicas]
+        th = threading.Thread(target=swap_midway, args=(fleet,))
+        th.start()
+        metrics = run_open_loop(fleet, trace, image_maker(shape, seed=SEED
+                                                          + 2), slo_ms=100.0)
+        th.join(timeout=180)
+        health = fleet.health()
+    check("s" in swapped and fleet.swaps == 1, "the swap did not finish")
+    check(metrics["requests_dropped"] == 0
+          and metrics["requests_rejected"] == 0
+          and fleet.stats()["requests_failed"] == 0
+          and all(r["failures"] == 0 and r["swaps"] == 1
+                  for r in health["replicas"]),
+          f"the swap under load lost requests: {metrics} {health}")
+    distinct = check_served_labels(torch, model, {
+        **metrics, "trace": trace, "client": fleet},
+        image_maker(shape, seed=SEED + 2))
+    check(distinct is not None, "the swap run rejected requests")
+    # each replica served on its old graphs, then on the candidate's: both
+    # warmed as a fleet replica is (one eager run and one capture a bucket,
+    # then one replay), and nothing else launched eagerly
+    cand = [r.model for r in fleet.replicas]
+    check(all(m.folded is new.folded and m._fwd is not new._fwd
+              and m not in old for m in cand),
+          "swapped replicas must share the new tree, not its graphed step")
+    steps = sum(r.steps for r in fleet.replicas)
+    launches = gate(old + cand, steps + 2 * warm * len(cand),
+                    captures=4 * warm * len(cand))
+    for rep, before in zip(fleet.replicas, old):
+        counts = {k: v + rep.model.graph_launch_counts().get(k, 0)
+                  for k, v in before.graph_launch_counts().items()}
+        check(counts == {k: v * (rep.steps + 2 * warm)
+                         for k, v in per_step.items()},
+              f"replica {rep.idx}: replays {counts} across the swap != "
+              f"{rep.steps} steps + {2 * warm} warm-up replays x {per_step}")
+    out["swap"] = {**{k: metrics[k] for k in (
+        "requests_offered", "requests_dropped", "requests_rejected",
+        "goodput_fps", "slo_attainment", "latency_p99_s")},
+        "swap_s": swapped["s"], "distinct_labels": distinct,
+        "launches": launches}
+    out["launches"] = total
+    del new, model
+    return out
+
+
 def lm_prompts(vocab: int) -> list:
     import numpy as np
     rng = np.random.default_rng(SEED)
@@ -1307,9 +1602,11 @@ def main() -> int:
               "build_logs": {k: v["log"] for k, v in build.items()}}
     out_dir = ROOT / "build"
     paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step",
-             "int8_route_fit", "lm_serve", "lm_gate")
+             "int8_route_fit", "serving_stack", "lm_serve", "lm_gate")
     try:
         report["kernels"] = kernel_phase(torch, dev)
+        for k, row in report["kernels"].items():
+            row["profile_windows"] = PROFILE_WINDOWS.get(k, [])
         cfg = SpikformerConfig()
         folded = gained_tree(torch, cfg)
         requests = request_images(cfg)
@@ -1327,8 +1624,10 @@ def main() -> int:
         report[paths[3]] = route_phase(torch, dev, cfg, folded, requests,
                                        batch, int8_logits)
         torch.cuda.empty_cache()
-        report[paths[4]], lm_engine = lm_serve_phase(torch, dev)
-        report[paths[5]] = lm_gate_phase(torch, dev, lm_engine)
+        report[paths[4]] = serving_stack_phase(torch, dev, cfg, folded)
+        torch.cuda.empty_cache()
+        report[paths[5]], lm_engine = lm_serve_phase(torch, dev)
+        report[paths[6]] = lm_gate_phase(torch, dev, lm_engine)
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -1363,6 +1662,9 @@ def main() -> int:
                            "per_step_launches", "profiled_launches_per_step",
                            "profile_step_s", "profile_step_routes")}
         for c in fit["cells"]]}))
+    stack = report["serving_stack"]
+    print(json.dumps({"serving_stack": {k: stack[k] for k in (
+        "closed", "async", "fleet", "swap", "per_step_launches")}}))
     lm = report["lm_serve"]
     print(json.dumps({"path": "lm_serve", "serve": lm["stats"],
                       "peak_mem_mib": lm["peak_mem_mib"],

@@ -1,7 +1,25 @@
-"""Packed-spike Spikformer inference: compile a model under an
-``ExecutionPlan`` and serve it with ``MicroBatchEngine``."""
-from .compile import CompiledModel, ExecutionPlan, compile, plan_chunks
-from .engine import MicroBatchEngine, Request, serve_stats
+"""Packed-spike Spikformer inference behind a compile/serve split:
+``compile(params, cfg, plan)`` lowers to a ``CompiledModel``,
+``MicroBatchEngine`` serves it (and ``replicate_model`` makes the copies
+the multi-replica fleet serves). Every serving surface implements the
+``ServeClient`` protocol with the versioned ``serve_stats`` schema."""
+from .compile import (CompiledModel, ExecutionPlan, compile, plan_chunks,
+                      replicate_model)
+from .engine import (PAPER_FPS, SERVE_STATS_VERSION, MicroBatchEngine,
+                     QueueDepthWatermark, Request, ServeClient,
+                     batch_occupancy, serve_stats)
+from .registry import (BackendSpec, backend_spec, list_backends,
+                       register_backend, unregister_backend)
 
-__all__ = ["CompiledModel", "ExecutionPlan", "MicroBatchEngine", "Request",
-           "compile", "plan_chunks", "serve_stats"]
+__all__ = [
+    # compile half
+    "ExecutionPlan", "CompiledModel", "compile", "plan_chunks",
+    "replicate_model",
+    # serve half
+    "MicroBatchEngine", "Request", "PAPER_FPS", "batch_occupancy",
+    "ServeClient", "serve_stats", "SERVE_STATS_VERSION",
+    "QueueDepthWatermark",
+    # registry
+    "BackendSpec", "register_backend", "unregister_backend",
+    "backend_spec", "list_backends",
+]

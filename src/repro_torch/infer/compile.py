@@ -22,14 +22,17 @@ to one CUDA graph per bucket (``GraphedStep``), the counterpart of the
 reference's one ``jax.jit`` executable per bucket; ``jit=False`` runs it
 eagerly. ``compile(..., device="cpu")`` runs every kernel's plain version
 on the CPU, eagerly whatever ``jit`` says. ``CompiledModel.profile_step``
-times every layer of one eager step.
+times every layer of one eager step. ``replicate_model`` makes the serving
+fleet's per-replica copies: shared weights, a graphed step of their own.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 import time
 import traceback
+import weakref
 
 import numpy as np
 import torch
@@ -39,7 +42,7 @@ from . import registry
 from .quant import WEIGHT_DTYPES, map_folded_layers, quantize_folded
 from ..core import spikformer
 from ..core.spikformer import SpikformerConfig, fold_inference_params
-from ..device import resolve_device
+from ..device import borrow_stream, release_stream, resolve_device
 from ..kernels import lut_matmul, ops
 from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
 from ..kernels.spike_matmul import kmajor_weights
@@ -339,36 +342,44 @@ class _BucketGraph:
         self.copied.record()
 
 
-_CAPTURE_STREAMS: dict = {}
-
-
-def capture_stream(device) -> torch.cuda.Stream:
-    """The one side stream a device's warm-ups and graph captures run on:
-    cuBLAS keeps a workspace for every stream it has run on, so a new
-    stream a capture would leave one more behind each time."""
-    device = torch.device(device)
-    if device not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
-    return _CAPTURE_STREAMS[device]
+# one capture at a time in the process: a capture's eager warm-up and its
+# recording must not interleave with another thread's
+_CAPTURE_LOCK = threading.Lock()
 
 
 class GraphedStep:
     """``jit=True``: the eager step ``fwd`` over ``folded`` replayed as one
     CUDA graph per batch size, captured at first use (``warmup`` captures
-    every bucket). A capture first runs the step once eagerly on a side
-    stream, so kernels are built, their attributes set and the step's
-    constants made before anything records; the buckets share one graph
-    memory pool. A call copies the images into the bucket's static input,
-    replays its graph and returns a clone of its logits, which the next
-    replay would overwrite. A capture that fails raises and names the op;
-    nothing then runs eagerly in its place. On the CPU the step runs
-    eagerly.
+    every bucket). A capture first runs the step once eagerly on the
+    step's own side stream, so kernels are built, their attributes set and
+    the step's constants made before anything records; the buckets share
+    one graph memory pool. A call copies the images into the bucket's
+    static input, replays its graph and returns a clone of its logits,
+    which the next replay would overwrite. A capture that fails raises and
+    names the op; nothing then runs eagerly in its place. On the CPU the
+    step runs eagerly.
 
     The graphs hold the addresses of the tree's tensors and of their own
     pool: the kernels' TMA descriptors, encoded on the host at capture,
     point there. That is right because the tree's weights, tables and
     K-major copies never move and the pool replays the same addresses;
-    ``folded`` must be the tree the step was lowered over."""
+    ``folded`` must be the tree the step was lowered over.
+
+    Serving threads. A step's static input, logits and pool are its own,
+    so two threads must never replay one ``GraphedStep`` at once: each
+    replica of a fleet gets a step of its own (``replicate_model``), and a
+    lock plus an event make calls from several threads (a health probe
+    beside the replica's worker) take turns, each call's stream waiting for
+    the previous call's work. Captures are safe while other threads serve:
+    they take a process-wide lock; they record with
+    ``capture_error_mode="thread_local"`` (under the default "global" mode
+    a read-back or an allocation on another thread would invalidate the
+    capture); they run on a side stream this step holds alone while it
+    lives (``device.borrow_stream``: a cuBLAS call captured on a stream
+    keeps that stream's workspace, which two steps replaying at once must
+    not share); and they count the capturing thread's launches only
+    (``ops.recording_launches``), so another thread's eager launches never
+    enter a graph's count."""
 
     def __init__(self, fwd, folded):
         self._fwd = fwd
@@ -376,36 +387,47 @@ class GraphedStep:
         self.device = folded["head"]["kernel"].device
         self.graphs: dict[int, _BucketGraph] = {}
         self._pool = None
+        self._stream = None
+        self._lock = threading.Lock()
+        self._done = None           # event after the last call's work
 
     def capture(self, shape) -> _BucketGraph:
         shape = tuple(int(d) for d in shape)
         dev = self.device
-        static_in = torch.zeros(shape, dtype=torch.uint8, device=dev)
-        side = capture_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._fwd(self.folded, static_in)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = ops.launch_counts()
-        failure, out = None, None
-        try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+        with _CAPTURE_LOCK:
+            static_in = torch.zeros(shape, dtype=torch.uint8, device=dev)
+            if self._stream is None:
+                self._stream = borrow_stream(dev)
+                weakref.finalize(self, release_stream, self._stream)
+            # a borrowed stream's last holder may have left a replay in
+            # flight that uses the stream's cuBLAS workspace
+            torch.cuda.synchronize(dev)
+            side = self._stream
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._fwd(self.folded, static_in)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            failure, out = None, None
+            with ops.recording_launches() as recorded:
                 try:
-                    out = self._fwd(self.folded, static_in)
-                except Exception as e:      # noqa: BLE001  (raised below)
-                    failure = e
-        except Exception as e:              # noqa: BLE001  an invalid capture
-            failure = failure or e
+                    with torch.cuda.graph(graph, pool=self._pool,
+                                          stream=side,
+                                          capture_error_mode="thread_local"):
+                        try:
+                            out = self._fwd(self.folded, static_in)
+                        except Exception as e:  # noqa: BLE001  (raised below)
+                            failure = e
+                except Exception as e:      # noqa: BLE001  an invalid capture
+                    failure = failure or e
         if failure is not None:
             raise RuntimeError(
                 f"CUDA graph capture of the batch-{shape[0]} step failed at "
                 f"{_failed_at(failure)}: {failure}") from failure
-        launches = {k: v - before[k] for k, v in ops.launch_counts().items()
-                    if v != before[k]}
-        self.graphs[shape[0]] = _BucketGraph(graph, static_in, out, launches)
+        self.graphs[shape[0]] = _BucketGraph(graph, static_in, out,
+                                             dict(recorded))
         return self.graphs[shape[0]]
 
     def __call__(self, folded_tree, images):
@@ -414,14 +436,20 @@ class GraphedStep:
                              "over; lower again for another tree")
         if self.device.type != "cuda":
             return self._fwd(folded_tree, images.to(self.device))
-        bucket = self.graphs.get(images.shape[0])
-        if bucket is None:
-            bucket = self.capture(images.shape)
-        bucket.load(images)
-        bucket.graph.replay()
-        bucket.replays += 1
-        with torch.inference_mode():
-            return bucket.out.clone()
+        with self._lock:
+            bucket = self.graphs.get(images.shape[0])
+            if bucket is None:
+                bucket = self.capture(images.shape)
+            stream = torch.cuda.current_stream(self.device)
+            if self._done is not None:
+                stream.wait_event(self._done)
+            bucket.load(images)
+            bucket.graph.replay()
+            bucket.replays += 1
+            with torch.inference_mode():
+                out = bucket.out.clone()
+            self._done = stream.record_event()
+            return out
 
     def launch_counts(self) -> dict:
         """Kernel launches the replays made since the last reset: each
@@ -657,10 +685,16 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
     unless ``folded=True`` (a ``fold_inference_params`` tree, possibly
     quantized or annotated). ``jit`` lowers the step to one CUDA graph per
     bucket on the card (``GraphedStep``; the CPU runs eagerly either way).
-    ``plan_overrides`` are ``dataclasses.replace`` fields on the plan."""
+    ``plan_overrides`` are ``dataclasses.replace`` fields on the plan. A
+    plan the reference wrote runs as ``registry.port_backend`` maps its
+    backend, and the resolved plan names the port's backend."""
     plan = ExecutionPlan() if plan is None else plan
     if plan_overrides:
         plan = dataclasses.replace(plan, **plan_overrides)
+    name, options = registry.port_backend(plan.backend, plan.backend_options)
+    if (name, options) != (plan.backend, plan.backend_options):
+        plan = dataclasses.replace(plan, backend=name,
+                                   backend_options=options)
     device = resolve_device(device)
     # the head dot and the plain routes must run in full f32 on the card:
     # TF32 keeps ~3 decimal digits and would break parity
@@ -670,6 +704,7 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
     backend = registry.get_backend(plan.backend, device=device,
                                    **plan.backend_options)
     spec = registry.backend_spec(plan.backend)
+    tables = registry.wants_lut_tables(plan.backend, backend)
 
     def check_dtype(dtype):
         if dtype not in spec.weight_dtypes:
@@ -686,13 +721,13 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
         tree, routes = plan_route_tables(
             tree, cfg, batch_size=plan.plan_batch,
             max_table_bytes=plan.max_table_bytes,
-            build_tables=spec.wants_lut_tables,
+            build_tables=tables,
             constants=plan.route_constants, routes=plan.routes,
             layer_occupancy=plan.layer_occupancy,
             force="lut" if plan.route == "lut" else None)
     else:
         tree = strip_lut_annotations(tree)
-        if spec.wants_lut_tables:
+        if tables:
             tree = map_folded_layers(tree, with_kmajor)
         routes = {}
 
@@ -701,3 +736,24 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
     return CompiledModel(cfg=cfg, backend=backend, folded=tree, plan=resolved,
                          fwd=lower(tree, cfg, backend, jit=jit),
                          device=device, jit=jit)
+
+
+def replicate_model(model: CompiledModel, *, device=None) -> CompiledModel:
+    """A data-parallel serving copy of a compiled model — the fleet's
+    per-replica plumbing (port of ``repro.infer.compile.replicate_model``).
+
+    The RESOLVED ``ExecutionPlan`` is shared verbatim: replicas of one
+    fleet run the same plan by construction (routes are already pinned in
+    ``model.plan.routes``). With ``device=None`` the copy shares the folded
+    tree, so thread-backed replicas on one card pay no extra weight memory,
+    but it gets a step lowered anew: a ``GraphedStep`` owns its static
+    buffers and graph pool, which two replicas replaying at once would
+    overwrite for each other (where a jit executable in the reference can
+    be shared). With a ``device``, the tree is moved there first."""
+    folded = model.folded if device is None else to_device(
+        model.folded, resolve_device(device))
+    dev = folded["head"]["kernel"].device
+    return CompiledModel(cfg=model.cfg, backend=model.backend, folded=folded,
+                         plan=model.plan, device=dev, jit=model.jit,
+                         fwd=lower(folded, model.cfg, model.backend,
+                                   jit=model.jit))

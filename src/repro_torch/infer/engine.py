@@ -13,15 +13,23 @@ paper's 30, histogram-backed latency percentiles, pad waste, occupancy.
     req = eng.submit(images_u8)        # (n, H, W, C) uint8
     eng.run()                          # drain the queue
     req.labels, eng.stats()
+
+The asynchronous runtime and the fleet (``repro_torch.serve``) share this
+module's door check, batch assembly, logits read-back, step accounting and
+queue-depth watermark, and speak the same ``ServeClient`` protocol.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+import typing
 from collections import deque
 
 import numpy as np
+import torch
 
+from ..device import borrowed_stream
 from ..obs.metrics import Gauge, LatencyHistogram
 from ..obs.trace import NULL_TRACER
 
@@ -30,6 +38,23 @@ PAPER_FPS = 30.0   # VESTA's reported real-time Spikformer V2 rate
 # Version of the shared ``stats()`` schema; v3 = histogram-backed
 # ``latency_*`` fields (<= 5% relative error), as in the reference.
 SERVE_STATS_VERSION = 3
+
+
+@typing.runtime_checkable
+class ServeClient(typing.Protocol):
+    """The one serving surface of the sync engine, the async runtime and
+    the fleet, so drivers (``repro_torch.serve.loadgen``) run against any
+    of them: ``submit(images, *, rid=None, on_image=None)`` returns a
+    ``Request`` whose ``result()`` yields the labels; ``stats()`` is the
+    ``serve_stats`` schema; ``close(timeout=None)`` resolves every
+    accepted request before it returns."""
+
+    def submit(self, images, *, rid: int | None = None,
+               on_image=None) -> "Request": ...
+
+    def stats(self) -> dict: ...
+
+    def close(self, timeout: float | None = None) -> None: ...
 
 
 @dataclasses.dataclass
@@ -88,11 +113,14 @@ def validate_images(images, image_shape) -> np.ndarray:
 
 def batch_occupancy(images) -> float:
     """Fraction of set bits across the real rows of an image batch (the
-    pixel bits SSSC consumes as value planes); 0.0 when empty."""
-    arr = np.asarray(images, np.uint8)
+    pixel bits SSSC consumes as value planes); 0.0 when empty. A byte
+    popcount: equal as a float to the reference's mean over
+    ``np.unpackbits``, since both round the same exact integer count over
+    the number of bits, without the eightfold unpacked copy."""
+    arr = np.asarray(images, np.uint8).reshape(-1)
     if not arr.size:
         return 0.0
-    return float(np.unpackbits(arr.reshape(-1)).mean())
+    return int(np.bitwise_count(arr).sum(dtype=np.int64)) / (8 * arr.size)
 
 
 def assemble_batch(images: list, bucket: int):
@@ -104,6 +132,28 @@ def assemble_batch(images: list, bucket: int):
         batch = np.concatenate(
             [batch, np.zeros((pad, *batch.shape[1:]), batch.dtype)])
     return batch, pad
+
+
+def worker_stream(model):
+    """The context a serving worker thread runs its steps in: for a model
+    on the card, a CUDA stream of its own (``device.borrowed_stream``; a
+    step's kernels and its graph replay run on the current stream, so one
+    worker's host work can overlap another's device work); nothing for
+    other models."""
+    device = getattr(model, "device", None)
+    if isinstance(device, torch.device) and device.type == "cuda":
+        return borrowed_stream(device)
+    return contextlib.nullcontext()
+
+
+def to_host(logits) -> np.ndarray:
+    """A step's logits as numpy. A tensor comes back through ``.cpu()``,
+    which waits for the device: the read-back is where a step
+    synchronises, so the time taken around it is the step's real time.
+    Stand-in models that return numpy pass through."""
+    if isinstance(logits, torch.Tensor):
+        return logits.cpu().numpy()
+    return np.asarray(logits)
 
 
 @dataclasses.dataclass
@@ -194,6 +244,24 @@ def serve_stats(*, acct: StepAccounting, done, buckets,
     return out
 
 
+class QueueDepthWatermark:
+    """The queue-depth high-watermark every ServeClient reports as
+    ``queue_depth_peak``: ``observe`` after every enqueue; ``peak`` is the
+    gauge's maximum."""
+
+    __slots__ = ("gauge",)
+
+    def __init__(self, gauge: Gauge | None = None):
+        self.gauge = Gauge("queue_depth") if gauge is None else gauge
+
+    def observe(self, depth: int) -> None:
+        self.gauge.set(int(depth))
+
+    @property
+    def peak(self) -> int:
+        return 0 if self.gauge.max is None else int(self.gauge.max)
+
+
 class MicroBatchEngine:
     """Micro-batching classifier over a multi-bucket ``CompiledModel``.
     ``tracer`` records the request lifecycle spans (admit -> queue ->
@@ -208,24 +276,34 @@ class MicroBatchEngine:
         self.done: list[Request] = []
         self._pending: dict[int, int] = {}  # rid -> images left
         self._next_rid = 0
-        self._queue_depth = Gauge("queue_depth")
+        self._queue_depth = QueueDepthWatermark()
         self.latency_hist = LatencyHistogram()
         self.acct = StepAccounting()
 
     @property
     def queue_depth_peak(self) -> int:
-        peak = self._queue_depth.max
-        return 0 if peak is None else int(peak)
+        return self._queue_depth.peak
 
     def submit(self, images, *, rid: int | None = None,
                on_image=None) -> Request:
-        """Queue raw images, validated against the model's input shape
-        here."""
+        """Queue raw images, or a prebuilt ``Request`` (whose ``rid`` an
+        explicit ``rid`` must not contradict), validated against the
+        model's input shape here."""
         t_enter = self._clock()
-        arr = validate_images(images, self.model.input_shape()[1:])
-        if rid is None:
-            rid = self._next_rid
-        req = Request(rid=rid, images=arr, on_image=on_image)
+        if isinstance(images, Request):
+            req = images
+            if rid is not None and rid != req.rid:
+                raise ValueError(f"submit(rid={rid}) conflicts with the "
+                                 f"Request's own rid={req.rid}")
+            if on_image is not None:
+                req.on_image = on_image
+            req.images = validate_images(req.images,
+                                         self.model.input_shape()[1:])
+        else:
+            arr = validate_images(images, self.model.input_shape()[1:])
+            if rid is None:
+                rid = self._next_rid
+            req = Request(rid=rid, images=arr, on_image=on_image)
         if req.rid in self._pending:
             raise ValueError(f"request id {req.rid} is already in flight")
         self._next_rid = max(self._next_rid, req.rid + 1)
@@ -246,7 +324,7 @@ class MicroBatchEngine:
         self._pending[req.rid] = len(req.images)
         for i in range(len(req.images)):
             self.queue.append((req, i))
-        self._queue_depth.set(len(self.queue))
+        self._queue_depth.observe(len(self.queue))
         if tr.enabled:
             tr.span("request", "admit", t0=t_enter, t1=req.t_submit,
                     rid=req.rid, value=len(req.images))
@@ -285,8 +363,7 @@ class MicroBatchEngine:
         if tr.enabled:
             tr.span("batch", "assemble", t0=t_pop, t1=t0, bucket=bucket,
                     occupancy=occ, value=len(work))
-        # .cpu() waits for the device, so busy_s is the step's real time
-        logits = self.model.step(batch).cpu().numpy()
+        logits = to_host(self.model.step(batch))
         busy_s = self._clock() - t0
         if tr.enabled:
             tr.span("batch", "step", t0=t0, t1=t0 + busy_s, bucket=bucket,
@@ -320,6 +397,10 @@ class MicroBatchEngine:
         while self.queue:
             self.step()
         return self.done
+
+    def close(self, timeout: float | None = None) -> None:
+        """The ServeClient close: drain the queue."""
+        self.run()
 
     def stats(self) -> dict:
         """Serving metrics over everything processed so far (schema v3)."""

@@ -14,6 +14,9 @@ Capabilities:
 * ``wants_lut_tables``: whether route planning builds the (C, 256, N)
   byte-LUT tables into the backend's tree, or only flags LUT-planned
   layers with True (the reference backend replays the fold from the flag).
+
+A plan the JAX package wrote names one of its own backends;
+``port_backend`` says which of the port's runs it.
 """
 from __future__ import annotations
 
@@ -58,6 +61,52 @@ def register_backend(name: str, factory: Callable[..., Any], *,
     for a in aliases:
         _ALIASES[a] = name
     return spec
+
+
+def unregister_backend(name: str) -> None:
+    """Remove a registration, by name or alias; removing via an alias drops
+    the whole spec and its aliases."""
+    spec = _REGISTRY.pop(_ALIASES.get(name, name), None)
+    if spec is not None:
+        for a in spec.aliases:
+            _ALIASES.pop(a, None)
+
+
+def list_backends(*, weight_dtype: str | None = None,
+                  device_kind: str | None = None) -> list[str]:
+    """Registered backend names, filtered by capability."""
+    return [name for name, spec in sorted(_REGISTRY.items())
+            if (weight_dtype is None or weight_dtype in spec.weight_dtypes)
+            and (device_kind is None or device_kind in spec.device_kinds)]
+
+
+def wants_lut_tables(name_or_instance, backend) -> bool:
+    """Resolve the table capability: the spec's declaration for a name,
+    else the instance's own ``wants_lut_tables`` attribute, else True."""
+    if isinstance(name_or_instance, str):
+        return backend_spec(name_or_instance).wants_lut_tables
+    return bool(getattr(backend, "wants_lut_tables", True))
+
+
+def port_backend(name: str, options: dict) -> tuple[str, dict]:
+    """The port's backend and options for a plan's ``backend`` and
+    ``backend_options``, mapping the reference's Pallas names:
+    ``packed_pallas`` with ``{"interpret": True}`` (the reference's kernels
+    run by the Pallas interpreter on the host) runs ``packed_plain`` (the
+    kernels' plain versions), ``packed_pallas`` otherwise ``packed_cuda``
+    (the kernels on the card). ``packed``, the reference's CPU branch that
+    skips zero chunks, is not ported yet (ROADMAP.md, section 1:
+    Occupancy and the sparse gather) and raises. Other names pass through."""
+    options = dict(options)
+    if name == "packed_pallas":
+        interpret = options.pop("interpret", False)
+        return ("packed_plain" if interpret else "packed_cuda"), options
+    if name == "packed":
+        raise ValueError(
+            "backend 'packed' (the reference's CPU branch that skips zero "
+            "chunks) is not ported yet (ROADMAP.md, section 1: Occupancy "
+            "and the sparse gather)")
+    return name, options
 
 
 def backend_spec(name: str) -> BackendSpec:

@@ -9,11 +9,13 @@ an unchanged one is reused.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -119,6 +121,34 @@ def stream(tensor) -> int:
     argument."""
     import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+_COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (under a lock: serving threads launch
+    at once, and ``+=`` on an attribute is not atomic) and to the calling
+    thread's open ``recording_launches``, if any."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+    counts = getattr(_RECORDING, "counts", None)
+    if counts is not None:
+        counts[wrapper] = counts.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields ``{wrapper: launches}`` of the launches this thread makes
+    inside the block, whatever other threads launch meanwhile."""
+    counts: dict = {}
+    outer = getattr(_RECORDING, "counts", None)
+    _RECORDING.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = outer
 
 
 def check(name: str, err: int) -> None:

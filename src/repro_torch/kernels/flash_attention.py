@@ -124,7 +124,7 @@ def flash_attention_tc(q, k, v, *, scale: float, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, kvh,
         nq, nkv, dh, *_strides(q), *_strides(k), *_strides(v), scale,
         int(causal), _build.stream(q)))
-    flash_attention_tc.launches += 1
+    _build.count_launch(flash_attention_tc)
     return out
 
 
@@ -147,7 +147,7 @@ def flash_attention_f32(q, k, v, *, scale: float, causal: bool = True):
     _build.check("flash_attention", fn(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), b * hq,
         nq, nkv, dh, scale, int(causal), _build.stream(q)))
-    flash_attention_f32.launches += 1
+    _build.count_launch(flash_attention_f32)
     return out
 
 

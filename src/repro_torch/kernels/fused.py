@@ -88,7 +88,7 @@ def tflif_lut_matmul(x: torch.Tensor, bias: torch.Tensor, table: torch.Tensor,
         x.data_ptr(), bias.data_ptr(), v_th.data_ptr(), table.data_ptr(),
         spikes.data_ptr(), acc.data_ptr(), t, r, k, n, tau,
         _build.stream(x)))
-    tflif_lut_matmul.launches += 1
+    _build.count_launch(tflif_lut_matmul)
     return spikes, acc
 
 

@@ -12,11 +12,13 @@ ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import types
 
 import torch
 
+from . import _build
 from . import lut_matmul as lut
 from . import ref
 from .flash_attention import (flash_attention as _flash,
@@ -64,6 +66,18 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields ``{kernel name: launches}``, filled when the block ends with
+    the launches this thread made inside it (a graph capture's count, safe
+    from other serving threads' launches)."""
+    names = {fn: name for name, fn in KERNELS.items()}
+    counts: dict = {}
+    with _build.recording_launches() as by_wrapper:
+        yield counts
+    counts.update({names[fn]: n for fn, n in by_wrapper.items()})
 
 
 def _have_table(table) -> bool:

@@ -69,7 +69,7 @@ def _lut_launch(symbol: str, argtypes, table: torch.Tensor,
     _build.check("lut_gather", fn(src.data_ptr(), table.data_ptr(),
                                   out.data_ptr(), *dims,
                                   _build.stream(src)))
-    lut_gather_matmul.launches += 1
+    _build.count_launch(lut_gather_matmul)
     return out
 
 
@@ -146,7 +146,7 @@ def spike_matmul_grouped(x_packed: torch.Tensor, w: torch.Tensor, *,
     _build.check("unpack_dot", fn(x_packed.data_ptr(), w.data_ptr(),
                                   out.data_ptr(), t, m, k, n,
                                   _build.stream(w)))
-    spike_matmul_grouped.launches += 1
+    _build.count_launch(spike_matmul_grouped)
     return out
 
 
@@ -201,7 +201,7 @@ def spike_matmul_grouped_s8(x_packed: torch.Tensor, w_kmajor: torch.Tensor,
     _build.check("unpack_dot_s8", fn(
         x_packed.data_ptr(), w_kmajor.data_ptr(), out.data_ptr(), t, m, k, n,
         w_kmajor.stride(0), _build.stream(x_packed)))
-    spike_matmul_grouped_s8.launches += 1
+    _build.count_launch(spike_matmul_grouped_s8)
     return out
 
 
@@ -226,7 +226,7 @@ def shift_sum_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                 _SHIFT_SUM_ARGTYPES)
     _build.check("shift_sum", fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                                  m, k, n, _build.stream(w)))
-    shift_sum_matmul.launches += 1
+    _build.count_launch(shift_sum_matmul)
     return out
 
 

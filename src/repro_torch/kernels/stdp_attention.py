@@ -51,7 +51,7 @@ def stdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check("stdp", fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             out.data_ptr(), bh, n, dh, scale,
                             _build.stream(q)))
-    stdp_attention.launches += 1
+    _build.count_launch(stdp_attention)
     return out
 
 
@@ -109,7 +109,7 @@ def stdp_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q5.data_ptr(), k5.data_ptr(), v5.data_ptr(), out.data_ptr(), t, batch,
         heads, n, dh, sg, sb, sh, sn, scale,
         _build.stream(q)))
-    stdp_attention_packed.launches += 1
+    _build.count_launch(stdp_attention_packed)
     return out.reshape(t, *lead, n, dh)
 
 

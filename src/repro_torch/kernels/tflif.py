@@ -59,7 +59,7 @@ def tflif_fused(x: torch.Tensor, bias: torch.Tensor, v_th: torch.Tensor, *,
                              bias.data_ptr(), bias.numel(), v_th.data_ptr(),
                              v_th.numel(), out.data_ptr(), t, m, tau,
                              _build.stream(x)))
-    tflif_fused.launches += 1
+    _build.count_launch(tflif_fused)
     return out
 
 

@@ -62,10 +62,9 @@ import torch
 
 from ..core.spike import num_plane_groups
 from ..core.spikformer import SpikformerConfig, init
-from ..device import resolve_device
-from ..infer.compile import (ExecutionPlan, capture_stream,
-                             compile as infer_compile, layer_shape,
-                             linear_layer_paths)
+from ..device import borrowed_stream, resolve_device
+from ..infer.compile import (ExecutionPlan, compile as infer_compile,
+                             layer_shape, linear_layer_paths)
 from ..kernels import lut_matmul as lut
 from ..kernels import ops
 from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
@@ -105,30 +104,30 @@ def time_call(fn, *args, repeats: int = 3, inner: int = 4,
 
 def graph_time(fn, *, inner: int = 10, repeats: int = 3) -> float:
     """Device seconds per call of ``fn`` (no arguments, on the card): one
-    eager call on the capture stream, then ``inner`` calls captured in one
-    CUDA graph, replayed ``repeats`` times between two CUDA events; the best
-    replay over ``inner``. The host's launch cost stays out."""
+    eager call on a borrowed side stream, then ``inner`` calls captured in
+    one CUDA graph, replayed ``repeats`` times between two CUDA events; the
+    best replay over ``inner``. The host's launch cost stays out. The graph
+    is replayed and freed before the stream goes back to the pool."""
     stream = torch.cuda.current_stream()
-    side = capture_stream(stream.device)
-    side.wait_stream(stream)
-    with torch.cuda.stream(side):
+    with borrowed_stream(stream.device) as side:
+        side.wait_stream(stream)
         fn()
-    stream.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    best = float("inf")
-    for _ in range(repeats):
-        start.record()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(inner):
+                fn()
         graph.replay()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3 / inner)
-    del graph
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        best = float("inf")
+        for _ in range(repeats):
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3 / inner)
+        stream.wait_stream(side)
+        del graph
     return best
 
 

@@ -1,6 +1,6 @@
-"""Bounded serving metrics: a high-watermark gauge and a log-bucketed
-latency histogram (copies of ``repro.obs.metrics.Gauge`` and
-``LatencyHistogram``, the two the engine uses).
+"""Bounded serving metrics: a counter, a high-watermark gauge, a
+log-bucketed latency histogram and the registry that names them (copies
+of ``repro.obs.metrics``).
 
 ``LatencyHistogram`` holds O(buckets) state however many requests arrive:
 bucket edges grow by ``growth`` (default 1.05), so a percentile is within
@@ -11,6 +11,17 @@ from __future__ import annotations
 
 import math
 import threading
+
+
+class Counter:
+    """A monotonically increasing count (requests, drops, spans)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        self.value += n
 
 
 class Gauge:
@@ -49,6 +60,12 @@ class LatencyHistogram:
         self.min: float | None = None
         self.max: float | None = None
         self._lock = threading.Lock()
+
+    @property
+    def error_bound(self) -> float:
+        """Documented worst-case relative percentile error: one bucket
+        width."""
+        return self.growth - 1.0
 
     def _index(self, seconds: float) -> int:
         if seconds < self.lo:
@@ -111,3 +128,54 @@ class LatencyHistogram:
             f"{prefix}p99_s": round(self.percentile(99), 6),
             f"{prefix}mean_s": round(self.mean, 6),
         }
+
+
+class MetricsRegistry:
+    """A flat, typed metric namespace: ``counter``/``gauge``/``histogram``
+    get-or-create by name, and asking for an existing name as a different
+    type fails loudly (two subsystems silently sharing "queue_depth" as
+    different shapes is a reporting bug, not a convenience)."""
+
+    def __init__(self):
+        self._metrics: dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, name: str, cls, factory):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = factory()
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} is a {type(m).__name__}, not a "
+                    f"{cls.__name__}")
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter, lambda: Counter(name))
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge, lambda: Gauge(name))
+
+    def histogram(self, name: str, **kw) -> LatencyHistogram:
+        return self._get(name, LatencyHistogram,
+                         lambda: LatencyHistogram(**kw))
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def snapshot(self) -> dict:
+        """Every metric as plain data: counters to ints, gauges to
+        ``{value, max}``, histograms to their summary dict."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out = {}
+        for name, m in items:
+            if isinstance(m, Counter):
+                out[name] = m.value
+            elif isinstance(m, Gauge):
+                out[name] = {"value": m.value, "max": m.max}
+            else:
+                out[name] = {"count": m.count, **m.summary()}
+        return out

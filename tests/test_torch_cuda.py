@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card, the
 ``packed_cuda`` path against the plain route and the reference backend
-there, and the LM stack's prefill through the flash kernel.
+there, the LM stack's prefill through the flash kernel, and graphed
+replicas serving from several threads.
 
 Every test here is marked ``gpu`` and takes the ``cuda`` fixture, which
 skips when no card is present, so the same tests are collected everywhere.
@@ -9,6 +10,9 @@ JAX); run it there without the JAX suite's conftest:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 """
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +21,7 @@ from repro_torch.core.spike import pack_timesteps
 from repro_torch.core.spikformer import (SpikformerConfig,
                                          fold_inference_params, init)
 from repro_torch.infer import ExecutionPlan, compile
-from repro_torch.infer.compile import lower
+from repro_torch.infer.compile import lower, replicate_model
 from repro_torch.infer.quant import map_folded_layers
 from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops, ref
@@ -38,6 +42,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_tc)
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 from repro_torch.launch import autotune_routes as tune
+from repro_torch.serve import ServeFleet, ServePolicy
 
 pytestmark = pytest.mark.gpu
 
@@ -643,3 +648,129 @@ def test_fit_cuda_constants_on_the_card(cuda):
         for key in ("pallas_gather_cost", "transpose_cost"):
             v = getattr(fitted, key)
             assert np.isfinite(v) and v > 0, (dtype, key, v)
+
+
+# ---------------------------------------------------------------------------
+# serving threads: thread-backed replicas, each with graphs of its own
+# ---------------------------------------------------------------------------
+
+def test_two_replicas_replay_concurrently_bit_identical(cuda):
+    """Two thread-backed replicas of one graphed model replay from two
+    threads, each on a stream of its own, 50 steps of mixed buckets; every
+    batch's logits equal a serial replay of the same batch on the template
+    bit for bit, nothing launches eagerly, and each replica's replays count
+    its captured launches once a step."""
+    cfg = SpikformerConfig().scaled()
+    model = firing_model(cfg, cuda, "packed_cuda", jit=True,
+                         buckets=(1, 4, 8))
+    reps = [replicate_model(model) for _ in range(2)]
+    assert all(r.folded is model.folded for r in reps)
+    for m in (model, *reps):
+        m.warmup()
+    rng = np.random.default_rng(9)
+    sizes = [(1, 4, 8)[k % 3] for k in range(50)]
+    batches = [[rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+                for b in sizes[i:] + sizes[:i]] for i in range(2)]
+    want = [[model.step(x).cpu() for x in bs] for bs in batches]
+    ops.reset_launch_counts()
+    for r in reps:
+        r.reset_graph_launch_counts()
+    got, errors = [None, None], []
+    barrier = threading.Barrier(2)
+
+    def serve(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                barrier.wait(timeout=30)
+                outs = [reps[i].step(x) for x in batches[i]]
+                torch.cuda.current_stream().synchronize()
+                got[i] = [o.cpu() for o in outs]
+        except Exception as e:          # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not errors, errors
+    for i in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(got[i], want[i])), i
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    per_bucket = model._fwd.graphs
+    for r in reps:
+        want_counts = {}
+        for b in sizes:
+            for k, v in per_bucket[b].launches.items():
+                want_counts[k] = want_counts.get(k, 0) + v
+        assert r.graph_launch_counts() == want_counts
+    assert bool((want[0][2] != 0).any())
+
+
+def test_fleet_swap_under_load_on_the_card(cuda):
+    """A hot swap while requests arrive: zero failures, every accepted
+    request resolves, the labels after the swap are the new model's, and
+    every replica's graphed step then gives the new model's eager logits
+    bit for bit."""
+    cfg = SpikformerConfig().scaled()
+    old = firing_model(cfg, cuda, "packed_cuda", jit=True, buckets=(1, 8))
+    new = firing_model(cfg, cuda, "packed_cuda", seed=5, jit=True,
+                       buckets=(1, 8))
+    imgs = np.random.default_rng(10).integers(0, 256, (40, 32, 32, 3),
+                                              dtype=np.uint8)
+    batch = imgs[:8]
+    during = []
+
+    def feed(fleet):
+        for i in range(20, 30, 2):
+            during.append(fleet.submit(imgs[i:i + 2]))
+            time.sleep(0.005)
+
+    with ServeFleet(old, replicas=2,
+                    policy=ServePolicy(max_wait_ms=2.0)) as fleet:
+        before = [fleet.submit(imgs[i:i + 2]) for i in range(0, 20, 2)]
+        feeder = threading.Thread(target=feed, args=(fleet,))
+        feeder.start()
+        fleet.swap(new, timeout=120)
+        feeder.join(timeout=60)
+        after = [fleet.submit(imgs[i:i + 2]) for i in range(30, 40, 2)]
+        for h in before + during + after:
+            assert len(h.result(timeout=60)) == 2
+        eager = lower(new.folded, cfg, new.backend, jit=False)(
+            new.folded, torch.from_numpy(batch).to(cuda))
+        for rep in fleet.replicas:
+            assert torch.equal(rep.model.step(batch), eager)
+        stats, health = fleet.stats(), fleet.health()
+    assert stats["requests_failed"] == 0 and stats["requests_rejected"] == 0
+    assert stats["requests"] == 20
+    assert [r["failures"] for r in health["replicas"]] == [0, 0]
+    assert [r["swaps"] for r in health["replicas"]] == [1, 1]
+    want = new.classify(imgs).tolist()
+    assert [h.result() for h in after] == [want[i:i + 2]
+                                           for i in range(30, 40, 2)]
+
+
+def test_replaced_replicas_give_their_streams_back(cuda):
+    """Each graphed replica captures on a borrowed stream that it holds
+    alone and gives back when it dies, so a fleet that keeps replacing its
+    replicas (a swap a round) reuses the streams and their cuBLAS
+    workspaces: device memory after five rounds equals that after one."""
+    import gc
+    cfg = SpikformerConfig().scaled()
+    model = firing_model(cfg, cuda, "packed_cuda", jit=True, buckets=(1, 4))
+    model.warmup()
+    imgs = np.zeros((4, 32, 32, 3), np.uint8)
+    want = model.step(imgs)
+    held = []
+    for round_ in range(5):
+        reps = [replicate_model(model) for _ in range(2)]
+        for r in reps:
+            r.warmup()
+            assert torch.equal(r.step(imgs), want)
+        streams = {r._fwd._stream for r in reps} | {model._fwd._stream}
+        assert len(streams) == 3            # no two live steps share one
+        del reps, r
+        gc.collect()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    assert held[-1] == held[0], held
