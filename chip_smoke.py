@@ -50,15 +50,21 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    and, for the f32 LUT path, the unfused MLP step and the float
    ``reference`` backend; each path's bucket-8 step is profiled graphed
    and eager;
-4. drives the LM path, counters again set to 0 just before it and read
-   just after: smollm-360m at full width from a seeded ``init_model``,
-   ``Engine(slots=4, cache_len=4096)`` in bf16 serving 8 requests (prompts
-   of 77 to 2048 tokens, 32 new tokens each), every prefill's attention on
-   the bf16 tensor-core flash kernel; checks every request completes and
-   its counter grew by 32 layers x 8 prefills, profiles a prefill and
-   decode steps; then, counters at 0 again, holds one f32 prefill's logits
-   on the flash route (the f32 flash kernel, once a layer) against the
-   plain route.
+4. drives the LM path: smollm-360m at full width from a seeded
+   ``init_model``, ``Engine(slots=4, cache_len=4096)`` in bf16 serving 8
+   requests (prompts of 77 to 2048 tokens, 32 new tokens each), every
+   prefill's attention on the bf16 tensor-core flash kernel, in three
+   passes over the same weights, counters set to 0 just before each and
+   read just after: an eager engine (``jit=False``); a graphed one
+   (``jit=True``: decode one CUDA graph, prefill one a prompt length),
+   cold, capturing the 8 lengths; the same engine warm, every call a
+   replay. Checks every request completes, its 32 tokens are identical
+   across the passes, and each pass ran 32 layers x 8 prefills of the
+   flash kernel (eagerly, or replayed with nothing launched eagerly
+   beyond each new graph's warm-up run and capture); profiles the
+   2048-token prefill and a four-slot decode step eager and graphed; then,
+   counters at 0 again, holds one f32 prefill's logits on the flash route
+   (the f32 flash kernel, once a layer) against the plain route.
 
 Prints the serving stats and profiles as JSON lines, the fitted route
 constants (``route_fit``) and the 2x2 of constants x ``jit``
@@ -1405,78 +1411,164 @@ def lm_prompts(vocab: int) -> list:
     return [rng.integers(0, vocab, n).tolist() for n in LM_PROMPTS]
 
 
-def lm_serve_phase(torch, dev) -> tuple:
-    """The LM path: smollm-360m at full width (32 layers, d_model 960, 15
-    heads over 5 KV heads, vocab 49152) from a seeded ``init_model``,
-    served by ``Engine(slots=4, cache_len=4096)`` in bf16: 8 requests of
-    LM_PROMPTS tokens, 32 new tokens each, after one short warm-up request.
-    The launch counters are set to 0 just before the 8 requests and read
-    just after; every prefill layer runs the flash kernel, nothing else
-    launches one of the port's kernels. Then two profiled windows: the
-    2048-token prefill, and decode steps over the four slots. Returns the
-    report and the engine."""
-    from repro_torch.configs import get_config
+def lm_pass(torch, eng, prompts) -> dict:
+    """The 8 LM requests (LM_PROMPTS tokens, 32 new tokens each) served by
+    ``eng`` at once, the launch counters (the wrappers', which eager runs
+    and captures tick, and the engine's captured launches x replays) set
+    to 0 just before and read just after. Returns the host-clock serving
+    figures, peak memory (allocated, which graph replays do not touch, and
+    reserved, which holds the graph pool), the launches, the graphs
+    captured during the pass and each request's tokens."""
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import Engine, Request, summary
-    from repro_torch.nn.module import param_bytes, param_count
-
-    cfg = get_config(LM_ARCH)
-    check((cfg.n_heads, cfg.head_dim) == (LM_HEADS, LM_HEAD_DIM),
-          f"{LM_ARCH} has {cfg.n_heads} heads of {cfg.head_dim}")
-    t0 = time.perf_counter()
-    eng = Engine(cfg, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED,
-                 device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prompts = lm_prompts(cfg.vocab)
-    eng.submit(Request(rid=-1, prompt=prompts[0][:16], max_new=2))
-    eng.run()                                         # warm-up
-    eng.done, eng.decode_step_s = [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.launch.serve import Request, summary
 
     reqs = [Request(rid=i, prompt=p, max_new=LM_MAX_NEW)
             for i, p in enumerate(prompts)]
+    eng.done, eng.decode_step_s = [], []
+    before = set(eng.graphs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    eng.reset_graph_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     done = eng.run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    eager, replayed = ops.launch_counts(), eng.graph_launch_counts()
     check(len(done) == len(reqs)
           and all(len(r.out) == LM_MAX_NEW and r.t_done for r in reqs),
           "an LM request did not complete with its 32 tokens")
-    check(all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out),
+    check(all(0 <= t < eng.cfg.padded_vocab for r in reqs for t in r.out),
           "an LM request holds a token outside the vocabulary")
-    expect = dict.fromkeys(launches, 0)
-    expect["flash_attention_tc"] = cfg.n_layers * len(reqs)
-    check(launches == expect,
-          f"LM launch counts {launches} != {expect} (one tensor-core flash "
-          "launch per layer and prefill)")
+    return dict(stats=summary(done, wall_s, eng.decode_step_s),
+                peak_mem_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                peak_reserved_mib=torch.cuda.max_memory_reserved() / 2 ** 20,
+                launches_eager=eager, launches_replayed=replayed,
+                captured=sorted(set(eng.graphs) - before),
+                graphs=len(eng.graphs),
+                ttft_s={r.rid: r.t_first - r.t_arrival for r in reqs},
+                tokens={r.rid: r.out for r in reqs})
 
-    long = torch.tensor([prompts[-1]], device=dev)
-    prefill = profile_fn(torch, lambda: eng._prefill(long), steps=2)
-    tokens = torch.tensor([[r.out[-1]] for r in reqs[:LM_SLOTS]], device=dev)
-    positions = torch.tensor([len(r.prompt) + LM_MAX_NEW
-                              for r in reqs[:LM_SLOTS]], device=dev)
-    decode = profile_fn(torch, lambda: eng._decode(tokens, positions),
-                        steps=4)
-    ops.reset_launch_counts()
+
+def check_lm_launches(eng, run: dict, what: str) -> dict:
+    """The launch gate of one pass: one tensor-core flash launch a layer
+    and prefill, on the wrappers' counters when eager and as captured
+    launches x replays when graphed; a graphed pass launches nothing
+    eagerly beyond each new graph's warm-up run and capture (twice its
+    captured launches). Returns the pass's launches, eager plus
+    replayed."""
+    eager, replayed = run["launches_eager"], run["launches_replayed"]
+    flash = {"flash_attention_tc": eng.cfg.n_layers * len(LM_PROMPTS)}
+    if not eng.graphed:
+        check(replayed == {} and run["captured"] == [],
+              f"{what}: an eager engine replayed {replayed}")
+        want_eager = {**dict.fromkeys(eager, 0), **flash}
+    else:
+        check(replayed == flash,
+              f"{what}: replayed launches {replayed} != {flash}")
+        want_eager = dict.fromkeys(eager, 0)
+        for key in run["captured"]:
+            for name, n in eng.graphs[key].launches.items():
+                want_eager[name] += 2 * n
+    check(eager == want_eager,
+          f"{what}: eager launch counts {eager} != {want_eager}")
+    return {k: eager[k] + replayed.get(k, 0) for k in eager}
+
+
+def lm_serve_phase(torch, dev) -> tuple:
+    """The LM path: smollm-360m at full width (32 layers, d_model 960, 15
+    heads over 5 KV heads, vocab 49152) from a seeded ``init_model``,
+    served by ``Engine(slots=4, cache_len=4096)`` in bf16 in three passes
+    of the same 8 requests (LM_PROMPTS tokens, 32 new tokens each) over
+    the same weights: (a) an eager engine (``jit=False``), after one short
+    warm-up request; (b) a graphed engine (``jit=True``), cold: its
+    warm-up request captures decode, and the pass captures its 8 prompt
+    lengths; (c) the same engine, warm: every prefill and decode a
+    replay. Gates: each request's 32 tokens identical across the passes,
+    and each pass's launches (``check_lm_launches``). Profiles the
+    2048-token prefill and a four-slot decode step eager (on (a)'s engine,
+    freed after) and graphed. Returns the report and the graphed
+    engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine, Request
+    from repro_torch.nn.module import param_bytes, param_count
+
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_heads, cfg.head_dim) == (LM_HEADS, LM_HEAD_DIM),
+          f"{LM_ARCH} has {cfg.n_heads} heads of {cfg.head_dim}")
+    prompts = lm_prompts(cfg.vocab)
+
+    def engine(jit, params=None):
+        t0 = time.perf_counter()
+        eng = Engine(cfg, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED,
+                     params=params, device=dev, jit=jit)
+        eng.submit(Request(rid=-1, prompt=prompts[0][:16], max_new=2))
+        eng.run()                                     # warm-up
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def profiles(eng, suffix):
+        reqs = sorted(eng.done, key=lambda r: r.rid)[:LM_SLOTS]
+        tokens = [r.out[-1] for r in reqs]
+        positions = [len(r.prompt) + LM_MAX_NEW for r in reqs]
+        return {
+            f"profile_prefill_2048{suffix}": profile_fn(
+                torch, lambda: eng.prefill(prompts[-1]), steps=2),
+            f"profile_decode{suffix}": profile_fn(
+                torch, lambda: eng.decode(tokens, positions), steps=4)}
+
+    eng, init_s = engine(jit=False)
+    params = eng.params
+    runs, launches, report = {}, {}, {}
+    runs["eager"] = lm_pass(torch, eng, prompts)
+    launches["eager"] = check_lm_launches(eng, runs["eager"], "eager pass")
+    report.update(profiles(eng, "_eager"))
+    del eng
+    torch.cuda.empty_cache()
+
+    eng, warm_s = engine(jit=True, params=params)
+    check(sorted(eng.graphs) == [("decode", LM_SLOTS), ("prefill", 16)],
+          f"the warm-up request captured {sorted(eng.graphs)}")
+    for name in ("cold", "warm"):
+        runs[name] = lm_pass(torch, eng, prompts)
+        launches[name] = check_lm_launches(eng, runs[name], f"{name} pass")
+    check(runs["cold"]["captured"] == sorted(("prefill", n)
+                                             for n in LM_PROMPTS)
+          and runs["warm"]["captured"] == [],
+          f"captured {runs['cold']['captured']} cold, "
+          f"{runs['warm']['captured']} warm")
+    for rid, want in runs["eager"]["tokens"].items():
+        check(runs["cold"]["tokens"][rid] == want
+              and runs["warm"]["tokens"][rid] == want,
+              f"LM request {rid}: graphed tokens differ from the eager "
+              "engine's")
+    report.update(profiles(eng, ""))
+    total = {k: sum(run[k] for run in launches.values())
+             for k in launches["eager"]}
     return dict(
         config=f"{LM_ARCH}: 32 layers, d_model 960, 15 heads over 5 KV heads,"
                " head_dim 64, d_ff 2560, vocab 49152, tied embeddings; "
                "seeded init_model, f32 params, bf16 compute and cache",
-        params=param_count(eng.params),
-        param_mib=param_bytes(eng.params) / 2 ** 20,
+        params=param_count(params), param_mib=param_bytes(params) / 2 ** 20,
         init_s=init_s, prompts=list(LM_PROMPTS), max_new=LM_MAX_NEW,
-        slots=LM_SLOTS, cache_len=LM_CACHE_LEN, launches=launches,
-        stats=summary(done, wall_s, eng.decode_step_s),
-        ttft_s={r.rid: r.t_first - r.t_arrival for r in reqs},
-        peak_mem_mib=peak_mib, first_tokens=[r.out[:8] for r in reqs],
-        profile_prefill_2048=prefill, profile_decode=decode), eng
+        slots=LM_SLOTS, cache_len=LM_CACHE_LEN, launches=total,
+        launches_by_pass=launches, tokens_identical=True,
+        passes=runs, graphed_warmup_s=warm_s,
+        first_tokens=[runs["eager"]["tokens"][i][:8]
+                      for i in range(len(prompts))],
+        **report), eng
+
+
+def graphed_flash_ms(prof: dict):
+    """Kernel 7's device ms a launch inside the graphed 2048-token prefill
+    (its ``torch.profiler`` row over its launches), or "not measured"."""
+    rows = [r for r in prof["by_kernel"] if "flash_tc_kernel" in r["kernel"]]
+    if not rows:
+        return "not measured"
+    return (sum(r["ms_per_step"] for r in rows)
+            / sum(r["launches_per_step"] for r in rows))
 
 
 def lm_gate_phase(torch, dev, eng) -> dict:
@@ -1524,7 +1616,7 @@ def lm_gate_phase(torch, dev, eng) -> dict:
         for flash in (True, False):
             e = Engine(cfg, slots=1, cache_len=LM_GATE_LEN + 8, params=params,
                        compute_dtype=dt, cache_dtype=dt, device=dev,
-                       flash=flash)
+                       flash=flash, jit=False)
             e.submit(Request(rid=0, prompt=prompt, max_new=8))
             greedy[f"{str(dt).removeprefix('torch.')}/"
                    f"{'flash' if flash else 'plain'}"] = e.run()[0].out
@@ -1538,9 +1630,9 @@ def lm_gate_phase(torch, dev, eng) -> dict:
 
 # readings beyond the contract's keys, kept in the kernels line
 EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
-              "ms_conv0_stride0", "ms_index_entry", "ms_fc1_f32",
-              "bound_ms_fc1_f32", "library_ms_fc1_f32", "ms_conv0_int16",
-              "ms_conv0_f32")
+              "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
+              "ms_fc1_f32", "bound_ms_fc1_f32", "library_ms_fc1_f32",
+              "ms_conv0_int16", "ms_conv0_f32")
 
 
 def kernel_table(report: dict, paths) -> list:
@@ -1627,6 +1719,8 @@ def main() -> int:
         report[paths[4]] = serving_stack_phase(torch, dev, cfg, folded)
         torch.cuda.empty_cache()
         report[paths[5]], lm_engine = lm_serve_phase(torch, dev)
+        report["kernels"]["flash_attention_tc"]["ms_in_graph"] = \
+            graphed_flash_ms(report[paths[5]]["profile_prefill_2048"])
         report[paths[6]] = lm_gate_phase(torch, dev, lm_engine)
         table = kernel_table(report, paths)
     except CheckFailed as e:
@@ -1666,10 +1760,20 @@ def main() -> int:
     print(json.dumps({"serving_stack": {k: stack[k] for k in (
         "closed", "async", "fleet", "swap", "per_step_launches")}}))
     lm = report["lm_serve"]
-    print(json.dumps({"path": "lm_serve", "serve": lm["stats"],
-                      "peak_mem_mib": lm["peak_mem_mib"],
-                      "launches": lm["launches"]}))
-    for window in ("profile_prefill_2048", "profile_decode"):
+    for name in ("eager", "cold", "warm"):
+        run = lm["passes"][name]
+        print(json.dumps({"path": "lm_serve", "pass": name,
+                          "serve": run["stats"],
+                          "peak_mem_mib": run["peak_mem_mib"],
+                          "peak_reserved_mib": run["peak_reserved_mib"],
+                          "captured": len(run["captured"]),
+                          "graphs": run["graphs"],
+                          "launches": lm["launches_by_pass"][name]}))
+    print(json.dumps({"path": "lm_serve",
+                      "tokens_identical": lm["tokens_identical"],
+                      "graphed_warmup_s": lm["graphed_warmup_s"]}))
+    for window in ("profile_prefill_2048", "profile_prefill_2048_eager",
+                   "profile_decode", "profile_decode_eager"):
         prof = lm[window]
         print(json.dumps({"path": "lm_serve", window: {
             k: v for k, v in prof.items() if k != "by_kernel"},

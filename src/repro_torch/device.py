@@ -1,10 +1,14 @@
 """Where the port's entry points run (the card unless the caller asks for
-the CPU), the constants a step keeps on its device, and the CUDA streams
-its serving threads and graph captures borrow."""
+the CPU), the constants a step keeps on its device, the CUDA streams its
+serving threads and graph captures borrow, and the CUDA graph capture
+that the Spikformer step (``infer/compile.py:GraphedStep``) and the LM
+engine (``launch/serve.py:Engine``) share."""
 from __future__ import annotations
 
 import contextlib
 import threading
+import traceback
+import weakref
 
 import torch
 
@@ -82,3 +86,149 @@ def borrowed_stream(device):
             yield stream
     finally:
         release_stream(stream)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graph capture
+# ---------------------------------------------------------------------------
+
+# one capture at a time in the process: a capture's eager warm-up and its
+# recording must not interleave with another thread's
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _failed_at(err: BaseException) -> str:
+    """The innermost frame of ``err``'s traceback outside torch: the op
+    that stopped a capture."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if "/torch/" not in f.filename]
+    if not frames:
+        return "an unknown op"
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} in {f.name}: {f.line}"
+
+
+class GraphCapturer:
+    """Captures one owner's CUDA graphs (a ``GraphedStep``'s buckets, an LM
+    engine's steps): on a side stream the owner holds alone while it lives
+    (``borrow_stream``, at the first capture: a cuBLAS call captured on a
+    stream keeps that stream's workspace, which two owners replaying at
+    once must not share), into one graph memory pool its graphs share."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = None
+        self.pool = None
+
+    def __call__(self, body, what: str):
+        """Record ``body()`` as a CUDA graph; returns ``(graph, out,
+        launches)``: ``body``'s result (which each replay rewrites in
+        place) and the port's kernel launches the capture recorded, by
+        name.
+
+        ``body`` first runs once eagerly on the side stream, so kernels are
+        built, their attributes set and a step's constants made before
+        anything records. The card is synchronised first (a borrowed
+        stream's last holder may have left a replay in flight that uses the
+        stream's cuBLAS workspace). Captures take a process-wide lock and
+        record with ``capture_error_mode="thread_local"`` (under the default
+        "global" mode a read-back or an allocation on another serving thread
+        would invalidate the capture), and count the capturing thread's
+        launches only (``ops.recording_launches``). A capture that fails
+        raises and names the op (``_failed_at``); nothing then runs eagerly
+        in its place. A failed capture's pool is left behind: torch keeps
+        it marked as recording, so the next capture starts a new one."""
+        from .kernels import ops
+        if self.stream is None:
+            self.stream = borrow_stream(self.device)
+            weakref.finalize(self, release_stream, self.stream)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        stream, dev = self.stream, self.stream.device
+        with _CAPTURE_LOCK:
+            torch.cuda.synchronize(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                body()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            failure, out = None, None
+            # the outer stream context restores the caller's stream even
+            # when the capture's own exit raises before restoring it
+            with ops.recording_launches() as recorded, \
+                    torch.cuda.stream(stream):
+                try:
+                    with torch.cuda.graph(graph, pool=self.pool,
+                                          stream=stream,
+                                          capture_error_mode="thread_local"):
+                        try:
+                            out = body()
+                        except Exception as e:  # noqa: BLE001  (raised below)
+                            failure = e
+                except Exception as e:  # noqa: BLE001  an invalid capture
+                    failure = failure or e
+                    _stop_allocating_to(self.pool, dev)
+                    self.pool = None
+        if failure is not None:
+            raise RuntimeError(f"CUDA graph capture of {what} failed at "
+                               f"{_failed_at(failure)}: {failure}") from failure
+        return graph, out, dict(recorded)
+
+
+def _stop_allocating_to(pool, device: torch.device) -> None:
+    """After a capture the card invalidated (a host read in the body, for
+    one): torch's capture end raises before it stops sending the capturing
+    stream's allocations to ``pool``; stop it, unless the capture never got
+    that far."""
+    try:
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+    except RuntimeError:            # not recording to the pool
+        pass
+
+
+class StepGraph:
+    """One captured step: the graph, its static input and output, a pinned
+    staging buffer for host inputs, the kernel launches its capture
+    recorded (each replay launches them again) and its replays since the
+    last reset."""
+
+    def __init__(self, graph, static_in, out, launches):
+        self.graph = graph
+        self.static_in = static_in
+        self.out = out
+        self.launches = launches
+        self.host = torch.empty(static_in.shape, dtype=static_in.dtype,
+                                pin_memory=True)
+        self.copied = torch.cuda.Event()
+        self.replays = 0
+
+    def load(self, x: torch.Tensor) -> None:
+        """Copy an input into the static input: from the card in place,
+        from the host through the pinned buffer without a host wait (only
+        the previous copy out of that buffer must be done before it is
+        refilled)."""
+        if x.device.type == "cuda":
+            self.static_in.copy_(x)
+            return
+        self.copied.synchronize()
+        self.host.copy_(x)
+        self.static_in.copy_(self.host, non_blocking=True)
+        self.copied.record()
+
+    def replay(self, x: torch.Tensor):
+        """Load ``x``, replay on the current stream; returns the static
+        output, which the next replay overwrites."""
+        self.load(x)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+
+def graph_launch_counts(graphs) -> dict:
+    """Kernel launches that the replays of ``graphs`` (``StepGraph``s) made
+    since their last reset: captured launches times replays."""
+    counts: dict = {}
+    for g in graphs:
+        for name, n in g.launches.items():
+            counts[name] = counts.get(name, 0) + n * g.replays
+    return counts

@@ -31,8 +31,6 @@ import dataclasses
 import json
 import threading
 import time
-import traceback
-import weakref
 
 import numpy as np
 import torch
@@ -42,8 +40,9 @@ from . import registry
 from .quant import WEIGHT_DTYPES, map_folded_layers, quantize_folded
 from ..core import spikformer
 from ..core.spikformer import SpikformerConfig, fold_inference_params
-from ..device import borrow_stream, release_stream, resolve_device
-from ..kernels import lut_matmul, ops
+from ..device import (GraphCapturer, StepGraph, graph_launch_counts,
+                      resolve_device)
+from ..kernels import lut_matmul
 from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
 from ..kernels.spike_matmul import kmajor_weights
 
@@ -302,51 +301,6 @@ class _LayerTimer:
         return self._inner.rate(*args, **kw)
 
 
-def _failed_at(err: BaseException) -> str:
-    """The innermost frame of ``err``'s traceback outside torch: the op
-    that stopped a capture."""
-    frames = [f for f in traceback.extract_tb(err.__traceback__)
-              if "/torch/" not in f.filename]
-    if not frames:
-        return "an unknown op"
-    f = frames[-1]
-    return f"{f.filename}:{f.lineno} in {f.name}: {f.line}"
-
-
-class _BucketGraph:
-    """One bucket's captured step: the graph, its static uint8 input and
-    f32 logits, a pinned staging buffer for host images, and the kernel
-    launches its capture recorded (each replay launches them again)."""
-
-    def __init__(self, graph, static_in, out, launches):
-        self.graph = graph
-        self.static_in = static_in
-        self.out = out
-        self.launches = launches
-        self.host = torch.empty(static_in.shape, dtype=torch.uint8,
-                                pin_memory=True)
-        self.copied = torch.cuda.Event()
-        self.replays = 0
-
-    def load(self, images: torch.Tensor) -> None:
-        """Copy a batch into the static input: from the card in place, from
-        the host through the pinned buffer without a host wait (only the
-        previous copy out of that buffer must be done before it is
-        refilled)."""
-        if images.device.type == "cuda":
-            self.static_in.copy_(images)
-            return
-        self.copied.synchronize()
-        self.host.copy_(images)
-        self.static_in.copy_(self.host, non_blocking=True)
-        self.copied.record()
-
-
-# one capture at a time in the process: a capture's eager warm-up and its
-# recording must not interleave with another thread's
-_CAPTURE_LOCK = threading.Lock()
-
-
 class GraphedStep:
     """``jit=True``: the eager step ``fwd`` over ``folded`` replayed as one
     CUDA graph per batch size, captured at first use (``warmup`` captures
@@ -371,63 +325,32 @@ class GraphedStep:
     lock plus an event make calls from several threads (a health probe
     beside the replica's worker) take turns, each call's stream waiting for
     the previous call's work. Captures are safe while other threads serve:
-    they take a process-wide lock; they record with
-    ``capture_error_mode="thread_local"`` (under the default "global" mode
-    a read-back or an allocation on another thread would invalidate the
-    capture); they run on a side stream this step holds alone while it
-    lives (``device.borrow_stream``: a cuBLAS call captured on a stream
-    keeps that stream's workspace, which two steps replaying at once must
-    not share); and they count the capturing thread's launches only
-    (``ops.recording_launches``), so another thread's eager launches never
-    enter a graph's count."""
+    they go through a ``device.GraphCapturer`` of the step's own (a
+    process-wide lock, the thread-local capture mode, the capturing
+    thread's launches only, a side stream the step holds alone)."""
 
     def __init__(self, fwd, folded):
         self._fwd = fwd
         self.folded = folded
         self.device = folded["head"]["kernel"].device
-        self.graphs: dict[int, _BucketGraph] = {}
-        self._pool = None
-        self._stream = None
+        self.graphs: dict[int, StepGraph] = {}
+        self._capture = GraphCapturer(self.device)
         self._lock = threading.Lock()
         self._done = None           # event after the last call's work
 
-    def capture(self, shape) -> _BucketGraph:
+    @property
+    def _stream(self):
+        """The side stream this step's captures hold (None before the
+        first)."""
+        return self._capture.stream
+
+    def capture(self, shape) -> StepGraph:
         shape = tuple(int(d) for d in shape)
-        dev = self.device
-        with _CAPTURE_LOCK:
-            static_in = torch.zeros(shape, dtype=torch.uint8, device=dev)
-            if self._stream is None:
-                self._stream = borrow_stream(dev)
-                weakref.finalize(self, release_stream, self._stream)
-            # a borrowed stream's last holder may have left a replay in
-            # flight that uses the stream's cuBLAS workspace
-            torch.cuda.synchronize(dev)
-            side = self._stream
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self._fwd(self.folded, static_in)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            failure, out = None, None
-            with ops.recording_launches() as recorded:
-                try:
-                    with torch.cuda.graph(graph, pool=self._pool,
-                                          stream=side,
-                                          capture_error_mode="thread_local"):
-                        try:
-                            out = self._fwd(self.folded, static_in)
-                        except Exception as e:  # noqa: BLE001  (raised below)
-                            failure = e
-                except Exception as e:      # noqa: BLE001  an invalid capture
-                    failure = failure or e
-        if failure is not None:
-            raise RuntimeError(
-                f"CUDA graph capture of the batch-{shape[0]} step failed at "
-                f"{_failed_at(failure)}: {failure}") from failure
-        self.graphs[shape[0]] = _BucketGraph(graph, static_in, out,
-                                             dict(recorded))
+        static_in = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+        graph, out, launches = self._capture(
+            lambda: self._fwd(self.folded, static_in),
+            f"the batch-{shape[0]} step")
+        self.graphs[shape[0]] = StepGraph(graph, static_in, out, launches)
         return self.graphs[shape[0]]
 
     def __call__(self, folded_tree, images):
@@ -443,22 +366,16 @@ class GraphedStep:
             stream = torch.cuda.current_stream(self.device)
             if self._done is not None:
                 stream.wait_event(self._done)
-            bucket.load(images)
-            bucket.graph.replay()
-            bucket.replays += 1
+            logits = bucket.replay(images)
             with torch.inference_mode():
-                out = bucket.out.clone()
+                out = logits.clone()
             self._done = stream.record_event()
             return out
 
     def launch_counts(self) -> dict:
         """Kernel launches the replays made since the last reset: each
         bucket's captured launches times its replays."""
-        counts: dict = {}
-        for g in self.graphs.values():
-            for name, n in g.launches.items():
-                counts[name] = counts.get(name, 0) + n * g.replays
-        return counts
+        return graph_launch_counts(self.graphs.values())
 
     def reset_launch_counts(self) -> None:
         for g in self.graphs.values():

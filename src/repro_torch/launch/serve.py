@@ -3,9 +3,13 @@
 
 The engine keeps a fixed pool of ``slots`` (the decode batch); each slot
 holds one request's KV cache rows. A request's prompt is prefilled alone
-into a fresh one-row cache (its attention runs the flash kernel), the row
-is spliced into the pool, and one decode step advances every slot by one
-token per iteration, each row at its own position.
+into the engine's one-row cache (its attention runs the flash kernel), the
+row is spliced into the pool, and one decode step advances every slot by
+one token per iteration, each row at its own position.
+
+``jit=True`` (the default, as the reference jits both halves of its
+engine) replays them as CUDA graphs on the card: decode as one graph,
+prefill as one graph per prompt length. ``jit=False`` runs them eagerly.
 
     python -m repro_torch.launch.serve --arch smollm-360m [--reduce] \\
         [--slots 4 --requests 8 --prompt-len 32 --max-new 16]
@@ -23,7 +27,8 @@ from collections import deque
 import torch
 
 from ..configs.base import get_config
-from ..device import resolve_device
+from ..device import (GraphCapturer, StepGraph, graph_launch_counts,
+                      resolve_device)
 from ..nn import transformer as T
 
 
@@ -46,12 +51,53 @@ class Engine:
     a generator on the engine's device seeded with ``seed``. Defaults follow
     the reference: the config's compute dtype (bf16) and a bf16 cache.
     ``flash=False`` runs the plain attention in prefill too.
-    """
+
+    ``jit=True`` (the default) on the card, the counterpart of the
+    reference's ``jax.jit`` of both bodies:
+
+    - decode is one CUDA graph, captured at the first decode, with a static
+      (slots, 2) int64 input (column 0 the tokens, column 1 the positions:
+      one copy fills both) and a static (slots,) argmax output. The slot
+      pool is the graph's storage, the counterpart of the reference's
+      donation: it is written in place and never rebound, so the graph's
+      addresses stay its own. Free slots go on decoding token 0 at
+      positions that may pass ``cache_len``, as in the reference; the
+      cache write drops them on the device.
+    - prefill is one graph per prompt length, jax.jit's own cache key:
+      each length is captured the first time it is seen and replayed after
+      that, so a new length costs a capture as a new shape costs a compile
+      in JAX. No padding: the first token comes from the last position.
+      Its static input is the (1, S) tokens, its storage the engine's one
+      row cache, which the body resets to what ``init_cache`` makes (zeros,
+      positions -1), so a short prompt after a long one leaves no stale
+      slot marked valid. Kernel 7's TMA descriptors are encoded on the
+      host at capture from that moment's pointers and frozen into the
+      graph: right because q comes from the graph's pool and k, v from the
+      row cache, at the same addresses on every replay of a length
+      (``_tma_ready``'s copy, where it makes one, is a captured copy into
+      the pool too).
+
+    A capture first runs the body once eagerly on the engine's side stream
+    with the real inputs (the step is repeated by the replay that follows,
+    which writes the same values), so kernels are built and their
+    attributes set before anything records. A capture that fails raises
+    and names the op; nothing then runs eagerly in its place. Each replay
+    is followed by one read of its argmax, the step's synchronisation.
+
+    All of an engine's graphs share one memory pool, although prefill
+    graphs are captured at any time and replayed in any order between
+    decode replays. That is safe because every tensor that lives across
+    replays lies outside the pool (the static inputs, the row cache, the
+    slot pool, all made before their capture) or is read before another
+    graph replays (the argmax outputs): a later capture may place its
+    tensors where an earlier graph keeps its temporaries.
+
+    On the CPU ``jit`` is recorded and the engine runs eagerly."""
 
     def __init__(self, cfg, *, slots: int, cache_len: int, seed: int = 0,
                  params=None, compute_dtype=None,
                  cache_dtype=torch.bfloat16, device=None,
-                 flash: bool = True):
+                 flash: bool = True, jit: bool = True):
         self.cfg = cfg
         self.slots = slots
         self.cache_len = cache_len
@@ -59,42 +105,100 @@ class Engine:
         self.compute_dtype = T.as_dtype(compute_dtype or cfg.compute_dtype)
         self.cache_dtype = cache_dtype
         self.flash = flash
+        self.jit = jit
+        # calls replay CUDA graphs (jit on the card); else they run eagerly
+        self.graphed = jit and self.device.type == "cuda"
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = T.init_model(gen, cfg, device=self.device)
         self.params = params
         self.pool = T.init_cache(cfg, slots, cache_len, dtype=cache_dtype,
                                  device=self.device)
+        self.row = T.init_cache(cfg, 1, cache_len, dtype=cache_dtype,
+                                device=self.device)
+        # ("prefill", S) or ("decode", slots) -> its graph, under jit
+        self.graphs: dict[tuple, StepGraph] = {}
+        self._capture = GraphCapturer(self.device)
         self.active: dict[int, Request] = {}           # slot -> request
         self.positions = [0] * slots                    # per-slot cache_pos
         self.queue: deque[Request] = deque()
         self.done: list[Request] = []
         self.decode_step_s: list[float] = []            # host clock, synced
 
-    def _prefill(self, tokens):
-        """tokens: (1, S) -> (next_token, cache_row)."""
-        cache = T.init_cache(self.cfg, 1, self.cache_len,
-                             dtype=self.cache_dtype, device=self.device)
-        logits, cache, _ = T.model_apply(
-            self.params, {"tokens": tokens, "cache_pos": 0}, self.cfg,
-            mode="prefill", cache=cache, compute_dtype=self.compute_dtype,
-            flash=self.flash)
-        return int(logits[0, -1].argmax()), cache
+    # -- the step bodies: no host read, no pageable copy, no new cache ------
 
-    def _decode(self, tokens, positions):
-        """tokens: (slots, 1); positions: (slots,) per-slot cache_pos. One
-        step advances every slot, each row at its own offset."""
-        logits, self.pool, _ = T.model_apply(
-            self.params, {"tokens": tokens, "cache_pos": positions},
+    def _prefill_body(self, tokens):
+        """tokens: (1, S) -> (1,) argmax of the last position; the prompt's
+        cache in ``self.row``, reset first to a fresh ``init_cache``."""
+        for name, leaf in self.row["kv"].items():
+            leaf.fill_(-1 if name == "positions" else 0)
+        logits, _, _ = T.model_apply(
+            self.params, {"tokens": tokens, "cache_pos": 0}, self.cfg,
+            mode="prefill", cache=self.row, compute_dtype=self.compute_dtype,
+            flash=self.flash)
+        return logits[:, -1].argmax(-1)
+
+    def _decode_body(self, inputs):
+        """inputs: (slots, 2), the tokens and each slot's cache position ->
+        (slots,) argmax. One step advances every slot, each row at its own
+        offset, writing the pool in place."""
+        logits, _, _ = T.model_apply(
+            self.params, {"tokens": inputs[:, :1], "cache_pos": inputs[:, 1]},
             self.cfg, mode="decode", cache=self.pool,
             compute_dtype=self.compute_dtype, flash=self.flash)
-        return logits[:, -1].argmax(-1).tolist()
+        return logits[:, -1].argmax(-1)
 
-    def _splice(self, slot: int, row_cache):
-        """Copy a one-row prefill cache into pool slot ``slot`` (axis 1 of
-        the stacked (L, B, ...) leaves), clearing what the slot held."""
+    # -- graphed or eager calls --------------------------------------------
+
+    def _run(self, key: tuple, body, inputs: torch.Tensor) -> list:
+        """``body`` on the host tensor ``inputs``: eagerly, or by replaying
+        the graph of ``key``, captured first if new. Returns the argmax as
+        a list, the step's one read."""
+        if not self.graphed:
+            return body(inputs.to(self.device)).tolist()
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._new_graph(key, body, inputs)
+        return g.replay(inputs).tolist()
+
+    def _new_graph(self, key: tuple, body, inputs: torch.Tensor):
+        static_in = inputs.to(self.device)
+        graph, out, launches = self._capture(
+            lambda: body(static_in),
+            f"the {key[0]} step of shape {tuple(inputs.shape)}")
+        self.graphs[key] = StepGraph(graph, static_in, out, launches)
+        return self.graphs[key]
+
+    def prefill(self, prompt: list[int]) -> int:
+        """The prompt's first new token; its cache is left in ``self.row``."""
+        tokens = torch.tensor([prompt], dtype=torch.int64)
+        return self._run(("prefill", len(prompt)), self._prefill_body,
+                         tokens)[0]
+
+    def decode(self, tokens: list[int], positions: list[int]) -> list[int]:
+        """One decode step of every slot: ``tokens[s]`` at cache position
+        ``positions[s]``; returns each slot's next token."""
+        inputs = torch.tensor(list(zip(tokens, positions)),
+                              dtype=torch.int64)
+        return self._run(("decode", self.slots), self._decode_body, inputs)
+
+    def graph_launch_counts(self) -> dict:
+        """Kernel launches made by graph replays since the last reset (the
+        wrappers' counters tick only on eager runs and captures)."""
+        return graph_launch_counts(self.graphs.values())
+
+    def reset_graph_launch_counts(self) -> None:
+        for g in self.graphs.values():
+            g.replays = 0
+
+    # -- pool management ---------------------------------------------------
+
+    def _splice(self, slot: int):
+        """Copy the row cache into pool slot ``slot`` (axis 1 of the
+        stacked (L, B, ...) leaves), in place, clearing what the slot
+        held."""
         for name, leaf in self.pool["kv"].items():
-            leaf[:, slot] = row_cache["kv"][name][:, 0]
+            leaf[:, slot] = self.row["kv"][name][:, 0]
 
     def submit(self, req: Request):
         req.t_arrival = time.perf_counter()
@@ -105,12 +209,9 @@ class Engine:
         while free and self.queue:
             slot = free.pop(0)
             req = self.queue.popleft()
-            toks = torch.tensor([req.prompt], dtype=torch.int64,
-                                device=self.device)
-            next_tok, row = self._prefill(toks)
-            req.out.append(next_tok)
+            req.out.append(self.prefill(req.prompt))
             req.t_first = time.perf_counter()
-            self._splice(slot, row)
+            self._splice(slot)
             self.positions[slot] = len(req.prompt)
             self.active[slot] = req
 
@@ -119,14 +220,11 @@ class Engine:
         self._admit()
         if not self.active:
             return 0
-        tokens = [[0] for _ in range(self.slots)]
+        tokens = [0] * self.slots
         for slot, req in self.active.items():
-            tokens[slot] = [req.out[-1]]
+            tokens[slot] = req.out[-1]
         t0 = time.perf_counter()
-        toks = self._decode(
-            torch.tensor(tokens, dtype=torch.int64, device=self.device),
-            torch.tensor(self.positions, dtype=torch.int64,
-                         device=self.device))
+        toks = self.decode(tokens, self.positions)
         self.decode_step_s.append(time.perf_counter() - t0)
         self.positions = [p + 1 for p in self.positions]
         finished = []

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card, the
 ``packed_cuda`` path against the plain route and the reference backend
-there, the LM stack's prefill through the flash kernel, and graphed
-replicas serving from several threads.
+there, the LM stack's prefill through the flash kernel, the LM engine's
+CUDA graphs against its eager engine, and graphed replicas serving from
+several threads.
 
 Every test here is marked ``gpu`` and takes the ``cuda`` fixture, which
 skips when no card is present, so the same tests are collected everywhere.
@@ -632,6 +633,137 @@ def test_capture_that_meets_a_host_copy_raises(cuda):
     torch.cuda.synchronize()
     # the card is usable afterwards
     assert bool(torch.isfinite(model.step(imgs)).all())
+
+
+# ---------------------------------------------------------------------------
+# the LM engine under jit: decode as one CUDA graph, prefill one a length
+# ---------------------------------------------------------------------------
+
+
+def lm_engines(dev, cache_len):
+    """A graphed and an eager engine on the reduced smollm config in bf16,
+    two slots, one seeded set of weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+
+    cfg = get_config("smollm-360m").reduced()
+    graphed = Engine(cfg, slots=2, cache_len=cache_len, seed=3, device=dev)
+    eager = Engine(cfg, slots=2, cache_len=cache_len, params=graphed.params,
+                   device=dev, jit=False)
+    return cfg, graphed, eager
+
+
+def lm_prompt(cfg, n, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, n).tolist()
+
+
+def serve_lm(eng, prompts, max_new):
+    from repro_torch.launch.serve import Request
+
+    eng.done = []
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+    return [r.out for r in sorted(eng.run(), key=lambda r: r.rid)]
+
+
+def same_caches(a, b, what):
+    for tree in ("row", "pool"):
+        for name, leaf in getattr(a, tree)["kv"].items():
+            assert torch.equal(leaf, getattr(b, tree)["kv"][name]), (
+                what, tree, name)
+
+
+def test_lm_graphed_engine_serves_the_eager_tokens(cuda):
+    """Prompts of 5, 77, 5 and 130 tokens through two slots: the third
+    request waits for a slot and replays the 5-token graph, and the
+    130-token one decodes past ``cache_len`` (136). Greedy tokens, row
+    cache and slot pool equal the eager engine's bit for bit; one graph a
+    prompt length and one for decode."""
+    cfg, graphed, eager = lm_engines(cuda, cache_len=136)
+    prompts = [lm_prompt(cfg, n, i) for i, n in enumerate((5, 77, 5, 130))]
+    want = serve_lm(eager, prompts, 10)
+    assert serve_lm(graphed, prompts, 10) == want
+    torch.cuda.synchronize()
+    same_caches(graphed, eager, "after serving")
+    assert sorted(graphed.graphs) == [("decode", 2), ("prefill", 5),
+                                      ("prefill", 77), ("prefill", 130)]
+    assert graphed.graphs[("prefill", 5)].replays == 2
+    assert eager.graphs == {}
+
+
+def test_lm_graph_replay_order(cuda):
+    """Prefill graph A, then B, then the decode graph over both rows, then
+    A again: each returns the eager engine's token and leaves its caches
+    bit for bit, although the four share one graph pool."""
+    cfg, graphed, eager = lm_engines(cuda, cache_len=96)
+    a, b = lm_prompt(cfg, 77, 1), lm_prompt(cfg, 30, 2)
+    firsts = {}
+
+    def prefill(slot, toks):
+        def call(e):
+            firsts[e] = e.prefill(toks)
+            e._splice(slot)
+            return firsts[e]
+        return call
+
+    steps = (("A", prefill(0, a)), ("B", prefill(1, b)),
+             ("decode", lambda e: e.decode([firsts[e], 7], [77, 30])),
+             ("A again", prefill(0, a)))
+    for what, call in steps:
+        assert call(graphed) == call(eager), what
+        torch.cuda.synchronize()
+        same_caches(graphed, eager, what)
+    assert graphed.graphs[("prefill", 77)].replays == 2
+
+
+def test_lm_graph_launches_equal_the_eager_counts(cuda):
+    """Once every shape is captured, serving the same requests launches
+    nothing eagerly, and captured launches times replays equal the eager
+    engine's counts: one tensor-core flash launch a layer and prefill, none
+    in decode."""
+    cfg, graphed, eager = lm_engines(cuda, cache_len=96)
+    prompts = [lm_prompt(cfg, n, i) for i, n in enumerate((5, 77, 30))]
+    ops.reset_launch_counts()
+    want = serve_lm(eager, prompts, 4)
+    eager_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert eager_counts == {"flash_attention_tc": 3 * cfg.n_layers}
+    assert serve_lm(graphed, prompts, 4) == want          # captures
+    assert graphed.graphs[("prefill", 77)].launches == {
+        "flash_attention_tc": cfg.n_layers}
+    assert graphed.graphs[("decode", 2)].launches == {}
+    graphed.reset_graph_launch_counts()
+    ops.reset_launch_counts()
+    assert serve_lm(graphed, prompts, 4) == want          # replays only
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert graphed.graph_launch_counts() == eager_counts
+
+
+def test_lm_capture_that_meets_a_host_read_raises(cuda):
+    """A prefill body that reads a value back to the host: its capture
+    raises and names the op, no graph is kept, nothing runs eagerly in its
+    place, and a second call raises again; the same engine then captures
+    its decode step (in a new pool: torch keeps the failed one marked as
+    recording) and gives the eager engine's tokens."""
+    from repro_torch.launch.serve import Engine
+
+    class HostRead(Engine):
+        def _prefill_body(self, tokens):
+            out = super()._prefill_body(tokens)
+            return out + int(tokens[0, 0])
+
+    cfg, _, eager = lm_engines(cuda, cache_len=96)
+    eng = HostRead(cfg, slots=2, cache_len=96, params=eager.params,
+                   device=cuda)
+    toks = lm_prompt(cfg, 30, 4)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="graph capture") as err:
+            eng.prefill(toks)
+        assert "in _prefill_body" in str(err.value)
+        assert eng.graphs == {}
+    torch.cuda.synchronize()
+    assert eng.decode([5, 9], [0, 3]) == eager.decode([5, 9], [0, 3])
+    assert sorted(eng.graphs) == [("decode", 2)]
 
 
 def test_fit_cuda_constants_on_the_card(cuda):

@@ -363,12 +363,15 @@ def test_bf16_prefill_reaches_flash_without_copies(cfgs, trees, monkeypatch):
         assert k.stride() == v.stride()
 
 
-def test_engine_matches_reference_engine(cfgs):
+@pytest.mark.parametrize("jit", [True, False])
+def test_engine_matches_reference_engine(cfgs, jit):
     """The reference engine (no mesh) and the port's, on the reference
     engine's own weights: the prompts of the reference's
     ``test_engine_matches_sequential_generation`` plus a 77-token prompt,
     two slots (the third request waits for a free one), f32; the greedy
-    tokens are equal, token for token."""
+    tokens are equal, token for token, whether the port's engine is built
+    with ``jit`` or not (on the CPU ``jit`` is recorded and both run
+    eagerly)."""
     jcfg, cfg = cfgs
     prompts = [[5, 9, 2, 14, 3], [7, 7, 1, 30, 11, 2],
                np.random.default_rng(77).integers(0, cfg.vocab, 77).tolist()]
@@ -378,7 +381,7 @@ def test_engine_matches_reference_engine(cfgs):
                                cfg, device="cpu")
     te = Engine(cfg, slots=2, cache_len=128, params=params,
                 compute_dtype=torch.float32, cache_dtype=torch.float32,
-                device="cpu")
+                device="cpu", jit=jit)
     for i, p in enumerate(prompts):
         je.submit(JRequest(rid=i, prompt=p, max_new=6))
         te.submit(Request(rid=i, prompt=p, max_new=6))
@@ -387,6 +390,7 @@ def test_engine_matches_reference_engine(cfgs):
     assert got == want
     assert all(len(o) == 6 for o in got)
     assert len(te.decode_step_s) >= 5
+    assert te.jit is jit and te.graphs == {}
 
 
 def test_entry_points_default_to_the_card(cfgs, trees, monkeypatch):
