@@ -49,7 +49,29 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    the eager step and the plain versions (``packed_plain``) on the card
    and, for the f32 LUT path, the unfused MLP step and the float
    ``reference`` backend; each path's bucket-8 step is profiled graphed
-   and eager;
+   and eager; then the serving stack (``serving_stack``), and three paths
+   on the reference's default backend ``packed``, each gated to run the
+   kernels and never the reference's CPU branch:
+   - ``events_cli``: ``serve_spikformer.main --events --smoke`` on the
+     synthetic trace and on the committed ``dvs_synth_mini.jsonl`` (the
+     reference's event config and default plan; the CLI's own gates),
+     then ``main_events`` on the fixture with the gained tree, whose
+     logits on the trace's count frames are bit-identical to
+     ``packed_plain``'s at buckets 2 and 8 and whose labels are not all
+     one class;
+   - ``events_full_width``: four ``EventStreamSession``s on one runtime,
+     each fed a seeded DVS stream at 128x128 (40 windows of 20 ms) at
+     V2-8-512, int8, graphed, served untraced (windows/s, latencies) and
+     again under ``torch.profiler`` (idle share); every window labelled,
+     each label equal to ``classify`` of its count frame and in both
+     passes, not all one class, the logits on the count frames
+     bit-identical to ``packed_plain``'s at buckets 1 and 8; each
+     bucket's step profiled;
+   - ``packed_default_f32``: ``ExecutionPlan()`` as the reference defines
+     it (``packed``, f32, bucket 8), graphed: 49 f32 unpack-dot launches a
+     step, logits against ``packed_plain``'s, the unpack dot timed at each
+     of its layer shapes (CUDA events around a captured graph whose
+     capture launched the kernel once a call, and ``torch.profiler``);
 4. drives the LM path: smollm-360m at full width from a seeded
    ``init_model``, ``Engine(slots=4, cache_len=4096)`` in bf16 serving 8
    requests (prompts of 77 to 2048 tokens, 32 new tokens each), every
@@ -77,6 +99,7 @@ exits non-zero before the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -134,10 +157,9 @@ SOURCES = {
                             "src/repro/kernels/flash_attention.py:62"),
 }
 # kernels that no driven path launches: f32 STDP serves f32 operands of any
-# value (the packed datapath runs the packed entry), the f32 unpack dot f32
-# weights (every driven unpack layer is int8); both are still built, held
-# to their plain versions and timed
-OFF_PATH = ("stdp", "unpack_dot")
+# value (the packed datapath runs the packed entry); still built, held to
+# its plain version and timed
+OFF_PATH = ("stdp",)
 
 
 class CheckFailed(Exception):
@@ -175,9 +197,37 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced(torch, warm, body) -> tuple:
+    """``torch.profiler`` (CPU and CUDA activity) over ``body()``, after a
+    traced ``warm()`` whose records it discards (its schedule's warm-up
+    step): late in a long process the profiler can lose the first kernel
+    records of a session (five of every window, where it did), and the
+    warm-up step takes that loss. Returns ``(key_averages, events)`` of
+    ``body()`` alone."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    out = []
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", ".*Profiler clears events")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: out.append(
+                         (p.key_averages(), p.events()))) as prof:
+            for part in (warm, body):
+                part()
+                torch.cuda.synchronize()
+                prof.step()
+    check(len(out) == 1, f"the profiler traced {len(out)} windows, not 1")
+    return out[0]
+
+
 def device_ms(torch, fn, name: str, reps: int = REPS) -> float:
     """Device ms of one launch of the kernels whose name holds ``name``, by
-    ``torch.profiler`` (CUDA activity) over ``reps`` calls after a warm-up:
+    ``torch.profiler`` (CUDA activity) over ``reps`` calls after a warm-up
+    and ``reps`` traced warm-up calls (``traced``):
     the kernel alone, free of the host's launch cost, which exceeds some
     kernels' own time. Each call must launch one of the port's kernels, by
     the wrappers' own counts over the window: a window in which the
@@ -186,28 +236,40 @@ def device_ms(torch, fn, name: str, reps: int = REPS) -> float:
     records are not always complete) is taken again, up to PROFILE_TRIES
     windows in all; every window's count goes into PROFILE_WINDOWS, under
     the kernel's counter, for ``build/chip_smoke.json``."""
+    ms, seen = profiled_ms(torch, fn, name, reps)
+    check(ms is not None, f"device_ms: the profiler showed {seen} of {reps} "
+          f"launches of {name!r} in {PROFILE_TRIES} windows")
+    return ms
+
+
+def profiled_ms(torch, fn, name: str, reps: int = REPS) -> tuple:
+    """``device_ms``'s measurement without its last gate: ``(ms, seen)``,
+    ``ms`` None where no window showed all ``reps`` launches, ``seen`` the
+    profiler's count in each window. A short window also records, in
+    PROFILE_WINDOWS, the host's launch calls the profiler saw and each
+    kernel record's start, in us after the first launch call, so that the
+    records it lost can be placed."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
+
+    def calls():
+        for _ in range(reps):
+            fn()
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    seen = []
+    seen, short = [], []
     for _ in range(PROFILE_TRIES):
         with ops.recording_launches() as launched:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-        check(len(launched) == 1 and sum(launched.values()) == reps,
-              f"device_ms: the wrappers launched {launched} in {reps} calls "
-              f"timed as {name!r}")
+            averages, events = traced(torch, calls, calls)
+        check(len(launched) == 1 and sum(launched.values()) == 2 * reps,
+              f"device_ms: the wrappers launched {launched} in 2 x {reps} "
+              f"calls timed as {name!r}")
         [counter] = launched
         us, n = 0.0, 0
-        for ev in prof.key_averages():
+        for ev in averages:
             if ev.device_type == DeviceType.CUDA and name in ev.key:
                 t = getattr(ev, "self_device_time_total", None)
                 us += ev.self_cuda_time_total if t is None else t
@@ -217,21 +279,40 @@ def device_ms(torch, fn, name: str, reps: int = REPS) -> float:
               f"{name!r}, the wrappers made {reps}")
         if n == reps:
             break
+        launch_calls = [e.time_range.start for e in events
+                        if e.device_type == DeviceType.CPU
+                        and "LaunchKernel" in e.name]
+        t0 = min(launch_calls, default=0.0)
+        short.append({"launch_calls_seen": len(launch_calls),
+                      "kernel_start_us": [
+                          round(e.time_range.start - t0, 1) for e in events
+                          if e.device_type == DeviceType.CUDA
+                          and name in e.name],
+                      "launch_call_us": [round(c - t0, 1)
+                                         for c in launch_calls]})
     PROFILE_WINDOWS.setdefault(counter, []).append(
         {"kernel": name, "launched": reps, "seen": seen,
-         "windows": len(seen)})
-    check(n == reps, f"device_ms: the profiler showed {seen} of {reps} "
-          f"launches of {name!r} in {PROFILE_TRIES} windows")
-    return us / 1e3 / n
+         "windows": len(seen), "short_windows": short})
+    return (us / 1e3 / n if n == reps else None), seen
 
 
-def graph_ms(torch, fn, reps: int = REPS) -> float:
-    """Device ms per call of ``fn`` (a library call) by CUDA events around
-    the replay of one CUDA graph of ``reps`` captured calls, best of three
-    replays: the host's launch cost stays out, as in the route fit's
-    ``graph_time``."""
+def graph_ms(torch, fn, reps: int = REPS,
+             kernel: str | None = None) -> float:
+    """Device ms per call of ``fn`` by CUDA events around the replay of
+    one CUDA graph of ``reps`` captured calls, best of three replays: the
+    host's launch cost stays out, as in the route fit's ``graph_time``.
+    The wrappers' counts over the capture must show ``reps`` launches of
+    ``kernel`` (a port kernel's counter; one more for ``graph_time``'s
+    eager call before it), and none of any port kernel where ``kernel`` is
+    None (a library call)."""
+    from repro_torch.kernels import ops
     from repro_torch.launch.autotune_routes import graph_time
-    return graph_time(fn, inner=reps, repeats=3) * 1e3
+    with ops.recording_launches() as launched:
+        ms = graph_time(fn, inner=reps, repeats=3) * 1e3
+    want = {kernel: reps + 1} if kernel else {}
+    check({k: v for k, v in launched.items() if v} == want,
+          f"graph_ms: the wrappers launched {launched}, want {want}")
+    return ms
 
 
 def kernel_phase(torch, dev) -> dict:
@@ -698,28 +779,29 @@ def profile_phase(torch, step, batch, steps: int = 3) -> dict:
 
 def profile_fn(torch, fn, steps: int) -> dict:
     """``fn`` once to warm up, ``steps`` times on the host clock (peak
-    memory over those), then ``steps`` times under ``torch.profiler``:
+    memory over those), then ``steps`` times under ``torch.profiler``
+    (after ``steps`` traced warm-up calls, ``traced``):
     wall and device ms per call, device ms by kernel, idle share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    def calls():
+        for _ in range(steps):
+            fn()
 
     fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        fn()
+    calls()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
+    averages, _ = traced(torch, calls, calls)
     rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in averages:
+        # the schedule's step annotation has a device row of its own
+        if (ev.device_type != DeviceType.CUDA
+                or ev.key.startswith("ProfilerStep")):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -747,14 +829,16 @@ def profile_fn(torch, fn, steps: int) -> dict:
         "by_kernel": rows[:25]}
 
 
-def gained_tree(torch, cfg):
+def gained_tree(torch, cfg, conv0_gain: float = 1.0):
     """The seeded folded tree with the fixed gains that keep the IAND
-    residual stream firing."""
+    residual stream firing (conv0 ``conv0_gain`` times more)."""
     from repro_torch.core.spikformer import fold_inference_params, init
     from repro_torch.infer.quant import map_folded_layers
 
     def gain(path, layer):
         g = GAIN * (GAIN_RESIDUAL if path.endswith(("/wo", "/fc2")) else 1.0)
+        if path == "scs/conv0":
+            g *= conv0_gain
         return {**layer, "kernel": layer["kernel"] * g}
 
     return map_folded_layers(fold_inference_params(
@@ -769,12 +853,13 @@ def request_images(cfg) -> list:
             for n in REQUEST_SIZES]
 
 
-def per_step_launches(cfg, routes: dict) -> dict:
+def per_step_launches(cfg, routes: dict, dtype: str = "int8") -> dict:
     """Kernel launches a step makes under ``routes`` (empty for
     ``route="unpack"``): a LIF a layer and attention, the gather a lut
     layer, the fused kernel where fc2 gathers (it runs fc1's LIF and fc2's
-    gather), the int8 unpack dot every other unpack layer, the shift-sum
-    dot an unpack conv0, packed STDP a block."""
+    gather), the unpack dot of the weights' ``dtype`` (int8 or f32) every
+    other unpack layer, the shift-sum dot an unpack conv0, packed STDP a
+    block."""
     paths = [f"scs/conv{i}" for i in range(len(cfg.scs_channels))] + [
         f"blocks/b{i}/{w}" for i in range(cfg.depth)
         for w in ("ssa/wq", "ssa/wk", "ssa/wv", "ssa/wo", "mlp/fc1",
@@ -783,10 +868,10 @@ def per_step_launches(cfg, routes: dict) -> dict:
     fused = sum(route[f"blocks/b{i}/mlp/fc2"] == "lut"
                 for i in range(cfg.depth))
     n_lut = sum(r == "lut" for r in route.values())
+    unpack = "unpack_dot_s8" if dtype == "int8" else "unpack_dot"
     counts = {"tflif": len(paths) + cfg.depth - fused,
               "lut_gather": n_lut - fused, "fused_lif_lut": fused,
-              "unpack_dot_s8": len(paths) - n_lut
-              - (route["scs/conv0"] == "unpack"),
+              unpack: len(paths) - n_lut - (route["scs/conv0"] == "unpack"),
               "shift_sum": int(route["scs/conv0"] == "unpack"),
               "stdp_packed": cfg.depth}
     return {k: v for k, v in counts.items() if v}
@@ -1146,6 +1231,454 @@ def route_phase(torch, dev, cfg, folded, requests, batch,
         fragment=json.loads(text), routes=routes_by,
         route_counts=route_counts, cells=cells, launches=launches,
         engine_host_ms=engine_host_ms(requests))
+
+
+# the event workload: count frames carry event counts where conv0's fold
+# scales 8-bit pixels by 1/255, so the event paths gain conv0 by 255 more
+# (without it every layer is silent and every label 0)
+COUNT_GAIN = 255.0
+EVENT_WINDOW_US = 20_000
+EVENT_WINDOWS = 40
+EVENT_SESSIONS = 4
+EVENTS_TRACE = "benchmarks/traces/dvs_synth_mini.jsonl"
+
+
+@contextlib.contextmanager
+def cpu_branch_calls():
+    """Counts calls into the CPU branch's ops while the block runs (its
+    route resolution, its gather, packed STDP asked for the CPU branch):
+    ``{name: calls}``."""
+    from repro_torch.kernels import ops
+    calls = {}
+    saved = {name: getattr(ops, name) for name in (
+        "_resolve_route", "_cpu_gather", "stdp_attention_packed")}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            if name != "stdp_attention_packed" or kw.get("cpu_branch"):
+                calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(ops, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def graph_replays(model) -> int:
+    """Replays of every bucket's graph since the last reset."""
+    return sum(g.replays for g in model._fwd.graphs.values())
+
+
+def check_graphed_run(torch, model, per_step: dict, captures: int) -> dict:
+    """Launches since ``reset_counts`` of a graphed model that captured
+    ``captures`` bucket graphs in the window (each capture one eager run
+    and one recording, both ticking the wrappers) and replayed the rest:
+    eager launches are per_step x 2 x captures, replayed ones per_step x
+    the replays. Returns every kernel's total."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    eager, graphed = ops.launch_counts(), model.graph_launch_counts()
+    check_step_launches(eager, per_step, 2 * captures)
+    replays = graph_replays(model)
+    check_step_launches({k: graphed.get(k, 0) for k in eager}, per_step,
+                        replays)
+    return {k: eager[k] + graphed.get(k, 0) for k in eager}
+
+
+def events_cli_phase(torch, dev) -> dict:
+    """``serve_spikformer``'s event workload with ``--events --smoke``:
+    ``main`` on the synthetic trace and on ``--trace`` of the committed
+    fixture (the reference's event config, ``scaled(img_size=16, dim=32,
+    depth=1)`` with two polarity channels, the port's seeded ``init``, on
+    the reference's default plan, ``packed``, buckets (2, 8), graphed, on
+    the card), then ``main_events`` on the fixture with a model built here
+    from the gained tree (conv0 x COUNT_GAIN more) under the same plan,
+    since the untrained model is silent (every label 0). The CLI's own
+    smoke asserts gate (zero sheds and drops, SLO attainment 1.0, equal
+    ``labels_sha`` over the double replay); here, besides: the backend is
+    ``packed`` on its kernel branch, no call reached the CPU branch's ops,
+    and each kernel launched its per-step count for every capture and
+    replay. For the gained model: the labels are not all one class, its
+    graphed logits on the trace's count frames are bit-identical to
+    ``packed_plain``'s (``jit=False``, the same folded tree) at bucket 2
+    and at bucket 8, and the served labels equal ``packed_plain``'s."""
+    import numpy as np
+    from repro_torch.events import trace_to_load
+    from repro_torch.infer import compile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_spikformer as cli
+
+    out = {"config": "SpikformerConfig().scaled(img_size=16, dim=32, "
+                     "depth=1), in_channels=2; ExecutionPlan(backend="
+                     "'packed', batch_buckets=(2, 8)), jit=True",
+           "runs": [], "launches": {}}
+    fixture = ["--trace", str(ROOT / EVENTS_TRACE)]
+    for flags, gained in (([], False), (fixture, False), (fixture, True)):
+        args = cli.parse_args(["--events", "--smoke", *flags])
+        ops.reset_launch_counts()
+        with cpu_branch_calls() as calls:
+            try:
+                if gained:
+                    trace = cli.event_trace(args)
+                    cfg = cli.event_config(trace)
+                    model = compile(gained_tree(torch, cfg,
+                                                conv0_gain=COUNT_GAIN),
+                                    cfg, cli.plan_from_args(args),
+                                    folded=True, device=dev)
+                    summary = cli.main_events(args, model, model.warmup())
+                else:
+                    summary = cli.main(["--events", "--smoke", *flags])
+            except AssertionError as e:
+                raise CheckFailed(f"events CLI {flags}: smoke gate: {e}")
+        model = summary.pop("model")
+        what = f"events CLI {flags}{' gained' if gained else ''}"
+        check(model.plan.backend == "packed" and model.backend.name ==
+              "packed" and model.backend.pallas and not model.backend.plain,
+              f"{what}: not the packed backend's kernels")
+        check(not calls, f"{what}: the CPU branch ran: {calls}")
+        runs = summary.pop("runs")
+        check(all(r["requests_rejected"] == 0 and r["requests_dropped"] == 0
+                  and r["slo_attainment"] == 1.0 for r in runs)
+              and len({r["labels_sha"] for r in runs}) == 1 and len(runs) == 2,
+              f"{what}: the smoke contract failed")
+        per_step = per_step_launches(model.cfg, model.plan.routes,
+                                     model.weight_dtype)
+        launches = check_graphed_run(torch, model, per_step,
+                                     captures=len(model.buckets))
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        row = {
+            "trace": summary["trace"], "gained": gained,
+            "backend": summary["backend"],
+            "routes": sorted(set(model.plan.routes.values())),
+            "windows": summary["windows"], "labels_sha": summary["labels_sha"],
+            "slo_attainment": summary["slo_attainment"],
+            "requests_rejected": summary["requests_rejected"],
+            "latency_p50_s": summary["latency_p50_s"],
+            "latency_p99_s": summary["latency_p99_s"],
+            "per_step_launches": per_step, "replays": graph_replays(model),
+            "launches": {k: v for k, v in launches.items() if v},
+            "cpu_branch_calls": sum(calls.values())}
+        if gained:
+            # comparison launches, after the counted window
+            _, make = trace_to_load(trace)
+            frames = np.concatenate([make(k, 1)
+                                     for k in range(len(trace.arrivals))])
+            plain = compile(model.folded, model.cfg, dataclasses.replace(
+                model.plan, backend="packed_plain"), folded=True, device=dev,
+                jit=False)
+            row["held_to_packed_plain"] = held_to_plain(
+                torch, model, plain, frames, what)
+            labels = [lab for labs in summary["labels"] for lab in labs]
+            want = plain.classify(frames).tolist()
+            check(labels == want, f"{what}: served labels {labels} differ "
+                  f"from packed_plain's {want}")
+            check(len(set(labels)) > 1, f"{what}: every window got one label")
+            row.update(labels=labels, distinct_labels=len(set(labels)))
+            del plain
+            ops.reset_launch_counts()
+        out["runs"].append(row)
+        del model
+    return out
+
+
+def held_to_plain(torch, model, plain, frames, what: str) -> dict:
+    """The graphed ``model``'s logits on ``frames`` held bit-identical to
+    ``plain``'s (the same tree on ``packed_plain``), at every bucket of
+    ``model``: at bucket b, each whole run of b frames from the first.
+    Returns ``{bucket: frames compared}``."""
+    out = {}
+    for b in model.buckets:
+        n = len(frames) // b * b
+        check(n > 0, f"{what}: fewer frames than bucket {b}")
+        for lo in range(0, n, b):
+            x = torch.from_numpy(frames[lo:lo + b]).to(model.device)
+            got, want = model.step(x), plain.step(x)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()) and bool((got != 0).any()),
+                  f"{what}: logits non-finite or all zero at bucket {b}")
+            check(torch.equal(got, want), f"{what}: logits at bucket {b} "
+                  f"differ from packed_plain's by "
+                  f"{float((got - want).abs().max())}")
+        out[b] = n
+    return out
+
+
+def event_streams(size: int, seeds) -> list:
+    """One DVS stream a seed: a moving edge sweeping the sensor once and
+    four flicker bursts, EVENT_WINDOWS windows long."""
+    from repro_torch.events import (flicker_burst_events, merge_streams,
+                                    moving_edge_events)
+    kw = dict(height=size, width=size,
+              duration_us=EVENT_WINDOWS * EVENT_WINDOW_US)
+    return [merge_streams(moving_edge_events(seed=s, **kw),
+                          flicker_burst_events(seed=s + 100, bursts=4, **kw))
+            for s in seeds]
+
+
+def serve_event_sessions(model, streams, policy) -> tuple:
+    """One pass of ``streams`` through fresh ``EventStreamSession``s (one a
+    stream, capturing their count frames) on a fresh ``AsyncServeRuntime``
+    over ``model``, each fed window by window at its recorded times.
+    Returns ``(sessions, elapsed seconds, runtime stats)``."""
+    from repro_torch.events import EventStreamSession
+    from repro_torch.serve import AsyncServeRuntime
+
+    size = model.cfg.img_size
+    with AsyncServeRuntime(model, policy=policy) as rt:
+        sessions = [EventStreamSession(
+            rt, window_us=EVENT_WINDOW_US, height=size, width=size,
+            capture=True) for _ in streams]
+        t_start = time.perf_counter()
+        for w in range(EVENT_WINDOWS):
+            lo, hi = w * EVENT_WINDOW_US, (w + 1) * EVENT_WINDOW_US
+            time.sleep(max(0.0, t_start + lo / 1e6 - time.perf_counter()))
+            for s, stream in zip(sessions, streams):
+                s.feed(stream.slice_time(lo, hi))
+        time.sleep(max(0.0, t_start + EVENT_WINDOWS * EVENT_WINDOW_US / 1e6
+                       - time.perf_counter()))
+        for s in sessions:
+            s.close(timeout=120)
+        elapsed = time.perf_counter() - t_start
+        stats = rt.stats()
+    return sessions, elapsed, stats
+
+
+def events_full_width_phase(torch, dev) -> dict:
+    """A synthetic DVS stream served at the paper model's widths:
+    V2-8-512 (dim 512, depth 8, heads 8, T=4) on a 128x128 two-polarity
+    sensor (DVS128 / CIFAR10-DVS resolution), 10 classes, the gained tree
+    with conv0 x COUNT_GAIN more, int8, ``packed``, buckets (1, 8),
+    graphed. Four ``EventStreamSession``s on one ``AsyncServeRuntime``,
+    each fed its own stream (seeds 0-3) window by window at its recorded
+    times: 40 windows of 20 ms a session. Served twice: once untraced,
+    which gives windows/s and the latencies, and once under
+    ``torch.profiler``, which gives the card's idle share (its host cost
+    stretches that pass). Gates: no window shed, every window labelled,
+    each label equal to ``classify`` of its count frame and the same in
+    both passes, not all one class, the graphed logits on the count
+    frames bit-identical to ``packed_plain``'s at bucket 1 and bucket 8,
+    no call into the CPU branch, and the launches of the warm-up's
+    captures and of every replay at their per-step counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+    from repro_torch.core.spikformer import SpikformerConfig
+    from repro_torch.events import events_to_frame
+    from repro_torch.infer import ExecutionPlan, compile
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServePolicy
+
+    cfg = dataclasses.replace(SpikformerConfig(), img_size=128,
+                              in_channels=2, num_classes=10)
+    folded = gained_tree(torch, cfg, conv0_gain=COUNT_GAIN)
+    streams = event_streams(cfg.img_size, range(EVENT_SESSIONS))
+    t0 = time.perf_counter()
+    model = compile(folded, cfg, ExecutionPlan(
+        backend="packed", weight_dtype="int8", batch_buckets=(1, BATCH)),
+        folded=True, device=dev)
+    compile_s = time.perf_counter() - t0
+    check(model.backend.name == "packed" and model.backend.pallas,
+          "the full-width event model is not on the packed kernels")
+    per_step = per_step_launches(cfg, model.plan.routes, "int8")
+    policy = ServePolicy(max_wait_ms=5.0, slo_ms=100.0, max_queue_images=512)
+    reset_counts(model)
+    with cpu_branch_calls() as calls:
+        warmup_s = model.warmup()
+        sessions, elapsed, stats = serve_event_sessions(model, streams,
+                                                        policy)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced, traced_elapsed, traced_stats = serve_event_sessions(
+                model, streams, policy)
+            torch.cuda.synchronize()
+    check(not calls, f"full-width events: the CPU branch ran: {calls}")
+    launches = check_graphed_run(torch, model, per_step,
+                                 captures=len(model.buckets))
+    by_kernel = sorted(
+        ((ev.key[:60], (getattr(ev, "self_device_time_total", None)
+                        or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3,
+          ev.count)
+         for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA),
+        key=lambda r: -r[1])
+    device_us = sum(ms for _, ms, _ in by_kernel) * 1e3
+    rows = [r for s in sessions for r in s.windows]
+    labels = [r["label"] for r in rows]
+    check(sum(s.windows_shed for s in sessions + traced) == 0,
+          "full-width events: a window was shed")
+    check(len(rows) == EVENT_SESSIONS * EVENT_WINDOWS
+          and None not in labels,
+          f"full-width events: {len(rows)} windows, "
+          f"{labels.count(None)} unlabelled")
+    check([r["label"] for s in traced for r in s.windows] == labels,
+          "full-width events: the traced pass's labels differ")
+    frames = np.stack([events_to_frame(ev) for s in sessions
+                       for _, _, ev in s.captured])
+    want = model.classify(frames).tolist()
+    check(labels == want, "full-width events: served labels differ from "
+          "classify of the count frames")
+    check(len(set(labels)) > 1, "full-width events: every window got one "
+          "label")
+    # comparison launches, after the counted window
+    plain = compile(model.folded, cfg, dataclasses.replace(
+        model.plan, backend="packed_plain"), folded=True, device=dev,
+        jit=False)
+    held = held_to_plain(torch, model, plain, frames, "full-width events")
+    del plain
+    torch.cuda.empty_cache()
+    occ = [r["occupancy"] for r in rows]
+    # where a step's time goes at both buckets, on the sessions' frames
+    steps = {b: profile_phase(torch, model.step, torch.from_numpy(
+        frames[:b]).to(dev)) for b in model.buckets}
+    ops.reset_launch_counts()
+    return dict(
+        config="SpikformerConfig() V2-8-512 at 128x128x2, 10 classes; "
+               "gained tree, conv0 x255 more; int8, packed, buckets (1, 8), "
+               "jit=True; 4 sessions x 40 windows of 20 ms on one runtime, "
+               "served twice (untraced, then under torch.profiler)",
+        compile_s=compile_s, warmup_s=warmup_s, routes=model.plan.routes,
+        per_step_launches=per_step, replays=graph_replays(model),
+        launches={k: v for k, v in launches.items() if v},
+        windows=len(rows), elapsed_s=elapsed,
+        windows_per_s=len(rows) / elapsed,
+        latency_p50_s=stats["latency_p50_s"],
+        latency_p99_s=stats["latency_p99_s"], batches=stats["batches"],
+        pad_waste=stats["pad_waste"], step_fps=stats["fps"],
+        held_to_packed_plain=held,
+        mean_window_occupancy=float(np.mean(occ)),
+        mean_firing_rate=float(np.mean([r["firing_rate"] for r in rows])),
+        events=sum(len(s) for s in streams),
+        distinct_labels=len(set(labels)),
+        traced=dict(elapsed_s=traced_elapsed,
+                    latency_p50_s=traced_stats["latency_p50_s"],
+                    latency_p99_s=traced_stats["latency_p99_s"],
+                    batches=traced_stats["batches"],
+                    device_ms=device_us / 1e3,
+                    idle_share=1.0 - device_us / 1e3
+                    / (traced_elapsed * 1e3)),
+        top_kernels_ms=by_kernel[:10], cpu_branch_calls=0,
+        all_launches=launches,
+        step_profiles={b: {k: p[k] for k in (
+            "wall_ms_per_step", "device_ms_per_step", "idle_share",
+            "launches_per_step", "glue_ms_per_step")}
+            | {"top_kernels": [(r["kernel"][:48], r["ms_per_step"],
+                                r["launches_per_step"])
+                               for r in p["by_kernel"][:8]]}
+            for b, p in steps.items()})
+
+
+def packed_default_f32_phase(torch, dev, cfg, folded, batch) -> dict:
+    """The reference's default plan, ``ExecutionPlan()`` with backend
+    ``packed`` (the port's ``ExecutionPlan()`` names ``packed_cuda``,
+    which runs the same kernels), on the f32 gained tree: bucket 8,
+    graphed. Under the 16 MiB table cap conv0-2 gather and conv3, the SSA
+    linears, fc1 and fc2 run the f32 grouped unpack dot
+    (``csrc/unpack_dot.cu``). One step's launches are gated at the plan's
+    per-step counts; its logits are bit-identical to the eager step's and,
+    the f32 unpack dot summing in another order than the plain matmul
+    (held to a tolerance, as the reference's Pallas unpack route is), give
+    ``packed_plain``'s labels with logits within atol 1e-3 + rtol 1e-3.
+    Then the step is profiled graphed, and the unpack dot timed alone at
+    each of its layer shapes (CUDA events around a captured graph of 20
+    calls, as the library calls are timed)."""
+    from repro_torch.core.spike import pack_timesteps, unpack_timesteps
+    from repro_torch.infer import ExecutionPlan, compile
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spike_matmul import spike_matmul_grouped
+
+    t0 = time.perf_counter()
+    model = compile(folded, cfg, ExecutionPlan(backend="packed"),
+                    folded=True, device=dev)
+    compile_s = time.perf_counter() - t0
+    routes = model.plan.routes
+    check(model.weight_dtype == "float32" and model.buckets == (BATCH,)
+          and model.backend.pallas, "the default plan is not f32, bucket 8, "
+          "on the kernels")
+    want_routes = {p: "lut" if p in ("scs/conv0", "scs/conv1", "scs/conv2")
+                   else "unpack" for p in routes}
+    check(routes == want_routes,
+          f"the default f32 plan's routes differ from the cap's: {routes}")
+    per_step = per_step_launches(cfg, routes, "float32")
+    with cpu_branch_calls() as calls:
+        warmup_s = model.warmup()
+        reset_counts(model)
+        logits = model.step(batch)
+        launches = read_counts(torch, model)
+    check(not calls, f"default f32 plan: the CPU branch ran: {calls}")
+    check_step_launches(launches, per_step, 1)
+    graph = check_graph_logits(torch, model, batch, "default f32 plan")
+    check(torch.equal(graph, logits), "default f32 plan: two replays differ")
+    plain = compile(model.folded, cfg, dataclasses.replace(
+        model.plan, backend="packed_plain"), folded=True, device=dev,
+        jit=False)
+    want = plain.step(batch)
+    torch.cuda.synchronize()
+    del plain
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(logits).all()) and bool((logits != 0).any()),
+          "default f32 plan: logits non-finite or all zero")
+    err = float((logits - want).abs().max())
+    check(bool(((logits - want).abs() <= 1e-3 + 1e-3 * want.abs()).all())
+          and torch.equal(logits.argmax(-1), want.argmax(-1)),
+          f"default f32 plan: logits off packed_plain's by {err}")
+    final_occ, _ = final_firing(model, batch)
+    prof = profile_phase(torch, model.step, batch)
+    # the unpack dot alone at each layer shape of the step (comparison
+    # launches, after the gated window)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t, tokens, dim = cfg.timesteps, cfg.tokens, cfg.dim
+    by_shape = {}
+    for name, rows, k_in, n_out, layers in (
+            ("conv3", BATCH * tokens, 4 * cfg.scs_channels[2], dim, 1),
+            ("q/k/v/wo", BATCH * tokens, dim, dim, 4 * cfg.depth),
+            ("fc1", BATCH * tokens, dim, 4 * dim, cfg.depth),
+            ("fc2", BATCH * tokens, 4 * dim, dim, cfg.depth)):
+        x = pack_timesteps((torch.rand((t, rows, k_in), generator=gen,
+                                       device=dev) < FIRING_RATE).to(
+            torch.uint8))
+        w = torch.randn((k_in, n_out), generator=gen, device=dev)
+        got, ref_out = spike_matmul_grouped(x, w, t=t), ref.spike_matmul_ref(
+            x, w, t=t)
+        check(bool(((got - ref_out).abs() <= 1e-3 + 1e-5 * ref_out.abs())
+                   .all()), f"unpack_dot at {name} off its plain version")
+        ms = graph_ms(torch, lambda: spike_matmul_grouped(x, w, t=t),
+                      kernel="unpack_dot")
+        prof_ms, seen = profiled_ms(
+            torch, lambda: spike_matmul_grouped(x, w, t=t),
+            "unpack_dot_kernel")
+        b_ms, b_by = bound_ms(x.numel() + w.numel() * 4 + got.numel() * 4,
+                              2 * t * rows * k_in * n_out, F32_OPS_PER_S)
+        planes = unpack_timesteps(x, t).reshape(t * rows, k_in)
+        by_shape[name] = dict(
+            shape=f"x {tuple(x.shape)} u8, w ({k_in}, {n_out}) f32, t={t}",
+            ms=ms, profiler_ms=prof_ms, profiler_seen=seen,
+            layers_per_step=layers, ms_per_step=ms * layers,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=graph_ms(torch, lambda: torch.matmul(planes, w)))
+        del x, w, got, ref_out, planes
+    ops.reset_launch_counts()     # comparison launches do not count
+    unpack_rows = [r for r in prof["by_kernel"]
+                   if "unpack_dot_kernel" in r["kernel"]]
+    return dict(
+        config="SpikformerConfig() V2-8-512; the reference's default plan "
+               "ExecutionPlan(): packed, float32, bucket 8, jit=True",
+        compile_s=compile_s, warmup_s=warmup_s, routes=routes,
+        per_step_launches=per_step, steps=1, launches=launches,
+        max_abs_logit_err_vs_plain=err, labels=logits.argmax(-1).tolist(),
+        final_residual_occupancy=final_occ,
+        wall_ms=prof["wall_ms_per_step"],
+        device_ms=prof["device_ms_per_step"], idle_share=prof["idle_share"],
+        unpack_dot_ms_per_step_in_graph=sum(r["ms_per_step"]
+                                            for r in unpack_rows),
+        unpack_dot_launches_per_step_in_graph=sum(
+            r["launches_per_step"] for r in unpack_rows),
+        unpack_dot_by_shape=by_shape, profile=prof)
 
 
 SERVE_TRACE = ROOT / "build" / "serve_trace.jsonl"
@@ -1632,7 +2165,7 @@ def lm_gate_phase(torch, dev, eng) -> dict:
 EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
               "ms_fc1_f32", "bound_ms_fc1_f32", "library_ms_fc1_f32",
-              "ms_conv0_int16", "ms_conv0_f32")
+              "ms_conv0_int16", "ms_conv0_f32", "ms_packed_default_f32")
 
 
 def kernel_table(report: dict, paths) -> list:
@@ -1642,8 +2175,8 @@ def kernel_table(report: dict, paths) -> list:
     table = []
     for name, row in report["kernels"].items():
         source, replaces = SOURCES[name]
-        launches = {p: report[p]["launches"][name] for p in paths
-                    if report[p]["launches"][name]}
+        launches = {p: report[p]["launches"].get(name, 0) for p in paths
+                    if report[p]["launches"].get(name, 0)}
         check(bool(launches) != (name in OFF_PATH),
               f"{name} was launched on {launches or 'no path'}")
         table.append({"name": name, "route": "cuda", "source": source,
@@ -1694,7 +2227,9 @@ def main() -> int:
               "build_logs": {k: v["log"] for k, v in build.items()}}
     out_dir = ROOT / "build"
     paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step",
-             "int8_route_fit", "serving_stack", "lm_serve", "lm_gate")
+             "int8_route_fit", "serving_stack", "events_cli",
+             "events_full_width", "packed_default_f32", "lm_serve",
+             "lm_gate")
     try:
         report["kernels"] = kernel_phase(torch, dev)
         for k, row in report["kernels"].items():
@@ -1718,10 +2253,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         report[paths[4]] = serving_stack_phase(torch, dev, cfg, folded)
         torch.cuda.empty_cache()
-        report[paths[5]], lm_engine = lm_serve_phase(torch, dev)
+        report[paths[5]] = events_cli_phase(torch, dev)
+        torch.cuda.empty_cache()
+        report[paths[6]] = events_full_width_phase(torch, dev)
+        torch.cuda.empty_cache()
+        report[paths[7]] = packed_default_f32_phase(torch, dev, cfg, folded,
+                                                    batch)
+        report["kernels"]["unpack_dot"]["ms_packed_default_f32"] = {
+            k: v["ms"] for k, v in
+            report[paths[7]]["unpack_dot_by_shape"].items()}
+        torch.cuda.empty_cache()
+        report[paths[8]], lm_engine = lm_serve_phase(torch, dev)
         report["kernels"]["flash_attention_tc"]["ms_in_graph"] = \
-            graphed_flash_ms(report[paths[5]]["profile_prefill_2048"])
-        report[paths[6]] = lm_gate_phase(torch, dev, lm_engine)
+            graphed_flash_ms(report[paths[8]]["profile_prefill_2048"])
+        report[paths[9]] = lm_gate_phase(torch, dev, lm_engine)
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -1759,6 +2304,19 @@ def main() -> int:
     stack = report["serving_stack"]
     print(json.dumps({"serving_stack": {k: stack[k] for k in (
         "closed", "async", "fleet", "swap", "per_step_launches")}}))
+    print(json.dumps({"events_cli": report["events_cli"]["runs"]}))
+    print(json.dumps({"events_full_width": {
+        k: v for k, v in report["events_full_width"].items()
+        if k not in ("routes", "all_launches")}}))
+    f32 = report["packed_default_f32"]
+    print(json.dumps({"packed_default_f32": {
+        k: f32[k] for k in (
+            "per_step_launches", "launches", "max_abs_logit_err_vs_plain",
+            "final_residual_occupancy", "wall_ms", "device_ms", "idle_share",
+            "unpack_dot_ms_per_step_in_graph",
+            "unpack_dot_launches_per_step_in_graph", "unpack_dot_by_shape")},
+        "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
+                        for k in f32["profile"]["by_kernel"][:8]]}))
     lm = report["lm_serve"]
     for name in ("eager", "cold", "warm"):
         run = lm["passes"][name]

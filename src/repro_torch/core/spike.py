@@ -22,6 +22,27 @@ def _shifts(x: torch.Tensor, ndim: int) -> torch.Tensor:
     return shifts.reshape((8,) + (1,) * ndim)
 
 
+def pack_bits(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pack a binary {0,1} tensor along ``axis`` (a multiple of 8 long)
+    into uint8, bit i of a byte = element ``8j + i``; the axis shrinks 8x."""
+    x = torch.movedim(x, axis, -1)
+    if x.shape[-1] % 8:
+        raise ValueError(f"pack axis {x.shape[-1]} not a multiple of 8")
+    x = x.reshape(*x.shape[:-1], x.shape[-1] // 8, 8).to(torch.uint8)
+    packed = (x << _shifts(x, 0)).sum(dim=-1, dtype=torch.uint8)
+    return torch.movedim(packed, -1, axis)
+
+
+def unpack_bits(x: torch.Tensor, axis: int = -1, *, count: int = 8,
+                dtype=torch.float32) -> torch.Tensor:
+    """Inverse of ``pack_bits``: uint8 -> {0,1}; the axis grows 8x (or
+    ``count`` bits a byte, the low ones, for ``count < 8``)."""
+    x = torch.movedim(x, axis, -1)
+    bits = (x.unsqueeze(-1) >> _shifts(x, 0)[:count]) & 1
+    bits = bits.reshape(*x.shape[:-1], x.shape[-1] * count).to(dtype)
+    return torch.movedim(bits, -1, axis)
+
+
 def num_plane_groups(t: int) -> int:
     """Number of uint8 plane groups needed for a T-timestep spike train."""
     if t < 1:
@@ -74,6 +95,45 @@ def packed_occupancy(packed, t: int) -> float:
     if not neurons:
         return 0.0
     return float(np.unpackbits(x.reshape(-1)).sum()) / (t * neurons)
+
+
+def structured_spikes(generator: torch.Generator, *, t: int, shape: tuple,
+                      rate: float, chunk: int = 8,
+                      group_rate: float = 0.9) -> torch.Tensor:
+    """Random packed spikes at firing rate ``rate`` with channel-structured
+    sparsity, drawn from ``generator`` on its device: an exact count,
+    ``max(1, round(rate / group_rate * groups))``, of the ``chunk``-aligned
+    channel groups is active (shared across rows and timesteps) and only
+    those fire, each active channel at ``rate * groups / n_active``.
+    Returns ``(G, *shape)`` uint8 plane groups.
+
+    The contract (the reference's, whose bits come from JAX's RNG): the
+    active-group fraction is ``rate / group_rate``, so a K-chunk of 8
+    channels is live only where its group is active and the CHUNK
+    occupancy the sparse route's budget is sized from tracks the firing
+    rate ~1:1 (iid bits at rate p leave almost no chunk all-zero). The
+    last axis of ``shape`` is the channel axis, a multiple of ``chunk``;
+    ``rate`` must not exceed ``group_rate``."""
+    if not 0.0 <= rate <= group_rate <= 1.0:
+        raise ValueError(f"need 0 <= rate <= group_rate <= 1, got "
+                         f"{rate!r}, {group_rate!r}")
+    *lead, channels = shape
+    if channels % chunk:
+        raise ValueError(f"{channels} channels are not whole {chunk}-chunks")
+    dev = generator.device
+    if rate == 0.0:
+        return torch.zeros((num_plane_groups(t), *shape), dtype=torch.uint8,
+                           device=dev)
+    groups = channels // chunk
+    n_active = max(1, round(rate / group_rate * groups))
+    active = torch.zeros(groups, dtype=torch.bool, device=dev)
+    active[torch.randperm(groups, generator=generator,
+                          device=dev)[:n_active]] = True
+    active = active.repeat_interleave(chunk)          # (channels,) mask
+    p = min(1.0, rate * groups / n_active)
+    bits = torch.rand((t, *lead, channels), generator=generator,
+                      device=dev) < p
+    return pack_timesteps(bits & active)
 
 
 def rate_decode(spikes: torch.Tensor, axis: int = 0) -> torch.Tensor:

@@ -108,44 +108,59 @@ def fold_inference_params(params: dict, cfg: SpikformerConfig) -> dict:
 
 
 def forward_folded(folded: dict, images_u8: torch.Tensor,
-                   cfg: SpikformerConfig, *, backend) -> torch.Tensor:
+                   cfg: SpikformerConfig, *, backend,
+                   layer_occupancy: dict | None = None) -> torch.Tensor:
     """The inference forward over a BN-folded (optionally int8-quantized,
     optionally route-annotated) tree through ``backend``: matmuls and LIF
     comparisons only, every activation between layers a spike train. The
-    op order is the reference's. Returns (B, num_classes) logits."""
+    op order is the reference's. ``layer_occupancy`` maps the paths of
+    layers a plan routed "lut_sparse" to their calibrated chunk
+    occupancy; it reaches a backend method as ``occupancy`` only for those
+    layers. Returns (B, num_classes) logits."""
     t = cfg.timesteps
+    occ = layer_occupancy or {}
 
-    def wssl(z, layer):
+    def extra(path):
+        o = occ.get(path)
+        return {} if o is None else {"occupancy": o}
+
+    def wssl(z, layer, path):
         return backend.wssl_lif(z, layer["kernel"], layer["bias"], t=t,
                                 scale=layer.get("scale"), lut=layer.get("lut"),
-                                kmajor=layer.get("kernel_kmajor"))
+                                kmajor=layer.get("kernel_kmajor"),
+                                **extra(path))
 
     c0 = folded["scs"]["conv0"]
     x = backend.sssc_lif(images_u8, c0["kernel"], c0["bias"], t=t,
-                         scale=c0.get("scale"), lut=c0.get("lut"))
+                         scale=c0.get("scale"), lut=c0.get("lut"),
+                         **extra("scs/conv0"))
     for i in range(1, len(cfg.scs_channels)):
         ci = folded["scs"][f"conv{i}"]
         x = backend.zsc_lif(x, ci["kernel"], ci["bias"], t=t,
                             scale=ci.get("scale"), lut=ci.get("lut"),
-                            kmajor=ci.get("kernel_kmajor"))
+                            kmajor=ci.get("kernel_kmajor"),
+                            **extra(f"scs/conv{i}"))
     x = backend.to_tokens(x)
 
     for i in range(cfg.depth):
         blk = folded["blocks"][f"b{i}"]
         ssa, mlp = blk["ssa"], blk["mlp"]
-        q = wssl(x, ssa["wq"])
-        k = wssl(x, ssa["wk"])
-        v = wssl(x, ssa["wv"])
+        bp = f"blocks/b{i}"
+        q = wssl(x, ssa["wq"], f"{bp}/ssa/wq")
+        k = wssl(x, ssa["wk"], f"{bp}/ssa/wk")
+        v = wssl(x, ssa["wv"], f"{bp}/ssa/wv")
         att = backend.stdp_lif(q, k, v, heads=cfg.heads,
                                scale=cfg.attn_scale, t=t)
-        att = wssl(att, ssa["wo"])
+        att = wssl(att, ssa["wo"], f"{bp}/ssa/wo")
         x = backend.residual(att, x, cfg.residual)
         # a backend may fuse fc1 -> LIF -> fc2 into one kernel; None means
         # "not here" and the two-layer composition runs (bit-identical)
         pair = getattr(backend, "mlp_pair_lif", None)
-        s2 = None if pair is None else pair(x, mlp["fc1"], mlp["fc2"], t=t)
+        s2 = None if pair is None else pair(x, mlp["fc1"], mlp["fc2"], t=t,
+                                            **extra(f"{bp}/mlp/fc1"))
         if s2 is None:
-            s2 = wssl(wssl(x, mlp["fc1"]), mlp["fc2"])
+            s2 = wssl(wssl(x, mlp["fc1"], f"{bp}/mlp/fc1"), mlp["fc2"],
+                      f"{bp}/mlp/fc2")
         x = backend.residual(s2, x, cfg.residual)
 
     rate = backend.rate(x, t=t)                         # (B, D)

@@ -3,7 +3,10 @@
 ``MicroBatchEngine`` serves it (and ``replicate_model`` makes the copies
 the multi-replica fleet serves). Every serving surface implements the
 ``ServeClient`` protocol with the versioned ``serve_stats`` schema."""
-from .compile import (CompiledModel, ExecutionPlan, compile, plan_chunks,
+from .backends import (OccupancyRecorder, PackedBackend, chunk_occupancy,
+                       spike_occupancy, value_chunk_occupancy)
+from .compile import (CompiledModel, ExecutionPlan,
+                      calibrate_layer_occupancy, compile, plan_chunks,
                       replicate_model)
 from .engine import (PAPER_FPS, SERVE_STATS_VERSION, MicroBatchEngine,
                      QueueDepthWatermark, Request, ServeClient,
@@ -14,12 +17,13 @@ from .registry import (BackendSpec, backend_spec, list_backends,
 __all__ = [
     # compile half
     "ExecutionPlan", "CompiledModel", "compile", "plan_chunks",
-    "replicate_model",
+    "replicate_model", "calibrate_layer_occupancy",
     # serve half
     "MicroBatchEngine", "Request", "PAPER_FPS", "batch_occupancy",
     "ServeClient", "serve_stats", "SERVE_STATS_VERSION",
     "QueueDepthWatermark",
-    # registry
-    "BackendSpec", "register_backend", "unregister_backend",
+    # backends, occupancy readouts and registry
+    "PackedBackend", "OccupancyRecorder", "spike_occupancy",
+    "chunk_occupancy", "value_chunk_occupancy", "BackendSpec", "register_backend", "unregister_backend",
     "backend_spec", "list_backends",
 ]

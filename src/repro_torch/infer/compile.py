@@ -43,7 +43,8 @@ from ..core.spikformer import SpikformerConfig, fold_inference_params
 from ..device import (GraphCapturer, StepGraph, graph_launch_counts,
                       resolve_device)
 from ..kernels import lut_matmul
-from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
+from ..kernels.lut_matmul import (RouteConstants, choose_cuda_route,
+                                  choose_route)
 from ..kernels.spike_matmul import kmajor_weights
 
 ROUTES = ("auto", "unpack", "lut")
@@ -168,29 +169,34 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
                       constants: RouteConstants | None = None,
                       routes: dict | None = None,
                       layer_occupancy: dict | None = None,
-                      force: str | None = None):
+                      force: str | None = None, cpu_branch: bool = False):
     """Pass 3: per-layer route planning. For each layer, the matmul shape
     (M, K, N, G) the step sees at ``batch_size`` goes to
-    ``choose_cuda_route`` (or ``force`` pins one route everywhere, or a
-    pinned ``routes`` mapping is replayed); LUT layers get their
-    (C, 256, N) table built once into a ``lut`` leaf (a True flag with
+    ``choose_cuda_route``, or with ``cpu_branch`` (a ``packed`` backend on
+    its CPU branch) to the reference's ``choose_route``, which weighs the
+    zero-chunk-skipping gather where ``layer_occupancy`` holds the layer's
+    calibration (or ``force`` pins one route everywhere, or a pinned
+    ``routes`` mapping is replayed); LUT layers get their (C, 256, N)
+    table built once into a ``lut`` leaf (a True flag with
     ``build_tables=False``), and int8 unpack layers their K-major copy
-    (``with_kmajor``; none with ``build_tables=False``). A pinned
-    "lut_sparse" needs its calibrated
-    occupancy, as in the reference, and runs the dense gather here.
-    Returns ``(annotated_tree, routes)``."""
+    (``with_kmajor``; none with ``build_tables=False`` or on the CPU
+    branch, which never reads it). A "lut_sparse" route needs its
+    calibrated occupancy, as in the reference; the kernels run it as the
+    dense gather, bitwise the same. Returns ``(annotated_tree, routes)``."""
     occ_map = layer_occupancy or {}
     plan = {}
+    choose = choose_route if cpu_branch else choose_cuda_route
 
     def annotate(path, layer):
         wq = layer["kernel"]
         if routes is None:
             m, tt, gg = layer_shape(cfg, path, batch_size)
             k, n = wq.shape
-            route = force or choose_cuda_route(
+            route = force or choose(
                 m=m, k=k, n=n, g=gg, t=tt,
                 weights_are_int=lut_matmul.is_int_kernel(wq),
-                max_table_bytes=max_table_bytes, constants=constants)
+                max_table_bytes=max_table_bytes, constants=constants,
+                occupancy=occ_map.get(path))
         else:
             if path not in routes:
                 raise ValueError(f"pinned route plan has no entry for layer "
@@ -207,7 +213,7 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
                  if k2 not in ("lut", "kernel_kmajor")}
         if route in ("lut", "lut_sparse"):
             layer["lut"] = lut_matmul.build_lut(wq) if build_tables else True
-        elif build_tables:
+        elif build_tables and not cpu_branch:
             layer = with_kmajor(path, layer)
         return layer
 
@@ -241,6 +247,40 @@ def linear_layer_paths(cfg: SpikformerConfig) -> list:
         paths += [f"blocks/b{i}/ssa/{w}" for w in ("wq", "wk", "wv", "wo")]
         paths += [f"blocks/b{i}/mlp/fc1", f"blocks/b{i}/mlp/fc2"]
     return paths
+
+
+def calibrate_layer_occupancy(params, cfg: SpikformerConfig, images_u8, *,
+                              folded: bool = False,
+                              weight_dtype: str | None = None,
+                              device=None) -> dict:
+    """Per-layer chunk occupancy of a calibration batch: one eager forward
+    on ``device`` (default: the card) through ``backends.OccupancyRecorder``
+    (the CPU branch's dense routes, noting before each spiking linear the
+    fraction of nonzero chunk-index bytes in its input), zipped with
+    ``linear_layer_paths``. The result is the ``layer_occupancy`` mapping
+    an ``ExecutionPlan`` commits: measured, JSON-serializable, replayable."""
+    device = resolve_device(device)
+    tree = to_device(fold_bn(params, cfg, folded=folded), device)
+    tree, _ = quantize_weights(tree, weight_dtype)
+    if isinstance(images_u8, np.ndarray):
+        images_u8 = torch.from_numpy(np.ascontiguousarray(images_u8))
+    recorder = _backends.OccupancyRecorder()
+    lower(tree, cfg, recorder, jit=False)(
+        tree, images_u8.to(device=device, dtype=torch.uint8))
+    paths = linear_layer_paths(cfg)
+    if len(recorder.trace) != len(paths):
+        raise RuntimeError(
+            f"occupancy trace has {len(recorder.trace)} entries but the "
+            f"config has {len(paths)} spiking linears")
+    return dict(zip(paths, recorder.trace))
+
+
+def sparse_occupancy(plan: ExecutionPlan) -> dict | None:
+    """The calibrated occupancy of the layers ``plan`` routed "lut_sparse":
+    what the step closes over (``lower``), None when there are none."""
+    occ = plan.layer_occupancy or {}
+    return {p: occ[p] for p, r in (plan.routes or {}).items()
+            if r == "lut_sparse"} or None
 
 
 def profile_layer_paths(cfg: SpikformerConfig) -> list:
@@ -382,15 +422,22 @@ class GraphedStep:
             g.replays = 0
 
 
-def lower(folded, cfg: SpikformerConfig, backend, *, jit: bool = True):
+def lower(folded, cfg: SpikformerConfig, backend, *, jit: bool = True,
+          layer_occupancy: dict | None = None):
     """Pass 4: the annotated tree becomes one step callable: eager with
     ``jit=False``, else a ``GraphedStep`` (one CUDA graph per bucket on the
     card, eager on the CPU). Callers that wrap the backend to record or
-    time each layer pass ``jit=False``: a replay runs no Python."""
+    time each layer pass ``jit=False``: a replay runs no Python.
+    ``layer_occupancy`` (``sparse_occupancy`` of the plan) is closed over,
+    as the reference keeps the sparse budgets static. The CPU branch's
+    sparse gather decides dense or sparse by a host read, so a ``packed``
+    backend with ``pallas=False`` on the card runs eagerly (``jit=False``):
+    a graph capture would raise at that read."""
     def fwd(folded_tree, images):
         with torch.inference_mode():
             return spikformer.forward_folded(folded_tree, images, cfg,
-                                             backend=backend)
+                                             backend=backend,
+                                             layer_occupancy=layer_occupancy)
     return GraphedStep(fwd, folded) if jit else fwd
 
 
@@ -570,7 +617,9 @@ class CompiledModel:
                 f"{self.buckets}; profiling times the shapes serving runs")
         images = self._images(images_u8).to(self.device)
         timer = _LayerTimer(self.backend, clock=clock, sync=self._sync)
-        lower(self.folded, self.cfg, timer, jit=False)(self.folded, images)
+        lower(self.folded, self.cfg, timer, jit=False,
+              layer_occupancy=sparse_occupancy(self.plan))(self.folded,
+                                                           images)
         self._sync()
         paths = profile_layer_paths(self.cfg)
         if len(timer.trace) != len(paths):
@@ -622,6 +671,8 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
                                    **plan.backend_options)
     spec = registry.backend_spec(plan.backend)
     tables = registry.wants_lut_tables(plan.backend, backend)
+    # a packed backend on the reference's CPU branch plans by its chooser
+    cpu_branch = getattr(backend, "pallas", True) is False
 
     def check_dtype(dtype):
         if dtype not in spec.weight_dtypes:
@@ -641,17 +692,19 @@ def compile(params, cfg: SpikformerConfig, plan: ExecutionPlan | None = None,
             build_tables=tables,
             constants=plan.route_constants, routes=plan.routes,
             layer_occupancy=plan.layer_occupancy,
-            force="lut" if plan.route == "lut" else None)
+            force="lut" if plan.route == "lut" else None,
+            cpu_branch=cpu_branch)
     else:
         tree = strip_lut_annotations(tree)
-        if tables:
+        if tables and not cpu_branch:
             tree = map_folded_layers(tree, with_kmajor)
         routes = {}
 
     resolved = dataclasses.replace(plan, weight_dtype=weight_dtype,
                                    routes=routes)
     return CompiledModel(cfg=cfg, backend=backend, folded=tree, plan=resolved,
-                         fwd=lower(tree, cfg, backend, jit=jit),
+                         fwd=lower(tree, cfg, backend, jit=jit,
+                                   layer_occupancy=sparse_occupancy(resolved)),
                          device=device, jit=jit)
 
 
@@ -673,4 +726,6 @@ def replicate_model(model: CompiledModel, *, device=None) -> CompiledModel:
     return CompiledModel(cfg=model.cfg, backend=model.backend, folded=folded,
                          plan=model.plan, device=dev, jit=model.jit,
                          fwd=lower(folded, model.cfg, model.backend,
-                                   jit=model.jit))
+                                   jit=model.jit,
+                                   layer_occupancy=sparse_occupancy(
+                                       model.plan)))

@@ -284,6 +284,36 @@ class MicroBatchEngine:
     def queue_depth_peak(self) -> int:
         return self._queue_depth.peak
 
+    # the reference's accounting names, each a read-only view of ``acct``
+
+    @property
+    def batches(self) -> int:
+        return self.acct.batches
+
+    @property
+    def images_done(self) -> int:
+        return self.acct.images
+
+    @property
+    def padded_rows(self) -> int:
+        return self.acct.padded_rows
+
+    @property
+    def total_rows(self) -> int:
+        return self.acct.total_rows
+
+    @property
+    def busy_s(self) -> float:
+        return self.acct.busy_s
+
+    @property
+    def wall_s(self) -> float:
+        return self.acct.wall_s
+
+    @property
+    def pad_waste(self) -> float:
+        return self.acct.pad_waste
+
     def submit(self, images, *, rid: int | None = None,
                on_image=None) -> Request:
         """Queue raw images, or a prebuilt ``Request`` (whose ``rid`` an

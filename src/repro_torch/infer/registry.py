@@ -14,6 +14,8 @@ Capabilities:
 * ``wants_lut_tables``: whether route planning builds the (C, 256, N)
   byte-LUT tables into the backend's tree, or only flags LUT-planned
   layers with True (the reference backend replays the fold from the flag).
+* ``takes_device``: whether the factory is handed the target device (the
+  ``packed`` backend picks its branch by it).
 
 A plan the JAX package wrote names one of its own backends;
 ``port_backend`` says which of the port's runs it.
@@ -35,6 +37,16 @@ class BackendSpec:
     device_kinds: tuple[str, ...] = ("cuda", "cpu")
     wants_lut_tables: bool = True
     aliases: tuple[str, ...] = ()
+    takes_device: bool = False
+
+    def make(self, *, device=None, **options):
+        """A backend instance from ``options`` (the reference's contract:
+        a key the factory does not take raises ``TypeError``); a factory
+        that ``takes_device`` also gets ``device`` (default: the card)."""
+        if self.takes_device:
+            options["device"] = torch.device(
+                "cuda" if device is None else device)
+        return self.factory(**options)
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
@@ -45,7 +57,7 @@ def register_backend(name: str, factory: Callable[..., Any], *,
                      weight_dtypes=("float32", "int8"),
                      device_kinds=("cuda", "cpu"),
                      wants_lut_tables: bool = True,
-                     aliases=()) -> BackendSpec:
+                     aliases=(), takes_device: bool = False) -> BackendSpec:
     """Register ``factory(**options) -> backend`` under ``name`` and its
     ``aliases``; refuses to shadow a name or alias already taken."""
     taken = {name, *aliases} & ({*_REGISTRY} | {*_ALIASES})
@@ -56,7 +68,7 @@ def register_backend(name: str, factory: Callable[..., Any], *,
                        weight_dtypes=tuple(weight_dtypes),
                        device_kinds=tuple(device_kinds),
                        wants_lut_tables=wants_lut_tables,
-                       aliases=tuple(aliases))
+                       aliases=tuple(aliases), takes_device=takes_device)
     _REGISTRY[name] = spec
     for a in aliases:
         _ALIASES[a] = name
@@ -94,18 +106,12 @@ def port_backend(name: str, options: dict) -> tuple[str, dict]:
     ``packed_pallas`` with ``{"interpret": True}`` (the reference's kernels
     run by the Pallas interpreter on the host) runs ``packed_plain`` (the
     kernels' plain versions), ``packed_pallas`` otherwise ``packed_cuda``
-    (the kernels on the card). ``packed``, the reference's CPU branch that
-    skips zero chunks, is not ported yet (ROADMAP.md, section 1:
-    Occupancy and the sparse gather) and raises. Other names pass through."""
+    (the kernels on the card). Other names, ``packed`` among them, pass
+    through."""
     options = dict(options)
     if name == "packed_pallas":
         interpret = options.pop("interpret", False)
         return ("packed_plain" if interpret else "packed_cuda"), options
-    if name == "packed":
-        raise ValueError(
-            "backend 'packed' (the reference's CPU branch that skips zero "
-            "chunks) is not ported yet (ROADMAP.md, section 1: Occupancy "
-            "and the sparse gather)")
     return name, options
 
 
@@ -120,10 +126,9 @@ def backend_spec(name: str) -> BackendSpec:
 
 def get_backend(name: str, *, device: torch.device, **options):
     """Backend instance for ``device``; fails when the backend is not built
-    for that kind of device. ``options`` go to the factory, which raises
-    ``TypeError`` on a key it does not take."""
+    for that kind of device. ``options`` go to ``BackendSpec.make``."""
     spec = backend_spec(name)
     if device.type not in spec.device_kinds:
         raise ValueError(f"backend {spec.name!r} runs on "
                          f"{list(spec.device_kinds)}, not on {device.type!r}")
-    return spec.factory(**options)
+    return spec.make(device=device, **options)

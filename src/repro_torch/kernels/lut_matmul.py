@@ -11,11 +11,15 @@ folds inside a chunk (``build_lut``), ascending-chunk adds across chunks
 kernels give int16 tables accumulated in int32.
 
 ``lut_matmul`` is the plain version of the CUDA gather kernel
-(``kernels.spike_matmul.lut_gather_matmul``).
+(``kernels.spike_matmul.lut_gather_matmul``). ``lut_matmul_sparse``, the
+zero-chunk-skipping gather, and ``choose_route``, the cost model that
+weighs it, belong to the reference's CPU branch (``kernels.ops``'s
+``cpu_branch``); ``choose_cuda_route`` is the card's chooser.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -99,6 +103,55 @@ def lut_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return y.to(torch.float32)
 
 
+def sparse_budget(c: int, occupancy: float) -> int:
+    """Static per-row gather budget of the zero-chunk-skipping route, from
+    the calibrated CHUNK occupancy (the fraction of nonzero index bytes,
+    ``infer.backends.chunk_occupancy``): ``occupancy * c`` expected nonzero
+    chunks a row, plus one of slack, within [1, c]. Rows past the budget
+    send the call to the dense gather (``lut_matmul_sparse``)."""
+    if not 0.0 <= occupancy <= 1.0:
+        raise ValueError(f"occupancy must be in [0, 1], got {occupancy!r}")
+    return min(c, max(1, math.ceil(occupancy * c) + 1))
+
+
+def lut_matmul_sparse(idx: torch.Tensor, table: torch.Tensor, *,
+                      max_chunks: int) -> torch.Tensor:
+    """Zero-chunk-skipping gather: ``lut_matmul`` where each row gathers
+    only its first ``max_chunks`` nonzero index bytes, in the reference's
+    op order. A cumsum rank of each nonzero byte among its row's nonzeros,
+    matched against ``max_chunks`` output slots, compacts the flattened
+    (chunk, byte) gather indices to the front in ascending chunk order;
+    unmatched slots index 0, ``table[0, 0, :]``, the exact zero the skipped
+    bytes would have gathered. The slots fold in ascending order. When any
+    row holds more than ``max_chunks`` nonzero bytes the whole call runs
+    the dense gather (a host read decides, as the reference's ``lax.cond``
+    does on the device): a miscalibrated occupancy costs speed, never
+    correctness."""
+    c, _, n = table.shape
+    if idx.shape[-1] != c:
+        raise ValueError(f"index bytes {tuple(idx.shape)} do not match "
+                         f"table {tuple(table.shape)}")
+    if max_chunks < 1:
+        raise ValueError(f"need max_chunks >= 1, got {max_chunks}")
+    if max_chunks >= c or not idx.numel():
+        return lut_matmul(idx, table)
+    nz = idx != 0
+    pos = torch.cumsum(nz.to(torch.int32), dim=-1, dtype=torch.int32) - 1
+    if int(pos[..., -1].max()) + 1 > max_chunks:
+        return lut_matmul(idx, table)
+    slots = torch.arange(max_chunks, dtype=torch.int32, device=idx.device)
+    match = (pos[..., None, :] == slots[:, None]) & nz[..., None, :]
+    val = (torch.arange(c, dtype=torch.int32, device=idx.device) * 256
+           + idx.to(torch.int32))
+    gidx = torch.where(match, val[..., None, :], 0).sum(-1)   # (..., B)
+    flat = table.reshape(c * 256, n)
+    acc_dt = torch.float32 if table.is_floating_point() else torch.int32
+    y = flat[gidx[..., 0].long()].to(acc_dt)
+    for j in range(1, max_chunks):
+        y = y + flat[gidx[..., j].long()].to(acc_dt)
+    return y.to(torch.float32)
+
+
 def lut_matmul_planes(planes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The gather route's fold replayed on unpacked planes: (R, M, K)
     {0,1} x (K, N) -> (R, M, N) f32 by the same reduction tree as
@@ -138,11 +191,11 @@ def shift_sum_fold(per_plane: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class RouteConstants:
-    """Cost-model constants, in units of one dot FMA. The key set equals
-    the reference's so a plan JSON written by the JAX package loads here;
-    ``choose_cuda_route`` reads only the ``pallas_*`` and
-    ``transpose_cost`` entries (their reference defaults: fitting them for
-    the H100 is later work)."""
+    """Cost-model constants, in units of one dot FMA, with the reference's
+    keys and defaults, so a plan JSON written by the JAX package loads
+    here. ``choose_route`` (the CPU branch's) reads every key but the
+    ``pallas_*`` pair; ``choose_cuda_route`` (the card's) reads only that
+    pair and ``transpose_cost``."""
     gather_cost: float = 4.0
     transpose_cost: float = 2.5
     unpack_cost: float = 8.0
@@ -167,6 +220,44 @@ class RouteConstants:
 
 
 DEFAULT_ROUTE_CONSTANTS = RouteConstants()
+
+
+def choose_route(*, m: int, k: int, n: int, g: int, t: int,
+                 weights_are_int: bool = False,
+                 max_table_bytes: int = MAX_TABLE_BYTES,
+                 constants: RouteConstants | None = None,
+                 occupancy: float | None = None) -> str:
+    """"lut", "lut_sparse" or "unpack" for a packed matmul of (t live
+    planes, M rows, K inputs, N outputs, G plane groups) on the CPU
+    branch: the reference's cost model. The gather's traffic, t*M*C*N
+    table elements (int16 tables at ``int_gather_discount``, x
+    ``cache_penalty`` past ``cache_bytes``) plus the G*M*K bit transpose,
+    against the dot's t*M*K*N FMAs plus its t*M*K unpack writes; a table
+    past ``max_table_bytes`` is never built. A calibrated CHUNK
+    ``occupancy`` lets the zero-chunk-skipping gather compete: its gathers
+    scale with ``sparse_budget(c, occupancy)`` instead of c, plus an
+    N-independent compaction term over the t*M*C index bytes times the
+    slot count. ``None``, no calibration, never picks the sparse route."""
+    cc = DEFAULT_ROUTE_CONSTANTS if constants is None else constants
+    c = num_k_chunks(k)
+    tbl = table_bytes(k, n, weights_are_int)
+    if tbl > max_table_bytes:
+        return "unpack"
+    gather_scale = cc.gather_cost * (cc.int_gather_discount
+                                     if weights_are_int else 1.0)
+    cache_penalty = 1.0 if tbl <= cc.cache_bytes else cc.cache_penalty
+    lut_cost = (t * m * c * n * gather_scale * cache_penalty
+                + g * m * k * cc.transpose_cost)
+    unpack_cost = t * m * k * (n + cc.unpack_cost)
+    if occupancy is not None:
+        budget = sparse_budget(c, occupancy)
+        if budget < c:
+            sparse_cost = (t * m * budget * n * gather_scale * cache_penalty
+                           + g * m * k * cc.transpose_cost
+                           + t * m * c * budget * cc.compact_cost)
+            if sparse_cost < lut_cost and sparse_cost < unpack_cost:
+                return "lut_sparse"
+    return "lut" if lut_cost < unpack_cost else "unpack"
 
 
 def choose_cuda_route(*, m: int, k: int, n: int, g: int, t: int,

@@ -6,9 +6,11 @@ WSSL/ZSC/STDP, value bits for SSSC) and only meet the weights inside a
 kernel. Every entry point dispatches to the kernel wrappers, which
 launch their CUDA kernel for CUDA operands and run their plain version for
 CPU ones; ``plain=True`` runs the plain versions on any device (the oracle
-route the kernels are held against on the card). The reference's CPU
-``packed`` branch (zero-chunk-skipping gather, the STDP score LUT) is not
-ported yet.
+route the kernels are held against on the card). ``cpu_branch=True`` runs
+the reference's CPU branch instead, in torch on any device: routes resolved
+by ``_resolve_route`` (the CPU cost model, the zero-chunk-skipping gather),
+the single-dot unpack route, the STDP score LUT. No kernel runs there; it
+is what the ``packed`` backend executes on the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from . import ref
 from .flash_attention import (flash_attention as _flash,
                               flash_attention_f32, flash_attention_plain,
                               flash_attention_tc)
-from .lut_matmul import choose_cuda_route
+from .lut_matmul import choose_cuda_route, choose_route
 from .fused import tflif_lut_matmul, tflif_lut_plain
 from .spike_matmul import (MAX_S8_K, kmajor_weights, lut_gather_matmul,
                            lut_gather_packed, lut_gather_packed_plain,
@@ -34,7 +36,7 @@ from .stdp_attention import (stdp_attention, stdp_attention_packed as
                              _stdp_packed, stdp_attention_packed_plain)
 from .tflif import tflif_fused, tflif_plain
 from ..core.lif import TAU, V_TH
-from ..core.spike import num_plane_groups
+from ..core.spike import num_plane_groups, unpack_timesteps
 from ..device import constant
 
 # kernel name -> wrapper; each wrapper counts its launches in ``.launches``
@@ -103,6 +105,40 @@ def _resolve_route_cuda(route, table, *, m, k, n, g, t, weights_are_int,
     return "lut" if route == "lut_sparse" else route
 
 
+def _resolve_route(route, table, *, m, k, n, g, t, weights_are_int,
+                   constants=None, occupancy=None) -> str:
+    """Route resolution of the CPU branch (the reference's, for its
+    ``pallas=False`` ops): None takes "lut" iff a table is given, upgraded
+    to "lut_sparse" by a calibrated ``occupancy``, else "unpack"; "auto"
+    consults ``choose_route`` with ``occupancy``; "lut", "lut_sparse" and
+    "unpack" force, the sparse route only with an occupancy to size its
+    static gather budget from."""
+    if route is None:
+        if not _have_table(table):
+            return "unpack"
+        return "lut_sparse" if occupancy is not None else "lut"
+    if route == "auto":
+        return choose_route(m=m, k=k, n=n, g=g, t=t,
+                            weights_are_int=weights_are_int,
+                            constants=constants, occupancy=occupancy)
+    if route not in ("lut", "lut_sparse", "unpack"):
+        raise ValueError(f"unknown packed-matmul route {route!r}")
+    if route == "lut_sparse" and occupancy is None:
+        raise ValueError("route='lut_sparse' requires a calibrated "
+                         "occupancy (the static gather budget comes from "
+                         "it); measure with infer.backends.chunk_occupancy")
+    return route
+
+
+def _cpu_gather(idx, table, resolved, occupancy):
+    """The CPU branch's gather over index bytes: dense, or skipping zero
+    chunks within the budget the occupancy gives."""
+    if resolved == "lut_sparse":
+        budget = lut.sparse_budget(table.shape[0], occupancy)
+        return lut.lut_matmul_sparse(idx, table, max_chunks=budget)
+    return lut.lut_matmul(idx, table)
+
+
 def spike_matmul(x_packed, w, *, mode: str = "per_plane",
                  plain: bool = False):
     """The 2-D unified-PE dot: (M, K) uint8, bit p of a byte = plane p,
@@ -119,7 +155,8 @@ def spike_matmul(x_packed, w, *, mode: str = "per_plane",
 
 
 def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
-                 w_kmajor=None, route_constants=None, plain: bool = False):
+                 w_kmajor=None, route_constants=None, occupancy=None,
+                 plain: bool = False, cpu_branch: bool = False):
     """Packed WSSL: (G, ..., K) uint8 temporal plane groups x (K, N) ->
     (t, ..., N) f32 per-timestep accumulators (+ ``bias``).
 
@@ -133,12 +170,32 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
     otherwise. Both routes are
     bit-exact for integer weights; for f32 weights "lut" replays the
     defined fold exactly and "unpack" is held to a tolerance.
+
+    ``cpu_branch=True`` resolves ``route`` by ``_resolve_route`` instead
+    (``occupancy``, a calibrated chunk occupancy, sizes "lut_sparse"'s
+    budget) and runs the reference's CPU ops: the gather folds, dense or
+    skipping zero chunks, on the bit-transposed index bytes, or one f32
+    dot over all t unpacked planes.
     """
     g = x_packed.shape[0]
     if g != num_plane_groups(t):
         raise ValueError(f"{g} plane groups cannot hold t={t} timesteps")
     lead, k = x_packed.shape[1:-1], x_packed.shape[-1]
     m, n = math.prod(lead), w.shape[-1]
+    if cpu_branch:
+        resolved = _resolve_route(route, table, m=m, k=k, n=n, g=g, t=t,
+                                  weights_are_int=lut.is_int_kernel(w),
+                                  constants=route_constants,
+                                  occupancy=occupancy)
+        if resolved == "unpack":
+            per = ref.spike_matmul_ref(x_packed.reshape(g, m, k), w, t=t)
+        else:
+            tbl = table if _have_table(table) else lut.build_lut(w)
+            per = _cpu_gather(lut.plane_indices(x_packed)[:t], tbl,
+                              resolved, occupancy)
+        if bias is not None:
+            per = per + bias.to(per.dtype)
+        return per.reshape(t, *lead, n)
     impl = _PLAIN if plain else _WRAPPERS
     resolved = _resolve_route_cuda(route, table, m=m, k=k, n=n, g=g, t=t,
                                    weights_are_int=lut.is_int_kernel(w),
@@ -158,7 +215,8 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
 
 
 def sssc_linear(x_u8, w, bias=None, *, route=None, table=None,
-                route_constants=None, plain: bool = False):
+                route_constants=None, occupancy=None, plain: bool = False,
+                cpu_branch: bool = False):
     """Packed SSSC: (..., K) uint8 pixel values x (K, N) -> (..., N) f32,
     ``y = sum_p 2^p (plane_p . W)``.
 
@@ -166,11 +224,28 @@ def sssc_linear(x_u8, w, bias=None, *, route=None, table=None,
     the defined ascending order (``lut.shift_sum_fold``), bit-exact for any
     weights. "unpack" runs the shift-sum kernel, one dot over the byte
     values, as the reference's Pallas branch does: exact for integer
-    weights, held to a tolerance for f32.
+    weights, held to a tolerance for f32. ``cpu_branch=True`` runs the
+    reference's CPU ops as ``spike_linear`` does (``occupancy`` is the
+    chunk occupancy of the transposed value bytes); its "unpack" is one
+    dot over the 8 value planes, scaled by 2^p and summed.
     """
     lead, k = x_u8.shape[:-1], x_u8.shape[-1]
     x2 = x_u8.reshape(-1, k)
     m, n = x2.shape[0], w.shape[-1]
+    if cpu_branch:
+        resolved = _resolve_route(route, table, m=m, k=k, n=n, g=1, t=8,
+                                  weights_are_int=lut.is_int_kernel(w),
+                                  constants=route_constants,
+                                  occupancy=occupancy)
+        if resolved == "unpack":
+            y = ref.spike_matmul_ref(x2, w, mode="shift_sum")
+        else:
+            tbl = table if _have_table(table) else lut.build_lut(w)
+            y = lut.shift_sum_fold(_cpu_gather(
+                lut.plane_indices(x2[None]), tbl, resolved, occupancy))
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return y.reshape(*lead, n)
     impl = _PLAIN if plain else _WRAPPERS
     resolved = _resolve_route_cuda(route, table, m=m, k=k, n=n, g=1, t=8,
                                    weights_are_int=lut.is_int_kernel(w),
@@ -268,15 +343,55 @@ def tflif_lut(acc, bias=None, *, table, v_th=V_TH, t: int | None = None,
             acc2.reshape(t, *lead, table.shape[-1]))
 
 
+STDP_LUT_MIN_TOKENS = 128  # below this, score-table builds cannot amortize
+
+
 def stdp_attention_packed(q_packed, k_packed, v_packed, *, t: int,
-                          scale: float, plain: bool = False):
+                          scale: float, plain: bool = False,
+                          route: str | None = None,
+                          cpu_branch: bool = False):
     """Packed STDP over (G, ..., N, Dh) uint8 temporal plane groups ->
     (t, ..., N, Dh) f32. Timesteps attend independently; one launch of the
     packed kernel reads the plane bits straight from the bytes (the plain
     version unpacks them and folds the t planes into the batch-heads
-    axis)."""
-    return (_PLAIN if plain else _WRAPPERS).stdp_packed(
-        q_packed, k_packed, v_packed, t=t, scale=scale)
+    axis).
+
+    ``cpu_branch=True`` runs the reference's CPU branch, where ``route``
+    picks: None or "unpack", the plain version; "lut", the score LUT,
+    Q K^T by byte gather over per-(t, batch-head) tables built from the
+    unpacked K, then the products with V; "auto", "lut" from
+    ``STDP_LUT_MIN_TOKENS`` tokens up while the tables stay within
+    ``lut.MAX_TABLE_BYTES``. Binary q, k, v keep every sum an exact
+    integer, so the routes agree bit for bit."""
+    if not cpu_branch:
+        return (_PLAIN if plain else _WRAPPERS).stdp_packed(
+            q_packed, k_packed, v_packed, t=t, scale=scale)
+    g, lead = q_packed.shape[0], q_packed.shape[1:-2]
+    n, dh = q_packed.shape[-2:]
+    bh = math.prod(lead)
+    if route == "auto":
+        tables_bytes = t * bh * lut.num_k_chunks(dh) * 256 * n * 4
+        route = ("lut" if n >= STDP_LUT_MIN_TOKENS
+                 and tables_bytes <= lut.MAX_TABLE_BYTES else "unpack")
+    if route in (None, "unpack"):
+        return stdp_attention_packed_plain(q_packed, k_packed, v_packed,
+                                           t=t, scale=scale)
+    if route != "lut":
+        raise ValueError(f"unknown packed-stdp route {route!r}")
+    idx_q = lut.plane_indices(q_packed.reshape(g, bh * n, dh))[:t].reshape(
+        t, bh, n, -1)                                     # (t, BH, N, C)
+    k_pl, v_pl = (unpack_timesteps(z.reshape(g, bh, n, dh), t)
+                  for z in (k_packed, v_packed))          # (t, BH, N, Dh)
+    kt = k_pl.transpose(-1, -2).reshape(t * bh, dh, n)
+    tables = torch.stack([lut.build_lut(w) for w in kt]).reshape(
+        t, bh, -1, 256, n)                                # (t,BH,C,256,N)
+    ti = torch.arange(t, device=idx_q.device)[:, None, None]
+    bi = torch.arange(bh, device=idx_q.device)[None, :, None]
+    s = tables[ti, bi, 0, idx_q[..., 0].long()]
+    for c in range(1, tables.shape[2]):
+        s = s + tables[ti, bi, c, idx_q[..., c].long()]   # (t, BH, N, N)
+    out = torch.einsum("tbnm,tbmd->tbnd", s, v_pl) * scale
+    return out.reshape(t, *lead, n, dh)
 
 
 def flash_attention(q, k, v, *, scale: float, causal: bool = True,

@@ -24,7 +24,11 @@ reference's ``ExecutionPlan`` has, so it loads in either package.
 
 Without ``--cuda`` the grid times the two plain routes (the analogue of
 the reference's CPU routes) on ``--device`` and ``fit_constants`` fits the
-CPU chooser's keys, as the reference does. ``--cuda`` is the counterpart
+CPU chooser's keys, as the reference does. ``--firing-rates 0.1,0.2,0.3``
+also times the CPU branch's dense gather against its zero-chunk-skipping
+gather on channel-structured spikes (``core.spike.structured_spikes``) at
+each rate and fits the sparse route's ``compact_cost``
+(``fit_compact_cost``, the reference's fit). ``--cuda`` is the counterpart
 of the reference's ``--pallas`` and differs from it in three ways:
 
 - **The unit.** The reference takes its FMA unit from the CPU unpack route.
@@ -60,14 +64,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..core.spike import num_plane_groups
+from ..core.spike import num_plane_groups, structured_spikes
 from ..core.spikformer import SpikformerConfig, init
 from ..device import borrowed_stream, resolve_device
+from ..infer.backends import chunk_occupancy
 from ..infer.compile import (ExecutionPlan, compile as infer_compile,
                              layer_shape, linear_layer_paths)
 from ..kernels import lut_matmul as lut
 from ..kernels import ops
-from ..kernels.lut_matmul import RouteConstants, choose_cuda_route
+from ..kernels.lut_matmul import (RouteConstants, choose_cuda_route,
+                                  choose_route)
 from ..kernels.spike_matmul import kmajor_weights
 
 # (m, k, n, g) grid of the plain-route fit: the reference's, small shapes
@@ -178,6 +184,59 @@ def measure_grid(grid=GRID, *, repeats: int = 3, seed: int = 0,
     return samples
 
 
+def measure_sparse_point(m: int, k: int, n: int, g: int, rate: float, *,
+                         repeats: int = 3, seed: int = 0,
+                         device="cpu") -> dict | None:
+    """Host time of the CPU branch's dense gather against its
+    zero-chunk-skipping gather on channel-structured spikes at firing rate
+    ``rate``. None where the measured chunk occupancy leaves no budget
+    headroom (the sparse route would be the dense gather)."""
+    t = 8 * g
+    gen = torch.Generator(device=device).manual_seed(seed + 1000)
+    x = structured_spikes(gen, t=t, shape=(m, k), rate=rate)
+    rng = np.random.default_rng(seed + 1)
+    w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(
+        device)
+    table = lut.build_lut(w)
+    c = lut.num_k_chunks(k)
+    occ = chunk_occupancy(x, t)
+    budget = lut.sparse_budget(c, occ)
+    if budget >= c:
+        return None
+
+    def dense(xx):
+        return ops.spike_linear(xx, w, t=t, route="lut", table=table,
+                                cpu_branch=True)
+
+    def sparse(xx):
+        return ops.spike_linear(xx, w, t=t, route="lut_sparse", table=table,
+                                occupancy=occ, cpu_branch=True)
+
+    return {
+        "m": m, "k": k, "n": n, "g": g, "t": t, "c": c,
+        "rate": rate, "occupancy": round(occ, 4), "budget": budget,
+        "table_bytes": lut.table_bytes(k, n, False),
+        "lut_s": time_call(dense, x, repeats=repeats, device=device),
+        "sparse_s": time_call(sparse, x, repeats=repeats, device=device),
+    }
+
+
+def measure_sparse_grid(grid=GRID, rates=(0.1, 0.2, 0.3), *,
+                        repeats: int = 3, seed: int = 0,
+                        device="cpu") -> list:
+    samples = []
+    for m, k, n, g in grid:
+        if k % 8:                      # structured spikes need whole chunks
+            continue
+        for rate in rates:
+            s = measure_sparse_point(m, k, n, g, rate, repeats=repeats,
+                                     seed=seed, device=device)
+            if s is not None:
+                print(json.dumps(s))
+                samples.append(s)
+    return samples
+
+
 def _lstsq(X, y):
     """Raw least-squares coefficients; callers check signs themselves (a
     negative unit cost means the samples cannot identify the model, and the
@@ -235,6 +294,54 @@ def fit_constants(samples: list, *,
         transpose_cost=clip(transpose_cost, 0.1, 64.0, base.transpose_cost),
         unpack_cost=clip(unpack_cost, 0.1, 256.0, base.unpack_cost),
         cache_penalty=cache_penalty)
+
+
+def fit_compact_cost(samples: list, sparse_samples: list, *,
+                     base: RouteConstants) -> RouteConstants:
+    """The reference's fit of the sparse route's per-(index byte x slot)
+    compaction cost, every other constant pinned by ``base`` (the dense
+    fit):
+
+        sparse_s ~ alpha * [t*m*budget*n*gather_cost*cache_penalty
+                            + g*m*k*transpose_cost + t*m*c*budget*compact]
+
+    with the FMA unit ``alpha`` re-derived from the unpack samples as in
+    ``fit_constants``; the residual over the compaction volume is a
+    one-coefficient least squares. Falls back to ``base`` where the
+    samples cannot identify a positive cost."""
+    sm = [s for s in samples if s["unpack_s"] > 0 and s["lut_s"] > 0]
+    if len(sparse_samples) < 2 or len(sm) < 3:
+        return base
+    fma = np.array([s["t"] * s["m"] * s["k"] * s["n"] for s in sm], float)
+    wr = np.array([s["t"] * s["m"] * s["k"] for s in sm], float)
+    uy = np.array([s["unpack_s"] for s in sm], float)
+    alpha, _ = _lstsq(np.stack([fma, wr], 1), uy)
+    if not np.isfinite(alpha) or alpha <= 0:
+        return base
+    resid, vol = [], []
+    for s in sparse_samples:
+        pen = (1.0 if s["table_bytes"] <= base.cache_bytes
+               else base.cache_penalty)
+        gather = (s["t"] * s["m"] * s["budget"] * s["n"]
+                  * base.gather_cost * pen)
+        transpose = s["g"] * s["m"] * s["k"] * base.transpose_cost
+        resid.append(s["sparse_s"] / alpha - gather - transpose)
+        vol.append(s["t"] * s["m"] * s["c"] * s["budget"])
+    compact, = _lstsq(np.array(vol, float)[:, None], np.array(resid, float))
+    if not np.isfinite(compact) or compact <= 0:
+        return base
+    return dataclasses.replace(
+        base, compact_cost=float(np.clip(compact, 1.0, 256.0)))
+
+
+def sparse_agreement(samples: list, constants: RouteConstants) -> str:
+    """How many sparse samples ``choose_route`` sends to the faster of the
+    dense and the sparse gather."""
+    agree = sum((choose_route(m=s["m"], k=s["k"], n=s["n"], g=s["g"],
+                              t=s["t"], constants=constants,
+                              occupancy=s["occupancy"]) == "lut_sparse")
+                == (s["sparse_s"] < s["lut_s"]) for s in samples)
+    return f"{agree}/{len(samples)}"
 
 
 def layer_dims(cfg: SpikformerConfig, path: str) -> tuple:
@@ -422,6 +529,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where the plain-route fit and --profile run "
                          "(default: the card)")
+    ap.add_argument("--firing-rates", default=None,
+                    help="comma-separated firing rates (e.g. 0.1,0.2,0.3): "
+                         "also time the zero-chunk-skipping gather on "
+                         "structured spikes and fit compact_cost (not with "
+                         "--cuda: the card's gather is dense)")
     ap.add_argument("--out", default=None,
                     help="write the ExecutionPlan JSON fragment here "
                          "(stdout always gets it)")
@@ -445,12 +557,20 @@ def main(argv=None):
                    "device": torch.cuda.get_device_name()}
     else:
         device = resolve_device(args.device)
-        samples = measure_grid(FAST_GRID if args.fast else GRID,
-                               repeats=repeats, seed=args.seed,
+        grid = FAST_GRID if args.fast else GRID
+        samples = measure_grid(grid, repeats=repeats, seed=args.seed,
                                device=device)
         constants = fit_constants(samples)
-        fragment = plan_fragment(constants)
         summary = {"grid_points": len(samples), "device": str(device)}
+        if args.firing_rates:
+            rates = tuple(float(r) for r in args.firing_rates.split(","))
+            sparse = measure_sparse_grid(grid, rates, repeats=repeats,
+                                         seed=args.seed, device=device)
+            constants = fit_compact_cost(samples, sparse, base=constants)
+            summary.update(sparse_points=len(sparse),
+                           sparse_agreement=sparse_agreement(sparse,
+                                                             constants))
+        fragment = plan_fragment(constants)
 
     text = json.dumps(fragment, indent=1, sort_keys=True)
     print(text)

@@ -21,10 +21,20 @@ cannot — goodput, p99 latency and SLO attainment under live load.
       # labels in range; with --async, asserts the open loop sustains
       # >= 30 fps with zero dropped-but-accepted requests
 
+  python -m repro_torch.launch.serve_spikformer --events --smoke \\
+      [--trace benchmarks/traces/dvs_synth_mini.jsonl]
+      # the event-stream workload: a DVS trace's windows replayed as count
+      # frames at their recorded times through the runtime (or a fleet);
+      # --smoke replays it twice and gates zero sheds, SLO attainment 1.0
+      # and equal labels
+
 The weights are the port's seeded ``init``: untrained, so the logits are
 all zero and every label is 0 (the IAND residual stream falls silent, as
-under the reference's ``init``). ``main_closed`` and ``main_async`` take a
-prebuilt model, for callers that serve weights of their own.
+under the reference's ``init``). ``main_closed``, ``main_async`` and
+``main_events`` take a prebuilt model, for callers that serve weights of
+their own. Every mode runs the reference's default plan unless the flags
+say otherwise: backend ``packed``, which runs the kernels on the card and
+the reference's CPU branch on the CPU.
 """
 from __future__ import annotations
 
@@ -45,9 +55,23 @@ from ..serve import (AsyncServeRuntime, ServeFleet, ServePolicy,
 # the engine's Request, under the driver's historical name
 ImageRequest = Request
 
-EVENTS_NOT_PORTED = (
-    "--events and --trace serve the event-stream workload, which is not "
-    "ported yet (ROADMAP.md, section 1: Events)")
+
+class SpikformerEngine(MicroBatchEngine):
+    """Micro-batching classifier built straight from training params: the
+    reference's pre-split constructor, now ``compile`` + ``MicroBatchEngine``
+    on ``device`` (default: the card)."""
+
+    def __init__(self, params, cfg: SpikformerConfig, *, batch_size: int = 8,
+                 buckets=None, backend: str = "packed",
+                 weight_dtype: str | None = None, device=None):
+        plan = ExecutionPlan(backend=backend, weight_dtype=weight_dtype,
+                             batch_buckets=buckets or (batch_size,))
+        super().__init__(compile(params, cfg, plan, device=device))
+
+    @property
+    def session(self):
+        """The compiled model (named for the pre-split attribute)."""
+        return self.model
 
 
 def make_tracer(args):
@@ -85,8 +109,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="comma-separated static batch buckets (default "
                          "2,8); the engine picks the cheapest per step")
     ap.add_argument("--backend", default=None,
-                    choices=["packed_cuda", "packed_plain", "reference"],
-                    help="default packed_cuda")
+                    choices=["packed", "packed_cuda", "packed_plain",
+                             "reference"],
+                    help="default packed, the reference's default: the "
+                         "kernels on the card, the reference's CPU branch "
+                         "on the CPU")
     ap.add_argument("--weight-dtype", default=None,
                     choices=["float32", "int8"])
     ap.add_argument("--plan", default=None,
@@ -115,9 +142,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="fleet: model each replica as a fixed-rate core "
                          "at this many images/second (labels stay real)")
     ap.add_argument("--events", action="store_true",
-                    help="the event-stream workload (not ported yet)")
+                    help="serve the event-stream workload: replay a DVS "
+                         "trace (--trace, or a synthesized one) through "
+                         "the serving stack as per-window count frames")
     ap.add_argument("--trace", default=None,
-                    help="events: a recorded event trace (not ported yet)")
+                    help="events: path to a recorded JSONL event trace "
+                         "(the events.trace format); the model is compiled "
+                         "to the trace header's sensor shape")
     ap.add_argument("--trace-out", default=None,
                     help="write the request-lifecycle trace here as span "
                          "JSONL (a Perfetto-loadable .perfetto.json lands "
@@ -127,19 +158,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build_model(args):
-    """The seeded model under the plan the flags give, warmed (every
-    bucket's graph captured); returns ``(model, warmup seconds)``."""
-    cfg = SpikformerConfig()
-    if args.reduce:
-        cfg = cfg.scaled()
-    params = spik_init(torch.Generator().manual_seed(args.seed), cfg)
-    # a committed --plan replays as-is; explicit flags (only) override it
+def plan_from_args(args) -> ExecutionPlan:
+    """A committed ``--plan`` as it is, else the reference's default plan
+    (backend ``packed``, buckets (2, 8)); explicit flags (only) override
+    either."""
     if args.plan:
         with open(args.plan) as f:
             plan = ExecutionPlan.from_json(f.read())
     else:
-        plan = ExecutionPlan(batch_buckets=(2, 8))
+        plan = ExecutionPlan(backend="packed", batch_buckets=(2, 8))
     over = {}
     if args.backend is not None:
         over["backend"] = args.backend
@@ -147,21 +174,32 @@ def build_model(args):
         over["batch_buckets"] = tuple(int(b) for b in args.buckets.split(","))
     if args.weight_dtype is not None:
         over["weight_dtype"] = args.weight_dtype
-    if over:
-        plan = dataclasses.replace(plan, **over)
-    model = compile(params, cfg, plan, device=args.device)
+    return dataclasses.replace(plan, **over) if over else plan
+
+
+def build_model(args, cfg: SpikformerConfig | None = None):
+    """The seeded model of ``cfg`` (default: the paper's, or the reduced
+    one under ``--reduce``) under the plan the flags give, warmed (every
+    bucket's graph captured); returns ``(model, warmup seconds)``."""
+    if cfg is None:
+        cfg = SpikformerConfig()
+        if args.reduce:
+            cfg = cfg.scaled()
+    params = spik_init(torch.Generator().manual_seed(args.seed), cfg)
+    model = compile(params, cfg, plan_from_args(args),
+                    device=args.device)
     return model, model.warmup()
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.events or args.trace:
-        raise NotImplementedError(EVENTS_NOT_PORTED)
     if args.smoke:
         args.requests = min(args.requests, 5)
         args.images_per_request = min(args.images_per_request, 2)
         args.rps = min(args.rps, 60.0)
         args.duration = min(args.duration, 1.5)
+    if args.events or args.trace:
+        return main_events(args)
     model, compile_s = build_model(args)
     if args.use_async:
         return main_async(model, args, compile_s)
@@ -280,6 +318,127 @@ def main_async(model, args, compile_s: float):
                           "slo_attainment": metrics["slo_attainment"]}))
     summary["client"] = client
     summary["trace"] = trace
+    return summary
+
+
+def synth_event_trace(*, seed: int, height: int = 16, width: int = 16):
+    """A deterministic in-memory trace when no --trace is given: a moving
+    edge plus flicker bursts, windowed exactly as
+    ``launch/record_event_trace.py`` commits its fixture."""
+    from ..events import (EventTrace, TraceArrival, flicker_burst_events,
+                          merge_streams, moving_edge_events)
+    window_us = 20_000
+    duration_us = 800_000
+    stream = merge_streams(
+        moving_edge_events(height=height, width=width,
+                           duration_us=duration_us // 4, seed=seed),
+        flicker_burst_events(height=height, width=width,
+                             duration_us=duration_us, seed=seed + 1,
+                             bursts=3))
+    arrivals = []
+    for w in range(duration_us // window_us):
+        ev = stream.slice_time(w * window_us, (w + 1) * window_us)
+        if len(ev):
+            arrivals.append(TraceArrival(
+                t_s=(w + 1) * window_us / 1e6, window=w,
+                events=ev.shift_time(-w * window_us)))
+    return EventTrace(height=height, width=width, window_us=window_us,
+                      bins=8, payload="events", arrivals=tuple(arrivals))
+
+
+def event_trace(args):
+    """The trace ``--trace`` names, else the synthetic one of ``--seed``."""
+    from ..events import load_trace
+    return (load_trace(args.trace) if args.trace
+            else synth_event_trace(seed=args.seed))
+
+
+def event_config(trace) -> SpikformerConfig:
+    """The reference's event config for ``trace``'s sensor:
+    ``scaled(img_size=H, dim=32, depth=1)`` with the trace's channels."""
+    if trace.height != trace.width:
+        raise SystemExit(
+            f"trace sensor is {trace.height}x{trace.width}; the Spikformer "
+            f"front end serves square inputs — re-record or crop")
+    return dataclasses.replace(
+        SpikformerConfig().scaled(img_size=trace.height, dim=32, depth=1),
+        in_channels=trace.channels)
+
+
+def main_events(args, model=None, compile_s: float = 0.0):
+    """Event-stream serving: replay a DVS trace's windows (count frames at
+    the recorded arrival times) through the runtime or fleet, on
+    ``model``, or else the seeded model of ``event_config(trace)`` under
+    the flags' plan (by default the reference's: backend ``packed``,
+    buckets (2, 8)); in --smoke, replay it TWICE and assert the labels are
+    bit-identical (the trace-replay determinism contract). Returns the
+    printed summary plus the per-arrival ``labels``, every run's metrics
+    under ``runs`` and the model under ``model``."""
+    from ..events import replay_trace
+    trace = event_trace(args)
+    cfg = event_config(trace)
+    if model is None:
+        model, compile_s = build_model(args, cfg)
+    elif model.input_shape()[1:] != (trace.height, trace.width,
+                                     trace.channels):
+        raise ValueError(f"the model takes {model.input_shape()[1:]}, the "
+                         f"trace's sensor is {trace.height}x{trace.width}"
+                         f"x{trace.channels}")
+    policy = ServePolicy(max_wait_ms=args.max_wait_ms, slo_ms=args.slo_ms,
+                         max_queue_images=args.queue_depth)
+
+    def run_once(tracer=None):
+        if args.replicas > 1:
+            client = ServeFleet(model, replicas=args.replicas, policy=policy,
+                                pace_fps=args.pace_fps, tracer=tracer)
+        else:
+            client = AsyncServeRuntime(model, policy=policy, tracer=tracer)
+        with client:
+            metrics = replay_trace(trace, client, slo_ms=args.slo_ms)
+        metrics["runtime"] = client.stats()
+        return metrics
+
+    tracer = make_tracer(args)
+    metrics = run_once(tracer)
+    if tracer is not None:
+        dump_trace(tracer, args.trace_out,
+                   meta={"mode": "events", "replicas": args.replicas})
+    summary = {
+        "backend": model.plan.backend,
+        "weight_dtype": model.weight_dtype,
+        "compile_s": round(compile_s, 3),
+        "mode": "event_replay",
+        "trace": args.trace or "synthetic",
+        "sensor": [trace.height, trace.width, trace.channels],
+        "window_us": trace.window_us,
+        "replicas": args.replicas,
+        **{k: v for k, v in metrics.items() if k != "labels"},
+    }
+    print(json.dumps(summary))
+    runs = [metrics]
+
+    if args.smoke:
+        # the event-serving smoke contract: every window served (zero
+        # drops, zero shed at smoke rates), on time, and deterministically
+        assert metrics["requests_dropped"] == 0, summary
+        assert metrics["requests_rejected"] == 0, summary
+        assert metrics["slo_attainment"] == 1.0, summary
+        n_classes = model.cfg.num_classes
+        for labs in metrics["labels"]:
+            assert labs is not None and len(labs) == 1, labs
+            assert 0 <= labs[0] < n_classes, labs
+        replay = run_once()
+        runs.append(replay)
+        assert replay["labels_sha"] == metrics["labels_sha"], (
+            "trace replay is not deterministic",
+            replay["labels_sha"], metrics["labels_sha"])
+        print(json.dumps({"smoke": "ok", "mode": "event_replay",
+                          "windows": metrics["windows"],
+                          "replicas": args.replicas,
+                          "labels_sha": metrics["labels_sha"],
+                          "slo_attainment": metrics["slo_attainment"],
+                          "dispersion_index": metrics["dispersion_index"]}))
+    summary.update(labels=metrics["labels"], runs=runs, model=model)
     return summary
 
 

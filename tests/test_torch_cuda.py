@@ -906,3 +906,97 @@ def test_replaced_replicas_give_their_streams_back(cuda):
         torch.cuda.synchronize()
         held.append(torch.cuda.memory_allocated())
     assert held[-1] == held[0], held
+
+
+def test_packed_on_the_card_launches_kernels_never_the_cpu_branch(
+        cuda, monkeypatch):
+    """``packed``, the reference's default, on the card runs exactly what
+    ``packed_cuda`` runs: the same routes, launches and logits, with the
+    CPU branch's route resolution and ops patched to raise. With
+    ``pallas=False`` asked for, it runs the CPU branch on the card instead:
+    no kernel launches, the CPU's labels."""
+    def banned(*a, **kw):
+        raise AssertionError("packed on the card reached the CPU branch")
+
+    stdp = ops.stdp_attention_packed
+
+    def stdp_on_kernels(*a, **kw):
+        if kw.get("cpu_branch"):
+            banned()
+        return stdp(*a, **kw)
+
+    cfg = SpikformerConfig().scaled()
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (4, 32, 32, 3), dtype=np.uint8))
+    for dtype in ("int8", "float32"):
+        with monkeypatch.context() as mp:
+            for name in ("_resolve_route", "_cpu_gather"):
+                mp.setattr(ops, name, banned)
+            mp.setattr(ops, "stdp_attention_packed", stdp_on_kernels)
+            model = firing_model(cfg, cuda, "packed", weight_dtype=dtype)
+            assert model.backend.name == "packed" and model.backend.pallas
+            ops.reset_launch_counts()
+            logits = model.step(imgs)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        ref_model = firing_model(cfg, cuda, "packed_cuda", weight_dtype=dtype)
+        assert model.plan.routes == ref_model.plan.routes
+        ops.reset_launch_counts()
+        assert torch.equal(logits, ref_model.step(imgs))
+        torch.cuda.synchronize()
+        assert counts == ops.launch_counts() and sum(counts.values())
+        plain = firing_model(cfg, cuda, "packed_plain", weight_dtype=dtype)
+        assert torch.equal(logits, plain.step(imgs))
+    branch = firing_model(cfg, cuda, "packed", weight_dtype="int8",
+                          backend_options={"pallas": False})
+    assert branch.backend.pallas is False
+    ops.reset_launch_counts()
+    on_card = branch.step(imgs)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    cpu = firing_model(cfg, "cpu", "packed", weight_dtype="int8")
+    assert cpu.plan.routes == branch.plan.routes
+    # int8 sums are exact on both devices; the head dot's order is not
+    want = cpu.step(imgs)
+    torch.testing.assert_close(on_card.cpu(), want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(on_card.argmax(-1).cpu(), want.argmax(-1))
+
+
+def test_event_session_labels_on_the_card_equal_packed_plain(cuda):
+    """An ``EventStreamSession`` over the graphed ``packed`` model on the
+    card (the event config, gained so that count frames fire: x4, x0.7
+    more on wo/fc2, and x255 on conv0, whose fold scales 8-bit pixels by
+    1/255 where a count frame holds counts): every window's label equals
+    ``packed_plain``'s classify of the same count frame, and the labels
+    are not all one class."""
+    import dataclasses
+    from repro_torch.events import (EventStreamSession, events_to_frame,
+                                    flicker_burst_events, merge_streams,
+                                    moving_edge_events)
+    from repro_torch.serve import AsyncServeRuntime
+
+    cfg = dataclasses.replace(SpikformerConfig().scaled(
+        img_size=16, dim=32, depth=1), in_channels=2)
+    folded = map_folded_layers(fold_inference_params(
+        init(torch.Generator().manual_seed(0), cfg), cfg), lambda p, l: {
+            **l, "kernel": l["kernel"] * 4.0 * (
+                0.7 if p.endswith(("/wo", "/fc2")) else 1.0)
+            * (255.0 if p == "scs/conv0" else 1.0)})
+    plan = ExecutionPlan(backend="packed", batch_buckets=(1, 8))
+    model = compile(folded, cfg, plan, folded=True, device=cuda)
+    model.warmup()
+    kw = dict(height=16, width=16, duration_us=400_000)
+    stream = merge_streams(moving_edge_events(seed=0, **kw),
+                           flicker_burst_events(seed=1, bursts=3, **kw))
+    with AsyncServeRuntime(model, policy=ServePolicy(
+            max_wait_ms=5.0, slo_ms=2_000.0)) as rt:
+        session = EventStreamSession(rt, window_us=20_000, height=16,
+                                     width=16, capture=True)
+        session.feed(stream)
+        session.close()
+    got = [row["label"] for row in session.windows]
+    frames = np.stack([events_to_frame(ev) for _, _, ev in session.captured])
+    plain = compile(folded, cfg, dataclasses.replace(
+        plan, backend="packed_plain"), folded=True, device=cuda, jit=False)
+    assert got == plain.classify(frames).tolist()
+    assert len(set(got)) > 1, "every window got one label"

@@ -159,8 +159,11 @@ def test_registry_declares_the_reference_backend():
     with pytest.raises(ValueError, match="not on 'meta'"):
         registry.get_backend("reference", device=torch.device("meta"))
     with pytest.raises(ValueError, match="already registered"):
-        registry.register_backend("packed", FloatBackend, aliases=("float",))
-    assert "packed" not in registry._REGISTRY
+        registry.register_backend("probe", FloatBackend, aliases=("float",))
+    assert "probe" not in registry._REGISTRY
+    with pytest.raises(ValueError, match="already registered"):
+        registry.register_backend("packed", FloatBackend)
+    assert registry.backend_spec("packed").takes_device
     be = registry.get_backend("packed_cuda", device=cpu, fuse_mlp=False)
     assert isinstance(be, PackedBackend) and be.fuse_mlp is False
     with pytest.raises(TypeError):

@@ -5,8 +5,9 @@ of plans the JAX package wrote, and the rest of the registry.
 The driver runs in the four smoke forms of the reference's CLI (the closed
 loop, ``--async``, ``--async --replicas 2``, and ``--trace-out``, whose
 span file must give every request its lifecycle under both packages'
-loaders); ``--events`` raises until the events slice lands, and without a
-card the driver refuses to run unless ``--device cpu`` asks for the CPU.
+loaders); ``--events`` and ``--trace`` serve the event workload on the
+reference's default ``packed`` plan, and without a card the driver refuses
+to run unless ``--device cpu`` asks for the CPU.
 """
 import dataclasses
 import json
@@ -53,7 +54,7 @@ def test_cli_smoke_forms(extra, capsys):
              capsys.readouterr().out.strip().splitlines()]
     assert lines[-1]["smoke"] == "ok"
     assert lines[-2]["stats_version" if not extra else "runtime"]
-    assert summary["backend"] == "packed_cuda"
+    assert summary["backend"] == "packed"
     assert summary["weight_dtype"] == "float32"
     if extra:
         assert summary["requests_dropped"] == 0
@@ -91,10 +92,18 @@ def test_cli_trace_out_gives_every_request_its_lifecycle(tmp_path, extra):
     assert doc["otherData"]["dropped_spans"] == 0
 
 
-@pytest.mark.parametrize("flags", [["--events"], ["--trace", "t.jsonl"]])
-def test_cli_events_raise_until_ported(flags):
-    with pytest.raises(NotImplementedError, match="section 1: Events"):
-        cli.main(CPU + flags)
+@pytest.mark.parametrize("flags", [
+    ["--events"], ["--trace", "benchmarks/traces/dvs_synth_mini.jsonl"]])
+def test_cli_events_raise_until_ported(flags, capsys):
+    """Ported: both event forms run (``--trace`` alone selects the event
+    workload, as ``--events`` does) and pass the reference's event smoke
+    contract inside ``main`` on the ``packed`` backend's CPU branch."""
+    summary = cli.main(CPU + flags)
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["smoke"] == "ok" and last["slo_attainment"] == 1.0
+    assert summary["backend"] == "packed" and summary["mode"] == \
+        "event_replay"
+    assert len(summary["runs"]) == 2 and summary["windows"] == 18
 
 
 def test_cli_needs_the_card_or_device_cpu(monkeypatch):
@@ -148,14 +157,16 @@ def test_port_backend_maps_reference_backend_names():
     assert registry.port_backend("packed_cuda", {"fuse_mlp": False}) == \
         ("packed_cuda", {"fuse_mlp": False})
     assert registry.port_backend("reference", {}) == ("reference", {})
-    with pytest.raises(ValueError, match="section 1: Occupancy"):
-        registry.port_backend("packed", {})
+    # ``packed``, the reference's default, is the port's own name now
+    assert registry.port_backend("packed", {"pallas": False}) == \
+        ("packed", {"pallas": False})
     plan = ExecutionPlan.from_json(reference_plan(
         backend="packed", batch_buckets=(2,)).to_json())
     cfg = SpikformerConfig().scaled()
-    with pytest.raises(ValueError, match="not ported yet"):
-        compile(init(torch.Generator().manual_seed(0), cfg), cfg, plan,
-                device="cpu")
+    model = compile(init(torch.Generator().manual_seed(0), cfg), cfg, plan,
+                    device="cpu")
+    assert model.plan == plan and model.backend.name == "packed"
+    assert model.backend.pallas is False        # the CPU branch
 
 
 def test_reference_pallas_plan_runs_packed_cuda():
@@ -179,8 +190,8 @@ def test_reference_pallas_plan_runs_packed_cuda():
 
 
 def test_list_unregister_and_wants_lut_tables():
-    assert registry.list_backends() == ["packed_cuda", "packed_plain",
-                                        "reference"]
+    assert registry.list_backends() == ["packed", "packed_cuda",
+                                        "packed_plain", "reference"]
     assert registry.list_backends(weight_dtype="int8",
                                   device_kind="cpu") == \
         registry.list_backends()
