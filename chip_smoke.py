@@ -178,6 +178,15 @@ def bound_ms(bytes_moved: float, ops: float, ops_per_s: float):
                                        else "operations")
 
 
+def unpack_dot_bound_ms(x, w, out):
+    """The f32 unpack dot's bound: x, the three bf16 terms of w and the
+    f32 output moved once, against its three bf16 products (a spike times
+    each term, summed in f32) at the dense bf16 tensor rate."""
+    t, m, n = out.shape
+    return bound_ms(x.numel() + 3 * w.numel() * 2 + out.numel() * 4,
+                    3 * 2 * t * m * w.shape[0] * n, BF16_OPS_PER_S)
+
+
 def max_abs_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
@@ -321,7 +330,8 @@ def kernel_phase(torch, dev) -> dict:
     from repro_torch.kernels import lut_matmul as lut
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
-    from repro_torch.kernels.spike_matmul import (kmajor_weights,
+    from repro_torch.kernels.spike_matmul import (bf16x3_weights,
+                                                  kmajor_weights,
                                                   lut_gather_matmul,
                                                   lut_gather_packed,
                                                   lut_gather_packed_plain,
@@ -488,28 +498,33 @@ def kernel_phase(torch, dev) -> dict:
         library_int8_ms=graph_ms(torch, lambda: torch._int_mm(planes_s8,
                                                              w1i)))
 
-    # the f32 grouped unpack dot (off the driven paths) at the same shape
-    got, want = spike_matmul_grouped(xq, w1, t=t), ref.spike_matmul_ref(
-        xq, w1, t=t)
+    # the f32 grouped unpack dot (on the bf16 tensor cores, over the
+    # weights' three-term split, built once as the planner builds it) at
+    # the same shape; the driven default f32 plan's shapes are timed in
+    # ``packed_default_f32_phase``
+    w1s = bf16x3_weights(w1)
+    got = spike_matmul_grouped(xq, w1, t=t, w_bf16x3=w1s)
+    want = ref.spike_matmul_ref(xq, w1, t=t)
     check(torch.equal(got, want),
           "unpack_dot (integer weights) differs from its plain version")
     err = max_abs_err(got, want)
     w1f = torch.randn((dim, hidden), generator=gen, device=dev)
-    gotf = spike_matmul_grouped(xq, w1f, t=t)
+    gotf = spike_matmul_grouped(xq, w1f, t=t, w_bf16x3=bf16x3_weights(w1f))
     wantf = ref.spike_matmul_ref(xq, w1f, t=t)
     err_f = float((gotf - wantf).abs().max())
     # f32 weights: sums of up to 512 terms in another order; tolerance
     # atol 1e-3 + rtol 1e-5 (|sums| stay below ~100, ulp ~1e-5)
     check(bool(((gotf - wantf).abs() <= 1e-3 + 1e-5 * wantf.abs()).all()),
           f"unpack_dot (f32 weights) off by {err_f}")
-    b_ms, b_by = bound_ms(xq.numel() + w1.numel() * 4 + got.numel() * 4,
-                          2 * t * m * dim * hidden, INT8_OPS_PER_S)
+    b_ms, b_by = unpack_dot_bound_ms(xq, w1, got)
     out["unpack_dot"] = dict(
-        shape=f"x {tuple(xq.shape)} u8 x w {tuple(w1.shape)} int-valued f32,"
-              f" t={t}", max_abs_err=err, max_abs_err_f32_weights=err_f,
-        ms=device_ms(torch, lambda: spike_matmul_grouped(xq, w1, t=t),
-                     "unpack_dot_kernel"),
-        ms_events=time_ms(torch, lambda: spike_matmul_grouped(xq, w1, t=t)),
+        shape=f"x {tuple(xq.shape)} u8 x w {tuple(w1.shape)} int-valued f32"
+              f" (its bf16 split), t={t}", max_abs_err=err,
+        max_abs_err_f32_weights=err_f,
+        ms=device_ms(torch, lambda: spike_matmul_grouped(
+            xq, w1, t=t, w_bf16x3=w1s), "unpack_dot_kernel"),
+        ms_events=time_ms(torch, lambda: spike_matmul_grouped(
+            xq, w1, t=t, w_bf16x3=w1s)),
         plain_ms=time_ms(torch, lambda: ref.spike_matmul_ref(xq, w1, t=t)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=graph_ms(torch, lambda: torch.matmul(planes, w1)))
@@ -721,16 +736,14 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
 
 
 class LayerRecorder:
-    """Wraps a backend and records the firing rate of every layer's packed
-    output, in forward order, and of the residual stream the head reads."""
+    """Wraps a backend and keeps every layer's packed output, in forward
+    order, and the residual stream the head reads."""
 
-    def __init__(self, inner, t: int):
-        from repro_torch.core.spike import packed_occupancy
-        self.inner, self.t, self.rows = inner, t, []
-        self._occ = packed_occupancy
+    def __init__(self, inner):
+        self.inner, self.rows = inner, []
 
     def _rec(self, name, out):
-        self.rows.append((name, self._occ(out, self.t)))
+        self.rows.append((name, out))
         return out
 
     def sssc_lif(self, *a, **kw):
@@ -754,6 +767,20 @@ class LayerRecorder:
     def rate(self, x, *, t):
         self._rec("final_residual", x)
         return self.inner.rate(x, t=t)
+
+
+# the layers whose output is a LIF's spikes
+LIFS = ("sssc", "zsc", "wssl", "stdp")
+
+
+def recorded_step(model, batch) -> tuple:
+    """One eager step of ``model`` on ``batch`` through ``LayerRecorder``:
+    ``(logits, rows)``."""
+    from repro_torch.infer.compile import lower
+    rec = LayerRecorder(model.backend)
+    logits = lower(model.folded, model.cfg, rec, jit=False)(model.folded,
+                                                            batch)
+    return logits, rec.rows
 
 
 OUR_KERNELS = ("tflif_kernel", "lut_gather_kernel", "unpack_dot_kernel",
@@ -993,11 +1020,11 @@ def check_logits(torch, logits, others: dict, what: str) -> list:
 def final_firing(model, batch) -> tuple:
     """Per-layer firing rates of ``batch`` in forward order; checks the
     final residual stream still fires."""
-    from repro_torch.infer.compile import lower
-    rec = LayerRecorder(model.backend, model.cfg.timesteps)
-    lower(model.folded, model.cfg, rec, jit=False)(model.folded, batch)
-    check(rec.rows[-1][1] > 0, "the final residual stream is silent")
-    return rec.rows[-1][1], [(n, round(o, 5)) for n, o in rec.rows]
+    from repro_torch.core.spike import packed_occupancy
+    rows = [(n, packed_occupancy(o, model.cfg.timesteps))
+            for n, o in recorded_step(model, batch)[1]]
+    check(rows[-1][1] > 0, "the final residual stream is silent")
+    return rows[-1][1], [(n, round(o, 5)) for n, o in rows]
 
 
 def serve_phase(torch, dev, cfg, folded, requests, batch) -> dict:
@@ -1573,24 +1600,44 @@ def events_full_width_phase(torch, dev) -> dict:
             for b, p in steps.items()})
 
 
+def spike_flips(torch, model, plain, batch) -> list:
+    """One eager step of ``model`` and of ``plain`` (same tree, plain
+    versions): for each LIF in forward order, its name, the spike bits
+    that differ between the two and the plain step's spikes. A readout,
+    not a gate: it shows how close the f32 sums sit to the threshold, and
+    where a logits gate failure begins."""
+    got, want = ([(n, o) for n, o in recorded_step(m, batch)[1]
+                  if n in LIFS] for m in (model, plain))
+    pop = torch.tensor([bin(i).count("1") for i in range(256)],
+                       device=batch.device)
+    return [(name, int(pop[(a ^ b).long()].sum()), int(pop[b.long()].sum()))
+            for (name, a), (_, b) in zip(got, want)]
+
+
 def packed_default_f32_phase(torch, dev, cfg, folded, batch) -> dict:
     """The reference's default plan, ``ExecutionPlan()`` with backend
     ``packed`` (the port's ``ExecutionPlan()`` names ``packed_cuda``,
     which runs the same kernels), on the f32 gained tree: bucket 8,
     graphed. Under the 16 MiB table cap conv0-2 gather and conv3, the SSA
     linears, fc1 and fc2 run the f32 grouped unpack dot
-    (``csrc/unpack_dot.cu``). One step's launches are gated at the plan's
-    per-step counts; its logits are bit-identical to the eager step's and,
-    the f32 unpack dot summing in another order than the plain matmul
-    (held to a tolerance, as the reference's Pallas unpack route is), give
-    ``packed_plain``'s labels with logits within atol 1e-3 + rtol 1e-3.
+    (``csrc/unpack_dot.cu``, on the bf16 tensor cores over each layer's
+    ``kernel_bf16x3`` split, built once by the planner: the wrappers'
+    count of splits built per call must stay 0). One step's launches are
+    gated at the plan's per-step counts; its logits are bit-identical to
+    the eager step's and, the f32 unpack dot summing in another order than
+    the plain matmul (held to a tolerance, as the reference's Pallas
+    unpack route is), give ``packed_plain``'s labels with logits within
+    atol 1e-3 + rtol 1e-3. The spike bits of each LIF that differ from
+    ``packed_plain``'s in one eager step are read out (``spike_flips``).
     Then the step is profiled graphed, and the unpack dot timed alone at
-    each of its layer shapes (CUDA events around a captured graph of 20
-    calls, as the library calls are timed)."""
+    each of its layer shapes over a prebuilt split (CUDA events around a
+    captured graph of 20 calls, as the library calls are timed)."""
     from repro_torch.core.spike import pack_timesteps, unpack_timesteps
     from repro_torch.infer import ExecutionPlan, compile
+    from repro_torch.infer.quant import map_folded_layers
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.spike_matmul import spike_matmul_grouped
+    from repro_torch.kernels.spike_matmul import (bf16x3_weights,
+                                                  spike_matmul_grouped)
 
     t0 = time.perf_counter()
     model = compile(folded, cfg, ExecutionPlan(backend="packed"),
@@ -1604,13 +1651,37 @@ def packed_default_f32_phase(torch, dev, cfg, folded, batch) -> dict:
                    else "unpack" for p in routes}
     check(routes == want_routes,
           f"the default f32 plan's routes differ from the cap's: {routes}")
+    layers = {}
+
+    def note(path, layer):
+        layers[path] = layer
+        return layer
+
+    map_folded_layers(model.folded, note)
+    split_layers = sorted(p for p, l in layers.items()
+                          if "kernel_bf16x3" in l)
+    check(split_layers == sorted(p for p, r in routes.items()
+                                 if r == "unpack"),
+          f"default f32 plan: kernel_bf16x3 on {split_layers}")
+    # the planner's splits, built again and timed on their own
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in split_layers:
+        bf16x3_weights(layers[p]["kernel"], name=p)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
     per_step = per_step_launches(cfg, routes, "float32")
     with cpu_branch_calls() as calls:
+        spike_matmul_grouped.split_builds = 0
         warmup_s = model.warmup()
+        split_builds = spike_matmul_grouped.split_builds
         reset_counts(model)
         logits = model.step(batch)
         launches = read_counts(torch, model)
+        split_builds += spike_matmul_grouped.split_builds
     check(not calls, f"default f32 plan: the CPU branch ran: {calls}")
+    check(split_builds == 0, f"default f32 plan: {split_builds} weight "
+          "splits built per call")
     check_step_launches(launches, per_step, 1)
     graph = check_graph_logits(torch, model, batch, "default f32 plan")
     check(torch.equal(graph, logits), "default f32 plan: two replays differ")
@@ -1618,6 +1689,8 @@ def packed_default_f32_phase(torch, dev, cfg, folded, batch) -> dict:
         model.plan, backend="packed_plain"), folded=True, device=dev,
         jit=False)
     want = plain.step(batch)
+    flips = spike_flips(torch, model, plain, batch)
+    ops.reset_launch_counts()     # the readout's eager launches do not count
     torch.cuda.synchronize()
     del plain
     torch.cuda.empty_cache()
@@ -1626,7 +1699,8 @@ def packed_default_f32_phase(torch, dev, cfg, folded, batch) -> dict:
     err = float((logits - want).abs().max())
     check(bool(((logits - want).abs() <= 1e-3 + 1e-3 * want.abs()).all())
           and torch.equal(logits.argmax(-1), want.argmax(-1)),
-          f"default f32 plan: logits off packed_plain's by {err}")
+          f"default f32 plan: logits off packed_plain's by {err}; spike "
+          f"flips by LIF: {[(i, f) for i, (_, f, _) in enumerate(flips) if f]}")
     final_occ, _ = final_firing(model, batch)
     prof = profile_phase(torch, model.step, batch)
     # the unpack dot alone at each layer shape of the step (comparison
@@ -1643,25 +1717,31 @@ def packed_default_f32_phase(torch, dev, cfg, folded, batch) -> dict:
                                        device=dev) < FIRING_RATE).to(
             torch.uint8))
         w = torch.randn((k_in, n_out), generator=gen, device=dev)
-        got, ref_out = spike_matmul_grouped(x, w, t=t), ref.spike_matmul_ref(
-            x, w, t=t)
+        w3 = bf16x3_weights(w)
+        got = spike_matmul_grouped(x, w, t=t, w_bf16x3=w3)
+        ref_out = ref.spike_matmul_ref(x, w, t=t)
+        shape_err = float((got - ref_out).abs().max())
         check(bool(((got - ref_out).abs() <= 1e-3 + 1e-5 * ref_out.abs())
-                   .all()), f"unpack_dot at {name} off its plain version")
-        ms = graph_ms(torch, lambda: spike_matmul_grouped(x, w, t=t),
-                      kernel="unpack_dot")
+                   .all()), f"unpack_dot at {name} off its plain version by "
+              f"{shape_err}")
+        ms = graph_ms(torch, lambda: spike_matmul_grouped(
+            x, w, t=t, w_bf16x3=w3), kernel="unpack_dot")
         prof_ms, seen = profiled_ms(
-            torch, lambda: spike_matmul_grouped(x, w, t=t),
+            torch, lambda: spike_matmul_grouped(x, w, t=t, w_bf16x3=w3),
             "unpack_dot_kernel")
-        b_ms, b_by = bound_ms(x.numel() + w.numel() * 4 + got.numel() * 4,
-                              2 * t * rows * k_in * n_out, F32_OPS_PER_S)
+        b_ms, b_by = unpack_dot_bound_ms(x, w, got)
+        f32_ms, f32_by = bound_ms(x.numel() + w.numel() * 4 + got.numel() * 4,
+                                  2 * t * rows * k_in * n_out, F32_OPS_PER_S)
         planes = unpack_timesteps(x, t).reshape(t * rows, k_in)
         by_shape[name] = dict(
-            shape=f"x {tuple(x.shape)} u8, w ({k_in}, {n_out}) f32, t={t}",
+            shape=f"x {tuple(x.shape)} u8, w ({k_in}, {n_out}) f32 as its "
+                  f"bf16 split, t={t}",
             ms=ms, profiler_ms=prof_ms, profiler_seen=seen,
             layers_per_step=layers, ms_per_step=ms * layers,
-            bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=shape_err, bound_ms=b_ms, bound_by=b_by,
+            bound_ms_f32_units=f32_ms, bound_by_f32_units=f32_by,
             library_ms=graph_ms(torch, lambda: torch.matmul(planes, w)))
-        del x, w, got, ref_out, planes
+        del x, w, w3, got, ref_out, planes
     ops.reset_launch_counts()     # comparison launches do not count
     unpack_rows = [r for r in prof["by_kernel"]
                    if "unpack_dot_kernel" in r["kernel"]]
@@ -1669,8 +1749,13 @@ def packed_default_f32_phase(torch, dev, cfg, folded, batch) -> dict:
         config="SpikformerConfig() V2-8-512; the reference's default plan "
                "ExecutionPlan(): packed, float32, bucket 8, jit=True",
         compile_s=compile_s, warmup_s=warmup_s, routes=routes,
+        split_layers=len(split_layers), plan_split_s=split_s,
+        split_builds_per_call=split_builds,
         per_step_launches=per_step, steps=1, launches=launches,
         max_abs_logit_err_vs_plain=err, labels=logits.argmax(-1).tolist(),
+        spike_flips_total=sum(f for _, f, _ in flips),
+        spike_flips_by_lif=[(i, n, f, sp) for i, (n, f, sp) in
+                            enumerate(flips)],
         final_residual_occupancy=final_occ,
         wall_ms=prof["wall_ms_per_step"],
         device_ms=prof["device_ms_per_step"], idle_share=prof["idle_share"],
@@ -2313,7 +2398,8 @@ def main() -> int:
         k: f32[k] for k in (
             "per_step_launches", "launches", "max_abs_logit_err_vs_plain",
             "final_residual_occupancy", "wall_ms", "device_ms", "idle_share",
-            "unpack_dot_ms_per_step_in_graph",
+            "plan_split_s", "split_builds_per_call", "spike_flips_total",
+            "spike_flips_by_lif", "unpack_dot_ms_per_step_in_graph",
             "unpack_dot_launches_per_step_in_graph", "unpack_dot_by_shape")},
         "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                         for k in f32["profile"]["by_kernel"][:8]]}))

@@ -128,6 +128,7 @@ def forward_folded(folded: dict, images_u8: torch.Tensor,
         return backend.wssl_lif(z, layer["kernel"], layer["bias"], t=t,
                                 scale=layer.get("scale"), lut=layer.get("lut"),
                                 kmajor=layer.get("kernel_kmajor"),
+                                bf16x3=layer.get("kernel_bf16x3"),
                                 **extra(path))
 
     c0 = folded["scs"]["conv0"]
@@ -139,6 +140,7 @@ def forward_folded(folded: dict, images_u8: torch.Tensor,
         x = backend.zsc_lif(x, ci["kernel"], ci["bias"], t=t,
                             scale=ci.get("scale"), lut=ci.get("lut"),
                             kmajor=ci.get("kernel_kmajor"),
+                            bf16x3=ci.get("kernel_bf16x3"),
                             **extra(f"scs/conv{i}"))
     x = backend.to_tokens(x)
 

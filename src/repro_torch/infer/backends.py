@@ -18,7 +18,9 @@ A layer carrying a ``scale`` leaf is int8: its scale folds into the LIF
 bias and threshold, never the accumulator, in both backends. The packed
 backend hands int8 kernels to the matmul as they are (the unpack route
 runs them on the int8 tensor cores, over the ``kernel_kmajor`` leaf the
-planner caches; the gather route reads only its table); the float backend
+planner caches; the gather route reads only its table), and f32 unpack
+layers their ``kernel_bf16x3`` leaf, the weights' three-term bf16 split
+the f32 unpack dot reads on the bf16 tensor cores; the float backend
 casts them to f32. A layer
 carrying a ``lut`` leaf is LUT-planned: the packed backend gathers from the
 (C, 256, N) table; the float backend, which the planner hands only a True
@@ -138,13 +140,13 @@ class FloatBackend:
         return tflif(y, v_th=vth)
 
     def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
-                kmajor=None, occupancy=None):
+                kmajor=None, bf16x3=None, occupancy=None):
         op = unified.zsc if lut is None else self._zsc_emu
         y, vth = self._acc_and_vth(op, x, kernel, bias, scale)
         return tflif(y, v_th=vth)
 
     def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
-                 kmajor=None, occupancy=None):
+                 kmajor=None, bf16x3=None, occupancy=None):
         op = unified.wssl if lut is None else self._wssl_emu
         y, vth = self._acc_and_vth(op, x, kernel, bias, scale)
         return tflif(y, v_th=vth)
@@ -208,9 +210,10 @@ class PackedBackend:
     # ``occupancy`` is a sparse-routed layer's calibration; only the CPU
     # branch reads it (the kernels' gather is dense, and bitwise the same).
 
-    def _linear(self, x, kernel, *, t, lut, kmajor, occupancy):
+    def _linear(self, x, kernel, *, t, lut, kmajor, bf16x3, occupancy):
         return ops.spike_linear(x, kernel, None, t=t, table=lut,
-                                w_kmajor=kmajor, occupancy=occupancy,
+                                w_kmajor=kmajor, w_bf16x3=bf16x3,
+                                occupancy=occupancy,
                                 plain=self.plain, cpu_branch=not self.pallas)
 
     def sssc_lif(self, images_u8, kernel, bias, *, t: int, scale=None,
@@ -223,15 +226,15 @@ class PackedBackend:
         return self._lif(acc, bias, scale)              # (G,B,H/2,W/2,F) u8
 
     def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
-                kmajor=None, occupancy=None):
+                kmajor=None, bf16x3=None, occupancy=None):
         acc = self._linear(space_to_depth(x, 2), kernel, t=t, lut=lut,
-                           kmajor=kmajor, occupancy=occupancy)
+                           kmajor=kmajor, bf16x3=bf16x3, occupancy=occupancy)
         return self._lif(acc, bias, scale)
 
     def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
-                 kmajor=None, occupancy=None):
+                 kmajor=None, bf16x3=None, occupancy=None):
         acc = self._linear(x, kernel, t=t, lut=lut, kmajor=kmajor,
-                           occupancy=occupancy)
+                           bf16x3=bf16x3, occupancy=occupancy)
         return self._lif(acc, bias, scale)
 
     def mlp_pair_lif(self, x, fc1, fc2, *, t: int, occupancy=None):
@@ -252,6 +255,7 @@ class PackedBackend:
         scale1 = fc1.get("scale")
         acc1 = self._linear(x, fc1["kernel"], t=t, lut=fc1.get("lut"),
                             kmajor=fc1.get("kernel_kmajor"),
+                            bf16x3=fc1.get("kernel_bf16x3"),
                             occupancy=occupancy)
         # fc1's int8 scale folds into its LIF exactly as in ``_lif``
         b1 = fc1["bias"] if scale1 is None else fc1["bias"] / scale1
@@ -315,12 +319,12 @@ class OccupancyRecorder(PackedBackend):
                                 lut=lut)
 
     def zsc_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
-                kmajor=None, occupancy=None):
+                kmajor=None, bf16x3=None, occupancy=None):
         self.trace.append(chunk_occupancy(space_to_depth(x, 2), t))
         return super().zsc_lif(x, kernel, bias, t=t, scale=scale, lut=lut)
 
     def wssl_lif(self, x, kernel, bias, *, t: int, scale=None, lut=None,
-                 kmajor=None, occupancy=None):
+                 kmajor=None, bf16x3=None, occupancy=None):
         self.trace.append(chunk_occupancy(x, t))
         return super().wssl_lif(x, kernel, bias, t=t, scale=scale, lut=lut)
 

@@ -43,9 +43,10 @@ from ..core.spikformer import SpikformerConfig, fold_inference_params
 from ..device import (GraphCapturer, StepGraph, graph_launch_counts,
                       resolve_device)
 from ..kernels import lut_matmul
+from ..kernels._build import on_cpu
 from ..kernels.lut_matmul import (RouteConstants, choose_cuda_route,
                                   choose_route)
-from ..kernels.spike_matmul import kmajor_weights
+from ..kernels.spike_matmul import bf16x3_weights, kmajor_weights
 
 ROUTES = ("auto", "unpack", "lut")
 
@@ -178,11 +179,13 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
     calibration (or ``force`` pins one route everywhere, or a pinned
     ``routes`` mapping is replayed); LUT layers get their (C, 256, N)
     table built once into a ``lut`` leaf (a True flag with
-    ``build_tables=False``), and int8 unpack layers their K-major copy
-    (``with_kmajor``; none with ``build_tables=False`` or on the CPU
-    branch, which never reads it). A "lut_sparse" route needs its
-    calibrated occupancy, as in the reference; the kernels run it as the
-    dense gather, bitwise the same. Returns ``(annotated_tree, routes)``."""
+    ``build_tables=False``), and unpack layers their tensor-core operand
+    (``with_kmajor``: int8 layers their K-major copy, f32 layers on the
+    card their bf16 split; none with ``build_tables=False`` or on the CPU
+    branch, which never reads it).
+    A "lut_sparse" route needs its calibrated occupancy, as in the
+    reference; the kernels run it as the dense gather, bitwise the same.
+    Returns ``(annotated_tree, routes)``."""
     occ_map = layer_occupancy or {}
     plan = {}
     choose = choose_route if cpu_branch else choose_cuda_route
@@ -210,7 +213,7 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
                              "calibrated occupancy in layer_occupancy")
         plan[path] = route
         layer = {k2: v for k2, v in layer.items()
-                 if k2 not in ("lut", "kernel_kmajor")}
+                 if k2 not in _OPERAND_LEAVES}
         if route in ("lut", "lut_sparse"):
             layer["lut"] = lut_matmul.build_lut(wq) if build_tables else True
         elif build_tables and not cpu_branch:
@@ -221,21 +224,34 @@ def plan_route_tables(folded, cfg: SpikformerConfig, *, batch_size: int,
 
 
 def with_kmajor(path: str, layer: dict) -> dict:
-    """An unpack-routed layer with its ``kernel_kmajor`` leaf: the (N, K)
-    K-major copy of an int8 kernel, the B operand of the int8 tensor-core
-    dot, built once here and never per call. f32 kernels and conv0 (its
-    SSSC runs the shift-sum dot in f32) get none."""
-    if path == "scs/conv0" or layer["kernel"].dtype != torch.int8:
+    """An unpack-routed layer with the B operand of its tensor-core dot,
+    built once here and never per call: ``kernel_kmajor``, the (N, K)
+    K-major copy of an int8 kernel, or ``kernel_bf16x3``, the (3, N, K)
+    three-term bf16 split of an f32 kernel, the latter only where the
+    kernel lies on the card (on the CPU the wrapper runs the plain f32
+    dot, which never reads it). The split must hold every weight exactly,
+    or this raises, naming the layer. conv0 (its SSSC runs the shift-sum
+    dot in f32) gets neither."""
+    kernel = layer["kernel"]
+    if path == "scs/conv0":
         return layer
-    return {**layer, "kernel_kmajor": kmajor_weights(layer["kernel"])}
+    if kernel.dtype == torch.int8:
+        return {**layer, "kernel_kmajor": kmajor_weights(kernel)}
+    if kernel.dtype != torch.float32 or on_cpu(kernel):
+        return layer
+    return {**layer, "kernel_bf16x3": bf16x3_weights(kernel,
+                                                     name=f"layer {path}")}
+
+
+_OPERAND_LEAVES = ("lut", "kernel_kmajor", "kernel_bf16x3")
 
 
 def strip_lut_annotations(folded):
-    """Remove every ``lut`` and ``kernel_kmajor`` leaf: what
-    ``route="unpack"`` uses to pin the unpack route even on a tree a
+    """Remove every ``lut``, ``kernel_kmajor`` and ``kernel_bf16x3`` leaf:
+    what ``route="unpack"`` uses to pin the unpack route even on a tree a
     previous planner annotated."""
     return map_folded_layers(folded, lambda _, l: {
-        k: v for k, v in l.items() if k not in ("lut", "kernel_kmajor")})
+        k: v for k, v in l.items() if k not in _OPERAND_LEAVES})
 
 
 def linear_layer_paths(cfg: SpikformerConfig) -> list:

@@ -127,12 +127,17 @@ _COUNT_LOCK = threading.Lock()
 _RECORDING = threading.local()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (under a lock: serving threads launch
-    at once, and ``+=`` on an attribute is not atomic) and to the calling
-    thread's open ``recording_launches``, if any."""
+def add_count(wrapper, counter: str) -> None:
+    """Add one to ``wrapper.<counter>``, under a lock: serving threads
+    launch at once, and ``+=`` on an attribute is not atomic."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (``add_count``) and to the calling
+    thread's open ``recording_launches``, if any."""
+    add_count(wrapper, "launches")
     counts = getattr(_RECORDING, "counts", None)
     if counts is not None:
         counts[wrapper] = counts.get(wrapper, 0) + 1

@@ -51,12 +51,24 @@ def _pad_k(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def bit_transpose8(b: torch.Tensor) -> torch.Tensor:
     """Transpose 8x8 bit matrices held as 8 bytes, over leading axes:
-    ``out[..., j]`` bit i == ``b[..., i]`` bit j. Unpack, swap the two bit
-    axes, repack (the reference's wordwise Hacker's Delight form needs
-    logical uint32 shifts that torch's int32 lacks)."""
-    shifts = torch.arange(8, dtype=torch.uint8, device=b.device)
-    bits = (b.unsqueeze(-1) >> shifts) & 1               # [..., i, j]
-    return (bits.transpose(-1, -2) << shifts).sum(-1, dtype=torch.uint8)
+    ``out[..., j]`` bit i == ``b[..., i]`` bit j. Hacker's Delight 7-3 on
+    one little-endian 64-bit word a matrix (byte i = row i): three swaps
+    of 2x2 blocks of 1, 2 and 4 bits. torch's int64 shifts right are
+    arithmetic, but every mask clears the sign-filled top bits. Eighteen
+    elementwise ops on one int64 a matrix, where unpacking the bits took an
+    (..., 8, 8) intermediate (``plane_indices`` runs this once a layer on
+    the CPU branch)."""
+    x = b.contiguous()
+    if x.storage_offset() % 8:
+        x = x.clone()
+    x = x.view(torch.int64)
+    t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AA
+    x = x ^ t ^ (t << 7)
+    t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCC
+    x = x ^ t ^ (t << 14)
+    t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0
+    x = x ^ t ^ (t << 28)
+    return x.view(torch.uint8)
 
 
 def plane_indices(x_packed: torch.Tensor) -> torch.Tensor:
@@ -91,16 +103,33 @@ def build_lut(w: torch.Tensor) -> torch.Tensor:
 def lut_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Gather-and-accumulate: (..., C) index bytes x (C, 256, N) table ->
     (..., N) f32 by the ascending-chunk fold (int32 for int16 tables).
-    The plain version of the CUDA gather kernel."""
-    c = table.shape[0]
+    The plain version of the CUDA gather kernel. The row numbers into the
+    flattened (C*256, N) table are formed once for every chunk, the rows of
+    as many chunks as ``_GATHER_BYTES`` holds are gathered at once, and the
+    chunks are added in ascending order."""
+    c, _, n = table.shape
     if idx.shape[-1] != c:
         raise ValueError(f"index bytes {tuple(idx.shape)} do not match "
                          f"table {tuple(table.shape)}")
     acc_dt = torch.float32 if table.is_floating_point() else torch.int32
-    y = table[0][idx[..., 0].long()].to(acc_dt)
-    for cc in range(1, c):
-        y = y + table[cc][idx[..., cc].long()].to(acc_dt)
-    return y.to(torch.float32)
+    lead = idx.shape[:-1]
+    flat = table.reshape(c * 256, n)
+    off = torch.arange(0, c * 256, 256, dtype=torch.int64, device=idx.device)
+    rows = torch.movedim(idx.long() + off, -1, 0).reshape(c, -1)
+    r = rows.shape[1]
+    per = max(1, min(c, _GATHER_BYTES // max(1, r * n * table.element_size())))
+    y = None
+    for c0 in range(0, c, per):
+        block = flat.index_select(0, rows[c0:c0 + per].reshape(-1))
+        for part in block.view(min(per, c - c0), r, n).unbind(0):
+            # int16 rows promote to the int32 sum
+            y = part.to(acc_dt) if y is None else y + part
+    return y.reshape(*lead, n).to(torch.float32)
+
+
+# rows of several chunks gathered by one index_select, at most this many
+# bytes
+_GATHER_BYTES = 64 << 20
 
 
 def sparse_budget(c: int, occupancy: float) -> int:

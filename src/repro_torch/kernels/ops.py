@@ -54,7 +54,7 @@ _WRAPPERS = types.SimpleNamespace(
     fused=tflif_lut_matmul, shift_sum=shift_sum_matmul, flash=_flash)
 _PLAIN = types.SimpleNamespace(
     tflif=tflif_plain, lut=lut_gather_packed_plain,
-    unpack=ref.spike_matmul_ref,
+    unpack=lambda x, w, t, w_bf16x3=None: ref.spike_matmul_ref(x, w, t=t),
     unpack_s8=lambda x, wk, t: ref.spike_matmul_ref(x, wk.T, t=t),
     stdp_packed=stdp_attention_packed_plain, fused=tflif_lut_plain,
     shift_sum=lambda x, w: ref.spike_matmul_ref(x, w, mode="shift_sum"),
@@ -66,8 +66,11 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's launches, and the f32 unpack dot's count of
+    weight splits built per call."""
     for fn in KERNELS.values():
         fn.launches = 0
+    spike_matmul_grouped.split_builds = 0
 
 
 @contextlib.contextmanager
@@ -155,8 +158,9 @@ def spike_matmul(x_packed, w, *, mode: str = "per_plane",
 
 
 def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
-                 w_kmajor=None, route_constants=None, occupancy=None,
-                 plain: bool = False, cpu_branch: bool = False):
+                 w_kmajor=None, w_bf16x3=None, route_constants=None,
+                 occupancy=None, plain: bool = False,
+                 cpu_branch: bool = False):
     """Packed WSSL: (G, ..., K) uint8 temporal plane groups x (K, N) ->
     (t, ..., N) f32 per-timestep accumulators (+ ``bias``).
 
@@ -166,8 +170,10 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
     dot, which expands the bits on chip: on the int8 tensor cores for int8
     ``w`` (over ``w_kmajor``, the (N, K) copy the planner caches; built
     here when absent; at K >= ``MAX_S8_K``, where int8 sums may leave the
-    exact range, in f32 as the reference computes them), on the f32 units
-    otherwise. Both routes are
+    exact range, in f32 as the reference computes them), on the bf16
+    tensor cores for f32 ``w`` (over ``w_bf16x3``, its three-term bf16
+    split, which the planner caches; built per call when absent). Both
+    routes are
     bit-exact for integer weights; for f32 weights "lut" replays the
     defined fold exactly and "unpack" is held to a tolerance.
 
@@ -208,7 +214,8 @@ def spike_linear(x_packed, w, bias=None, *, t: int, route=None, table=None,
         wk = kmajor_weights(w) if w_kmajor is None else w_kmajor
         per = impl.unpack_s8(x2.contiguous(), wk, t=t)
     else:
-        per = impl.unpack(x2.contiguous(), w.to(torch.float32), t=t)
+        per = impl.unpack(x2.contiguous(), w.to(torch.float32), t=t,
+                          w_bf16x3=w_bf16x3)
     if bias is not None:
         per = per + bias.to(per.dtype)
     return per.reshape(t, *lead, n)

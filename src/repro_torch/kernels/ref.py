@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.spike import bitplanes_u8, num_plane_groups, unpack_timesteps
+from ..core.spike import (bitplanes_u8, num_plane_groups, pack_timesteps,
+                          unpack_timesteps)
 
 
 def spike_matmul_ref(x_packed: torch.Tensor, w: torch.Tensor, *,
@@ -51,22 +52,18 @@ def tflif_ref(x: torch.Tensor, bias=None, *, tau: float = 2.0,
     group boundaries. ``bias`` and ``v_th`` broadcast against
     ``x.shape[1:]``. Same op order as the reference:
     ``v + ((x + bias) - v) / tau``."""
-    t_steps = x.shape[0]
-    lead = x.shape[1:]
     if bias is None:
         bias = 0.0
     v_th = torch.as_tensor(v_th, dtype=torch.float32, device=x.device)
-    v = torch.zeros(lead, dtype=torch.float32, device=x.device)
-    out = []
-    for g in range(num_plane_groups(t_steps)):
-        packed = torch.zeros(lead, dtype=torch.uint8, device=x.device)
-        for j in range(min(8, t_steps - 8 * g)):
-            h = v + (x[8 * g + j].to(torch.float32) + bias - v) / tau
-            s = h >= v_th
-            v = torch.where(s, 0.0, h)
-            packed = packed | (s.to(torch.uint8) << j)
-        out.append(packed)
-    return torch.stack(out)
+    xb = x.to(torch.float32) + bias          # every step's x + bias at once
+    v = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
+    spikes = []
+    for j in range(x.shape[0]):
+        h = v + (xb[j] - v) / tau
+        s = h >= v_th
+        v = torch.where(s, 0.0, h)
+        spikes.append(s)
+    return pack_timesteps(torch.stack(spikes))
 
 
 def stdp_attention_ref(q, k, v, *, scale: float) -> torch.Tensor:

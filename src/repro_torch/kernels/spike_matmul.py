@@ -6,7 +6,8 @@ grouped unpack dot and the 2-D ``spike_matmul`` (port of
 (plain version: ``lut_matmul.lut_matmul``) and ``lut_gather_packed`` the
 same kernel over packed spikes, forming the index bytes on chip (plain
 version: ``lut_gather_packed_plain``); ``spike_matmul_grouped`` launches
-``csrc/unpack_dot.cu`` (f32 weights, the CUDA cores),
+``csrc/unpack_dot.cu`` (f32 weights as the three-term bf16 split
+``bf16x3_weights`` builds, the bf16 tensor cores),
 ``spike_matmul_grouped_s8`` launches ``csrc/unpack_dot_s8.cu`` (int8
 weights in the K-major layout ``kmajor_weights`` builds, the int8 tensor
 cores) and ``shift_sum_matmul`` launches ``csrc/shift_sum.cu`` (plain
@@ -34,7 +35,7 @@ _LUT_PACKED_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_void_p]
 _UNPACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p]
+                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 _UNPACK_S8_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_void_p]
@@ -46,6 +47,7 @@ _GRID_LIMIT = 65535       # gridDim.y / gridDim.z
 # 127 * K < 2^24
 MAX_S8_K = 132104
 _ROW_ALIGN = 16           # bytes: TMA's row stride and base alignment
+_BF16_ROW = _ROW_ALIGN // 2   # bf16 elements in 16 bytes
 
 
 def _lut_table(table: torch.Tensor) -> None:
@@ -121,12 +123,66 @@ def lut_gather_packed(x_packed: torch.Tensor, table: torch.Tensor, *,
                        x_packed, (t, m, n), t, g, m, k, n)
 
 
+def bf16x3_weights(w: torch.Tensor, *, name: str = "w") -> torch.Tensor:
+    """(K, N) f32 kernel -> its (3, N, K) bf16 K-major split, the B operand
+    of the f32 unpack dot on the bf16 tensor cores: ``hi = bf16(w)``,
+    ``mid = bf16(w - hi)``, ``lo = bf16(w - hi - mid)``, each equal to its
+    term's transpose, rows 16 bytes apart (a view of zero-padded (3, N,
+    ceil(K/8)*8) storage), as TMA needs. Raises, naming ``name``, unless
+    ``hi + mid + lo == w`` for every weight (three 8-bit significands
+    cover f32's 24 while ``lo`` stays a normal bf16: |w| >= ~2^-110, or
+    0). The check reads one flag to the host, so a plan builds the split
+    once per layer and a captured step never builds it."""
+    if w.dtype != torch.float32 or w.dim() != 2:
+        raise ValueError(f"{name} must be a 2-d torch.float32 kernel, got "
+                         f"{w.dim()}-d {w.dtype}")
+    k, n = w.shape
+    hi = w.to(torch.bfloat16)
+    rest = w - hi.to(torch.float32)
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.to(torch.float32)).to(torch.bfloat16)
+    back = (hi.to(torch.float32) + mid.to(torch.float32)) + lo.to(
+        torch.float32)
+    if not torch.equal(back, w):
+        bad = int((back != w).sum())
+        raise ValueError(f"{name}: {bad} f32 weights are not the sum of "
+                         "their three bf16 terms (|w| below ~2^-110, or not "
+                         "finite); the f32 unpack dot cannot hold them")
+    pad = -(-k // _BF16_ROW) * _BF16_ROW
+    split = torch.zeros((3, n, pad), dtype=torch.bfloat16, device=w.device)
+    for q, term in enumerate((hi, mid, lo)):
+        split[q, :, :k] = term.T
+    return split[:, :, :k]
+
+
+def _bf16x3_operand(w3: torch.Tensor, k: int, n: int) -> None:
+    """Raise unless ``w3`` is a (3, N, K) bf16 split the kernel can read:
+    unit K stride, rows and terms 16 bytes apart, base 16-byte aligned."""
+    if w3.dtype != torch.bfloat16 or w3.dim() != 3:
+        raise ValueError(f"w_bf16x3 must be a 3-d torch.bfloat16 tensor, got "
+                         f"{w3.dim()}-d {w3.dtype}: build it with "
+                         "bf16x3_weights")
+    if tuple(w3.shape) != (3, n, k):
+        raise ValueError(f"w_bf16x3 {tuple(w3.shape)} is not the (3, {n}, "
+                         f"{k}) split of the weights")
+    ldt, ldw, unit = w3.stride()
+    if (unit != 1 or ldw % _BF16_ROW or ldt % _BF16_ROW or ldw < k
+            or ldt < n * ldw or w3.data_ptr() % _ROW_ALIGN):
+        raise ValueError("w_bf16x3 needs a unit K stride and rows and terms "
+                         "16 bytes apart: build it with bf16x3_weights")
+
+
 def spike_matmul_grouped(x_packed: torch.Tensor, w: torch.Tensor, *,
-                         t: int) -> torch.Tensor:
+                         t: int, w_bf16x3: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """(G, M, K) uint8 plane groups x (K, N) f32 -> (t, M, N) f32 per-plane
     dots, plane p = bit ``p % 8`` of group ``p // 8``; only the t live
-    planes are computed. Exact for integer-valued weights; f32 weights
-    differ from other summation orders by rounding."""
+    planes are computed. On the card the kernel reads ``w_bf16x3``, the
+    weights' three-term bf16 split (``bf16x3_weights``, which the planner
+    builds once per layer); without it the wrapper builds the split for
+    this call (counted in ``spike_matmul_grouped.split_builds``). Exact for
+    integer-valued weights of |w| <= 256; other f32 weights differ from
+    other summation orders by rounding."""
     _build.require(x_packed, "x_packed", torch.uint8, 3)
     _build.require(w, "w", torch.float32, 2)
     g, m, k = x_packed.shape
@@ -138,14 +194,20 @@ def spike_matmul_grouped(x_packed: torch.Tensor, w: torch.Tensor, *,
     n = w.shape[1]
     if _build.on_cpu(x_packed, w):
         return spike_matmul_ref(x_packed, w, t=t)
-    if -(-m // 32) > _GRID_LIMIT:
+    if w_bf16x3 is None:
+        w_bf16x3 = bf16x3_weights(w)
+        _build.add_count(spike_matmul_grouped, "split_builds")
+    else:
+        _build.on_cpu(x_packed, w_bf16x3)         # one device, or raise
+        _bf16x3_operand(w_bf16x3, k, n)
+    if -(-m // (128 // min(t, 8))) > _GRID_LIMIT:
         raise ValueError(f"{m} rows exceed the launch grid")
     out = torch.empty((t, m, n), dtype=torch.float32, device=w.device)
     fn = _build.kernel_function("unpack_dot", "unpack_dot_launch",
                                 _UNPACK_ARGTYPES)
-    _build.check("unpack_dot", fn(x_packed.data_ptr(), w.data_ptr(),
-                                  out.data_ptr(), t, m, k, n,
-                                  _build.stream(w)))
+    _build.check("unpack_dot", fn(
+        x_packed.data_ptr(), w_bf16x3.data_ptr(), out.data_ptr(), t, m, k, n,
+        w_bf16x3.stride(1), w_bf16x3.stride(0), _build.stream(x_packed)))
     _build.count_launch(spike_matmul_grouped)
     return out
 
@@ -247,5 +309,6 @@ def spike_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
 lut_gather_matmul.launches = 0
 spike_matmul_grouped.launches = 0
+spike_matmul_grouped.split_builds = 0
 spike_matmul_grouped_s8.launches = 0
 shift_sum_matmul.launches = 0

@@ -7,6 +7,7 @@ Port of ``repro.kernels.tflif.tflif_fused``; the CUDA kernel is
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -25,9 +26,19 @@ _MAX_PERIOD = 1 << 31     # csrc/tflif.cu's 32-bit channel index
 def tflif_plain(x: torch.Tensor, bias: torch.Tensor, v_th: torch.Tensor, *,
                 tau: float = TAU) -> torch.Tensor:
     """Plain version of ``tflif_fused``, on any device."""
-    m = x.shape[1]
-    return tflif_ref(x, bias.repeat(m // bias.numel()), tau=tau,
-                     v_th=v_th.repeat(m // v_th.numel()))
+    t, m = x.shape
+    # the neurons as (m / period, period): bias and v_th broadcast over
+    # the rows instead of being tiled out to all m neurons (one value
+    # broadcasts as it is)
+    period = math.lcm(bias.numel(), v_th.numel())
+
+    def tiled(v):
+        return (v if v.numel() in (1, period)
+                else v.repeat(period // v.numel()))
+
+    out = tflif_ref(x.reshape(t, m // period, period), tiled(bias), tau=tau,
+                    v_th=tiled(v_th))
+    return out.reshape(out.shape[0], m)
 
 
 def tflif_fused(x: torch.Tensor, bias: torch.Tensor, v_th: torch.Tensor, *,

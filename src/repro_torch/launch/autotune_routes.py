@@ -74,7 +74,7 @@ from ..kernels import lut_matmul as lut
 from ..kernels import ops
 from ..kernels.lut_matmul import (RouteConstants, choose_cuda_route,
                                   choose_route)
-from ..kernels.spike_matmul import kmajor_weights
+from ..kernels.spike_matmul import bf16x3_weights, kmajor_weights
 
 # (m, k, n, g) grid of the plain-route fit: the reference's, small shapes
 # spanning conv-stem rows x small K through encoder linears; t = 8*g
@@ -385,7 +385,8 @@ def measure_cuda_point(m: int, k: int, n: int, g: int, t: int, *,
     """Device time of the card's two routes for one shape: the gather
     kernel over the layer's table (int16 for int8 weights, f32 for f32)
     and the grouped unpack dot (the int8 tensor-core kernel over the
-    K-major copy the planner makes, or the f32 kernel), both through
+    K-major copy the planner makes, or the bf16 one over the f32 weights'
+    three-term split), both through
     ``ops.spike_linear`` as the step calls them."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -396,12 +397,14 @@ def measure_cuda_point(m: int, k: int, n: int, g: int, t: int, *,
         w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
     w = w.to(dev)
     table = lut.build_lut(w)
+    # the unpack dot's B operand as the planner builds it
     kmajor = kmajor_weights(w) if weight_dtype == "int8" else None
+    split = None if weight_dtype == "int8" else bf16x3_weights(w)
     lut_s = graph_time(lambda: ops.spike_linear(
         x, w, t=t, route="lut", table=table), inner=inner, repeats=repeats)
     dot_s = graph_time(lambda: ops.spike_linear(
-        x, w, t=t, route="unpack", w_kmajor=kmajor), inner=inner,
-        repeats=repeats)
+        x, w, t=t, route="unpack", w_kmajor=kmajor, w_bf16x3=split),
+        inner=inner, repeats=repeats)
     return {"m": m, "k": k, "n": n, "g": g, "t": t,
             "c": lut.num_k_chunks(k), "weight_dtype": weight_dtype,
             "table_bytes": lut.table_bytes(k, n, weight_dtype == "int8"),

@@ -11,6 +11,8 @@ JAX); run it there without the JAX suite's conftest:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
 """
+import pathlib
+import sys
 import threading
 import time
 
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.spike import pack_timesteps
+from repro_torch.core.spike import pack_timesteps, unpack_timesteps
 from repro_torch.core.spikformer import (SpikformerConfig,
                                          fold_inference_params, init)
 from repro_torch.infer import ExecutionPlan, compile
@@ -27,7 +29,8 @@ from repro_torch.infer.quant import map_folded_layers
 from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
-from repro_torch.kernels.spike_matmul import (kmajor_weights,
+from repro_torch.kernels.spike_matmul import (bf16x3_weights,
+                                              kmajor_weights,
                                               lut_gather_matmul,
                                               lut_gather_packed,
                                               lut_gather_packed_plain,
@@ -44,6 +47,10 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 from repro_torch.launch import autotune_routes as tune
 from repro_torch.serve import ServeFleet, ServePolicy
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
+                       / "scripts"))
+import wgmma_accumulation as wgmma  # noqa: E402  (the tensor cores' model)
 
 pytestmark = pytest.mark.gpu
 
@@ -146,19 +153,77 @@ def test_lut_gather_kernel_matches_plain(cuda, int_w, p, m, k, n):
     assert lut_gather_matmul.launches == 2
 
 
+# the f32 unpack dot's layer shapes in the paper config's default f32 plan
+# at bucket 8 (M, K, N): conv3, q/k/v/wo, fc1, fc2
+UNPACK_MAIN = [(1568, 1024, 512), (1568, 512, 512), (1568, 512, 2048),
+               (1568, 2048, 512)]
+
+
 @pytest.mark.parametrize("t", [1, 4, 8, 9, 17])
-@pytest.mark.parametrize("m,k,n", [(21, 40, 13), (130, 512, 70)])
+@pytest.mark.parametrize("m,k,n", [(21, 40, 13), (130, 512, 70)]
+                         + UNPACK_MAIN)
 def test_unpack_dot_kernel_matches_plain(cuda, t, m, k, n):
+    """The bf16 tensor-core kernel over the weights' three-term split:
+    integer-valued weights bit-exact (hi == w, integer sums below 2^24);
+    f32 weights within F32_ATOL + F32_RTOL (another summation order). The
+    split built per call (counted) and the prebuilt one give the same
+    result."""
     x = packed(cuda, t, t, m, k)
     wi = int_weights(cuda, m, k, n).to(torch.float32)
     got = spike_matmul_grouped(x, wi, t=t)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.spike_matmul_ref(x, wi, t=t))
+    assert spike_matmul_grouped.split_builds == 1
     wf = torch.randn((k, n), generator=gen(cuda, n), device=cuda)
-    gotf, wantf = spike_matmul_grouped(x, wf, t=t), ref.spike_matmul_ref(
-        x, wf, t=t)
+    gotf = spike_matmul_grouped(x, wf, t=t, w_bf16x3=bf16x3_weights(wf))
+    wantf = ref.spike_matmul_ref(x, wf, t=t)
     torch.testing.assert_close(gotf, wantf, atol=F32_ATOL, rtol=F32_RTOL)
-    assert spike_matmul_grouped.launches == 2
+    assert torch.equal(spike_matmul_grouped(x, wf, t=t), gotf)
+    assert spike_matmul_grouped.launches == 3
+    assert spike_matmul_grouped.split_builds == 2
+
+
+@pytest.mark.parametrize("t,m,k,n,spread", [
+    (1, 40, 16, 96, 40), (4, 21, 61, 13, 20), (9, 30, 200, 129, 20),
+    (4, 25, 2048, 512, 0)])
+def test_unpack_dot_kernel_is_the_wgmma_model(cuda, t, m, k, n, spread):
+    """The kernel equals, bit for bit, the plain model of its arithmetic
+    (``scripts/wgmma_accumulation.py``: a ``wgmma`` aligns its 16 products
+    and the accumulator to the largest, keeps 26 bits, drops the rest and
+    rounds toward zero; each slice's hi sum added to an f32 master sum,
+    lo and mid in a second accumulator): normal weights scaled by 2^-0 ..
+    2^-spread, and fc2's K at spread 0."""
+    x = packed(cuda, t + k, t, m, k)
+    g = gen(cuda, n)
+    w = torch.randn((k, n), generator=g, device=cuda) * torch.exp2(
+        -torch.randint(0, spread + 1, (k, n), generator=g,
+                       device=cuda).float())
+    got = spike_matmul_grouped(x, w, t=t, w_bf16x3=bf16x3_weights(w))
+    planes = unpack_timesteps(x, t).reshape(t * m, k).cpu()
+    want = wgmma.kept_scheme(planes, w.cpu(), **wgmma.MODEL)
+    assert torch.equal(got.cpu(), want.reshape(t, m, n))
+
+
+def test_unpack_dot_refuses_a_split_it_cannot_read(cuda):
+    """The wrapper raises on a split of the wrong type, shape or layout
+    (rows not 16 bytes apart, a K stride other than 1) or device, and
+    launches nothing."""
+    x = packed(cuda, 0, 4, 21, 61)
+    w = torch.randn((61, 13), generator=gen(cuda, 1), device=cuda)
+    w3 = bf16x3_weights(w)
+    with pytest.raises(ValueError, match="bfloat16"):
+        spike_matmul_grouped(x, w, t=4, w_bf16x3=w3.to(torch.float16))
+    with pytest.raises(ValueError, match="split of the weights"):
+        spike_matmul_grouped(x, w, t=4, w_bf16x3=w3[:, :12])
+    with pytest.raises(ValueError, match="16 bytes apart"):
+        spike_matmul_grouped(x, w, t=4, w_bf16x3=w3.contiguous())
+    with pytest.raises(ValueError, match="16 bytes apart"):
+        spike_matmul_grouped(x, w, t=4,
+                             w_bf16x3=w3.transpose(1, 2).contiguous()
+                             .transpose(1, 2))
+    with pytest.raises(ValueError, match="several devices"):
+        spike_matmul_grouped(x, w, t=4, w_bf16x3=w3.cpu())
+    assert spike_matmul_grouped.launches == 0
 
 
 @pytest.mark.parametrize("t", [1, 4, 8, 9, 17])
@@ -906,6 +971,44 @@ def test_replaced_replicas_give_their_streams_back(cuda):
         torch.cuda.synchronize()
         held.append(torch.cuda.memory_allocated())
     assert held[-1] == held[0], held
+
+
+def test_graphed_default_f32_step_builds_no_split_per_call(cuda):
+    """The reference's default plan (``packed``, f32) on the card, at a
+    table cap that sends conv3 and every block linear to the f32 unpack
+    dot: each such layer carries its ``kernel_bf16x3`` split and no other
+    does; the graphed step replays the eager step's logits bit for bit,
+    one unpack-dot launch a layer, and no split is built per call; the
+    logits stay within atol 1e-3 + rtol 1e-3 of the plain route's (another
+    summation order) with equal labels."""
+    cfg = SpikformerConfig().scaled()
+    graphed = firing_model(cfg, cuda, "packed", jit=True,
+                           weight_dtype="float32")
+    eager = firing_model(cfg, cuda, "packed", weight_dtype="float32")
+    unpack = sorted(p for p, r in graphed.plan.routes.items()
+                    if r == "unpack")
+    split = []
+    map_folded_layers(graphed.folded, lambda p, l: (
+        split.append(p) if "kernel_bf16x3" in l else None) or l)
+    assert sorted(split) == unpack and len(unpack) == 1 + 6 * cfg.depth
+    imgs = np.random.default_rng(4).integers(0, 256, (4, 32, 32, 3),
+                                             dtype=np.uint8)
+    ops.reset_launch_counts()
+    want = eager.step(imgs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["unpack_dot"] == len(unpack)
+    graphed.warmup()
+    graphed.reset_graph_launch_counts()
+    got = graphed.step(imgs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert graphed.graph_launch_counts()["unpack_dot"] == len(unpack)
+    assert spike_matmul_grouped.split_builds == 0
+    plain = firing_model(cfg, cuda, "packed_plain",
+                         weight_dtype="float32").step(imgs)
+    assert bool(((got - plain).abs() <= 1e-3 + 1e-3 * plain.abs()).all())
+    assert torch.equal(got.argmax(-1), plain.argmax(-1))
+    assert bool((got != 0).any())
 
 
 def test_packed_on_the_card_launches_kernels_never_the_cpu_branch(

@@ -792,6 +792,47 @@ def test_fleet_identical_trace_one_vs_n_replicas_bit_identical(small):
     assert flat == want[:len(flat)]
 
 
+@pytest.mark.parametrize("pace_fps", [None, 40.0], ids=["cpu", "paced"])
+def test_fleet_cpu_replicas_take_turns(small, pace_fps):
+    """On the CPU the replicas of a fleet step one at a time (the
+    dispatcher holds the queue while a step runs, so two steps never
+    trade the GIL at every op), and every request still gets
+    ``classify``'s labels. Paced replicas, fixed-rate cores asleep for
+    most of their slot, still overlap."""
+    _, model, imgs = small
+    lock = threading.Lock()
+    live, peak = [0], [0]
+
+    def counted(step):
+        def run(batch):
+            with lock:
+                live[0] += 1
+                peak[0] = max(peak[0], live[0])
+            try:
+                out = step(batch)
+                time.sleep(0.01)       # widen the window two steps share
+                return out
+            finally:
+                with lock:
+                    live[0] -= 1
+        return run
+
+    fleet = ServeFleet(model, replicas=2, pace_fps=pace_fps,
+                       policy=ServePolicy(max_wait_ms=1.0))
+    for rep in fleet.replicas:
+        rep.model.step = counted(rep.model.step)
+    reqs = trace_requests(imgs)
+    with fleet:
+        handles = [fleet.submit(r) for r in reqs]
+        got = [h.result(timeout=30) for h in handles]
+    want = np.asarray(model.classify(imgs)).tolist()
+    assert [lab for labs in got for lab in labs] == want[:sum(map(len, got))]
+    if pace_fps is None:
+        assert peak[0] == 1
+    else:
+        assert peak[0] == 2
+
+
 def test_fleet_construction_contract(small):
     _, model, _ = small
     with pytest.raises(ValueError, match="replicas"):
