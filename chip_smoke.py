@@ -86,7 +86,19 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    beyond each new graph's warm-up run and capture); profiles the
    2048-token prefill and a four-slot decode step eager and graphed; then,
    counters at 0 again, holds one f32 prefill's logits on the flash route
-   (the f32 flash kernel, once a layer) against the plain route.
+   (the f32 flash kernel, once a layer) against the plain route;
+5. trains ``SpikformerConfig()`` from the seeded ``init`` for 5 AdamW
+   steps at batch 16 (eager surrogate-gradient BPTT, BN on batch
+   statistics), gating finite losses and gradients, nonzero gradient
+   norms at conv0 and in the last block, changed parameters and a firing
+   last residual; holds the reduced training step on the card to the same
+   step on the CPU; runs ``examples/torch_classify_spikformer.py`` at its
+   defaults (loss falls, accuracy above chance, ``packed`` logits equal to
+   ``reference``'s);
+6. runs ``examples/torch_quickstart.py`` (launching the f32 STDP, the f32
+   unpack dot, the shift-sum and TFLIF kernels) and short forms of the
+   three serving examples, and prints the analytic engine model's frames
+   per second beside the card's served rate.
 
 Prints the serving stats and profiles as JSON lines, the fitted route
 constants (``route_fit``) and the 2x2 of constants x ``jit``
@@ -156,10 +168,9 @@ SOURCES = {
     "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:62"),
 }
-# kernels that no driven path launches: f32 STDP serves f32 operands of any
-# value (the packed datapath runs the packed entry); still built, held to
-# its plain version and timed
-OFF_PATH = ("stdp",)
+# kernels that no driven path launches (since the quickstart drives the f32
+# STDP, none)
+OFF_PATH = ()
 
 
 class CheckFailed(Exception):
@@ -1782,6 +1793,28 @@ def graph_counts(torch, models) -> tuple:
     return ops.launch_counts(), graphed
 
 
+def example_launches(torch, models) -> dict:
+    """Launches since ``ops.reset_launch_counts`` of an example whose
+    compiled ``models`` (and LM engines) were all made inside it, so that
+    their replays count from 0: the wrappers' counters (eager runs and
+    captures) plus each captured graph's launches times its replays. Each
+    graphed packed Spikformer model's replays must have launched its
+    plan's per-step launches each."""
+    from repro_torch.infer.compile import CompiledModel
+    eager, graphed = graph_counts(torch, models)
+    for m in models:
+        if (isinstance(m, CompiledModel) and m.jit
+                and m.plan.backend == "packed"):
+            mine = m.graph_launch_counts()
+            check_step_launches(
+                {k: mine.get(k, 0) for k in eager},
+                per_step_launches(m.cfg, m.plan.routes, m.weight_dtype),
+                graph_replays(m))
+    total = {k: eager.get(k, 0) + graphed.get(k, 0)
+             for k in {*eager, *graphed}}
+    return {k: v for k, v in sorted(total.items()) if v}
+
+
 def check_served_labels(torch, model, summary, make_images) -> int:
     """Every completed request's labels equal ``model.classify`` of its
     images, regenerated from the run's image stream (with no rejection,
@@ -2246,6 +2279,327 @@ def lm_gate_phase(torch, dev, eng) -> dict:
                               for dt in ("float32", "bfloat16")})
 
 
+# ---------------------------------------------------------------------------
+# Spikformer training: surrogate-gradient BPTT, train-mode BN, AdamW
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16
+TRAIN_STEPS = 5
+# image_batch's class-conditional level is 20 * label + 30, which clips to
+# white past label 11: at 1000 classes nearly every image is flat 255, the
+# batch statistics of conv0 vanish and no LIF fires. The data therefore
+# draws 10 classes (labels 0-9 of the 1000-class head).
+TRAIN_DATA_CLASSES = 10
+TRAIN_LOSS_RTOL = 1e-5     # the CPU tests' tolerances, card against CPU
+TRAIN_GRAD_TOL = 1e-4      # of each gradient leaf's largest |g|
+TRAIN_PARAM_TOL = 1e-4     # rtol and atol of the updated params
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` takes argv)."""
+    import importlib.util
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@contextlib.contextmanager
+def recorded_lifs(out: list):
+    """Appends every ``tflif`` output of the float graph (the Spikformer's
+    and the SSA's), in call order, while the block runs."""
+    from repro_torch.core import spikformer, ssa
+    saved = [(m, m.tflif) for m in (spikformer, ssa)]
+
+    def hook(fn):
+        def lif(y, **kw):
+            s = fn(y, **kw)
+            out.append(s.detach())
+            return s
+        return lif
+
+    for m, fn in saved:
+        m.tflif = hook(fn)
+    try:
+        yield out
+    finally:
+        for m, fn in saved:
+            m.tflif = fn
+
+
+def image_batch_on(torch, dcfg, step: int, dev) -> dict:
+    from repro_torch.data.pipeline import image_batch
+    raw = image_batch(dcfg, step)
+    return {"image": torch.from_numpy(raw["image"]).to(dev),
+            "label": torch.from_numpy(raw["label"]).to(dev)}
+
+
+def zeros_like_tree(torch, tree):
+    if isinstance(tree, dict):
+        return {k: zeros_like_tree(torch, v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+def is_trainable(path: str) -> bool:
+    """A leaf the optimizer trains: not a BN running mean or variance,
+    which ``merge_bn_stats`` rewrites every step."""
+    return not path.endswith(("/mean", "/var"))
+
+
+def train_reduced_against_cpu(torch, dev) -> dict:
+    """One reduced-config training step (value_and_grad, AdamW, the BN
+    stats merged) on the card against the port's CPU run of the same step
+    (same params and batch): loss within TRAIN_LOSS_RTOL, each gradient
+    leaf within TRAIN_GRAD_TOL of its largest |g| (TF32 off, no fused op),
+    every updated param within TRAIN_PARAM_TOL (rtol and atol), spike
+    flips counted by LIF."""
+    from repro_torch.core.spikformer import (SpikformerConfig, init,
+                                             merge_bn_stats, value_and_grad)
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.infer.compile import to_device
+    from repro_torch.optim import adamw
+    cfg = SpikformerConfig().scaled(classes=4)
+    ocfg = adamw.OptConfig(peak_lr=2e-3, warmup_steps=1, decay_steps=4)
+    dcfg = DataConfig(global_batch=TRAIN_BATCH,
+                      image_size=cfg.img_size, n_classes=4, seed=SEED)
+    params = init(torch.Generator().manual_seed(SEED), cfg)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where)
+        spikes: list = []
+        p = to_device(params, d)
+        with recorded_lifs(spikes):
+            (loss, (acc, stats)), grads = value_and_grad(
+                p, image_batch_on(torch, dcfg, 0, d), cfg)
+        new, _, _ = adamw.update(grads, adamw.init(p, ocfg), p, ocfg)
+        new = merge_bn_stats(new, stats)
+        runs[where] = (float(loss), dict(tree_leaves(grads)),
+                       dict(tree_leaves(new)), [s.cpu() for s in spikes])
+    (l_cpu, g_cpu, p_cpu, s_cpu), (l_gpu, g_gpu, p_gpu, s_gpu) = (
+        runs["cpu"], runs["cuda"])
+    worst = 0.0
+    for k, want in g_cpu.items():
+        scale = float(want.abs().max())
+        err = float((g_gpu[k].cpu() - want).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+    # elements of the updated params outside atol + rtol * |CPU value|
+    param_misses = {}
+    for k, want in p_cpu.items():
+        miss = int(((p_gpu[k].cpu() - want).abs()
+                    > TRAIN_PARAM_TOL + TRAIN_PARAM_TOL * want.abs()).sum())
+        if miss:
+            param_misses[k] = miss
+    flips = [int((a != b).sum()) for a, b in zip(s_gpu, s_cpu)]
+    out = {"loss_cpu": l_cpu, "loss_card": l_gpu,
+           "loss_rel_err": abs(l_gpu - l_cpu) / abs(l_cpu),
+           "grad_err_of_leaf_max": worst,
+           "updated_param_leaves": len(p_cpu),
+           "updated_param_misses": param_misses,
+           "spike_flips_by_lif": flips, "lifs": len(flips)}
+    check(len(s_gpu) == len(s_cpu), "card and CPU ran different LIF counts")
+    check(out["loss_rel_err"] <= TRAIN_LOSS_RTOL,
+          f"reduced training loss, card vs CPU: {out}")
+    check(worst <= TRAIN_GRAD_TOL,
+          f"reduced training gradients, card vs CPU: {out}")
+    check(not param_misses,
+          f"reduced training updated params, card vs CPU: {out}")
+    return out
+
+
+def spikformer_train_phase(torch, dev) -> dict:
+    """The port's training path at full width: ``SpikformerConfig()``
+    (V2-8-512, 224x224x3, T=4, 8 blocks, 1000 classes) from the seeded
+    ``init``, TRAIN_STEPS AdamW steps at batch TRAIN_BATCH on seeded
+    ``image_batch`` data, eager autograd through the float graph (atan
+    surrogate at every LIF, BN on batch statistics), the BN stats merged
+    after each step. Gates: every loss and gradient leaf finite, gradient
+    norms > 0 at ``scs/conv0`` and in the last block; the first update
+    moved a trainable leaf at ``scs/conv0`` and in the last block past
+    where weight decay alone takes it (the same update from the same state
+    with zero gradients); trainable leaves changed over the run; the last
+    residual firing under train-mode BN. Then the reduced step on the card
+    against the CPU, and ``examples/torch_classify_spikformer.py`` at its
+    defaults (loss falls, accuracy above chance, ``packed`` equal to
+    ``reference`` bit for bit), its launches counted with its graphs'
+    replays."""
+    import math
+    from repro_torch.core import spikformer
+    from repro_torch.core.spikformer import (SpikformerConfig, init,
+                                             merge_bn_stats, value_and_grad)
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.infer.compile import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SpikformerConfig()
+    dcfg = DataConfig(global_batch=TRAIN_BATCH,
+                      image_size=cfg.img_size, n_classes=TRAIN_DATA_CLASSES,
+                      seed=SEED)
+    params = to_device(init(torch.Generator().manual_seed(SEED), cfg), dev)
+    first = {k: v.clone() for k, v in tree_leaves(params)}
+    ocfg = adamw.OptConfig(peak_lr=2e-3, warmup_steps=1,
+                           decay_steps=TRAIN_STEPS, weight_decay=0.01)
+    opt = adamw.init(params, ocfg)
+    batches = [image_batch_on(torch, dcfg, i, dev) for i in range(TRAIN_STEPS)]
+    last_residual: list = []
+    combine = spikformer._combine
+
+    def recording_combine(new, res, mode):
+        out = combine(new, res, mode)
+        last_residual[:] = [out.detach()]
+        return out
+
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spikformer._combine = recording_combine
+    try:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            (loss, (acc, stats)), grads = value_and_grad(params, batch, cfg)
+            leaves = dict(tree_leaves(grads))
+            finite = all(bool(torch.isfinite(g).all())
+                         for g in leaves.values())
+            block = f"/blocks/b{cfg.depth - 1}/"
+            conv0 = float(adamw.global_norm(grads["scs"]["conv0"]))
+            last = float(adamw.global_norm(
+                {k: g for k, g in leaves.items() if k.startswith(block)}))
+            if i == 0:
+                # zero moments: with zero gradients the update is the decay
+                decayed = dict(tree_leaves(adamw.update(
+                    zeros_like_tree(torch, grads), opt, params, ocfg)[0]))
+            params, opt, metrics = adamw.update(grads, opt, params, ocfg)
+            if i == 0:
+                beyond = sorted(k for k, v in tree_leaves(params)
+                                if is_trainable(k)
+                                and not torch.equal(v, decayed[k]))
+                del decayed
+            params = merge_bn_stats(params, stats)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            firing = float(last_residual[0].mean())
+            steps.append({"step": i, "loss": float(loss), "acc": float(acc),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "grad_norm_conv0": conv0,
+                          "grad_norm_last_block": last,
+                          "finite": finite and math.isfinite(float(loss)),
+                          "final_residual_firing": firing, "ms": ms})
+    finally:
+        spikformer._combine = combine
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    changed = sum(int(not torch.equal(first[k], v))
+                  for k, v in tree_leaves(params) if is_trainable(k))
+    trainable = sum(map(is_trainable, first))
+    # the first step builds the autograd graph's caches: time the rest
+    ms = [s["ms"] for s in steps[1:]]
+    out = {"config": "SpikformerConfig() (V2-8-512, 224x224x3, T=4, depth "
+                     "8, 1000 classes), seeded init, AdamW(peak_lr 2e-3, "
+                     "warmup 1, weight_decay 0.01), eager; image_batch "
+                     f"of {TRAIN_DATA_CLASSES} classes",
+           "batch": TRAIN_BATCH, "steps": steps,
+           "ms_per_step": sum(ms) / len(ms),
+           "images_per_s": TRAIN_BATCH * len(ms) / (sum(ms) / 1e3),
+           "peak_mem_mib": peak, "trainable_leaves": trainable,
+           "trainable_leaves_changed": changed,
+           "trainable_leaves_past_decay_step0": len(beyond),
+           "final_residual_firing": steps[-1]["final_residual_firing"]}
+    check(all(s["finite"] for s in steps),
+          f"a loss or gradient leaf is not finite: {steps}")
+    check(all(s["grad_norm_conv0"] > 0 and s["grad_norm_last_block"] > 0
+              for s in steps), f"a zero gradient norm: {steps}")
+    check(any(k.startswith("/scs/conv0/") for k in beyond)
+          and any(k.startswith(block) for k in beyond),
+          f"the first update moved scs/conv0 or the last block only as "
+          f"weight decay does: {beyond}")
+    check(changed > 0, "training changed no trainable parameter")
+    check(out["final_residual_firing"] > 0,
+          "the final residual stream is silent under train-mode BN")
+    del params, opt, grads, batches, first
+    torch.cuda.empty_cache()
+
+    out["reduced_vs_cpu"] = train_reduced_against_cpu(torch, dev)
+
+    ops.reset_launch_counts()
+    classify = load_example("torch_classify_spikformer").main([])
+    out["launches"] = example_launches(
+        torch, [classify["model"], classify["reference"]])
+    out["classify"] = {k: classify[k] for k in (
+        "eval_images", "accuracy", "chance", "fps", "latency_p95_s",
+        "pad_waste", "packed_matches_reference_exactly")}
+    out["classify"]["loss_first"] = classify["losses"][0]
+    out["classify"]["loss_last"] = classify["losses"][-1]
+    check(classify["losses"][-1] < classify["losses"][0],
+          f"classify: the loss did not fall: {out['classify']}")
+    check(classify["accuracy"] > classify["chance"],
+          f"classify: accuracy not above chance: {out['classify']}")
+    check(classify["packed_matches_reference_exactly"] is True,
+          "classify: packed logits differ from reference")
+    return out
+
+
+def examples_phase(torch, dev, report: dict) -> dict:
+    """The port's quickstart on the card, then short forms of the serving
+    examples, the launch counts set to 0 just before and read just after
+    (``example_launches``: eager launches and captures, and each graphed
+    model's captured launches times its replays). Gates: the quickstart
+    launched the f32 STDP, the f32 unpack dot (``per_plane``), the
+    shift-sum and the TFLIF kernels; the serving examples completed every
+    request and window and dropped none.
+    Prints the analytic engine model's frames per second beside the card's
+    measured serving rate."""
+    from repro_torch.core import engine_model
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    quick = load_example("torch_quickstart").main([])
+    launches = example_launches(torch, [quick.pop("model")])
+    for k in ("stdp", "unpack_dot", "shift_sum", "tflif"):
+        check(launches.get(k, 0) > 0,
+              f"the quickstart did not launch {k}: {launches}")
+    out = {"quickstart": quick, "quickstart_launches": dict(launches)}
+    ops.reset_launch_counts()
+    load = load_example("torch_serve_under_load").main(
+        ["--rates", "40,160", "--duration", "1"])
+    models = [load.pop("model")]
+    load = load["rows"]
+    check(all(r["dropped"] == 0 and r["rejected"] == 0 for r in load),
+          f"serve_under_load dropped or rejected: {load}")
+    events = load_example("torch_serve_events").main(["--duration-ms", "200"])
+    check(events["session"]["windows_shed"] == 0
+          and events["replay"]["labels_match_live_run"],
+          f"serve_events: {events['session']}, {events['replay']}")
+    models.append(events.pop("model"))
+    lm = load_example("torch_serve_lm").main([])
+    check(lm["requests"] == 12 and lm["new_tokens"] == 12 * 24,
+          f"serve_lm: {lm}")
+    serving = example_launches(torch, models + [lm["engine"]])
+    for k, v in serving.items():
+        launches[k] = launches.get(k, 0) + v
+    out.update({"serve_under_load": load,
+                "serve_events": {k: events[k] for k in ("stream", "encoding",
+                                                        "session", "replay")},
+                "serve_lm": {k: v for k, v in lm.items() if k != "engine"},
+                "serving_launches": serving, "launches": launches})
+    served = (report.get("int8_default_serve") or {}).get("stats") or {}
+    out["engine_model"] = {
+        "paper_engine_ideal_fps": engine_model.frames_per_second(),
+        "paper_engine_calibrated_fps":
+            engine_model.frames_per_second(calibrated=True),
+        "card_int8_default_closed_loop_fps": served.get("fps")}
+    return out
+
+
 # readings beyond the contract's keys, kept in the kernels line
 EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
@@ -2314,7 +2668,7 @@ def main() -> int:
     paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step",
              "int8_route_fit", "serving_stack", "events_cli",
              "events_full_width", "packed_default_f32", "lm_serve",
-             "lm_gate")
+             "lm_gate", "spikformer_train", "examples")
     try:
         report["kernels"] = kernel_phase(torch, dev)
         for k, row in report["kernels"].items():
@@ -2352,6 +2706,11 @@ def main() -> int:
         report["kernels"]["flash_attention_tc"]["ms_in_graph"] = \
             graphed_flash_ms(report[paths[8]]["profile_prefill_2048"])
         report[paths[9]] = lm_gate_phase(torch, dev, lm_engine)
+        del lm_engine
+        torch.cuda.empty_cache()
+        report[paths[10]] = spikformer_train_phase(torch, dev)
+        torch.cuda.empty_cache()
+        report[paths[11]] = examples_phase(torch, dev, report)
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -2424,6 +2783,11 @@ def main() -> int:
             "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                             for k in prof["by_kernel"][:8]]}))
     print(json.dumps({"lm_gate": report["lm_gate"]}))
+    print(json.dumps({"spikformer_train": report["spikformer_train"]}))
+    ex = report["examples"]
+    print(json.dumps({"examples": {k: ex[k] for k in (
+        "quickstart_launches", "serving_launches", "serve_under_load",
+        "serve_events", "serve_lm", "engine_model")}}))
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Spikformer V2-8-512-IAND, inference half (port of
-``repro.core.spikformer``).
+"""Spikformer V2-8-512-IAND (port of ``repro.core.spikformer``).
 
 SCS stem of four 2x2/s2 convs (224 -> 14; 3 -> 64 -> 128 -> 256 -> 512; an
 8-bit image into conv0 => SSSC, spikes into conv1..3 => ZSC), 8 encoder
 blocks of SSA + MLP (512 -> 2048 -> 512) with IAND spike residuals, then a
 rate decode over T and a linear head. Parameters are nested dicts of
-tensors with the reference's keys and layouts.
+tensors with the reference's keys and layouts. ``apply`` and ``loss_fn``
+are the float graph that surrogate-gradient BPTT trains (BN on batch
+statistics under ``train=True``); ``forward_folded`` is the inference
+graph over BN-folded weights and a backend.
 """
 from __future__ import annotations
 
@@ -14,7 +16,10 @@ import math
 
 import torch
 
-from .lif import bn_init, fold_bn
+from .lif import bn_apply, bn_init, bn_train_apply, fold_bn, tflif
+from .spike import rate_decode
+from .ssa import linear_init, ssa_apply, ssa_init
+from .unified import sssc, wssl, zsc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,23 +50,12 @@ class SpikformerConfig:
             timesteps=self.timesteps if timesteps is None else timesteps)
 
 
-def _linear(gen, d_in: int, d_out: int, *, bias: bool = False) -> dict:
-    """LeCun-normal kernel: a standard normal truncated to [-2, 2], times
-    1/sqrt(fan_in) (the reference's ``linear_init``)."""
-    kernel = torch.empty(d_in, d_out)
-    torch.nn.init.trunc_normal_(kernel, a=-2.0, b=2.0, generator=gen)
-    p = {"kernel": kernel * (1.0 / math.sqrt(max(1, d_in)))}
-    if bias:
-        p["bias"] = torch.zeros(d_out)
-    return p
-
-
 def init(generator: torch.Generator, cfg: SpikformerConfig) -> dict:
     """Training-form parameters on the CPU with the reference's shapes and
     distributions (the numbers differ from JAX's: parity tests feed the
     reference's trees through ``repro_torch.weights``)."""
     p = {"scs": {}, "blocks": {},
-         "head": _linear(generator, cfg.dim, cfg.num_classes, bias=True)}
+         "head": linear_init(generator, cfg.dim, cfg.num_classes, bias=True)}
     cin = cfg.in_channels
     for i, cout in enumerate(cfg.scs_channels):
         kernel = torch.randn((2, 2, cin, cout), generator=generator)
@@ -70,17 +64,136 @@ def init(generator: torch.Generator, cfg: SpikformerConfig) -> dict:
         cin = cout
     hidden = cfg.dim * cfg.mlp_ratio
     for i in range(cfg.depth):
-        ssa = {}
-        for name in ("wq", "wk", "wv", "wo"):
-            ssa[name] = _linear(generator, cfg.dim, cfg.dim)
-            ssa[name + "_bn"] = bn_init(cfg.dim)
-        p["blocks"][f"b{i}"] = {"ssa": ssa, "mlp": {
-            "fc1": _linear(generator, cfg.dim, hidden),
+        p["blocks"][f"b{i}"] = {"ssa": ssa_init(generator, cfg.dim,
+                                                cfg.heads), "mlp": {
+            "fc1": linear_init(generator, cfg.dim, hidden),
             "fc1_bn": bn_init(hidden),
-            "fc2": _linear(generator, hidden, cfg.dim),
+            "fc2": linear_init(generator, hidden, cfg.dim),
             "fc2_bn": bn_init(cfg.dim),
         }}
     return p
+
+
+def _combine(new: torch.Tensor, res: torch.Tensor, mode: str):
+    if mode == "iand":
+        # SEW IAND: (NOT new) AND res, which keeps activations binary
+        return (1.0 - new) * res
+    return new + res
+
+
+def _bn_lif(pbn: dict, y: torch.Tensor, axes, *, train: bool):
+    if train:
+        y, stats = bn_train_apply(pbn, y, axes=axes)
+    else:
+        y, stats = bn_apply(pbn, y), None
+    return tflif(y), stats
+
+
+def apply(params: dict, images_u8: torch.Tensor, cfg: SpikformerConfig, *,
+          train: bool = False) -> tuple:
+    """The float graph: (B, H, W, C) uint8 images -> ``(logits,
+    stats)``, stats the BN running-stat updates under ``train=True``
+    (batch statistics, through which gradients flow) and None leaves in
+    eval (the running statistics). The op order is the reference's."""
+    t = cfg.timesteps
+    stats = {"scs": {}, "blocks": {}}
+    # conv0: SSSC on the 8-bit image, once; the same accumulator every step
+    c0 = params["scs"]["conv0"]
+    y = sssc(images_u8, c0["kernel"] * (1.0 / 255.0))  # (B,H/2,W/2,C0)
+    y = y[None].expand(t, *y.shape)
+    x, stats["scs"]["conv0"] = _bn_lif(c0["bn"], y, (0, 1, 2, 3),
+                                       train=train)
+    for i in range(1, len(cfg.scs_channels)):           # ZSC on spikes
+        ci = params["scs"][f"conv{i}"]
+        x, stats["scs"][f"conv{i}"] = _bn_lif(
+            ci["bn"], zsc(x, ci["kernel"]), (0, 1, 2, 3), train=train)
+    tt, b, h, w, c = x.shape
+    x = x.reshape(tt, b, h * w, c)                      # (T, B, N, D)
+    for i in range(cfg.depth):
+        blk = params["blocks"][f"b{i}"]
+        bstats = {}
+        attn, bstats["ssa"] = ssa_apply(blk["ssa"], x, heads=cfg.heads,
+                                        scale=cfg.attn_scale, train=train)
+        x = _combine(attn, x, cfg.residual)
+        mlp = blk["mlp"]
+        s1, bstats["fc1_bn"] = _bn_lif(mlp["fc1_bn"],
+                                       wssl(x, mlp["fc1"]["kernel"]),
+                                       (0, 1, 2), train=train)
+        s2, bstats["fc2_bn"] = _bn_lif(mlp["fc2_bn"],
+                                       wssl(s1, mlp["fc2"]["kernel"]),
+                                       (0, 1, 2), train=train)
+        x = _combine(s2, x, cfg.residual)
+        stats["blocks"][f"b{i}"] = bstats
+    rate = rate_decode(x, axis=0).mean(dim=1)           # (B, D)
+    head = params["head"]
+    logits = rate @ head["kernel"]
+    if "bias" in head:
+        logits = logits + head["bias"].to(logits.dtype)
+    return logits, stats
+
+
+def merge_bn_stats(params: dict, stats: dict) -> dict:
+    """Write the EMA'd BN running stats of a training step into a new
+    param tree (``stats`` from ``apply(..., train=True)``; None leaves are
+    skipped). Untouched subtrees are shared with ``params``."""
+    out = {**params, "scs": dict(params["scs"]),
+           "blocks": dict(params["blocks"])}
+    for name, st in stats.get("scs", {}).items():
+        if st is not None:
+            conv = out["scs"][name] = dict(out["scs"][name])
+            conv["bn"] = {**conv["bn"], **st}
+    for bname, bstats in stats.get("blocks", {}).items():
+        blk = out["blocks"][bname] = {**out["blocks"][bname]}
+        blk["ssa"], blk["mlp"] = dict(blk["ssa"]), dict(blk["mlp"])
+        for wn, st in (bstats.get("ssa") or {}).items():
+            if st is not None:
+                blk["ssa"][wn] = {**blk["ssa"][wn], **st}
+        for fc in ("fc1_bn", "fc2_bn"):
+            st = bstats.get(fc)
+            if st is not None:
+                blk["mlp"][fc] = {**blk["mlp"][fc], **st}
+    return out
+
+
+def loss_fn(params: dict, batch: dict, cfg: SpikformerConfig, *,
+            train: bool = True) -> tuple:
+    """Cross-entropy over classes: returns ``(loss, (accuracy, stats))``;
+    accuracy counts the first index of the largest logit, as
+    ``jnp.argmax``."""
+    logits, stats = apply(params, batch["image"], cfg, train=train)
+    labels = batch["label"].to(torch.long)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.take_along_dim(logp, labels[:, None], dim=1).mean()
+    acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    return nll, (acc, stats)
+
+
+def value_and_grad(params: dict, batch: dict, cfg: SpikformerConfig, *,
+                   train: bool = True) -> tuple:
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` on the port: returns
+    ``((loss, (accuracy, stats)), grads)``, loss and accuracy detached,
+    ``grads`` a tree like ``params`` with zeros for the leaves the loss
+    does not reach (the BN running stats under ``train=True``). Eager
+    autograd through the whole graph (BPTT over T)."""
+    leaves = []
+
+    def track(tree):
+        if isinstance(tree, dict):
+            return {k: track(v) for k, v in tree.items()}
+        leaf = tree.detach().requires_grad_(True)
+        leaves.append(leaf)
+        return leaf
+
+    loss, (acc, stats) = loss_fn(track(params), batch, cfg, train=train)
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(v) for k, v in tree.items()}
+        g = next(grads)
+        return torch.zeros_like(tree) if g is None else g
+
+    return (loss.detach(), (acc, stats)), fill(params)
 
 
 def fold_inference_params(params: dict, cfg: SpikformerConfig) -> dict:

@@ -49,7 +49,7 @@ from ..core.spike import (bitplanes_u8, packed_occupancy, rate_decode,
                           space_to_depth)
 from ..device import constant
 from ..kernels import lut_matmul as lut
-from ..kernels import ops
+from ..kernels import ops, ref
 from ..kernels.fused import fused_fits
 
 # set bits of every byte value: the popcount rate readout
@@ -198,11 +198,17 @@ class PackedBackend:
     def _lif(self, acc, bias, scale):
         """acc (T, ...) -> (G, ...) packed; int8 layers fold their
         per-channel scale into the bias/threshold, in the reference's op
-        order (``bias / scale``, ``V_TH / scale`` in f32)."""
-        if scale is None:
-            return ops.tflif_pack(acc, bias, plain=self.plain)
-        return ops.tflif_pack(acc, bias / scale, v_th=V_TH / scale,
-                              plain=self.plain)
+        order (``bias / scale``, ``V_TH / scale`` in f32). The CPU branch
+        runs ``ref.tflif_ref`` on the accumulators as they lie, the bias
+        and threshold broadcast over the trailing channels, as the
+        reference's CPU branch does: the same ops as the wrapper's plain
+        version, without flattening the neurons."""
+        v_th = V_TH
+        if scale is not None:
+            bias, v_th = bias / scale, V_TH / scale
+        if not self.pallas:
+            return ref.tflif_ref(acc, bias, v_th=v_th)
+        return ops.tflif_pack(acc, bias, v_th=v_th, plain=self.plain)
 
     # Kernels enter the matmuls as the tree holds them: an int8 kernel is
     # cast to f32 only inside the f32 consumers (the shift-sum dot of
@@ -277,7 +283,7 @@ class PackedBackend:
                                         t=t, scale=scale, plain=self.plain,
                                         route="auto",
                                         cpu_branch=not self.pallas)
-        att = ops.tflif_pack(acc, plain=self.plain)     # (G, B, H, N, dh) u8
+        att = self._lif(acc, None, None)                # (G, B, H, N, dh) u8
         return att.permute(0, 1, 3, 2, 4).reshape(g, b, n, d)
 
     def residual(self, new, res, mode: str):

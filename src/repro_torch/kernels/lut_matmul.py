@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from ..device import constant
+
 K_CHUNK = 8  # weight rows selected by one byte — the PE fan-in of the paper
 MAX_TABLE_BYTES = 1 << 24  # 16 MiB per-layer table cap
 
@@ -49,26 +51,31 @@ def _pad_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
+def _bit_spread(device) -> torch.Tensor:
+    """(8, 256) int64: row i, entry v holds bit j of v at bit i of byte j
+    (little-endian) of a 64-bit word."""
+    v = torch.arange(256, dtype=torch.int64, device=device)
+    j = torch.arange(8, dtype=torch.int64, device=device)
+    spread = (((v[:, None] >> j) & 1) << (8 * j)).sum(-1)       # (256,)
+    return spread[None, :] << torch.arange(8, dtype=torch.int64,
+                                            device=device)[:, None]
+
+
 def bit_transpose8(b: torch.Tensor) -> torch.Tensor:
     """Transpose 8x8 bit matrices held as 8 bytes, over leading axes:
-    ``out[..., j]`` bit i == ``b[..., i]`` bit j. Hacker's Delight 7-3 on
-    one little-endian 64-bit word a matrix (byte i = row i): three swaps
-    of 2x2 blocks of 1, 2 and 4 bits. torch's int64 shifts right are
-    arithmetic, but every mask clears the sign-filled top bits. Eighteen
-    elementwise ops on one int64 a matrix, where unpacking the bits took an
-    (..., 8, 8) intermediate (``plane_indices`` runs this once a layer on
-    the CPU branch)."""
-    x = b.contiguous()
-    if x.storage_offset() % 8:
-        x = x.clone()
-    x = x.view(torch.int64)
-    t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AA
-    x = x ^ t ^ (t << 7)
-    t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCC
-    x = x ^ t ^ (t << 14)
-    t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0
-    x = x ^ t ^ (t << 28)
-    return x.view(torch.uint8)
+    ``out[..., j]`` bit i == ``b[..., i]`` bit j. Each byte i of a matrix
+    looks up the 64-bit word that spreads its bits to bit i of bytes 0-7
+    (``_bit_spread``, made once a device); the 8 words of a matrix hold
+    disjoint bits, so their sum is the transposed matrix as one
+    little-endian word. Five torch calls whatever the size (a CPU step is
+    thousands of short calls; the swap network of Hacker's Delight 7-3
+    took eighteen)."""
+    spread = constant("bit_spread8", b.device, _bit_spread)
+    offsets = constant("bit_spread8_rows", b.device, lambda d: torch.arange(
+        0, 8 * 256, 256, dtype=torch.int64, device=d))
+    rows = b.to(torch.int64) + offsets          # byte i of value v: i*256+v
+    words = spread.view(-1).index_select(0, rows.view(-1)).view(rows.shape)
+    return words.sum(-1, keepdim=True).view(torch.uint8)
 
 
 def plane_indices(x_packed: torch.Tensor) -> torch.Tensor:
@@ -104,26 +111,37 @@ def lut_matmul(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Gather-and-accumulate: (..., C) index bytes x (C, 256, N) table ->
     (..., N) f32 by the ascending-chunk fold (int32 for int16 tables).
     The plain version of the CUDA gather kernel. The row numbers into the
-    flattened (C*256, N) table are formed once for every chunk, the rows of
-    as many chunks as ``_GATHER_BYTES`` holds are gathered at once, and the
-    chunks are added in ascending order."""
+    flattened (C*256, N) table are formed once for every chunk. An f32
+    table is gathered and summed by one ``embedding_bag``: each row's C row
+    numbers are a bag, summed in index order from zero on the CPU and on
+    CUDA alike, which is the ascending-chunk fold bit for bit without the
+    (C, R, N) gather in memory (a table holds no -0.0, so the first add is
+    exact). An int16 table needs an int32 sum, which ``embedding_bag`` does
+    not give: the rows of as many chunks as ``_GATHER_BYTES`` holds are
+    gathered at once, widened and added in ascending order."""
     c, _, n = table.shape
     if idx.shape[-1] != c:
         raise ValueError(f"index bytes {tuple(idx.shape)} do not match "
                          f"table {tuple(table.shape)}")
-    acc_dt = torch.float32 if table.is_floating_point() else torch.int32
     lead = idx.shape[:-1]
     flat = table.reshape(c * 256, n)
-    off = torch.arange(0, c * 256, 256, dtype=torch.int64, device=idx.device)
-    rows = torch.movedim(idx.long() + off, -1, 0).reshape(c, -1)
+    off = constant(("lut_chunk_rows", c), idx.device, lambda d: torch.arange(
+        0, c * 256, 256, dtype=torch.int64, device=d))
+    rows = idx + off                                   # uint8 -> int64
+    if table.is_floating_point():
+        y = torch.nn.functional.embedding_bag(rows.reshape(-1, c), flat,
+                                              mode="sum")
+        return y.reshape(*lead, n).to(torch.float32)
+    rows = torch.movedim(rows, -1, 0).reshape(c, -1)
     r = rows.shape[1]
     per = max(1, min(c, _GATHER_BYTES // max(1, r * n * table.element_size())))
     y = None
     for c0 in range(0, c, per):
         block = flat.index_select(0, rows[c0:c0 + per].reshape(-1))
         for part in block.view(min(per, c - c0), r, n).unbind(0):
-            # int16 rows promote to the int32 sum
-            y = part.to(acc_dt) if y is None else y + part
+            # int16 rows promote to the int32 sum; the sum is a fresh
+            # tensor (a copy), so the chunks add into it in place
+            y = part.to(torch.int32) if y is None else y.add_(part)
     return y.reshape(*lead, n).to(torch.float32)
 
 

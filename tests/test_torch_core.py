@@ -188,9 +188,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.stdout.strip() == "", out.stdout
 
 
-@pytest.mark.parametrize("path", sorted(map(str, [*PORT.rglob("*.py"),
-                                                  ROOT / "chip_smoke.py"])),
-                         ids=lambda p: Path(p).name)
+@pytest.mark.parametrize("path", sorted(map(str, [
+    *PORT.rglob("*.py"), *(ROOT / "examples").glob("torch_*.py"),
+    ROOT / "chip_smoke.py"])), ids=lambda p: Path(p).name)
 def test_port_sources_import_no_jax_or_reference(path):
     tree = ast.parse(Path(path).read_text())
     for node in ast.walk(tree):

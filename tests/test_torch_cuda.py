@@ -1103,3 +1103,58 @@ def test_event_session_labels_on_the_card_equal_packed_plain(cuda):
         plan, backend="packed_plain"), folded=True, device=cuda, jit=False)
     assert got == plain.classify(frames).tolist()
     assert len(set(got)) > 1, "every window got one label"
+
+
+def test_reduced_training_step_on_the_card_equals_the_cpu(cuda):
+    """One reduced-config training step (surrogate-gradient BPTT, BN on
+    batch statistics, AdamW, the BN stats merged) on the card against the
+    same step on the CPU from the same params and batch: loss within rtol
+    1e-5, each gradient leaf within 1e-4 of its largest |g|, the updated
+    params within 1e-4, and no LIF spike flipped."""
+    from repro_torch.core import spikformer as spik
+    from repro_torch.core import ssa
+    from repro_torch.data.pipeline import DataConfig, image_batch
+    from repro_torch.infer.compile import to_device
+    from repro_torch.optim import adamw
+
+    cfg = SpikformerConfig().scaled(classes=4)
+    raw = image_batch(DataConfig(global_batch=8,
+                                 image_size=32, n_classes=4), 0)
+    params = init(torch.Generator().manual_seed(0), cfg)
+    ocfg = adamw.OptConfig(peak_lr=2e-3, warmup_steps=1, decay_steps=4)
+    runs = {}
+    for dev in ("cpu", cuda):
+        lifs = []
+        saved = [(m, m.tflif) for m in (spik, ssa)]
+        for m, fn in saved:
+            m.tflif = (lambda f: lambda y, **kw: lifs.append(f(y, **kw))
+                       or lifs[-1])(fn)
+        try:
+            p = to_device(params, dev)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+            (loss, (_, stats)), grads = spik.value_and_grad(p, batch, cfg)
+        finally:
+            for m, fn in saved:
+                m.tflif = fn
+        new, _, _ = adamw.update(grads, adamw.init(p, ocfg), p, ocfg)
+        new = spik.merge_bn_stats(new, stats)
+        runs[str(dev)] = (float(loss), grads, new,
+                          [s.detach().cpu() for s in lifs])
+    (l0, g0, p0, s0), (l1, g1, p1, s1) = runs["cpu"], runs["cuda"]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert [int((a != b).sum()) for a, b in zip(s1, s0)] == [0] * len(s0)
+
+    def leaves(t, pre=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from leaves(v, f"{pre}/{k}")
+        else:
+            yield pre, t
+
+    want_g, want_p = dict(leaves(g0)), dict(leaves(p0))
+    for k, g in leaves(g1):
+        scale = float(want_g[k].abs().max())
+        assert float((g.cpu() - want_g[k]).abs().max()) <= 1e-4 * max(
+            scale, 1e-30), k
+    for k, v in leaves(p1):
+        torch.testing.assert_close(v.cpu(), want_p[k], rtol=1e-4, atol=1e-4)

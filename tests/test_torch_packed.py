@@ -516,3 +516,41 @@ def test_firing_rates_cli_fits_on_the_cpu(capsys):
     assert ExecutionPlan.from_dict(fragment).route_constants == constants
     assert JPlan.from_dict(fragment).route_constants.to_dict() == \
         constants.to_dict()
+
+
+# a reduced bucket-2 or bucket-8 step of the serving CLI's CPU model
+# (``packed``, f32, the CPU branch) makes at most this many top-level torch
+# calls (``torch.profiler`` events without a parent); 1,703 before the CPU
+# fleet fault's repair, 977 after
+CPU_STEP_OP_BOUND = 1_100
+
+
+@pytest.mark.parametrize("bucket", [2, 8])
+def test_reduced_cpu_step_op_count_bound(bucket):
+    """The CPU fleet smoke's budget: a CPU step is about a thousand short
+    torch calls, each of which costs host time and a release of the GIL,
+    and under a loaded host the fleet's one stepping replica fell behind
+    its arrivals. The CPU branch's LIF runs on the accumulators as they
+    lie (``ref.tflif_ref``: an ``addcdiv`` charge, the spikes added into
+    their bit as they fire, no reset after the last step), the bit
+    transpose is one table lookup and one sum, and an f32 table's
+    ascending-chunk fold is one ``embedding_bag`` (each row's chunk rows a
+    bag, summed in index order from zero): all bit-exact against JAX
+    (``test_forward_folded_over_packed_matches_reference``, the CLI's
+    labels)."""
+    from repro_torch.launch import serve_spikformer as cli
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        args = cli.parse_args(["--reduce", "--device", "cpu"])
+        model, _ = cli.build_model(args)
+        assert model.plan.backend == "packed" and model.buckets == (2, 8)
+        x = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (bucket, 32, 32, 3), dtype=np.uint8))
+        model.step(x)
+        with torch.profiler.profile() as prof:
+            model.step(x)
+    finally:
+        torch.set_num_threads(threads)
+    top = [e for e in prof.events() if e.cpu_parent is None]
+    assert len(top) <= CPU_STEP_OP_BOUND, len(top)
