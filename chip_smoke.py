@@ -14,8 +14,9 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    over the plan's K-major weights, packed STDP on the backend's
    plane-group layout,
    bf16 flash attention on the tensor cores at smollm-360m's 2048-token
-   prefill with its 15 heads over 5 KV heads read in place, and the f32
-   kernels of the unpack dot, STDP and flash attention on the CUDA cores),
+   prefill with its 15 heads over 5 KV heads read in place, the f32 unpack
+   dot on the bf16 tensor cores, and the f32 STDP (spikes, then real
+   values) and f32 flash attention in split TF32 on the tensor cores),
    holds it
    against its plain PyTorch version on the card and times kernel, plain
    version and the nearest single PyTorch call (the kernel by its device
@@ -86,7 +87,8 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    beyond each new graph's warm-up run and capture); profiles the
    2048-token prefill and a four-slot decode step eager and graphed; then,
    counters at 0 again, holds one f32 prefill's logits on the flash route
-   (the f32 flash kernel, once a layer) against the plain route;
+   (the f32 flash kernel, once a layer, handed the layer's q, k and v
+   views at their own addresses) against the plain route;
 5. trains ``SpikformerConfig()`` from the seeded ``init`` for 5 AdamW
    steps at batch 16 (eager surrogate-gradient BPTT, BN on batch
    statistics), gating finite losses and gradients, nonzero gradient
@@ -142,6 +144,7 @@ LM_LOGITS_TOL = 1e-4   # f32 prefill logits, flash route against plain
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 
@@ -351,7 +354,8 @@ def kernel_phase(torch, dev) -> dict:
                                                   spike_matmul_grouped,
                                                   spike_matmul_grouped_s8)
     from repro_torch.kernels.stdp_attention import (
-        stdp_attention, stdp_attention_packed, stdp_attention_packed_plain)
+        STDP_F32_TOL, stdp_attention, stdp_attention_packed,
+        stdp_attention_packed_plain)
     from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -540,7 +544,8 @@ def kernel_phase(torch, dev) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=graph_ms(torch, lambda: torch.matmul(planes, w1)))
 
-    # STDP at (T*B*heads, N, Dh) = (256, 196, 64)
+    # STDP at (T*B*heads, N, Dh) = (256, 196, 64): spikes bit for bit, then
+    # real values within STDP_F32_TOL of the f32 sums' error scale
     bh, dh = t * BATCH * heads, dim // heads
     q, k, v = (spikes(bh, tokens, dh).to(torch.float32) for _ in range(3))
     got = stdp_attention(q, k, v, scale=0.125)
@@ -550,11 +555,32 @@ def kernel_phase(torch, dev) -> dict:
     v8 = v * 0.125
     check(torch.equal(torch.bmm(torch.bmm(q, k.mT), v8), want),
           "two bmms do not compute the STDP function")
-    b_ms, b_by = bound_ms(4 * q.numel() * 4, 4 * bh * tokens * tokens * dh,
-                          INT8_OPS_PER_S)
+    qr, kr, vr = (torch.randn((bh, tokens, dh), generator=gen, device=dev)
+                  for _ in range(3))
+    got = stdp_attention(qr, kr, vr, scale=0.125)
+    want = ref.stdp_attention_ref(qr, kr, vr, scale=0.125)
+    scale_r = ref.stdp_attention_ref(qr.abs(), kr.abs(), vr.abs(),
+                                     scale=0.125)
+    real_rel = float(((got - want).abs() / scale_r).max())
+    check(real_rel <= STDP_F32_TOL,
+          f"stdp kernel on real values off its plain version by {real_rel} "
+          f"of (|Q| |K|^T) |V| * scale, over {STDP_F32_TOL}")
+    # the f32 function: 3 TF32 products a product on the tensor cores
+    ops_n = 4 * bh * tokens * tokens * dh
+    nbytes = 4 * q.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 3 * ops_n, TF32_OPS_PER_S)
     out["stdp"] = dict(
-        shape=f"q, k, v {tuple(q.shape)} f32 spikes",
-        max_abs_err=err,
+        shape=f"q, k, v {tuple(q.shape)} f32 spikes; real values "
+              "(randn) checked beside",
+        max_abs_err=err, real_max_abs_err=max_abs_err(got, want),
+        real_err_over_error_scale=real_rel,
+        tolerance=f"spikes exact; real |err| <= {STDP_F32_TOL} x "
+                  "(|Q| |K|^T) |V| x scale",
+        bound_ms_f32_units=bound_ms(nbytes, ops_n, F32_OPS_PER_S)[0],
+        bytes_bound_ms=bound_ms(nbytes, 0, F32_OPS_PER_S)[0],
+        ms_real=device_ms(torch, lambda: stdp_attention(qr, kr, vr,
+                                                        scale=0.125),
+                          "stdp_kernel"),
         ms=device_ms(torch, lambda: stdp_attention(q, k, v, scale=0.125),
                      "stdp_kernel"),
         ms_events=time_ms(torch, lambda: stdp_attention(q, k, v,
@@ -677,7 +703,8 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     (1, 15, 2048, 64) transposed from (1, 2048, 15, 64), k and v the first
     2048 rows of a (1, 5, 4096, 64) cache, read in place (group 3); the
     library yardstick is SDPA on KV expanded to the 15 heads beforehand.
-    f32 on the CUDA cores at (15, 2048, 64), the gate route."""
+    f32 in split TF32 on the tensor cores at (15, 2048, 64), the gate
+    route."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -730,10 +757,12 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     err = held(flash_attention(q3, k3, v3, scale=scale),
                flash_attention_plain(q3, k3, v3, scale=scale), "f32")
     nbytes = 4 * q3.numel() * 4
-    b_ms, b_by = bound_ms(nbytes, ops_n, F32_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, 3 * ops_n, TF32_OPS_PER_S)
     f32 = dict(
         shape=f"q, k, v {tuple(q3.shape)} f32, causal, scale {scale}",
         max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
+        bound_ms_f32_units=bound_ms(nbytes, ops_n, F32_OPS_PER_S)[0],
+        bytes_bound_ms=bound_ms(nbytes, 0, F32_OPS_PER_S)[0],
         ms=device_ms(torch, lambda: flash_attention(q3, k3, v3, scale=scale),
                      "flash_attention_kernel"),
         ms_events=time_ms(torch, lambda: flash_attention(q3, k3, v3,
@@ -2222,6 +2251,35 @@ def graphed_flash_ms(prof: dict):
             / sum(r["launches_per_step"] for r in rows))
 
 
+@contextlib.contextmanager
+def operand_addresses(ops, build):
+    """Records the (q, k, v) addresses each ``ops.flash_attention`` call
+    receives (``called``) and those each flash kernel launch is handed
+    (``launched``): equal lists mean no operand was copied on the way."""
+    seen = {"called": [], "launched": []}
+    entry, kernel_function = ops.flash_attention, build.kernel_function
+
+    def call(q, k, v, **kw):
+        seen["called"].append((q.data_ptr(), k.data_ptr(), v.data_ptr()))
+        return entry(q, k, v, **kw)
+
+    def bind(name, symbol, argtypes):
+        fn = kernel_function(name, symbol, argtypes)
+        if not name.startswith("flash_attention"):
+            return fn
+
+        def launch(*args):
+            seen["launched"].append(tuple(args[:3]))
+            return fn(*args)
+        return launch
+
+    ops.flash_attention, build.kernel_function = call, bind
+    try:
+        yield seen
+    finally:
+        ops.flash_attention, build.kernel_function = entry, kernel_function
+
+
 def lm_gate_phase(torch, dev, eng) -> dict:
     """One f32 prefill of the 1000-token prompt through the flash route
     and through the plain route (the reference's chunked softmax) on the
@@ -2230,7 +2288,7 @@ def lm_gate_phase(torch, dev, eng) -> dict:
     flash-route prefill and read just after it: one f32 flash launch a
     layer. Then 8 greedy tokens of both routes in f32 and in bf16, printed;
     the bf16 tokens are not gated."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import Engine, Request
     from repro_torch.nn import transformer as T
 
@@ -2242,17 +2300,23 @@ def lm_gate_phase(torch, dev, eng) -> dict:
         cache = T.init_cache(cfg, 1, LM_GATE_LEN, dtype=torch.float32,
                              device=dev)
         ops.reset_launch_counts()
-        logits[flash], _, _ = T.model_apply(
-            params, {"tokens": tokens, "cache_pos": 0}, cfg, mode="prefill",
-            cache=cache, compute_dtype=torch.float32, flash=flash)
-        torch.cuda.synchronize()
+        with operand_addresses(ops, _build) as addresses:
+            logits[flash], _, _ = T.model_apply(
+                params, {"tokens": tokens, "cache_pos": 0}, cfg,
+                mode="prefill", cache=cache, compute_dtype=torch.float32,
+                flash=flash)
+            torch.cuda.synchronize()
         if flash:
             launches = ops.launch_counts()
+            in_place = bool(addresses["called"]) and (
+                addresses["called"] == addresses["launched"])
     expect = dict.fromkeys(launches, 0)
     expect["flash_attention_f32"] = cfg.n_layers
     check(launches == expect,
           f"f32 gate launch counts {launches} != {expect} (one f32 flash "
           "launch per layer)")
+    check(in_place, "the f32 flash kernel was not handed the layers' q, k, "
+          "v views at their own addresses (a copy came first)")
     got, want = logits[True], logits[False]
     torch.cuda.synchronize()
     check(got.shape == (1, 1, cfg.padded_vocab)
@@ -2273,6 +2337,7 @@ def lm_gate_phase(torch, dev, eng) -> dict:
                    f"{'flash' if flash else 'plain'}"] = e.run()[0].out
     ops.reset_launch_counts()
     return dict(prompt_len=LM_GATE_LEN, launches=launches, max_abs_err=err,
+                operands_in_place=in_place,
                 tolerance=f"atol = rtol = {LM_LOGITS_TOL}",
                 logits_absmax=float(want.abs().max()), greedy=greedy,
                 greedy_agree={dt: greedy[f"{dt}/flash"] == greedy[f"{dt}/plain"]

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes``. Builds happen at first
 use, one ``nvcc`` per source, all started together, into ``build/kernels``
 at the repository root (listed in ``.gitignore``). A library's file name
-carries a digest of its source and flags, so an edited source rebuilds and
-an unchanged one is reused.
+carries a digest of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.
 """
 from __future__ import annotations
 
@@ -43,9 +44,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict:

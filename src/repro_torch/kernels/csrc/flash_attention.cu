@@ -1,229 +1,475 @@
 // Flash attention: softmax attention with an online softmax over KV tiles,
-// causal or not, f32 operands and math on the CUDA cores, f32 output.
+// causal or not, f32 q, k, v, f32 output, grouped-query heads and strided
+// operands, on the tensor cores in split TF32 (csrc/tf32x3.cuh).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
-// flash_attention for f32 operands (bf16 operands run the tensor-core kernel
-// csrc/flash_attention_tc.cu). q: (BH, Nq, Dh); k, v: (BH, Nkv, Dh);
-// query row i sits at
-// position Nkv - Nq + i, key j at position j. Per KV tile, as the reference:
-// s = (q * scale) . k in f32 (q scaled before the dot), masked entries set
-// to NEG_INF = -1e30 (not -inf), m_new = max(m, rowmax s),
-// alpha = exp(m - m_new), p = exp(s - m_new), l = l * alpha + rowsum p,
-// acc = acc * alpha + p v; out = acc / max(l, 1e-30).
-// Keys past Nkv are masked in both modes (the reference's wrapper refuses
-// the non-causal case with KV padding; this kernel masks it, which is the
-// exact softmax of flash_attention_ref).
+// flash_attention for f32 operands (bf16 operands run
+// csrc/flash_attention_tc.cu). q: (B, Hq, Nq, Dh); k, v: (B, KV, Nkv, Dh),
+// Hq a multiple of KV, q head h reading KV head h / (Hq / KV); any strides
+// with a unit last stride, every stride a multiple of 4 elements and every
+// base 16-byte aligned (TMA). Query row i sits at position Nkv - Nq + i, key
+// j at position j. Per KV tile, as the reference: s = (q * scale) . k (q
+// scaled in f32 before the dot), masked entries set to NEG_INF = -1e30 (not
+// -inf), m_new = max(m, rowmax s), alpha = exp(m - m_new), p = exp(s -
+// m_new), l = l * alpha + rowsum p, acc = acc * alpha + p v; out = acc /
+// max(l, 1e-30). Keys past Nkv are masked in both modes (the reference's
+// wrapper refuses the non-causal case with KV padding; this kernel masks
+// it, which is the exact softmax of flash_attention_ref).
 //
-// Bound on this card: at smollm's prefill shape (15 heads, 2048 tokens,
-// Dh 64) the causal product is ~8e9 flops for ~31 MB of f32 moved, above
-// the f32 units' ridge (~20 flop/byte): the least time is the operations'
-// at 67 TFLOP/s. f32 operands are the oracle and gate route (the serving
-// path is bf16), so this kernel stays the simple CUDA-core design.
-// Design: one block of 256 threads per (64-query tile, bh). The scaled Q
-// tile stays in shared memory; KV tiles of 64 keys are staged in ascending
-// order, so the first tile of every row holds key 0, which every row may
-// see (the wrapper refuses causal Nq > Nkv, where a row would have no key):
-// a row never finishes with m = NEG_INF, and a tile whose entries are all
-// masked while m is still NEG_INF (p = exp(0) = 1) cannot occur. Causal
-// blocks stop at the last tile their last query can see; the tiles skipped
-// would add exact zeros. Each thread computes a 4x4 patch of the score
-// tile (rows ty + 16 i, keys tx + 16 j) into shared memory; four threads
-// per row then do the online-softmax update with warp shuffles; each
-// thread then accumulates a 4 x Dh/16 patch of p v in registers. Q and K
-// rows carry a one-float pad so the score loop is free of bank conflicts.
-// Numerics: expf (not __expf) and no fast-math flags.
+// Bound on this card: at smollm's prefill shape (15 heads, 2048 tokens, Dh
+// 64) the causal product is 8.06e9 operations for 31 MB of f32 moved. As
+// three TF32 products they take 0.0489 ms at 495 TFLOP/s; the bytes take
+// 0.0094 ms; the f32 units (67 TFLOP/s) would need 0.1203 ms.
+// Numerics: both products are 3xTF32 with two accumulators each: S from
+// the split q * scale and k, P V from the split p and v. The sums keep
+// ~2^-21 of each product, well inside the 2e-4 the kernel is held to. expf
+// (not __expf), no fast-math flags.
+// Design (the skeleton of csrc/flash_attention_tc.cu): one block of three
+// warpgroups per (128-query tile, batch, head); blocks with the longest
+// causal rows launch first. Warpgroup 2 is the producer: one thread loads
+// the Q tile once and then K and V tiles of 64 keys by TMA, completion on
+// mbarriers; each box has padded rows (TMA zero-fills the columns past Dh).
+// Warpgroups 0 and 1 own 64 query rows each, scale their q rows in place
+// once, and per KV tile compute S = Q K^T, mask the blocks that cross the
+// diagonal or Nkv, run the online softmax on the accumulator fragments
+// with quad shuffles for the row max and sum, and accumulate O += P V with
+// P straight from the S fragments. Tiles wholly above a consumer's
+// diagonal are skipped (they would add exact zeros). Two designs share
+// this, by head dim:
+// - Dh 32 and 64 (smollm's 64): flash_attention_kernel_wgmma, the block
+//   pipeline of tf32x3::Pipe: the producer warpgroup also splits each K
+//   and V tile once into big and small K and V^T, which 3xTF32 wgmma
+//   products read from shared memory.
+// - Dh 128: flash_attention_kernel, mma.sync over fragments each warp
+//   splits in registers (the split K and V^T of 64 keys would not fit in
+//   shared memory beside the ring); the K and V tiles come through a ring
+//   of STAGES stages, with rows of Dh + 8 (q, k) and Dh + 4 (v) floats that
+//   keep every fragment load free of bank conflicts, and each warp skips
+//   the 8-key blocks wholly above its own rows.
+// The shared-memory size is set once a device, not at every launch.
+#include <atomic>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include "tf32x3.cuh"
+#include "tma.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, THREADS = 256;
+using tf32x3::FragA;
+using tf32x3::FragB;
+using tf32x3::mma3;
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_addr;
+using tma::tma_load_4d;
+
+constexpr int BQ = 128, BKV = 64, KB = BKV / 8, THREADS = 384;
+constexpr int CONSUMER_WARPS = 8;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+struct Params {
+  int heads, group, nq, nkv, n_qtiles, n_bh;
+  int dim_q[3], dim_kv[3];   // TMA dimension of (row, head, batch)
+  float scale;
+  int causal;
+  float* out;   // (B, Hq, Nq, Dh) f32, contiguous
+};
+
+// ---------------------------------------------------------------------------
+// Dh 128: mma.sync over fragments split in registers
+// ---------------------------------------------------------------------------
 
 template <int DH>
-constexpr int smem_floats() {
-  return BQ * (DH + 1) + BKV * (DH + 1) + BKV * DH + BQ * (BKV + 1) + 3 * BQ;
-}
+struct Layout {
+  static constexpr int DB = DH / 8;
+  static constexpr int STAGES = 2;
+  // row strides in floats: 8 (q, k) and 4 (v) past a multiple of 32
+  static constexpr int QS = DH + 8, KS = DH + 8, VS = DH + 4;
+  static constexpr uint32_t Q_BYTES = BQ * QS * 4;
+  static constexpr uint32_t K_BYTES = BKV * KS * 4;
+  static constexpr uint32_t V_BYTES = BKV * VS * 4;
+  static constexpr size_t SMEM = 128 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) +
+                                 (2 * STAGES + 1) * sizeof(uint64_t);
+};
 
-template <int DH, typename T>
-__global__ void __launch_bounds__(THREADS)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, float* __restrict__ out,
-                           int nq, int nkv, float scale, int causal) {
-  constexpr int DP = DH + 1;    // row stride of the q and k tiles
-  constexpr int SP = BKV + 1;   // row stride of the score tile
-  constexpr int RPT = BQ / 16;  // query rows per thread
-  constexpr int CPT = BKV / 16; // keys per thread in the score patch
-  constexpr int DPT = DH / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;             // BQ x DP: q * scale
-  float* ks = qs + BQ * DP;     // BKV x DP
-  float* vs = ks + BKV * DP;    // BKV x DH
-  float* ss = vs + BKV * DH;    // BQ x SP: scores, then probabilities
-  float* m_s = ss + BQ * SP;    // running max per row
-  float* l_s = m_s + BQ;        // running sum per row
-  float* a_s = l_s + BQ;        // this tile's rescale factor per row
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const Params p) {
+  using L = Layout<DH>;
+  constexpr int DB = L::DB, STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // TMA writes shared memory at 128-byte aligned addresses
+  uint8_t* base = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  float* q_s = reinterpret_cast<float*>(base);
+  uint8_t* k_ring = base + L::Q_BYTES;
+  uint8_t* v_ring = k_ring + STAGES * L::K_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_ring + STAGES * L::V_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_bar = empty + STAGES;
+
+  // longest causal rows first: the last query tiles of every head lead
+  const int bh = blockIdx.x % p.n_bh;
+  const int qt = p.n_qtiles - 1 - blockIdx.x / p.n_bh;
+  const int b = bh / p.heads, h = bh % p.heads, kvh = h / p.group;
+  const int q0 = qt * BQ;
+  const int q_offset = p.nkv - p.nq;
+  const int kv_end = p.causal ? min(p.nkv, q_offset + min(q0 + BQ, p.nq))
+                              : p.nkv;
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const long long bh = blockIdx.y;
-  const T* qb = q + bh * nq * DH;
-  const T* kb = k + bh * nkv * DH;
-  const T* vb = v + bh * nkv * DH;
-  const int q_offset = nkv - nq;
-
-  for (int e = tid; e < BQ * DH; e += THREADS) {
-    const int r = e / DH, d = e % DH, qi = q0 + r;
-    qs[r * DP + d] = qi < nq ? to_f32(qb[(long long)qi * DH + d]) * scale
-                             : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  // the last key this block's last query may see, plus one
-  const int kv_end =
-      causal ? min(nkv, q_offset + min(q0 + BQ, nq)) : nkv;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();  // the previous tile's reads of ks, vs, ss are done
-    for (int e = tid; e < BKV * DH; e += THREADS) {
-      const int r = e / DH, d = e % DH, kj = k0 + r;
-      const bool in = kj < nkv;
-      ks[r * DP + d] = in ? to_f32(kb[(long long)kj * DH + d]) : 0.f;
-      vs[r * DH + d] = in ? to_f32(vb[(long long)kj * DH + d]) : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);   // one arrival a consumer warp
     }
-    __syncthreads();
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const int kpos = k0 + c, qpos = q_offset + q0 + r;
-        const bool keep = kpos < nkv && (!causal || qpos >= kpos);
-        ss[r * SP + c] = keep ? s[i][j] : NEG_INF;
-      }
-    __syncthreads();
-
-    {  // online softmax: four neighbouring lanes per row, 16 keys each
-      const int r = tid / 4, part = tid % 4;
-      float* row = ss + r * SP + part * (BKV / 4);
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < BKV / 4; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < BKV / 4; ++c) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
-      }
-      // the shuffles also order every lane's read of m_s[r] before the
-      // write below
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
+  if (tid >= 256) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int cq[4] = {0, 0, 0, 0}, ckv[4] = {0, 0, 0, 0};
+      cq[p.dim_q[0]] = q0;
+      cq[p.dim_q[1]] = h;
+      cq[p.dim_q[2]] = b;
+      ckv[p.dim_kv[1]] = kvh;
+      ckv[p.dim_kv[2]] = b;
+      mbar_expect_tx(q_bar, L::Q_BYTES);
+      tma_load_4d(q_s, &map_q, q_bar, cq[0], cq[1], cq[2], cq[3]);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::K_BYTES + L::V_BYTES);
+        ckv[p.dim_kv[0]] = j * BKV;
+        tma_load_4d(k_ring + s * L::K_BYTES, &map_k, &full[s], ckv[0],
+                    ckv[1], ckv[2], ckv[3]);
+        tma_load_4d(v_ring + s * L::V_BYTES, &map_v, &full[s], ckv[0],
+                    ckv[1], ckv[2], ckv[3]);
       }
     }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float alpha = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 8
-    for (int c = 0; c < BKV; ++c) {
-      float pv[RPT], vv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = ss[(ty + 16 * i) * SP + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = vs[c * DH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j)
-          acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+    return;
   }
-  __syncthreads();  // the last tile's l_s update is visible
 
+  // ---------------- consumers: 16 query rows a warp ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = 16 * warp;    // the warp's rows in the tile
+  const int wq0 = q0 + row0;     // its first query
+  const int w_end =
+      wq0 >= p.nq ? 0
+                  : (p.causal ? min(p.nkv, q_offset + min(wq0 + 16, p.nq))
+                              : p.nkv);
+  const int my_tiles = (w_end + BKV - 1) / BKV;
+
+  mbar_wait(q_bar, 0);
+  for (int e = lane; e < 16 * DH; e += 32) {   // q * scale, once
+    float* x = q_s + (row0 + e / DH) * L::QS + e % DH;
+    *x *= p.scale;
+  }
+  __syncwarp();
+  const float* qa = q_s + (row0 + g) * L::QS + 2 * t;
+
+  float o_hi[DB][4], o_lo[DB][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i, qi = q0 + r;
-    if (qi >= nq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+  for (int nd = 0; nd < DB; ++nd)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      out[(bh * nq + qi) * DH + tx + 16 * j] = acc[i][j] / l;
+    for (int i = 0; i < 4; ++i) o_hi[nd][i] = o_lo[nd][i] = 0.f;
+  // rows g (fragment entries 0, 1) and g + 8 (entries 2, 3)
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(&full[s], (j / STAGES) & 1);
+    if (j < my_tiles) {
+      const float* ks =
+          reinterpret_cast<const float*>(k_ring + s * L::K_BYTES);
+      const float* vs =
+          reinterpret_cast<const float*>(v_ring + s * L::V_BYTES);
+      const int k0 = j * BKV;
+      const int nkb = min(KB, (w_end - k0 + 7) / 8);   // live 8-key blocks
+
+      // S = (q * scale) K^T: columns 2t, 2t + 1 of each 8-column step are
+      // its k = t, t + 4 for both operands
+      float sc[KB][4];
+      {
+        float s_lo[KB][4];
+#pragma unroll
+        for (int nb = 0; nb < KB; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[nb][i] = s_lo[nb][i] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DB; ++kk) {
+          const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kk);
+          const float2 x1 =
+              *reinterpret_cast<const float2*>(qa + 8 * L::QS + 8 * kk);
+          FragA a;
+          a.set(x0.x, x1.x, x0.y, x1.y);
+#pragma unroll
+          for (int nb = 0; nb < KB; ++nb)
+            if (nb < nkb) {
+              const float2 y = *reinterpret_cast<const float2*>(
+                  ks + (8 * nb + g) * L::KS + 8 * kk + 2 * t);
+              FragB bf;
+              bf.set(y.x, y.y);
+              mma3(sc[nb], s_lo[nb], a, bf);
+            }
+        }
+        // add the corrections; mask the blocks that cross the diagonal or
+        // Nkv, and the skipped ones
+        const bool edge = k0 + BKV > p.nkv ||
+                          (p.causal && k0 + BKV - 1 > q_offset + wq0);
+#pragma unroll
+        for (int nb = 0; nb < KB; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float x = sc[nb][i] + s_lo[nb][i];
+            if (nb >= nkb) {
+              x = NEG_INF;
+            } else if (edge) {
+              const int kpos = k0 + 8 * nb + 2 * t + (i & 1);
+              const int qpos = q_offset + wq0 + g + 8 * (i >> 1);
+              if (kpos >= p.nkv || (p.causal && kpos > qpos)) x = NEG_INF;
+            }
+            sc[nb][i] = x;
+          }
+      }
+
+      // online softmax; the four lanes of a quad hold a row's 64 keys
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int nb = 0; nb < KB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mx[i >> 1] = fmaxf(mx[i >> 1], sc[nb][i]);
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        alpha[r] = expf(m_run[r] - m_new);
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int nb = 0; nb < KB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[nb][i] = expf(sc[nb][i] - m_run[i >> 1]);
+          sum[i >> 1] += sc[nb][i];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_run[r] = l_run[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int nd = 0; nd < DB; ++nd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o_hi[nd][i] *= alpha[i >> 1];
+          o_lo[nd][i] *= alpha[i >> 1];
+        }
+
+      // O += P V: the accumulator's keys 2t, 2t + 1 are the A fragment's
+      // k = t, t + 4, so V's rows 2t, 2t + 1 are B's
+#pragma unroll
+      for (int nb = 0; nb < KB; ++nb)
+        if (nb < nkb) {
+          FragA a;
+          a.set(sc[nb][0], sc[nb][2], sc[nb][1], sc[nb][3]);
+          const float* v0 = vs + (8 * nb + 2 * t) * L::VS + g;
+#pragma unroll
+          for (int nd = 0; nd < DB; ++nd) {
+            FragB bf;
+            bf.set(v0[8 * nd], v0[L::VS + 8 * nd]);
+            mma3(o_hi[nd], o_lo[nd], a, bf);
+          }
+        }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // out = acc / max(l, 1e-30), rows inside Nq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = wq0 + g + 8 * r;
+    if (qi >= p.nq) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    float* row = p.out + ((long long)bh * p.nq + qi) * DH + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < DB; ++nd)
+      *reinterpret_cast<float2*>(row + 8 * nd) =
+          make_float2((o_hi[nd][2 * r] + o_lo[nd][2 * r]) / l,
+                      (o_hi[nd][2 * r + 1] + o_lo[nd][2 * r + 1]) / l);
   }
 }
 
-template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, float* out, int bh,
-           int nq, int nkv, float scale, int causal, cudaStream_t stream) {
-  const size_t bytes = smem_floats<DH>() * sizeof(float);
-  auto kernel = flash_attention_kernel<DH, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// ---------------------------------------------------------------------------
+// Dh 32 and 64: wgmma over operands split once a block (tf32x3::Pipe)
+// ---------------------------------------------------------------------------
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const Params p) {
+  using Pipe = tf32x3::Pipe<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const Pipe pipe(smem_raw);
+
+  // longest causal rows first: the last query tiles of every head lead
+  const int bh = blockIdx.x % p.n_bh;
+  const int qt = p.n_qtiles - 1 - blockIdx.x / p.n_bh;
+  const int b = bh / p.heads, h = bh % p.heads, kvh = h / p.group;
+  const int q0 = qt * BQ;
+  const int q_offset = p.nkv - p.nq;
+  const int kv_end = p.causal ? min(p.nkv, q_offset + min(q0 + BQ, p.nq))
+                              : p.nkv;
+  const int n_tiles = (kv_end + BKV - 1) / BKV;
+
+  const int tid = threadIdx.x;
+  pipe.init(tid, THREADS);
+  __syncthreads();
+
+  if (tid >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    int cq[4] = {0, 0, 0, 0}, ckv[4] = {0, 0, 0, 0};
+    cq[p.dim_q[0]] = q0;
+    cq[p.dim_q[1]] = h;
+    cq[p.dim_q[2]] = b;
+    ckv[p.dim_kv[1]] = kvh;
+    ckv[p.dim_kv[2]] = b;
+    pipe.produce(&map_q, &map_k, &map_v, cq, ckv, p.dim_kv[0], n_tiles,
+                 tid - 256);
+    return;
+  }
+
+  // ---------------- consumers: 64 query rows a warpgroup ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+  const int lane = tid % 32, warp = tid / 32, wg = tid / 128;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = 16 * warp;    // the warp's rows in the tile
+  const int wg_q0 = q0 + 64 * wg;
+  const int wg_end =
+      wg_q0 >= p.nq ? 0
+                    : (p.causal ? min(p.nkv, q_offset + min(wg_q0 + 64, p.nq))
+                                : p.nkv);
+  const int my_tiles = (wg_end + BKV - 1) / BKV;
+
+  tma::mbar_wait(pipe.q_bar, 0);
+  for (int e = lane; e < 16 * DH; e += 32) {   // q * scale, once
+    float* x = pipe.q + (row0 + e / DH) * Pipe::RS + e % DH;
+    *x *= p.scale;
+  }
+  __syncwarp();
+  const float* qa = pipe.q + (row0 + g) * Pipe::RS + t;
+
+  float o_hi[32], o_lo[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_hi[i] = o_lo[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % Pipe::STAGES;
+    tma::mbar_wait(&pipe.full[s], (j / Pipe::STAGES) & 1);
+    if (j < my_tiles) {
+      float sc[32], sl[32];
+      pipe.qk(qa, s, sc, sl);
+
+      // add the corrections; mask the tiles that cross the diagonal or Nkv
+      const int k0 = j * BKV;
+      const bool edge = k0 + BKV > p.nkv ||
+                        (p.causal && k0 + BKV - 1 > q_offset + wg_q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = sc[i] + sl[i];
+        if (edge) {
+          const int kpos = k0 + (i / 4) * 8 + 2 * t + (i % 2);
+          const int qpos = q_offset + q0 + row0 + g + ((i / 2) % 2) * 8;
+          if (kpos >= p.nkv || (p.causal && kpos > qpos)) x = NEG_INF;
+        }
+        sc[i] = x;
+      }
+
+      // online softmax, rows g (i % 4 < 2) and g + 8 (i % 4 >= 2); the
+      // four lanes of a quad hold a row's 64 keys
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        alpha[r] = expf(m_run[r] - m_new);
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        sc[i] = expf(sc[i] - m_run[r]);
+        sum[r] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l_run[r] = l_run[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        o_hi[i] *= alpha[(i / 2) % 2];
+        o_lo[i] *= alpha[(i / 2) % 2];
+      }
+      pipe.pv(sc, s, BKV / 8, o_hi, o_lo);
+    }
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(&pipe.empty[s]);
+  }
+
+  // out = acc / max(l, 1e-30), rows inside Nq, columns inside Dh
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + g + 8 * r;
+    if (qi >= p.nq) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    float* row = p.out + ((long long)bh * p.nq + qi) * DH;
+#pragma unroll
+    for (int nb = 0; nb < DH / 8; ++nb)
+      *reinterpret_cast<float2*>(row + nb * 8 + 2 * t) =
+          make_float2((o_hi[4 * nb + 2 * r] + o_lo[4 * nb + 2 * r]) / l,
+                      (o_hi[4 * nb + 2 * r + 1] + o_lo[4 * nb + 2 * r + 1]) /
+                          l);
+  }
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, size_t smem, std::atomic<unsigned long long>& sized,
+           const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+           const Params& prm, cudaStream_t stream) {
+  const cudaError_t err = tf32x3::size_smem_once(kernel, smem, sized);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nq + BQ - 1) / BQ, bh);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, nq, nkv, scale, causal);
+  const long long blocks = (long long)prm.n_qtiles * prm.n_bh;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(mq, mk, mv, prm);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, float* out, int bh,
-              int nq, int nkv, int dh, float scale, int causal,
-              cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<32, T>(q, k, v, out, bh, nq, nkv, scale, causal, stream);
-    case 64:
-      return launch<64, T>(q, k, v, out, bh, nq, nkv, scale, causal, stream);
-    case 128:
-      return launch<128, T>(q, k, v, out, bh, nq, nkv, scale, causal, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -232,14 +478,58 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// q: (bh, nq, dh); k, v: (bh, nkv, dh), all f32, contiguous; out:
-// (bh, nq, dh) f32. dh in {32, 64, 128}; nkv >= 1, and nq <= nkv when
-// causal.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, float* out, int bh,
-                                      int nq, int nkv, int dh, float scale,
-                                      int causal, void* stream) {
-  if (bh == 0 || nq == 0) return 0;
-  return launch_dh<float>(q, k, v, out, bh, nq, nkv, dh, scale, causal,
-                          (cudaStream_t)stream);
+// q: (batch, heads, nq, dh) f32 with element strides (qs_b, qs_h, qs_r, 1);
+// k, v: (batch, kv_heads, nkv, dh) f32, strides (ks_*, 1) and (vs_*, 1), k
+// and v in one order of strides; every stride a multiple of 4 and every
+// base 16-byte aligned (TMA); heads a multiple of kv_heads; dh in {32, 64,
+// 128}; nkv >= 1, nq <= nkv when causal. out: (batch, heads, nq, dh) f32,
+// contiguous.
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, float* out, int batch,
+    int heads, int kv_heads, int nq, int nkv, int dh, long long qs_b,
+    long long qs_h, long long qs_r, long long ks_b, long long ks_h,
+    long long ks_r, long long vs_b, long long vs_h, long long vs_r,
+    float scale, int causal, void* stream) {
+  if (batch == 0 || heads == 0 || nq == 0) return 0;
+  if ((dh != 32 && dh != 64 && dh != 128) || kv_heads <= 0 ||
+      heads % kv_heads)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  Params prm;
+  int dim_v[3];
+  // unswizzled boxes of padded rows (TMA zero-fills the columns past Dh):
+  // Dh + 4 columns for every operand of the wgmma kernel (Dh 32, 64);
+  // Dh + 8 (q, k) and Dh + 4 (v) for the mma.sync kernel (Dh 128)
+  constexpr auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr auto FLAT = CU_TENSOR_MAP_SWIZZLE_NONE;
+  const int qk_cols = dh == 128 ? dh + 8 : dh + 4;
+  if (!tma::make_map(&mq, F32, 4, FLAT, q, dh, qk_cols, nq, heads, batch,
+                     qs_r, qs_h, qs_b, BQ, prm.dim_q) ||
+      !tma::make_map(&mk, F32, 4, FLAT, k, dh, qk_cols, nkv, kv_heads, batch,
+                     ks_r, ks_h, ks_b, BKV, prm.dim_kv) ||
+      !tma::make_map(&mv, F32, 4, FLAT, v, dh, dh + 4, nkv, kv_heads, batch,
+                     vs_r, vs_h, vs_b, BKV, dim_v))
+    return (int)cudaErrorInvalidValue;
+  // k and v share one coordinate order (the wrapper gives them one layout)
+  for (int i = 0; i < 3; ++i)
+    if (dim_v[i] != prm.dim_kv[i]) return (int)cudaErrorInvalidValue;
+  prm.heads = heads;
+  prm.group = heads / kv_heads;
+  prm.nq = nq;
+  prm.nkv = nkv;
+  prm.n_qtiles = (nq + BQ - 1) / BQ;
+  prm.n_bh = batch * heads;
+  prm.scale = scale;
+  prm.causal = causal;
+  prm.out = out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  static std::atomic<unsigned long long> sized[3];   // a bit a device
+  if (dh == 32)
+    return launch(flash_attention_kernel_wgmma<32>, tf32x3::Pipe<32>::SMEM,
+                  sized[0], mq, mk, mv, prm, s);
+  if (dh == 64)
+    return launch(flash_attention_kernel_wgmma<64>, tf32x3::Pipe<64>::SMEM,
+                  sized[1], mq, mk, mv, prm, s);
+  return launch(flash_attention_kernel<128>, Layout<128>::SMEM, sized[2], mq,
+                mk, mv, prm, s);
 }

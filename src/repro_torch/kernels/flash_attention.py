@@ -2,11 +2,13 @@
 softmax (port of ``repro.kernels.flash_attention``).
 
 ``flash_attention`` takes grouped-query heads and strided operands and
-dispatches on the operands' dtype: bf16 launches the tensor-core kernel
-``csrc/flash_attention_tc.cu`` (wgmma, TMA), which reads each KV head in
-place; f32 launches the CUDA-core kernel ``csrc/flash_attention.cu`` on KV
-expanded to the q heads. CPU operands run the plain version,
-``flash_attention_plain``. Each kernel's wrapper counts its launches."""
+dispatches on the operands' dtype: bf16 launches
+``csrc/flash_attention_tc.cu`` (bf16 wgmma), f32 launches
+``csrc/flash_attention.cu`` (split TF32: wgmma at Dh 32 and 64, mma.sync at
+Dh 128); both load their tiles by TMA and read each KV head and strided
+view in place. CPU operands run the
+plain version, ``flash_attention_plain``. Each kernel's wrapper counts its
+launches."""
 from __future__ import annotations
 
 import ctypes
@@ -16,15 +18,11 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-_F32_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_TC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                + [ctypes.c_longlong] * 9
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 HEAD_DIMS = (32, 64, 128)   # both kernels' instantiations
 DTYPES = (torch.float32, torch.bfloat16)
-_GRID_LIMIT = 65535         # gridDim.y of the f32 kernel
 
 
 def _grouped(q, k, v):
@@ -94,10 +92,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _tma_ready(z: torch.Tensor) -> torch.Tensor:
     """``z`` with the layout TMA takes: a 16-byte aligned base and every
-    stride a positive multiple of 8 elements (16 bytes of bf16); otherwise
-    a contiguous copy."""
+    stride a positive multiple of 16 bytes; otherwise a contiguous copy."""
+    step = 16 // z.element_size()
     ok = z.data_ptr() % 16 == 0 and all(
-        s > 0 and s % 8 == 0
+        s > 0 and s % step == 0
         for s, n in zip(z.stride()[:-1], z.shape[:-1]) if n > 1)
     return z if ok else z.contiguous()
 
@@ -109,46 +107,40 @@ def _strides(z: torch.Tensor) -> list:
             for s, n in zip(z.stride()[:3], z.shape[:3])]
 
 
-def flash_attention_tc(q, k, v, *, scale: float, causal: bool = True):
-    """The tensor-core kernel on CUDA bf16 operands, (B, Hq, Nq, Dh) over
-    (B, KV, Nkv, Dh), read in place -> (B, Hq, Nq, Dh) f32."""
+def _launch(wrapper, name: str, symbol: str, q, k, v, *, scale: float,
+            causal: bool):
+    """Launch ``csrc/<name>.cu`` on (B, Hq, Nq, Dh) over (B, KV, Nkv, Dh),
+    read in place (copied only where TMA cannot read a view) -> (B, Hq,
+    Nq, Dh) f32; count the launch on ``wrapper``."""
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     if k.stride() != v.stride():
         k, v = k.contiguous(), v.contiguous()
     b, hq, nq, dh = q.shape
     kvh, nkv = k.shape[1], k.shape[2]
     out = torch.empty((b, hq, nq, dh), dtype=torch.float32, device=q.device)
-    fn = _build.kernel_function("flash_attention_tc",
-                                "flash_attention_tc_launch", _TC_ARGTYPES)
-    _build.check("flash_attention_tc", fn(
+    fn = _build.kernel_function(name, symbol, _ARGTYPES)
+    _build.check(name, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, kvh,
         nq, nkv, dh, *_strides(q), *_strides(k), *_strides(v), scale,
         int(causal), _build.stream(q)))
-    _build.count_launch(flash_attention_tc)
+    _build.count_launch(wrapper)
     return out
+
+
+def flash_attention_tc(q, k, v, *, scale: float, causal: bool = True):
+    """The bf16 tensor-core kernel on CUDA bf16 operands, (B, Hq, Nq, Dh)
+    over (B, KV, Nkv, Dh), read in place -> (B, Hq, Nq, Dh) f32."""
+    return _launch(flash_attention_tc, "flash_attention_tc",
+                   "flash_attention_tc_launch", q, k, v, scale=scale,
+                   causal=causal)
 
 
 def flash_attention_f32(q, k, v, *, scale: float, causal: bool = True):
-    """The CUDA-core kernel on CUDA f32 operands: KV expanded to the q
-    heads and every operand made contiguous (BH, N, Dh), as the kernel
-    takes them -> (B, Hq, Nq, Dh) f32."""
-    b, hq, nq, dh = q.shape
-    g = hq // k.shape[1]
-    if g > 1:
-        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
-    nkv = k.shape[2]
-    if b * hq > _GRID_LIMIT:
-        raise ValueError(f"the f32 flash kernel takes at most {_GRID_LIMIT} "
-                         f"batch-heads, got {b * hq}")
-    q3, k3, v3 = (z.reshape(b * hq, -1, dh).contiguous() for z in (q, k, v))
-    out = torch.empty((b, hq, nq, dh), dtype=torch.float32, device=q.device)
-    fn = _build.kernel_function("flash_attention", "flash_attention_launch",
-                                _F32_ARGTYPES)
-    _build.check("flash_attention", fn(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), b * hq,
-        nq, nkv, dh, scale, int(causal), _build.stream(q)))
-    _build.count_launch(flash_attention_f32)
-    return out
+    """The split-TF32 tensor-core kernel on CUDA f32 operands, (B, Hq, Nq,
+    Dh) over (B, KV, Nkv, Dh), read in place -> (B, Hq, Nq, Dh) f32."""
+    return _launch(flash_attention_f32, "flash_attention",
+                   "flash_attention_launch", q, k, v, scale=scale,
+                   causal=causal)
 
 
 flash_attention_tc.launches = 0

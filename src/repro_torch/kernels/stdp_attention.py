@@ -2,7 +2,8 @@
 ``repro.kernels.stdp_attention``).
 
 ``stdp_attention`` takes f32 operands of any value and launches
-``csrc/stdp.cu`` on the CUDA cores. ``stdp_attention_packed`` takes the
+``csrc/stdp.cu``, which multiplies on the tensor cores in split TF32
+(``csrc/tf32x3.cuh``). ``stdp_attention_packed`` takes the
 spikes as uint8 temporal plane groups, as the packed datapath keeps them,
 and launches ``csrc/stdp_packed.cu``, which extracts each plane's bits into
 fp16 tiles and multiplies on the tensor cores. CPU operands run the plain
@@ -24,6 +25,10 @@ _PACKED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 4
                     + [ctypes.c_float, ctypes.c_void_p])
 MAX_DH = 128              # csrc/stdp.cu's register budget per thread
+# the split-TF32 kernel against any f32 order of the sums, on real values:
+# |got - want| <= STDP_F32_TOL * ((|Q| |K|^T) |V|) * scale elementwise; the
+# split keeps each product within ~2^-21 of the f32 one (spikes: exact)
+STDP_F32_TOL = 2.0 ** -20
 _GRID_LIMIT = 65535       # gridDim.y
 # the packed kernel's exactness: a score (<= Dh) is exact in fp16 up to
 # 2048, and every f32 sum stays an integer below N * Dh < 2^24
@@ -34,7 +39,8 @@ MAX_PACKED_ELEMS = 2 ** 24
 def stdp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    scale: float) -> torch.Tensor:
     """q, k, v: (BH, N, Dh) f32 -> (BH, N, Dh) f32. Exact for spike
-    operands (integer sums, power-of-two scale)."""
+    operands (integer sums, power-of-two scale); within ``STDP_F32_TOL``
+    of the f32 sums on real values."""
     for name, z in (("q", q), ("k", k), ("v", v)):
         _build.require(z, name, torch.float32, 3)
         if z.shape != q.shape:

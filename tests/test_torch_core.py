@@ -215,3 +215,29 @@ def test_compile_defaults_to_the_card(monkeypatch):
                          device="cpu")
     assert model.device.type == "cpu"
     assert model.logits(np.zeros((1, 32, 32, 3), np.uint8)).shape == (1, 10)
+
+
+def test_library_path_covers_the_shared_headers(monkeypatch, tmp_path):
+    """A kernel library's file name carries a digest of its source, every
+    shared ``csrc/*.cuh`` header and the flags: an edited header (which
+    nvcc would compile into the library) names a new library, so a stale
+    build is never loaded; an unchanged tree keeps its name."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    edited = _build.library_path("k")
+    assert edited != first and edited.name.startswith("k-")
+    (tmp_path / "g.cuh").write_text("// a second header\n")
+    assert _build.library_path("k") not in (first, edited)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (first, edited)
+    # the real tree: every source's name covers tf32x3.cuh
+    monkeypatch.undo()
+    assert (_build.CSRC / "tf32x3.cuh").exists()
+    for name in _build.SOURCES:
+        assert _build.library_path(name).parent == _build.BUILD_DIR

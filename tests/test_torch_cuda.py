@@ -37,7 +37,8 @@ from repro_torch.kernels.spike_matmul import (bf16x3_weights,
                                               shift_sum_matmul, spike_matmul,
                                               spike_matmul_grouped,
                                               spike_matmul_grouped_s8)
-from repro_torch.kernels.stdp_attention import (stdp_attention,
+from repro_torch.kernels import _build
+from repro_torch.kernels.stdp_attention import (STDP_F32_TOL, stdp_attention,
                                                 stdp_attention_packed,
                                                 stdp_attention_packed_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -257,6 +258,49 @@ def test_stdp_kernel_matches_plain(cuda, bh, n, dh):
     torch.cuda.synchronize()
     assert torch.equal(got, ref.stdp_attention_ref(q, k, v, scale=0.125))
     assert stdp_attention.launches == 1
+
+
+@pytest.mark.parametrize("bh,n,dh", [(256, 196, 64), (3, 100, 32),
+                                     (2, 1, 128), (5, 65, 7)])
+def test_stdp_kernel_on_real_values(cuda, bh, n, dh):
+    """Real-valued operands through the split-TF32 products (Dh 32, 64:
+    the wgmma design; 7, 128: the mma.sync one): within ``STDP_F32_TOL``
+    (2^-20) times (|Q| |K|^T) |V| * scale of the plain version's f32 sums,
+    the bound of any f32 order of them (the kernels measured 5e-8 to 1.9e-7
+    of it on an H100)."""
+    q, k, v = (torch.randn((bh, n, dh), generator=gen(cuda, 10 + i),
+                           device=cuda) for i in range(3))
+    got = stdp_attention(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    want = ref.stdp_attention_ref(q, k, v, scale=0.125)
+    bound = STDP_F32_TOL * ref.stdp_attention_ref(q.abs(), k.abs(), v.abs(),
+                                                  scale=0.125)
+    assert bool(((got - want).abs() <= bound).all())
+    assert stdp_attention.launches == 1
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_stdp_kernel_on_unaligned_operands(cuda, dh):
+    """Operands 4 bytes past a 16-byte boundary, which TMA cannot read,
+    take the mma.sync design at the head dims the wgmma one serves: spikes
+    exact, real values within ``STDP_F32_TOL`` of the error scale."""
+    def unaligned(z):
+        buf = torch.empty(z.numel() + 1, device=cuda)[1:]
+        return buf.view(z.shape).copy_(z)
+
+    for real in (False, True):
+        q, k, v = (unaligned(torch.randn((3, 196, dh), generator=gen(
+            cuda, 20 + i), device=cuda) if real else spikes(
+                cuda, 20 + i, 3, 196, dh).to(torch.float32))
+                   for i in range(3))
+        assert q.data_ptr() % 16 == 4
+        got = stdp_attention(q, k, v, scale=0.125)
+        torch.cuda.synchronize()
+        want = ref.stdp_attention_ref(q, k, v, scale=0.125)
+        bound = 0.0 if not real else STDP_F32_TOL * ref.stdp_attention_ref(
+            q.abs(), k.abs(), v.abs(), scale=0.125)
+        assert bool(((got - want).abs() <= bound).all())
+    assert stdp_attention.launches == 2
 
 
 @pytest.mark.parametrize("t", [1, 4, 9, 17])
@@ -519,7 +563,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
     """Kernel 7 against its plain version (exact softmax in f32 on the same
     values) within atol = rtol = 2e-4, the reference's flash tolerance;
     ragged lengths pad both the query and the key tiles. bf16 runs the
-    tensor-core kernel, f32 the CUDA-core one."""
+    bf16 tensor-core kernel, f32 the split-TF32 one."""
     g = gen(cuda, nq + nkv + dh)
     q, k, v = (torch.randn((bh, n, dh), generator=g, device=cuda).to(dtype)
                for n in (nq, nkv, nkv))
@@ -561,6 +605,38 @@ def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
         got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              scale=dh ** -0.5, causal=causal),
         atol=0, rtol=0)
+
+
+def test_flash_f32_kernel_reads_grouped_strided_views_in_place(cuda,
+                                                               monkeypatch):
+    """The f32 kernel on smollm's prefill layout, (1, 15, 2048, 64) q
+    transposed from (1, 2048, 15, 64) over k and v the first 2048 rows of
+    a (1, 5, 2098, 64) cache: the plain version's result (KV expanded)
+    within 2e-4, in one launch that gets each view's own address (no
+    expansion, no copy)."""
+    g = gen(cuda, 2048)
+    q = torch.randn((1, 2048, 15, 64), generator=g,
+                    device=cuda).transpose(1, 2)
+    k, v = (torch.randn((1, 5, 2098, 64), generator=g,
+                        device=cuda)[:, :, :2048] for _ in range(2))
+    seen = []
+    real = _build.kernel_function
+
+    def spy(name, symbol, argtypes):
+        fn = real(name, symbol, argtypes)
+
+        def launch(*args):
+            seen.append(args[:3])
+            return fn(*args)
+        return launch
+    monkeypatch.setattr(_build, "kernel_function", spy)
+    got = flash_attention(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert seen == [(q.data_ptr(), k.data_ptr(), v.data_ptr())]
+    assert flash_attention_f32.launches == 1
+    assert flash_attention_tc.launches == 0
+    want = flash_attention_plain(q, k, v, scale=0.125)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 
 def test_lm_prefill_runs_the_flash_kernel(cuda):

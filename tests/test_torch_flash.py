@@ -19,7 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ref import flash_attention_ref as jref
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_f32,
                                                  flash_attention_tc)
@@ -129,6 +129,51 @@ def test_cpu_calls_count_no_launch():
     assert ops.launch_counts()["flash_attention_f32"] == 0
     assert ops.KERNELS["flash_attention_tc"] is flash_attention_tc
     assert ops.KERNELS["flash_attention_f32"] is flash_attention_f32
+
+
+@pytest.mark.parametrize("wrapper,lib", [
+    (flash_attention_f32, "flash_attention"),
+    (flash_attention_tc, "flash_attention_tc")])
+def test_kernel_wrappers_hand_the_lm_views_over_in_place(monkeypatch,
+                                                         wrapper, lib):
+    """Both kernels' wrappers pass the LM path's operands as they lie: q
+    transposed from (B, S, Hq, Dh), k and v the first rows of a longer
+    cache over its 5 KV heads, each at its own address with its own
+    strides (a size-1 batch's stride replaced by a valid one); no
+    ``repeat_interleave``, no copy. The launcher is replaced by a recorder
+    (the kernels run only on the card)."""
+    calls = []
+
+    def kernel_function(name, symbol, argtypes):
+        def fn(*args):
+            calls.append((name, symbol, args))
+            return 0
+        return fn
+
+    def refuse(*a, **kw):
+        raise AssertionError("the wrapper copied an operand")
+
+    dtype = torch.float32 if wrapper is flash_attention_f32 else \
+        torch.bfloat16
+    q = torch.zeros((1, 77, 15, 64), dtype=dtype).transpose(1, 2)
+    cache = torch.zeros((2, 1, 5, 96, 64), dtype=dtype)
+    k, v = cache[0, :, :, :77], cache[1, :, :, :77]
+    monkeypatch.setattr(_build, "kernel_function", kernel_function)
+    monkeypatch.setattr(_build, "stream", lambda z: 0)
+    for name in ("repeat_interleave", "contiguous", "clone"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    ops.reset_launch_counts()
+    out = wrapper(q, k, v, scale=0.125)
+    monkeypatch.undo()
+    assert out.shape == (1, 15, 77, 64) and out.dtype == torch.float32
+    [(name, symbol, args)] = calls
+    assert (name, symbol) == (lib, lib + "_launch")
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[4:10] == (1, 15, 5, 77, 77, 64)
+    assert args[10:19] == (8 * 64, 64, 15 * 64, 8 * 64, 96 * 64, 64,
+                           8 * 64, 96 * 64, 64)
+    assert ops.launch_counts()[wrapper.__name__] == 1
+    ops.reset_launch_counts()
 
 
 def test_ref_matches_reference_ref():

@@ -25,7 +25,8 @@ from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
                                               spike_matmul_grouped)
-from repro_torch.kernels.stdp_attention import (stdp_attention,
+from repro_torch.kernels.stdp_attention import (STDP_F32_TOL,
+                                                stdp_attention,
                                                 stdp_attention_packed)
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
 
@@ -291,6 +292,27 @@ def test_stdp_matches_pallas_kernel(bh, dh):
     exact(got, want)
     exact(got, jref.stdp_attention_ref(jnp.asarray(q), jnp.asarray(k),
                                        jnp.asarray(v), scale=0.125))
+    assert float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("bh,dh", [(3, 16), (2, 64)])
+def test_stdp_real_values_match_pallas_kernel(bh, dh):
+    """Real-valued operands at N = 196 and the reference's default tiles
+    (bq = bkv = 128, where no KV row is dropped), against the Pallas kernel
+    in interpret mode and ``repro.kernels.ref``: within ``STDP_F32_TOL``
+    times (|Q| |K|^T) |V| * scale, which bounds any f32 order of the two
+    sums (the split-TF32 kernel is held to the same on the card)."""
+    r = np.random.default_rng(bh * dh + 1)
+    q, k, v = (r.normal(size=(bh, 196, dh)).astype(np.float32)
+               for _ in range(3))
+    got = stdp_attention(t_(q), t_(k), t_(v), scale=0.125)
+    bound = STDP_F32_TOL * ref.stdp_attention_ref(
+        t_(np.abs(q)), t_(np.abs(k)), t_(np.abs(v)), scale=0.125)
+    for want in (jstdp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       scale=0.125, interpret=True),
+                 jref.stdp_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), scale=0.125)):
+        assert bool(((got - t_(want)).abs() <= bound).all())
     assert float(got.abs().max()) > 0
 
 
