@@ -14,7 +14,8 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    over the plan's K-major weights, packed STDP on the backend's
    plane-group layout,
    bf16 flash attention on the tensor cores at smollm-360m's 2048-token
-   prefill with its 15 heads over 5 KV heads read in place, the f32 unpack
+   prefill with its 15 heads over 5 KV heads read in place (and at
+   hymba-1.5b's, 25 heads over 5), the f32 unpack
    dot on the bf16 tensor cores, and the f32 STDP (spikes, then real
    values) and f32 flash attention in split TF32 on the tensor cores),
    holds it
@@ -88,7 +89,18 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    2048-token prefill and a four-slot decode step eager and graphed; then,
    counters at 0 again, holds one f32 prefill's logits on the flash route
    (the f32 flash kernel, once a layer, handed the layer's q, k and v
-   views at their own addresses) against the plain route;
+   views at their own addresses) against the plain route; then the
+   hybrid path, hymba-1.5b at full width (32 layers, d_model 1600, 25
+   heads over 5 KV heads, a Mamba2 SSD mixer beside attention in every
+   layer, sliding window 2048 over ring caches but in global layers
+   0/15/31), the same three passes over 8 requests of 77 to 3000 tokens
+   (2040 and 2048 wrap the rings in decode; 2500 and 3000 run kernel 7
+   only in the 3 global layers, the windowed ones the plain windowed
+   softmax), tokens identical, launches gated (198 a pass), profiled;
+   its f32 prefill gate at 2048 and 3000 tokens (32 and 3 f32 flash
+   launches, logits within 1e-4 of the plain route); and the SSM path,
+   mamba2-130m at full width (24 SSD layers, no attention, no kernel),
+   the same three passes and prompts, tokens identical;
 5. trains ``SpikformerConfig()`` from the seeded ``init`` for 5 AdamW
    steps at batch 16 (eager surrogate-gradient BPTT, BN on batch
    statistics), gating finite losses and gradients, nonzero gradient
@@ -140,6 +152,16 @@ LM_SLOTS, LM_CACHE_LEN = 4, 4096
 LM_GATE_LEN = 1000
 FLASH_TOL = 2e-4       # the reference's own flash tests' rtol = atol
 LM_LOGITS_TOL = 1e-4   # f32 prefill logits, flash route against plain
+# the hybrid path: hymba-1.5b at full width (window 2048, global layers
+# 0/15/31); 2040 and 2048 make decode wrap the windowed rings, 2500 and
+# 3000 take the long-prompt branch (flash in the 3 global layers only)
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_HEADS, HYBRID_KV_HEADS = 25, 5
+HYBRID_PROMPTS = (77, 300, 1000, 1536, 2040, 2048, 2500, 3000)
+HYBRID_GATE_LENS = (2048, 3000)
+PROFILE_LEN = 2048     # the prefill each LM path profiles
+# the SSM path: mamba2-130m at full width, the hybrid path's prompts
+SSM_ARCH = "mamba2-130m"
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -704,12 +726,13 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     2048 rows of a (1, 5, 4096, 64) cache, read in place (group 3); the
     library yardstick is SDPA on KV expanded to the 15 heads beforehand.
     f32 in split TF32 on the tensor cores at (15, 2048, 64), the gate
-    route."""
+    route. bf16 again at hymba-1.5b's 2048-token prefill (``at_hymba_shape``:
+    25 heads over 5 KV heads, group 5), laid out the same way."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
     kvh = 5
-    h, s, dh = LM_HEADS, LM_PROMPTS[-1], LM_HEAD_DIM
+    h, s, dh = LM_HEADS, PROFILE_LEN, LM_HEAD_DIM
     scale = dh ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pairs = s * (s + 1) // 2                      # causal (query, key) pairs
@@ -723,34 +746,44 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
               f"flash_attention ({what}) off its plain version by {err}")
         return err
 
-    q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(
-        torch.bfloat16).transpose(1, 2)
-    k, v = (torch.randn((1, kvh, 2 * s, dh), generator=gen, device=dev).to(
-        torch.bfloat16)[:, :, :s] for _ in range(2))
-    err = held(flash_attention(q, k, v, scale=scale),
-               flash_attention_plain(q, k, v, scale=scale), "bf16")
-    qc = q.contiguous()
-    ke, ve = (z.repeat_interleave(h // kvh, dim=1).contiguous()
-              for z in (k, v))
-    nbytes = (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4
-    b_ms, b_by = bound_ms(nbytes, ops_n, BF16_OPS_PER_S)
-    tc = dict(
-        shape=f"q {tuple(q.shape)} bf16 (transposed view) over k, v "
-              f"{tuple(k.shape)} bf16 (cache slices), causal, scale {scale} "
-              "(smollm-360m's 2048-token prefill, one layer)",
-        max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
-        ms=device_ms(torch, lambda: flash_attention(q, k, v, scale=scale),
-                     "flash_tc_kernel"),
-        ms_events=time_ms(torch, lambda: flash_attention(q, k, v,
-                                                         scale=scale)),
-        plain_ms=time_ms(torch, lambda: flash_attention_plain(
-            q, k, v, scale=scale)),
-        bound_ms=b_ms, bound_by=b_by,
-        bytes_bound_ms=bound_ms(nbytes, 0, BF16_OPS_PER_S)[0],
-        library_ms=graph_ms(torch, lambda: sdpa(qc, ke, ve, is_causal=True,
-                                               scale=scale)))
-    tc["ms_again"] = device_ms(torch, lambda: flash_attention(
-        q, k, v, scale=scale), "flash_tc_kernel")
+    def bf16_at(h, kvh, model):
+        """The bf16 kernel at one model's 2048-token prefill layout: q
+        transposed from (1, S, H, Dh), k and v the first S rows of a
+        (1, KV, 2S, Dh) cache, read in place; SDPA on KV expanded to the H
+        heads beforehand."""
+        q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn((1, kvh, 2 * s, dh), generator=gen,
+                            device=dev).to(torch.bfloat16)[:, :, :s]
+                for _ in range(2))
+        err = held(flash_attention(q, k, v, scale=scale),
+                   flash_attention_plain(q, k, v, scale=scale),
+                   f"bf16, {model}")
+        qc = q.contiguous()
+        ke, ve = (z.repeat_interleave(h // kvh, dim=1).contiguous()
+                  for z in (k, v))
+        nbytes = (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4
+        b_ms, b_by = bound_ms(nbytes, 4 * h * pairs * dh, BF16_OPS_PER_S)
+        call = lambda: flash_attention(q, k, v, scale=scale)  # noqa: E731
+        row = dict(
+            shape=f"q {tuple(q.shape)} bf16 (transposed view) over k, v "
+                  f"{tuple(k.shape)} bf16 (cache slices), causal, scale "
+                  f"{scale} ({model}'s 2048-token prefill, one layer)",
+            max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
+            ms=device_ms(torch, call, "flash_tc_kernel"),
+            ms_events=time_ms(torch, call),
+            plain_ms=time_ms(torch, lambda: flash_attention_plain(
+                q, k, v, scale=scale)),
+            bound_ms=b_ms, bound_by=b_by,
+            bytes_bound_ms=bound_ms(nbytes, 0, BF16_OPS_PER_S)[0],
+            library_ms=graph_ms(torch, lambda: sdpa(
+                qc, ke, ve, is_causal=True, scale=scale)))
+        row["ms_again"] = device_ms(torch, call, "flash_tc_kernel")
+        return row
+
+    tc = bf16_at(h, kvh, LM_ARCH)
+    tc["at_hymba_shape"] = bf16_at(HYBRID_HEADS, HYBRID_KV_HEADS,
+                                   HYBRID_ARCH)
 
     q3, k3, v3 = (torch.randn((h, s, dh), generator=gen, device=dev)
                   for _ in range(3))
@@ -1412,7 +1445,11 @@ def events_cli_phase(torch, dev) -> dict:
         check(all(r["requests_rejected"] == 0 and r["requests_dropped"] == 0
                   and r["slo_attainment"] == 1.0 for r in runs)
               and len({r["labels_sha"] for r in runs}) == 1 and len(runs) == 2,
-              f"{what}: the smoke contract failed")
+              f"{what}: the smoke contract failed: " + json.dumps(
+                  [{k: r.get(k) for k in (
+                      "requests_rejected", "requests_dropped",
+                      "slo_attainment", "latency_p50_s", "latency_p99_s",
+                      "labels_sha")} for r in runs]))
         per_step = per_step_launches(model.cfg, model.plan.routes,
                                      model.weight_dtype)
         launches = check_graphed_run(torch, model, per_step,
@@ -2085,14 +2122,25 @@ def serving_stack_phase(torch, dev, cfg, folded) -> dict:
     return out
 
 
-def lm_prompts(vocab: int) -> list:
+def lm_prompts(vocab: int, lengths=LM_PROMPTS) -> list:
     import numpy as np
     rng = np.random.default_rng(SEED)
-    return [rng.integers(0, vocab, n).tolist() for n in LM_PROMPTS]
+    return [rng.integers(0, vocab, n).tolist() for n in lengths]
+
+
+def flash_per_prefill(cfg, n: int) -> int:
+    """Kernel 7's launches in one prefill of ``n`` tokens: one a layer
+    whose window cuts no key (no window, a global layer, or ``n`` within
+    the window), none in an SSM layer."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.sliding_window is None or n <= cfg.sliding_window:
+        return cfg.n_layers
+    return len(cfg.global_layers)
 
 
 def lm_pass(torch, eng, prompts) -> dict:
-    """The 8 LM requests (LM_PROMPTS tokens, 32 new tokens each) served by
+    """The 8 LM requests (``prompts``, 32 new tokens each) served by
     ``eng`` at once, the launch counters (the wrappers', which eager runs
     and captures tick, and the engine's captured launches x replays) set
     to 0 just before and read just after. Returns the host-clock serving
@@ -2132,15 +2180,16 @@ def lm_pass(torch, eng, prompts) -> dict:
                 tokens={r.rid: r.out for r in reqs})
 
 
-def check_lm_launches(eng, run: dict, what: str) -> dict:
-    """The launch gate of one pass: one tensor-core flash launch a layer
-    and prefill, on the wrappers' counters when eager and as captured
-    launches x replays when graphed; a graphed pass launches nothing
-    eagerly beyond each new graph's warm-up run and capture (twice its
-    captured launches). Returns the pass's launches, eager plus
-    replayed."""
+def check_lm_launches(eng, run: dict, lengths, what: str) -> dict:
+    """The launch gate of one pass: kernel 7's tensor-core flash launches
+    of each prefill (``flash_per_prefill``), on the wrappers' counters when
+    eager and as captured launches x replays when graphed; a graphed pass
+    launches nothing eagerly beyond each new graph's warm-up run and
+    capture (twice its captured launches). Returns the pass's launches,
+    eager plus replayed."""
     eager, replayed = run["launches_eager"], run["launches_replayed"]
-    flash = {"flash_attention_tc": eng.cfg.n_layers * len(LM_PROMPTS)}
+    n = sum(flash_per_prefill(eng.cfg, m) for m in lengths)
+    flash = {"flash_attention_tc": n} if n else {}
     if not eng.graphed:
         check(replayed == {} and run["captured"] == [],
               f"{what}: an eager engine replayed {replayed}")
@@ -2157,28 +2206,48 @@ def check_lm_launches(eng, run: dict, what: str) -> dict:
     return {k: eager[k] + replayed.get(k, 0) for k in eager}
 
 
-def lm_serve_phase(torch, dev) -> tuple:
-    """The LM path: smollm-360m at full width (32 layers, d_model 960, 15
-    heads over 5 KV heads, vocab 49152) from a seeded ``init_model``,
-    served by ``Engine(slots=4, cache_len=4096)`` in bf16 in three passes
-    of the same 8 requests (LM_PROMPTS tokens, 32 new tokens each) over
-    the same weights: (a) an eager engine (``jit=False``), after one short
-    warm-up request; (b) a graphed engine (``jit=True``), cold: its
-    warm-up request captures decode, and the pass captures its 8 prompt
-    lengths; (c) the same engine, warm: every prefill and decode a
-    replay. Gates: each request's 32 tokens identical across the passes,
-    and each pass's launches (``check_lm_launches``). Profiles the
-    2048-token prefill and a four-slot decode step eager (on (a)'s engine,
-    freed after) and graphed. Returns the report and the graphed
-    engine."""
+def describe(cfg) -> str:
+    """One line of a config's widths, for the report."""
+    parts = [f"{cfg.n_layers} layers", f"d_model {cfg.d_model}"]
+    if cfg.family != "ssm":
+        parts.append(f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+                     f"head_dim {cfg.head_dim}")
+    if cfg.d_ff:
+        parts.append(f"d_ff {cfg.d_ff}")
+    if cfg.family in ("ssm", "hybrid"):
+        parts.append(f"SSM state {cfg.ssm_state}, "
+                     f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
+                     f"heads of {cfg.ssm_head_dim}")
+    if cfg.sliding_window:
+        parts.append(f"window {cfg.sliding_window}, global layers "
+                     f"{'/'.join(map(str, cfg.global_layers))}")
+    parts.append(f"vocab {cfg.vocab}")
+    if cfg.tie_embeddings:
+        parts.append("tied embeddings")
+    return (f"{cfg.name} [{cfg.family}]: {', '.join(parts)}; seeded "
+            "init_model, f32 params, bf16 compute and cache")
+
+
+def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
+                   lengths=LM_PROMPTS) -> tuple:
+    """An LM path at full width from a seeded ``init_model``, served by
+    ``Engine(slots=4, cache_len=4096)`` in bf16 in three passes of the
+    same 8 requests (``lengths`` tokens, 32 new tokens each) over the same
+    weights: (a) an eager engine (``jit=False``), after one short warm-up
+    request; (b) a graphed engine (``jit=True``), cold: its warm-up request
+    captures decode, and the pass captures its 8 prompt lengths; (c) the
+    same engine, warm: every prefill and decode a replay. Gates: each
+    request's 32 tokens identical across the passes, and each pass's
+    launches (``check_lm_launches``). Profiles the 2048-token prefill and
+    a four-slot decode step eager (on (a)'s engine, freed after) and
+    graphed. Returns the report and the graphed engine."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, Request
     from repro_torch.nn.module import param_bytes, param_count
 
-    cfg = get_config(LM_ARCH)
-    check((cfg.n_heads, cfg.head_dim) == (LM_HEADS, LM_HEAD_DIM),
-          f"{LM_ARCH} has {cfg.n_heads} heads of {cfg.head_dim}")
-    prompts = lm_prompts(cfg.vocab)
+    cfg = get_config(arch)
+    prompts = lm_prompts(cfg.vocab, lengths)
+    profiled = prompts[lengths.index(PROFILE_LEN)]
 
     def engine(jit, params=None):
         t0 = time.perf_counter()
@@ -2194,8 +2263,8 @@ def lm_serve_phase(torch, dev) -> tuple:
         tokens = [r.out[-1] for r in reqs]
         positions = [len(r.prompt) + LM_MAX_NEW for r in reqs]
         return {
-            f"profile_prefill_2048{suffix}": profile_fn(
-                torch, lambda: eng.prefill(prompts[-1]), steps=2),
+            f"profile_prefill_{PROFILE_LEN}{suffix}": profile_fn(
+                torch, lambda: eng.prefill(profiled), steps=2),
             f"profile_decode{suffix}": profile_fn(
                 torch, lambda: eng.decode(tokens, positions), steps=4)}
 
@@ -2203,7 +2272,8 @@ def lm_serve_phase(torch, dev) -> tuple:
     params = eng.params
     runs, launches, report = {}, {}, {}
     runs["eager"] = lm_pass(torch, eng, prompts)
-    launches["eager"] = check_lm_launches(eng, runs["eager"], "eager pass")
+    launches["eager"] = check_lm_launches(eng, runs["eager"], lengths,
+                                          "eager pass")
     report.update(profiles(eng, "_eager"))
     del eng
     torch.cuda.empty_cache()
@@ -2213,26 +2283,25 @@ def lm_serve_phase(torch, dev) -> tuple:
           f"the warm-up request captured {sorted(eng.graphs)}")
     for name in ("cold", "warm"):
         runs[name] = lm_pass(torch, eng, prompts)
-        launches[name] = check_lm_launches(eng, runs[name], f"{name} pass")
+        launches[name] = check_lm_launches(eng, runs[name], lengths,
+                                           f"{name} pass")
     check(runs["cold"]["captured"] == sorted(("prefill", n)
-                                             for n in LM_PROMPTS)
+                                             for n in lengths)
           and runs["warm"]["captured"] == [],
           f"captured {runs['cold']['captured']} cold, "
           f"{runs['warm']['captured']} warm")
     for rid, want in runs["eager"]["tokens"].items():
         check(runs["cold"]["tokens"][rid] == want
               and runs["warm"]["tokens"][rid] == want,
-              f"LM request {rid}: graphed tokens differ from the eager "
+              f"{arch} request {rid}: graphed tokens differ from the eager "
               "engine's")
     report.update(profiles(eng, ""))
     total = {k: sum(run[k] for run in launches.values())
              for k in launches["eager"]}
     return dict(
-        config=f"{LM_ARCH}: 32 layers, d_model 960, 15 heads over 5 KV heads,"
-               " head_dim 64, d_ff 2560, vocab 49152, tied embeddings; "
-               "seeded init_model, f32 params, bf16 compute and cache",
+        config=describe(cfg),
         params=param_count(params), param_mib=param_bytes(params) / 2 ** 20,
-        init_s=init_s, prompts=list(LM_PROMPTS), max_new=LM_MAX_NEW,
+        init_s=init_s, prompts=list(lengths), max_new=LM_MAX_NEW,
         slots=LM_SLOTS, cache_len=LM_CACHE_LEN, launches=total,
         launches_by_pass=launches, tokens_identical=True,
         passes=runs, graphed_warmup_s=warm_s,
@@ -2280,68 +2349,90 @@ def operand_addresses(ops, build):
         ops.flash_attention, build.kernel_function = entry, kernel_function
 
 
-def lm_gate_phase(torch, dev, eng) -> dict:
-    """One f32 prefill of the 1000-token prompt through the flash route
-    and through the plain route (the reference's chunked softmax) on the
-    card, with the served model's weights: last-position logits within
-    atol = rtol = LM_LOGITS_TOL. The counters are set to 0 just before the
-    flash-route prefill and read just after it: one f32 flash launch a
-    layer. Then 8 greedy tokens of both routes in f32 and in bf16, printed;
-    the bf16 tokens are not gated."""
+def lm_gate_phase(torch, dev, eng, lengths=(LM_GATE_LEN,),
+                  prompt_lengths=LM_PROMPTS, greedy: bool = True) -> dict:
+    """For each of ``lengths``, one f32 prefill of that prompt (of the
+    served ones) through the flash route and through the plain route (the
+    reference's chunked softmax) on the card, with the served model's
+    weights, into a cache as long as the prompt: last-position logits
+    within atol = rtol = LM_LOGITS_TOL. The counters are set to 0 just
+    before each flash-route prefill and read just after it: one f32 flash
+    launch a layer whose window cuts no key (``flash_per_prefill``), each
+    handed the layer's q, k, v views at their own addresses. With
+    ``greedy``, then 8 greedy tokens of both routes in f32 and in bf16 for
+    the first length, printed; the bf16 tokens are not gated."""
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import Engine, Request
     from repro_torch.nn import transformer as T
 
     cfg, params = eng.cfg, eng.params
-    prompt = lm_prompts(cfg.vocab)[LM_PROMPTS.index(LM_GATE_LEN)]
-    tokens = torch.tensor([prompt], device=dev)
-    logits = {}
-    for flash in (True, False):
-        cache = T.init_cache(cfg, 1, LM_GATE_LEN, dtype=torch.float32,
-                             device=dev)
-        ops.reset_launch_counts()
-        with operand_addresses(ops, _build) as addresses:
-            logits[flash], _, _ = T.model_apply(
-                params, {"tokens": tokens, "cache_pos": 0}, cfg,
-                mode="prefill", cache=cache, compute_dtype=torch.float32,
-                flash=flash)
-            torch.cuda.synchronize()
-        if flash:
-            launches = ops.launch_counts()
-            in_place = bool(addresses["called"]) and (
-                addresses["called"] == addresses["launched"])
-    expect = dict.fromkeys(launches, 0)
-    expect["flash_attention_f32"] = cfg.n_layers
-    check(launches == expect,
-          f"f32 gate launch counts {launches} != {expect} (one f32 flash "
-          "launch per layer)")
-    check(in_place, "the f32 flash kernel was not handed the layers' q, k, "
-          "v views at their own addresses (a copy came first)")
-    got, want = logits[True], logits[False]
-    torch.cuda.synchronize()
-    check(got.shape == (1, 1, cfg.padded_vocab)
-          and bool(torch.isfinite(got).all()),
-          f"LM prefill logits: shape {tuple(got.shape)} or non-finite")
-    err = max_abs_err(got, want)
-    check(bool(((got - want).abs() <= LM_LOGITS_TOL
-                + LM_LOGITS_TOL * want.abs()).all()),
-          f"f32 prefill logits, flash route against plain: off by {err}")
-    greedy = {}
-    for dt in (torch.float32, torch.bfloat16):
+    prompts = lm_prompts(cfg.vocab, prompt_lengths)
+    by_length, total = {}, {}
+    for n in lengths:
+        tokens = torch.tensor([prompts[prompt_lengths.index(n)]], device=dev)
+        logits = {}
         for flash in (True, False):
-            e = Engine(cfg, slots=1, cache_len=LM_GATE_LEN + 8, params=params,
-                       compute_dtype=dt, cache_dtype=dt, device=dev,
-                       flash=flash, jit=False)
-            e.submit(Request(rid=0, prompt=prompt, max_new=8))
-            greedy[f"{str(dt).removeprefix('torch.')}/"
-                   f"{'flash' if flash else 'plain'}"] = e.run()[0].out
+            cache = T.init_cache(cfg, 1, n, dtype=torch.float32, device=dev)
+            ops.reset_launch_counts()
+            with operand_addresses(ops, _build) as addresses:
+                logits[flash], _, _ = T.model_apply(
+                    params, {"tokens": tokens, "cache_pos": 0}, cfg,
+                    mode="prefill", cache=cache, compute_dtype=torch.float32,
+                    flash=flash)
+                torch.cuda.synchronize()
+            if flash:
+                launches = ops.launch_counts()
+                in_place = bool(addresses["called"]) and (
+                    addresses["called"] == addresses["launched"])
+            del cache
+        expect = dict.fromkeys(launches, 0)
+        expect["flash_attention_f32"] = flash_per_prefill(cfg, n)
+        check(launches == expect,
+              f"{cfg.name} f32 gate at {n}: launch counts {launches} != "
+              f"{expect}")
+        check(in_place, f"{cfg.name} f32 gate at {n}: the f32 flash kernel "
+              "was not handed the layers' q, k, v views at their own "
+              "addresses (a copy came first)")
+        got, want = logits[True], logits[False]
+        torch.cuda.synchronize()
+        check(got.shape == (1, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(got).all()),
+              f"LM prefill logits: shape {tuple(got.shape)} or non-finite")
+        err = max_abs_err(got, want)
+        check(bool(((got - want).abs() <= LM_LOGITS_TOL
+                    + LM_LOGITS_TOL * want.abs()).all()),
+              f"{cfg.name} f32 prefill logits at {n}, flash route against "
+              f"plain: off by {err}")
+        by_length[n] = dict(launches=launches, max_abs_err=err,
+                            operands_in_place=in_place,
+                            logits_absmax=float(want.abs().max()))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del logits, got, want
+        torch.cuda.empty_cache()
+    out = dict(prompt_lens=list(lengths), launches=total,
+               max_abs_err=max(r["max_abs_err"] for r in by_length.values()),
+               operands_in_place=all(r["operands_in_place"]
+                                     for r in by_length.values()),
+               tolerance=f"atol = rtol = {LM_LOGITS_TOL}",
+               by_length=by_length)
+    if greedy:
+        prompt = prompts[prompt_lengths.index(lengths[0])]
+        tokens = {}
+        for dt in (torch.float32, torch.bfloat16):
+            for flash in (True, False):
+                e = Engine(cfg, slots=1, cache_len=lengths[0] + 8,
+                           params=params, compute_dtype=dt, cache_dtype=dt,
+                           device=dev, flash=flash, jit=False)
+                e.submit(Request(rid=0, prompt=prompt, max_new=8))
+                tokens[f"{str(dt).removeprefix('torch.')}/"
+                       f"{'flash' if flash else 'plain'}"] = e.run()[0].out
+        out["greedy"] = tokens
+        out["greedy_agree"] = {
+            dt: tokens[f"{dt}/flash"] == tokens[f"{dt}/plain"]
+            for dt in ("float32", "bfloat16")}
     ops.reset_launch_counts()
-    return dict(prompt_len=LM_GATE_LEN, launches=launches, max_abs_err=err,
-                operands_in_place=in_place,
-                tolerance=f"atol = rtol = {LM_LOGITS_TOL}",
-                logits_absmax=float(want.abs().max()), greedy=greedy,
-                greedy_agree={dt: greedy[f"{dt}/flash"] == greedy[f"{dt}/plain"]
-                              for dt in ("float32", "bfloat16")})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2669,7 +2760,8 @@ def examples_phase(torch, dev, report: dict) -> dict:
 EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
               "ms_fc1_f32", "bound_ms_fc1_f32", "library_ms_fc1_f32",
-              "ms_conv0_int16", "ms_conv0_f32", "ms_packed_default_f32")
+              "ms_conv0_int16", "ms_conv0_f32", "ms_packed_default_f32",
+              "at_hymba_shape")
 
 
 def kernel_table(report: dict, paths) -> list:
@@ -2733,7 +2825,8 @@ def main() -> int:
     paths = ("int8_default_serve", "f32_lut_serve", "int8_unpack_step",
              "int8_route_fit", "serving_stack", "events_cli",
              "events_full_width", "packed_default_f32", "lm_serve",
-             "lm_gate", "spikformer_train", "examples")
+             "lm_gate", "lm_hybrid_serve", "lm_hybrid_gate", "lm_ssm_serve",
+             "spikformer_train", "examples")
     try:
         report["kernels"] = kernel_phase(torch, dev)
         for k, row in report["kernels"].items():
@@ -2769,13 +2862,28 @@ def main() -> int:
         torch.cuda.empty_cache()
         report[paths[8]], lm_engine = lm_serve_phase(torch, dev)
         report["kernels"]["flash_attention_tc"]["ms_in_graph"] = \
-            graphed_flash_ms(report[paths[8]]["profile_prefill_2048"])
+            graphed_flash_ms(
+                report[paths[8]][f"profile_prefill_{PROFILE_LEN}"])
         report[paths[9]] = lm_gate_phase(torch, dev, lm_engine)
         del lm_engine
         torch.cuda.empty_cache()
-        report[paths[10]] = spikformer_train_phase(torch, dev)
+        report[paths[10]], lm_engine = lm_serve_phase(
+            torch, dev, HYBRID_ARCH, HYBRID_PROMPTS)
+        report["kernels"]["flash_attention_tc"]["at_hymba_shape"][
+            "ms_in_graph"] = graphed_flash_ms(
+                report[paths[10]][f"profile_prefill_{PROFILE_LEN}"])
+        report[paths[11]] = lm_gate_phase(
+            torch, dev, lm_engine, HYBRID_GATE_LENS, HYBRID_PROMPTS,
+            greedy=False)
+        del lm_engine
         torch.cuda.empty_cache()
-        report[paths[11]] = examples_phase(torch, dev, report)
+        report[paths[12]], lm_engine = lm_serve_phase(
+            torch, dev, SSM_ARCH, HYBRID_PROMPTS)
+        del lm_engine
+        torch.cuda.empty_cache()
+        report[paths[13]] = spikformer_train_phase(torch, dev)
+        torch.cuda.empty_cache()
+        report[paths[14]] = examples_phase(torch, dev, report)
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -2827,27 +2935,31 @@ def main() -> int:
             "unpack_dot_launches_per_step_in_graph", "unpack_dot_by_shape")},
         "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                         for k in f32["profile"]["by_kernel"][:8]]}))
-    lm = report["lm_serve"]
-    for name in ("eager", "cold", "warm"):
-        run = lm["passes"][name]
-        print(json.dumps({"path": "lm_serve", "pass": name,
-                          "serve": run["stats"],
-                          "peak_mem_mib": run["peak_mem_mib"],
-                          "peak_reserved_mib": run["peak_reserved_mib"],
-                          "captured": len(run["captured"]),
-                          "graphs": run["graphs"],
-                          "launches": lm["launches_by_pass"][name]}))
-    print(json.dumps({"path": "lm_serve",
-                      "tokens_identical": lm["tokens_identical"],
-                      "graphed_warmup_s": lm["graphed_warmup_s"]}))
-    for window in ("profile_prefill_2048", "profile_prefill_2048_eager",
-                   "profile_decode", "profile_decode_eager"):
-        prof = lm[window]
-        print(json.dumps({"path": "lm_serve", window: {
-            k: v for k, v in prof.items() if k != "by_kernel"},
-            "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
-                            for k in prof["by_kernel"][:8]]}))
+    for path in ("lm_serve", "lm_hybrid_serve", "lm_ssm_serve"):
+        lm = report[path]
+        for name in ("eager", "cold", "warm"):
+            run = lm["passes"][name]
+            print(json.dumps({"path": path, "pass": name,
+                              "serve": run["stats"],
+                              "peak_mem_mib": run["peak_mem_mib"],
+                              "peak_reserved_mib": run["peak_reserved_mib"],
+                              "captured": len(run["captured"]),
+                              "graphs": run["graphs"],
+                              "launches": lm["launches_by_pass"][name]}))
+        print(json.dumps({"path": path, "config": lm["config"],
+                          "params": lm["params"],
+                          "tokens_identical": lm["tokens_identical"],
+                          "graphed_warmup_s": lm["graphed_warmup_s"]}))
+        for window in (f"profile_prefill_{PROFILE_LEN}",
+                       f"profile_prefill_{PROFILE_LEN}_eager",
+                       "profile_decode", "profile_decode_eager"):
+            prof = lm[window]
+            print(json.dumps({"path": path, window: {
+                k: v for k, v in prof.items() if k != "by_kernel"},
+                "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
+                                for k in prof["by_kernel"][:8]]}))
     print(json.dumps({"lm_gate": report["lm_gate"]}))
+    print(json.dumps({"lm_hybrid_gate": report["lm_hybrid_gate"]}))
     print(json.dumps({"spikformer_train": report["spikformer_train"]}))
     ex = report["examples"]
     print(json.dumps({"examples": {k: ex[k] for k in (

@@ -2,10 +2,11 @@
 ``repro.launch.serve``).
 
 The engine keeps a fixed pool of ``slots`` (the decode batch); each slot
-holds one request's KV cache rows. A request's prompt is prefilled alone
-into the engine's one-row cache (its attention runs the flash kernel), the
-row is spliced into the pool, and one decode step advances every slot by
-one token per iteration, each row at its own position.
+holds one request's cache rows (KV caches, linear or ring, and SSM states).
+A request's prompt is prefilled alone into the engine's one-row cache (its
+attention runs the flash kernel where no window cuts it), the row is
+spliced into the pool, and one decode step advances every slot by one
+token per iteration, each row at its own position.
 
 ``jit=True`` (the default, as the reference jits both halves of its
 engine) replays them as CUDA graphs on the card: decode as one graph,
@@ -13,6 +14,8 @@ prefill as one graph per prompt length. ``jit=False`` runs them eagerly.
 
     python -m repro_torch.launch.serve --arch smollm-360m [--reduce] \\
         [--slots 4 --requests 8 --prompt-len 32 --max-new 16]
+
+``--arch`` takes each ported config: smollm-360m, hymba-1.5b, mamba2-130m.
 
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -43,6 +46,24 @@ class Request:
     t_done: float = 0.0
 
 
+# cache leaves a decode step reads and advances (not idempotent)
+RECURRENT = ("ssm", "conv")
+
+
+def cache_leaves(cache):
+    """``(name, tensor)`` for every leaf of a cache (a dict of stacked
+    leaves or a per-layer list of dicts), depth first, in a fixed order."""
+    if isinstance(cache, list):
+        for layer in cache:
+            yield from cache_leaves(layer)
+    elif isinstance(cache, dict):
+        for name, leaf in cache.items():
+            if isinstance(leaf, torch.Tensor):
+                yield name, leaf
+            else:
+                yield from cache_leaves(leaf)
+
+
 class Engine:
     """Continuous-batching engine over a static slot pool.
 
@@ -61,16 +82,17 @@ class Engine:
       pool is the graph's storage, the counterpart of the reference's
       donation: it is written in place and never rebound, so the graph's
       addresses stay its own. Free slots go on decoding token 0 at
-      positions that may pass ``cache_len``, as in the reference; the
-      cache write drops them on the device.
+      positions that may pass ``cache_len``, as in the reference; a
+      linear cache's write drops them on the device, a ring's wraps into
+      the free slot's own rows (a splice overwrites the slot whole).
     - prefill is one graph per prompt length, jax.jit's own cache key:
       each length is captured the first time it is seen and replayed after
       that, so a new length costs a capture as a new shape costs a compile
       in JAX. No padding: the first token comes from the last position.
       Its static input is the (1, S) tokens, its storage the engine's one
       row cache, which the body resets to what ``init_cache`` makes (zeros,
-      positions -1), so a short prompt after a long one leaves no stale
-      slot marked valid. Kernel 7's TMA descriptors are encoded on the
+      positions -1, zero SSM states and conv windows), so a short prompt
+      after a long one leaves no stale slot marked valid and no state. Kernel 7's TMA descriptors are encoded on the
       host at capture from that moment's pointers and frozen into the
       graph: right because q comes from the graph's pool and k, v from the
       row cache, at the same addresses on every replay of a length
@@ -79,8 +101,9 @@ class Engine:
 
     A capture first runs the body once eagerly on the engine's side stream
     with the real inputs (the step is repeated by the replay that follows,
-    which writes the same values), so kernels are built and their
-    attributes set before anything records. A capture that fails raises
+    which writes the same KV values; the SSM states and conv windows that
+    the warm-up advanced are put back first), so kernels are built and
+    their attributes set before anything records. A capture that fails raises
     and names the op; nothing then runs eagerly in its place. Each replay
     is followed by one read of its argmax, the step's synchronisation.
 
@@ -129,8 +152,9 @@ class Engine:
 
     def _prefill_body(self, tokens):
         """tokens: (1, S) -> (1,) argmax of the last position; the prompt's
-        cache in ``self.row``, reset first to a fresh ``init_cache``."""
-        for name, leaf in self.row["kv"].items():
+        cache in ``self.row``, every leaf of it (KV, positions, SSM state,
+        conv window) reset first to a fresh ``init_cache``."""
+        for name, leaf in cache_leaves(self.row):
             leaf.fill_(-1 if name == "positions" else 0)
         logits, _, _ = T.model_apply(
             self.params, {"tokens": tokens, "cache_pos": 0}, self.cfg,
@@ -163,9 +187,16 @@ class Engine:
 
     def _new_graph(self, key: tuple, body, inputs: torch.Tensor):
         static_in = inputs.to(self.device)
+        # the capture's warm-up run advances the recurrent state it reads
+        # (SSM states, conv windows; a KV write is the same twice): put it
+        # back, so that the first replay starts where the step should
+        saved = [(leaf, leaf.clone()) for name, leaf in cache_leaves(
+            self.pool) if name in RECURRENT] if key[0] == "decode" else []
         graph, out, launches = self._capture(
             lambda: body(static_in),
             f"the {key[0]} step of shape {tuple(inputs.shape)}")
+        for leaf, before in saved:
+            leaf.copy_(before)
         self.graphs[key] = StepGraph(graph, static_in, out, launches)
         return self.graphs[key]
 
@@ -194,11 +225,17 @@ class Engine:
     # -- pool management ---------------------------------------------------
 
     def _splice(self, slot: int):
-        """Copy the row cache into pool slot ``slot`` (axis 1 of the
-        stacked (L, B, ...) leaves), in place, clearing what the slot
-        held."""
-        for name, leaf in self.pool["kv"].items():
-            leaf[:, slot] = self.row["kv"][name][:, 0]
+        """Copy the row cache into pool slot ``slot``, in place, clearing
+        what the slot held. The batch axis follows the cache's layout, as
+        in the reference, not its shapes: axis 1 of stacked (L, B, ...)
+        leaves, axis 0 of a per-layer list's (B, ...) leaves."""
+        stacked = not isinstance(self.pool, list)
+        for (_, leaf), (_, row) in zip(cache_leaves(self.pool),
+                                       cache_leaves(self.row)):
+            if stacked:
+                leaf[:, slot] = row[:, 0]
+            else:
+                leaf[slot] = row[0]
 
     def submit(self, req: Request):
         req.t_arrival = time.perf_counter()

@@ -1,10 +1,15 @@
 """The LM backbone assembled from an ArchConfig (port of
-``repro.nn.transformer``, dense family).
+``repro.nn.transformer``: the dense, SSM and hybrid families).
 
-Layers are stacked as in the reference: every leaf of ``params["layers"]``
-and of the cache carries a leading (L, ...) axis, and layer i runs on the
-views ``[i]``. The MoE, SSM/hybrid, encoder-decoder and VLM families are
-not ported yet and raise ``NotImplementedError``.
+Layer parameters are stacked as in the reference: every leaf of
+``params["layers"]`` carries a leading (L, ...) axis, and layer i runs on
+the views ``[i]``. The cache follows the reference's layout rule: stacked
+(L, B, ...) leaves where ``cfg.scan_layers`` (dense, mamba2), a list of
+per-layer dicts where not (Hymba, whose three global layers hold
+full-length KV caches and whose windowed layers hold rings). The layers
+run in a Python loop either way, with per-layer flags as Python bools.
+The MoE, encoder-decoder and VLM families are not ported yet and raise
+``NotImplementedError``.
 
 Modes:
   train   — the full-sequence forward (logits of every position).
@@ -20,26 +25,24 @@ from .layers import (embed, embedding_init, gelu, layernorm, layernorm_init,
                      linear, linear_init, rmsnorm, rmsnorm_init, swiglu,
                      unembed)
 from .module import KeyStream
+from .ssm import init_ssm_state, ssm_apply, ssm_init
 from ..device import resolve_device
 
-# what each family or feature still waits for, by reference module
-_NOT_PORTED = {"moe": "repro.nn.moe", "ssm": "repro.nn.ssm",
-               "hybrid": "repro.nn.ssm", "encdec": "repro.nn.transformer "
+# what each family still waits for, by reference module
+_NOT_PORTED = {"moe": "repro.nn.moe", "encdec": "repro.nn.transformer "
                "(encoder, cross-attention)", "vlm": "repro.nn.layers "
                "(apply_mrope)"}
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def require_dense(cfg) -> None:
+def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` naming the reference module a config
     needs that the port does not have yet."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} needs "
             f"{_NOT_PORTED.get(cfg.family, 'an unported module')}, which is "
             "not ported yet")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding windows need the ring cache of "
-                                  "repro.nn.attention, not ported yet")
 
 
 def as_dtype(name) -> torch.dtype:
@@ -88,33 +91,64 @@ def mlp_apply(p, x, cfg, *, compute_dtype):
 
 
 def layer_init(gen, cfg, dtype=torch.float32):
-    require_dense(cfg)
+    require_ported(cfg)
     ks = KeyStream(gen)
-    p = {"ln1": _norm_init(cfg, gen.device),
-         "attn": attn_init(ks(), cfg, dtype),
-         "ln2": _norm_init(cfg, gen.device)}
-    if cfg.d_ff > 0:
-        p["mlp"] = mlp_init(ks(), cfg, dtype)
+    dev = gen.device
+    p = {"ln1": _norm_init(cfg, dev)}
+    if cfg.family != "ssm":
+        p["attn"] = attn_init(ks(), cfg, dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        p["ssm"] = ssm_init(ks(), cfg, dtype)
+    if cfg.family == "hybrid":
+        p["attn_out_norm"] = _norm_init(cfg, dev)
+        p["ssm_out_norm"] = _norm_init(cfg, dev)
+    if cfg.family != "ssm":
+        p["ln2"] = _norm_init(cfg, dev)
+        if cfg.d_ff > 0:
+            p["mlp"] = mlp_init(ks(), cfg, dtype)
     return p
 
 
+def _ssm_mix(p, h, cfg, cache, *, compute_dtype):
+    """The layer's SSM branch; with a cache, reads its state and writes
+    the new state and conv window back into the cache's tensors in place
+    (a captured graph keeps its storage)."""
+    decode = cache is not None and h.shape[1] == 1
+    y, st, cv = ssm_apply(
+        p["ssm"], h, cfg, state=None if cache is None else cache["ssm"],
+        conv_state=None if cache is None else cache["conv"], decode=decode,
+        compute_dtype=compute_dtype)
+    if cache is not None:
+        cache["ssm"].copy_(st)
+        cache["conv"].copy_(cv)
+    return y
+
+
 def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
-                compute_dtype=torch.bfloat16, flash: bool = True):
-    """Returns (x, new_cache, aux); ``cache`` is this layer's dict or
-    None."""
-    new_cache = dict(cache) if cache is not None else None
+                is_global=None, compute_dtype=torch.bfloat16,
+                flash: bool = True):
+    """Returns (x, cache, aux); ``cache`` is this layer's dict or None,
+    written in place. ``is_global``: the layer's flag (Python bool) where
+    the config has a sliding window."""
     h = _norm(cfg, p["ln1"], x)
-    mixer_out, kv = attn_apply(
+    if cfg.family == "ssm":
+        return x + _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype), \
+            cache, {}
+    window = cfg.sliding_window
+    mixer_out, _ = attn_apply(
         p["attn"], h, cfg, positions=positions,
         cache=None if cache is None else cache["kv"], cache_pos=cache_pos,
+        window=window, is_global=is_global if window is not None else None,
         compute_dtype=compute_dtype, chunk=cfg.attn_chunk, flash=flash)
-    if new_cache is not None:
-        new_cache["kv"] = kv
+    if cfg.family == "hybrid":
+        s_out = _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype)
+        mixer_out = 0.5 * (_norm(cfg, p["attn_out_norm"], mixer_out)
+                           + _norm(cfg, p["ssm_out_norm"], s_out))
     x = x + mixer_out
     if cfg.d_ff > 0:
         x = x + mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg,
                           compute_dtype=compute_dtype)
-    return x, new_cache, {}
+    return x, cache, {}
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +178,7 @@ def init_model(gen: torch.Generator, cfg, *, device=None):
     """Seeded parameters on ``device`` (default: the card), drawn from
     generators on ``gen``'s device. Not the reference's bits: parity goes
     through ``repro_torch.weights.lm_from_reference``."""
-    require_dense(cfg)
+    require_ported(cfg)
     device = resolve_device(device)
     dtype = as_dtype(cfg.param_dtype)
     ks = KeyStream(gen)
@@ -157,6 +191,22 @@ def init_model(gen: torch.Generator, cfg, *, device=None):
         p["head"] = linear_init(ks(), cfg.d_model, cfg.padded_vocab,
                                 dtype=dtype)
     return _to(p, device)
+
+
+def layer_flags(cfg):
+    """Per-layer flags, Python bools: ``{"is_global": [...]}`` (Hymba's
+    full-attention layers) where the config has a sliding window, else
+    None."""
+    if cfg.sliding_window is None:
+        return None
+    return {"is_global": [i in cfg.global_layers
+                          for i in range(cfg.n_layers)]}
+
+
+def layer_cache(cache, i: int):
+    """Layer i's cache: an entry of the per-layer list, or views ``[i]`` of
+    the stacked leaves (writes land in the stack)."""
+    return cache[i] if isinstance(cache, list) else _index(cache, i)
 
 
 def _cache_pos(cache_pos):
@@ -175,7 +225,7 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
     ``batch["cache_pos"]`` an int, a 0-d or a (B,) tensor (default 0).
     The cache is written in place and returned. ``flash=False`` runs the
     plain attention everywhere (the reference's jnp schedule)."""
-    require_dense(cfg)
+    require_ported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     compute_dtype = as_dtype(compute_dtype or cfg.compute_dtype)
@@ -187,11 +237,14 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
         else cache_pos
     positions = (base + torch.arange(s, device=tokens.device)).expand(b, s)
 
+    flags = layer_flags(cfg)
     for i in range(cfg.n_layers):
         x, _, _ = layer_apply(
             _index(params["layers"], i), x, cfg, positions=positions,
-            cache=None if cache is None else _index(cache, i),
-            cache_pos=cache_pos, compute_dtype=compute_dtype, flash=flash)
+            cache=None if cache is None else layer_cache(cache, i),
+            cache_pos=cache_pos,
+            is_global=None if flags is None else flags["is_global"][i],
+            compute_dtype=compute_dtype, flash=flash)
 
     x = _norm(cfg, params["final_norm"], x)
     if mode in ("prefill", "decode"):
@@ -210,13 +263,28 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
 
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
                device=None):
-    """The stacked decode cache: ``{"kv": {"k", "v": (L, B, KV, length,
-    Dh), "positions": (L, B, length)}}`` on ``device`` (default: the
-    card)."""
-    require_dense(cfg)
+    """The decode cache on ``device`` (default: the card). Each layer holds
+    ``{"kv": {"k", "v": (B, KV, L_i, Dh), "positions": (B, L_i)}}`` unless
+    the family is ``ssm``, and ``"ssm"`` (B, H, P, N) and ``"conv"`` (B,
+    k-1, conv_dim), both f32, for the SSM families. L_i is ``length``, or
+    ``min(window, length)`` for a windowed layer that is not global (a
+    ring). Stacked into (L, ...) leaves where ``cfg.scan_layers``, else a
+    list of per-layer dicts, as the reference builds it."""
+    require_ported(cfg)
     device = resolve_device(device)
-    kv = init_kv_cache(batch, cfg.n_kv_heads, length, cfg.head_dim,
-                       dtype=as_dtype(dtype), device=device)
-    return {"kv": {k: v.unsqueeze(0).repeat(cfg.n_layers,
-                                            *([1] * v.dim()))
-                   for k, v in kv.items()}}
+    dtype = as_dtype(dtype)
+
+    def one_layer(i):
+        c = {}
+        if cfg.family != "ssm":
+            win = cfg.sliding_window
+            glob = i in cfg.global_layers if win is not None else True
+            clen = length if (win is None or glob) else min(win, length)
+            c["kv"] = init_kv_cache(batch, cfg.n_kv_heads, clen,
+                                    cfg.head_dim, dtype=dtype, device=device)
+        if cfg.family in ("ssm", "hybrid"):
+            c["ssm"], c["conv"] = init_ssm_state(batch, cfg, device=device)
+        return c
+
+    layers = [one_layer(i) for i in range(cfg.n_layers)]
+    return _stack(layers) if cfg.scan_layers else layers

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .nn.transformer import require_dense
+from .nn.ssm import ssm_dims
+from .nn.transformer import require_ported
 
 
 def from_reference(tree, device="cpu"):
@@ -27,15 +28,24 @@ def from_reference(tree, device="cpu"):
 def lm_from_reference(tree, cfg, device=None):
     """``repro.nn.transformer.init_model``'s tree, numpy leaves, as the
     port's LM parameters on ``device`` (default: the card). The layout is
-    the same in both packages (stacked (L, ...) layers), so this checks the
-    shapes the config implies and copies the leaves, dtypes kept."""
-    require_dense(cfg)
+    the same in both packages (stacked (L, ...) layers, the SSM and hybrid
+    families' too), so this checks the shapes the config implies and
+    copies the leaves, dtypes kept."""
+    require_ported(cfg)
     device = resolve_device(device)
-    want = {"embed/embedding": (cfg.padded_vocab, cfg.d_model),
-            "layers/attn/wq/kernel": (cfg.n_layers, cfg.d_model,
-                                      cfg.n_heads * cfg.head_dim),
-            "layers/attn/wk/kernel": (cfg.n_layers, cfg.d_model,
-                                      cfg.n_kv_heads * cfg.head_dim)}
+    n_layers, d = cfg.n_layers, cfg.d_model
+    want = {"embed/embedding": (cfg.padded_vocab, d)}
+    if cfg.family != "ssm":
+        want["layers/attn/wq/kernel"] = (n_layers, d,
+                                         cfg.n_heads * cfg.head_dim)
+        want["layers/attn/wk/kernel"] = (n_layers, d,
+                                         cfg.n_kv_heads * cfg.head_dim)
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner, heads, conv_dim = ssm_dims(cfg)
+        gn = cfg.ssm_groups * cfg.ssm_state
+        want["layers/ssm/in_proj"] = (n_layers, d,
+                                      2 * d_inner + 2 * gn + heads)
+        want["layers/ssm/conv_w"] = (n_layers, cfg.ssm_conv, conv_dim)
     for path, shape in want.items():
         leaf = tree
         for key in path.split("/"):

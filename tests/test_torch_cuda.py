@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions on the card, the
 ``packed_cuda`` path against the plain route and the reference backend
-there, the LM stack's prefill through the flash kernel, the LM engine's
-CUDA graphs against its eager engine, and graphed replicas serving from
-several threads.
+there, the LM stack's prefill through the flash kernel, the LM engines'
+CUDA graphs (dense, hybrid with ring caches, SSM) against their eager
+engines, and graphed replicas serving from several threads.
 
 Every test here is marked ``gpu`` and takes the ``cuda`` fixture, which
 skips when no card is present, so the same tests are collected everywhere.
@@ -580,15 +580,17 @@ def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,hq,kvh,nq,nkv,dh,causal", [
-    (1, 15, 5, 2048, 2048, 64, True), (2, 6, 2, 200, 200, 64, True),
+    (1, 15, 5, 2048, 2048, 64, True), (1, 25, 5, 2048, 2048, 64, True),
+    (2, 6, 2, 200, 200, 64, True),
     (2, 6, 2, 100, 333, 128, False), (3, 3, 1, 77, 300, 32, True)])
 def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
                                                       kvh, nq, nkv, dh,
                                                       causal):
-    """Grouped-query heads (group Hq / KV) and the LM path's layouts, read
-    in place: q transposed from (B, S, Hq, Dh) and k, v the first rows of
-    a longer (B, KV, L, Dh) cache, against the plain version (KV expanded)
-    within 2e-4."""
+    """Grouped-query heads (group Hq / KV: smollm-360m's 3 over 15 heads,
+    hymba-1.5b's 5 over 25) and the LM path's layouts, read in place: q
+    transposed from (B, S, Hq, Dh) and k, v the first rows of a longer
+    (B, KV, L, Dh) cache, against the plain version (KV expanded) within
+    2e-4."""
     g = gen(cuda, hq * nkv + dh)
     q = torch.randn((b, nq, hq, dh), generator=g, device=cuda).to(
         dtype).transpose(1, 2)
@@ -905,6 +907,118 @@ def test_lm_capture_that_meets_a_host_read_raises(cuda):
     torch.cuda.synchronize()
     assert eng.decode([5, 9], [0, 3]) == eager.decode([5, 9], [0, 3])
     assert sorted(eng.graphs) == [("decode", 2)]
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid engines under jit: per-layer ring caches, SSM states
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = {"hymba-1.5b": dict(n_layers=3), "mamba2-130m": {}}
+# prompts of 5, 40 (past the reduced window of 32), 5 and 70 tokens; a
+# cache of 80, as long as the longest request (a global layer's cache is
+# linear and must hold its prompt), whose 32-slot rings decode wraps
+SSM_PROMPTS, SSM_CACHE_LEN = (5, 40, 5, 70), 80
+
+
+def ssm_engines(dev, arch):
+    """A graphed and an eager engine on a reduced SSM or hybrid config in
+    bf16, two slots, one seeded set of weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+
+    cfg = get_config(arch).reduced(**SSM_ARCHS[arch])
+    graphed = Engine(cfg, slots=2, cache_len=SSM_CACHE_LEN, seed=3,
+                     device=dev)
+    eager = Engine(cfg, slots=2, cache_len=SSM_CACHE_LEN,
+                   params=graphed.params, device=dev, jit=False)
+    return cfg, graphed, eager
+
+
+def same_cache_leaves(a, b, what):
+    from repro_torch.launch.serve import cache_leaves
+    for tree in ("row", "pool"):
+        pairs = zip(cache_leaves(getattr(a, tree)),
+                    cache_leaves(getattr(b, tree)))
+        for i, ((name, x), (_, y)) in enumerate(pairs):
+            assert torch.equal(x, y), (what, tree, i, name)
+
+
+@pytest.mark.parametrize("arch", sorted(SSM_ARCHS))
+def test_ssm_graphed_engine_serves_the_eager_tokens(cuda, arch):
+    """Prompts of 5, 40, 5 and 70 tokens through two slots, 10 new tokens
+    each: the third request replays the 5-token graph, decode wraps the
+    rings. Greedy tokens, row cache and slot pool (KV, ring KV,
+    positions, SSM states, conv windows) equal the eager engine's bit for
+    bit: the capture's warm-up run leaves no advanced state behind."""
+    cfg, graphed, eager = ssm_engines(cuda, arch)
+    prompts = [lm_prompt(cfg, n, i) for i, n in enumerate(SSM_PROMPTS)]
+    want = serve_lm(eager, prompts, 10)
+    assert serve_lm(graphed, prompts, 10) == want
+    torch.cuda.synchronize()
+    same_cache_leaves(graphed, eager, "after serving")
+    assert sorted(graphed.graphs) == [("decode", 2), ("prefill", 5),
+                                      ("prefill", 40), ("prefill", 70)]
+    assert graphed.graphs[("prefill", 5)].replays == 2
+
+
+@pytest.mark.parametrize("arch", sorted(SSM_ARCHS))
+def test_ssm_graph_launches_equal_the_eager_counts(cuda, arch):
+    """Captured launches times replays equal the eager engine's counts:
+    kernel 7 once a layer for a prompt within the window, in the global
+    layer only past it, never in decode or in an SSM layer."""
+    cfg, graphed, eager = ssm_engines(cuda, arch)
+    prompts = [lm_prompt(cfg, n, i) for i, n in enumerate(SSM_PROMPTS)]
+    ops.reset_launch_counts()
+    want = serve_lm(eager, prompts, 4)
+    eager_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if cfg.family == "ssm":
+        flash = 0
+    else:
+        flash = sum(cfg.n_layers if n <= cfg.sliding_window
+                    else len(cfg.global_layers) for n in SSM_PROMPTS)
+    assert eager_counts == ({"flash_attention_tc": flash} if flash else {})
+    assert serve_lm(graphed, prompts, 4) == want          # captures
+    graphed.reset_graph_launch_counts()
+    ops.reset_launch_counts()
+    assert serve_lm(graphed, prompts, 4) == want          # replays only
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert graphed.graph_launch_counts() == eager_counts
+
+
+def test_hybrid_f32_prefill_runs_the_flash_kernel_where_no_window_cuts(
+        cuda):
+    """Reduced hymba in f32 on the card: a 32-token prefill launches the
+    f32 flash kernel in each of the 3 layers, a 40-token one in the
+    global layer only; logits and the decode step after agree with the
+    plain route within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config("hymba-1.5b").reduced(n_layers=3)
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    for s, launches in ((32, 3), (40, 1)):
+        toks = torch.randint(0, cfg.vocab, (2, s), generator=gen(cuda, s),
+                             device=cuda)
+        out = {}
+        for flash in (True, False):
+            ops.reset_launch_counts()
+            cache = T.init_cache(cfg, 2, 64, dtype=torch.float32)
+            pre, cache, _ = T.model_apply(
+                params, {"tokens": toks, "cache_pos": 0}, cfg,
+                mode="prefill", cache=cache, compute_dtype=torch.float32,
+                flash=flash)
+            dec, _, _ = T.model_apply(
+                params, {"tokens": toks[:, :1],
+                         "cache_pos": torch.tensor([s, s + 3], device=cuda)},
+                cfg, mode="decode", cache=cache, compute_dtype=torch.float32,
+                flash=flash)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["flash_attention_f32"] == (
+                launches if flash else 0)
+            out[flash] = (pre, dec)
+        for got, want in zip(out[True], out[False]):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_fit_cuda_constants_on_the_card(cuda):

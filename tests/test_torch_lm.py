@@ -85,14 +85,13 @@ def test_unported_configs_and_families_raise():
     cfg = get_config(ARCH).reduced()
     gen = torch.Generator().manual_seed(0)
     for family, module_name in (("moe", "repro.nn.moe"),
-                                ("ssm", "repro.nn.ssm"),
+                                ("encdec", "cross-attention"),
                                 ("vlm", "apply_mrope")):
         bad = dataclasses.replace(cfg, family=family)
         with pytest.raises(NotImplementedError, match=module_name):
             T.init_model(gen, bad, device="cpu")
-    windowed = dataclasses.replace(cfg, sliding_window=32)
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        T.init_cache(windowed, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match=module_name):
+            T.init_cache(bad, 1, 8, device="cpu")
 
 
 def test_init_model_tree_matches_reference_layout(cfgs, trees):
@@ -409,10 +408,12 @@ def test_entry_points_default_to_the_card(cfgs, trees, monkeypatch):
             call()
 
 
-def test_serve_main_on_the_cpu(capsys):
-    out = serve.main(["--arch", ARCH, "--reduce", "--device", "cpu",
+@pytest.mark.parametrize("arch", [ARCH, "hymba-1.5b", "mamba2-130m"])
+def test_serve_main_on_the_cpu(capsys, arch):
+    out = serve.main(["--arch", arch, "--reduce", "--device", "cpu",
                       "--requests", "3", "--slots", "2", "--prompt-len", "8",
                       "--max-new", "4"])
     assert out["requests"] == 3 and out["total_new_tokens"] == 12
+    assert out["arch"] == f"{arch}-reduced"
     assert out["device"] == "cpu" and out["decode_steps"] >= 3
     assert '"requests": 3' in capsys.readouterr().out

@@ -4,14 +4,16 @@ pinned on the CPU, where no capture can run: they make no host read, the
 engine's one row cache is reset to what ``init_cache`` makes before each
 prefill, and the slot pool, the decode graph's storage, never moves.
 
-The reduced smollm config from a seeded ``init_model``; cache contents and
-tokens are compared exactly (the same ops on the same inputs)."""
+The reduced smollm config from a seeded ``init_model``, then reduced
+hymba (per-layer caches: a linear global layer, ring caches, SSM states)
+and mamba2 (stacked SSM states); cache contents and tokens are compared
+exactly (the same ops on the same inputs)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import Engine, Request
+from repro_torch.launch.serve import Engine, Request, cache_leaves
 from repro_torch.nn import attention as attn
 from repro_torch.nn import transformer as T
 
@@ -102,5 +104,89 @@ def test_slot_pool_storage_never_moves(cfg):
     for advance in (eng._admit, eng.step, eng.run):
         advance()
         assert eng.pool is pool and eng.row is row
+        assert addresses() == before
+    assert sorted(len(r.out) for r in eng.done) == [4, 4, 4]
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and SSM families: per-layer ring caches, SSM states
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = {"hymba-1.5b": dict(n_layers=3), "mamba2-130m": {}}
+SSM_CACHE_LEN = 64
+
+
+def ssm_engine(arch, **kw):
+    """An engine on reduced hymba (3 layers: window 32, global layer 0) or
+    mamba2, 2 slots, a 64-token cache (hymba's rings: 32 slots)."""
+    cfg = get_config(arch).reduced(**SSM_ARCHS[arch])
+    return cfg, Engine(cfg, slots=2, cache_len=SSM_CACHE_LEN, seed=0,
+                       device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arch", sorted(SSM_ARCHS))
+def test_ssm_row_cache_is_reset_before_each_prefill(arch):
+    """A 40- then a 5-token prefill leave every leaf of the row cache (KV,
+    ring KV, positions, SSM state, conv window) equal, bit for bit, to a
+    5-token prefill into a fresh ``init_cache``."""
+    cfg, eng = ssm_engine(arch)
+    short = prompt(cfg, 5, 2)
+    eng.prefill(prompt(cfg, 40, 1))
+    first = eng.prefill(short)
+    fresh = T.init_cache(cfg, 1, SSM_CACHE_LEN, device="cpu")
+    logits, fresh, _ = T.model_apply(
+        eng.params, {"tokens": torch.tensor([short]), "cache_pos": 0}, cfg,
+        mode="prefill", cache=fresh, compute_dtype=eng.compute_dtype)
+    got, want = list(cache_leaves(eng.row)), list(cache_leaves(fresh))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, leaf), (_, ref) in zip(got, want):
+        assert torch.equal(leaf, ref), name
+    assert first == int(logits[0, -1].argmax())
+
+
+@pytest.mark.parametrize("arch", sorted(SSM_ARCHS))
+@pytest.mark.parametrize("flash", [True, False])
+def test_ssm_step_bodies_make_no_host_read(arch, flash, monkeypatch):
+    """The prefill (a 40-token prompt: past the window) and decode bodies
+    run with every way of reading a tensor on the host patched to raise;
+    one decode row wraps its rings, the other passes the cache's end."""
+    cfg, eng = ssm_engine(arch, flash=flash)
+    _, plain = ssm_engine(arch, flash=flash, params=eng.params)
+    tokens = torch.tensor([prompt(cfg, 40, 1)])
+    inputs = torch.tensor([[3, 40], [5, SSM_CACHE_LEN + 4]])
+    # decode advances the SSM states it reads: the reference values come
+    # from a second engine's pool
+    want_first = plain._prefill_body(tokens)
+    want_next = plain._decode_body(inputs)
+    for name in HOST_READS:
+        monkeypatch.setattr(torch.Tensor, name, _host_read)
+    first = eng._prefill_body(tokens)
+    nxt = eng._decode_body(inputs)
+    monkeypatch.undo()
+    assert torch.equal(first, want_first) and torch.equal(nxt, want_next)
+
+
+@pytest.mark.parametrize("arch", sorted(SSM_ARCHS))
+def test_ssm_splice_and_pool_storage(arch):
+    """The pool's and the row's tensors keep their addresses across
+    ``_admit``, ``step`` and ``run``; a splice copies every leaf of the
+    row into its slot (axis 0 of a per-layer list, axis 1 of a stack)."""
+    cfg, eng = ssm_engine(arch)
+
+    def addresses():
+        return [leaf.data_ptr() for tree in (eng.pool, eng.row)
+                for _, leaf in cache_leaves(tree)]
+    before = addresses()
+    eng.prefill(prompt(cfg, 9, 4))
+    eng._splice(1)
+    stacked = not isinstance(eng.pool, list)
+    for (_, leaf), (_, row) in zip(cache_leaves(eng.pool),
+                                   cache_leaves(eng.row)):
+        assert torch.equal(leaf[:, 1] if stacked else leaf[1],
+                           row[:, 0] if stacked else row[0])
+    for i, n in enumerate((5, 40, 12)):
+        eng.submit(Request(rid=i, prompt=prompt(cfg, n, i), max_new=4))
+    for advance in (eng._admit, eng.step, eng.run):
+        advance()
         assert addresses() == before
     assert sorted(len(r.out) for r in eng.done) == [4, 4, 4]
