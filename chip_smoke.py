@@ -15,9 +15,11 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    plane-group layout,
    bf16 flash attention on the tensor cores at smollm-360m's 2048-token
    prefill with its 15 heads over 5 KV heads read in place (and at
-   hymba-1.5b's, 25 heads over 5), the f32 unpack
+   hymba-1.5b's, 25 heads over 5, glm4-9b's, 32 over 2 at Dh 128, and
+   stablelm-12b's, 32 over 8 at Dh 160), the f32 unpack
    dot on the bf16 tensor cores, and the f32 STDP (spikes, then real
-   values) and f32 flash attention in split TF32 on the tensor cores),
+   values) and f32 flash attention in split TF32 on the tensor cores, at
+   (15, 2048, 64) and at stablelm-12b's prefill layout, Dh 160),
    holds it
    against its plain PyTorch version on the card and times kernel, plain
    version and the nearest single PyTorch call (the kernel by its device
@@ -112,7 +114,18 @@ Needs one CUDA card and ``nvcc``; fails without them. It
 6. runs ``examples/torch_quickstart.py`` (launching the f32 STDP, the f32
    unpack dot, the shift-sum and TFLIF kernels) and short forms of the
    three serving examples, and prints the analytic engine model's frames
-   per second beside the card's served rate.
+   per second beside the card's served rate;
+7. drives the dense family's two large one-card configs at full width and
+   depth, one at a time (each engine and its weights freed before the
+   next): stablelm-12b (40 layers, d_model 5120, 32 heads over 8 KV heads
+   at Dh 160, QK-norm, a quarter of each head rotated, layernorm; 12.1B
+   params, 48.6 GB in f32) and glm4-9b (40 layers, d_model 4096, 32 heads
+   over 2 at Dh 128, QKV bias, half rotary; 9.4B, 37.6 GB), each as the
+   smollm path is driven (the same 8 requests and three passes, tokens
+   identical, 40 bf16 flash launches a prefill, 320 a pass, profiles),
+   its ``init_model`` timed and its peak memory gated to the parameters
+   plus 1 GiB, then its f32 prefill gate at 2048 tokens (40 f32 flash
+   launches, views in place, logits within 1e-4 of the plain route).
 
 Prints the serving stats and profiles as JSON lines, the fitted route
 constants (``route_fit``) and the 2x2 of constants x ``jit``
@@ -162,6 +175,12 @@ HYBRID_GATE_LENS = (2048, 3000)
 PROFILE_LEN = 2048     # the prefill each LM path profiles
 # the SSM path: mamba2-130m at full width, the hybrid path's prompts
 SSM_ARCH = "mamba2-130m"
+# the dense family's two large one-card paths at full width and depth, the
+# smollm path's prompts: stablelm-12b (Dh 160, 32 heads over 8 KV heads,
+# QK-norm, quarter rotary, layernorm) and glm4-9b (Dh 128, 32 over 2: group
+# 16, QKV bias, half rotary); each f32 gate at 2048 tokens
+DENSE12B_ARCH, DENSE9B_ARCH = "stablelm-12b", "glm4-9b"
+DENSE_GATE_LENS = (2048,)
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -727,13 +746,15 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     library yardstick is SDPA on KV expanded to the 15 heads beforehand.
     f32 in split TF32 on the tensor cores at (15, 2048, 64), the gate
     route. bf16 again at hymba-1.5b's 2048-token prefill (``at_hymba_shape``:
-    25 heads over 5 KV heads, group 5), laid out the same way."""
+    25 heads over 5 KV heads, group 5), at glm4-9b's (``at_glm4_shape``: 32
+    over 2, group 16, Dh 128) and at stablelm-12b's (``at_stablelm_shape``:
+    32 over 8, Dh 160), laid out the same way; f32 again at stablelm-12b's,
+    in that layout too (the gate route hands the kernel those views)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
     kvh = 5
     h, s, dh = LM_HEADS, PROFILE_LEN, LM_HEAD_DIM
-    scale = dh ** -0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pairs = s * (s + 1) // 2                      # causal (query, key) pairs
     ops_n = 4 * h * pairs * dh
@@ -746,31 +767,41 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
               f"flash_attention ({what}) off its plain version by {err}")
         return err
 
-    def bf16_at(h, kvh, model):
-        """The bf16 kernel at one model's 2048-token prefill layout: q
-        transposed from (1, S, H, Dh), k and v the first S rows of a
-        (1, KV, 2S, Dh) cache, read in place; SDPA on KV expanded to the H
-        heads beforehand."""
+    def at(h, kvh, dh, model, dtype=torch.bfloat16):
+        """The kernel of ``dtype`` at one model's 2048-token prefill
+        layout: q transposed from (1, S, H, Dh), k and v the first S rows
+        of a (1, KV, 2S, Dh) cache, read in place; SDPA on KV expanded to
+        the H heads beforehand. The f32 bound counts three TF32 products
+        (and gives the f32 units' beside it)."""
+        scale = dh ** -0.5
         q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(
-            torch.bfloat16).transpose(1, 2)
+            dtype).transpose(1, 2)
         k, v = (torch.randn((1, kvh, 2 * s, dh), generator=gen,
-                            device=dev).to(torch.bfloat16)[:, :, :s]
+                            device=dev).to(dtype)[:, :, :s]
                 for _ in range(2))
+        name = str(dtype).removeprefix("torch.")
         err = held(flash_attention(q, k, v, scale=scale),
                    flash_attention_plain(q, k, v, scale=scale),
-                   f"bf16, {model}")
+                   f"{name}, {model}")
         qc = q.contiguous()
         ke, ve = (z.repeat_interleave(h // kvh, dim=1).contiguous()
                   for z in (k, v))
-        nbytes = (q.numel() + k.numel() + v.numel()) * 2 + q.numel() * 4
-        b_ms, b_by = bound_ms(nbytes, 4 * h * pairs * dh, BF16_OPS_PER_S)
+        size = q.element_size()
+        nbytes = (q.numel() + k.numel() + v.numel()) * size + q.numel() * 4
+        ops_h = 4 * h * pairs * dh
+        if dtype == torch.bfloat16:
+            kernel = "flash_tc_kernel"
+            b_ms, b_by = bound_ms(nbytes, ops_h, BF16_OPS_PER_S)
+        else:
+            kernel = "flash_attention_kernel"
+            b_ms, b_by = bound_ms(nbytes, 3 * ops_h, TF32_OPS_PER_S)
         call = lambda: flash_attention(q, k, v, scale=scale)  # noqa: E731
         row = dict(
-            shape=f"q {tuple(q.shape)} bf16 (transposed view) over k, v "
-                  f"{tuple(k.shape)} bf16 (cache slices), causal, scale "
+            shape=f"q {tuple(q.shape)} {name} (transposed view) over k, v "
+                  f"{tuple(k.shape)} {name} (cache slices), causal, scale "
                   f"{scale} ({model}'s 2048-token prefill, one layer)",
             max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
-            ms=device_ms(torch, call, "flash_tc_kernel"),
+            ms=device_ms(torch, call, kernel),
             ms_events=time_ms(torch, call),
             plain_ms=time_ms(torch, lambda: flash_attention_plain(
                 q, k, v, scale=scale)),
@@ -778,13 +809,18 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
             bytes_bound_ms=bound_ms(nbytes, 0, BF16_OPS_PER_S)[0],
             library_ms=graph_ms(torch, lambda: sdpa(
                 qc, ke, ve, is_causal=True, scale=scale)))
-        row["ms_again"] = device_ms(torch, call, "flash_tc_kernel")
+        if dtype == torch.float32:
+            row["bound_ms_f32_units"] = bound_ms(nbytes, ops_h,
+                                                 F32_OPS_PER_S)[0]
+        row["ms_again"] = device_ms(torch, call, kernel)
         return row
 
-    tc = bf16_at(h, kvh, LM_ARCH)
-    tc["at_hymba_shape"] = bf16_at(HYBRID_HEADS, HYBRID_KV_HEADS,
-                                   HYBRID_ARCH)
+    tc = at(h, kvh, dh, LM_ARCH)
+    tc["at_hymba_shape"] = at(HYBRID_HEADS, HYBRID_KV_HEADS, dh, HYBRID_ARCH)
+    tc["at_glm4_shape"] = at(32, 2, 128, DENSE9B_ARCH)
+    tc["at_stablelm_shape"] = at(32, 8, 160, DENSE12B_ARCH)
 
+    scale = dh ** -0.5
     q3, k3, v3 = (torch.randn((h, s, dh), generator=gen, device=dev)
                   for _ in range(3))
     err = held(flash_attention(q3, k3, v3, scale=scale),
@@ -805,6 +841,7 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=graph_ms(torch, lambda: sdpa(
             q3[None], k3[None], v3[None], is_causal=True, scale=scale)))
+    f32["at_stablelm_shape"] = at(32, 8, 160, DENSE12B_ARCH, torch.float32)
     return {"flash_attention_tc": tc, "flash_attention_f32": f32}
 
 
@@ -2214,6 +2251,12 @@ def describe(cfg) -> str:
                      f"head_dim {cfg.head_dim}")
     if cfg.d_ff:
         parts.append(f"d_ff {cfg.d_ff}")
+    for flag, what in ((cfg.qk_norm, "QK-norm"), (cfg.qkv_bias, "QKV bias"),
+                       (cfg.rotary_frac < 1, f"rotary fraction "
+                                             f"{cfg.rotary_frac}"),
+                       (cfg.norm != "rmsnorm", cfg.norm)):
+        if flag:
+            parts.append(what)
     if cfg.family in ("ssm", "hybrid"):
         parts.append(f"SSM state {cfg.ssm_state}, "
                      f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
@@ -2240,18 +2283,37 @@ def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
     request's 32 tokens identical across the passes, and each pass's
     launches (``check_lm_launches``). Profiles the 2048-token prefill and
     a four-slot decode step eager (on (a)'s engine, freed after) and
-    graphed. Returns the report and the graphed engine."""
+    graphed. The weights are ``init_model`` of a generator on the card
+    seeded with SEED (the engines' own default), drawn first: its time
+    (``init_s``) and peak allocated memory above what was allocated
+    before (``init_peak_mib``, gated to the parameters' bytes plus 1 GiB:
+    each layer is drawn into the stacked leaves). Returns the report and
+    the graphed engine."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, Request
+    from repro_torch.nn import transformer as T
     from repro_torch.nn.module import param_bytes, param_count
 
     cfg = get_config(arch)
     prompts = lm_prompts(cfg.vocab, lengths)
     profiled = prompts[lengths.index(PROFILE_LEN)]
 
-    def engine(jit, params=None):
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    check(init_peak <= param_bytes(params) + 2 ** 30,
+          f"{arch} init_model peaked at {init_peak} B, over its "
+          f"{param_bytes(params)} B of parameters plus 1 GiB")
+
+    def engine(jit):
         t0 = time.perf_counter()
-        eng = Engine(cfg, slots=LM_SLOTS, cache_len=LM_CACHE_LEN, seed=SEED,
+        eng = Engine(cfg, slots=LM_SLOTS, cache_len=LM_CACHE_LEN,
                      params=params, device=dev, jit=jit)
         eng.submit(Request(rid=-1, prompt=prompts[0][:16], max_new=2))
         eng.run()                                     # warm-up
@@ -2268,8 +2330,7 @@ def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
             f"profile_decode{suffix}": profile_fn(
                 torch, lambda: eng.decode(tokens, positions), steps=4)}
 
-    eng, init_s = engine(jit=False)
-    params = eng.params
+    eng, eager_warm_s = engine(jit=False)
     runs, launches, report = {}, {}, {}
     runs["eager"] = lm_pass(torch, eng, prompts)
     launches["eager"] = check_lm_launches(eng, runs["eager"], lengths,
@@ -2278,7 +2339,7 @@ def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
     del eng
     torch.cuda.empty_cache()
 
-    eng, warm_s = engine(jit=True, params=params)
+    eng, warm_s = engine(jit=True)
     check(sorted(eng.graphs) == [("decode", LM_SLOTS), ("prefill", 16)],
           f"the warm-up request captured {sorted(eng.graphs)}")
     for name in ("cold", "warm"):
@@ -2301,7 +2362,9 @@ def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
     return dict(
         config=describe(cfg),
         params=param_count(params), param_mib=param_bytes(params) / 2 ** 20,
-        init_s=init_s, prompts=list(lengths), max_new=LM_MAX_NEW,
+        init_s=init_s, init_peak_mib=init_peak / 2 ** 20,
+        eager_warmup_s=eager_warm_s, prompts=list(lengths),
+        max_new=LM_MAX_NEW,
         slots=LM_SLOTS, cache_len=LM_CACHE_LEN, launches=total,
         launches_by_pass=launches, tokens_identical=True,
         passes=runs, graphed_warmup_s=warm_s,
@@ -2761,7 +2824,7 @@ EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
               "ms_fc1_f32", "bound_ms_fc1_f32", "library_ms_fc1_f32",
               "ms_conv0_int16", "ms_conv0_f32", "ms_packed_default_f32",
-              "at_hymba_shape")
+              "at_hymba_shape", "at_glm4_shape", "at_stablelm_shape")
 
 
 def kernel_table(report: dict, paths) -> list:
@@ -2826,9 +2889,19 @@ def main() -> int:
              "int8_route_fit", "serving_stack", "events_cli",
              "events_full_width", "packed_default_f32", "lm_serve",
              "lm_gate", "lm_hybrid_serve", "lm_hybrid_gate", "lm_ssm_serve",
-             "spikformer_train", "examples")
+             "spikformer_train", "examples", "lm_dense12b_serve",
+             "lm_dense12b_gate", "lm_dense9b_serve", "lm_dense9b_gate")
+    phase_s = report["phase_s"] = {}     # wall seconds, build excluded
+    t_phase = [time.perf_counter()]
+
+    def timed(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+
     try:
         report["kernels"] = kernel_phase(torch, dev)
+        timed("kernels")
         for k, row in report["kernels"].items():
             row["profile_windows"] = PROFILE_WINDOWS.get(k, [])
         cfg = SpikformerConfig()
@@ -2838,33 +2911,43 @@ def main() -> int:
         report[paths[0]] = serve_phase(torch, dev, cfg, folded, requests,
                                        batch)
         int8_logits = report[paths[0]].pop("logits")
+        timed(paths[0])
         torch.cuda.empty_cache()
         report[paths[1]] = lut_serve_phase(torch, dev, cfg, folded, requests,
                                            batch)
+        timed(paths[1])
         torch.cuda.empty_cache()
         report[paths[2]] = unpack_step_phase(torch, dev, cfg, folded, batch,
                                              int8_logits)
+        timed(paths[2])
         torch.cuda.empty_cache()
         report[paths[3]] = route_phase(torch, dev, cfg, folded, requests,
                                        batch, int8_logits)
+        timed(paths[3])
         torch.cuda.empty_cache()
         report[paths[4]] = serving_stack_phase(torch, dev, cfg, folded)
+        timed(paths[4])
         torch.cuda.empty_cache()
         report[paths[5]] = events_cli_phase(torch, dev)
+        timed(paths[5])
         torch.cuda.empty_cache()
         report[paths[6]] = events_full_width_phase(torch, dev)
+        timed(paths[6])
         torch.cuda.empty_cache()
         report[paths[7]] = packed_default_f32_phase(torch, dev, cfg, folded,
                                                     batch)
         report["kernels"]["unpack_dot"]["ms_packed_default_f32"] = {
             k: v["ms"] for k, v in
             report[paths[7]]["unpack_dot_by_shape"].items()}
+        timed(paths[7])
         torch.cuda.empty_cache()
         report[paths[8]], lm_engine = lm_serve_phase(torch, dev)
         report["kernels"]["flash_attention_tc"]["ms_in_graph"] = \
             graphed_flash_ms(
                 report[paths[8]][f"profile_prefill_{PROFILE_LEN}"])
+        timed(paths[8])
         report[paths[9]] = lm_gate_phase(torch, dev, lm_engine)
+        timed(paths[9])
         del lm_engine
         torch.cuda.empty_cache()
         report[paths[10]], lm_engine = lm_serve_phase(
@@ -2872,18 +2955,43 @@ def main() -> int:
         report["kernels"]["flash_attention_tc"]["at_hymba_shape"][
             "ms_in_graph"] = graphed_flash_ms(
                 report[paths[10]][f"profile_prefill_{PROFILE_LEN}"])
+        timed(paths[10])
         report[paths[11]] = lm_gate_phase(
             torch, dev, lm_engine, HYBRID_GATE_LENS, HYBRID_PROMPTS,
             greedy=False)
+        timed(paths[11])
         del lm_engine
         torch.cuda.empty_cache()
         report[paths[12]], lm_engine = lm_serve_phase(
             torch, dev, SSM_ARCH, HYBRID_PROMPTS)
+        timed(paths[12])
         del lm_engine
         torch.cuda.empty_cache()
         report[paths[13]] = spikformer_train_phase(torch, dev)
+        timed(paths[13])
         torch.cuda.empty_cache()
         report[paths[14]] = examples_phase(torch, dev, report)
+        timed(paths[14])
+        torch.cuda.empty_cache()
+        # the two large dense paths last, so that every earlier phase runs
+        # as it did without them; one large model alive at a time: each
+        # engine (and its weights) is freed before the next path draws
+        # its own
+        for i, (arch, shape) in enumerate(((DENSE12B_ARCH,
+                                            "at_stablelm_shape"),
+                                           (DENSE9B_ARCH, "at_glm4_shape"))):
+            serve_path, gate_path = paths[15 + 2 * i], paths[16 + 2 * i]
+            report[serve_path], lm_engine = lm_serve_phase(torch, dev, arch)
+            report["kernels"]["flash_attention_tc"][shape]["ms_in_graph"] = \
+                graphed_flash_ms(
+                    report[serve_path][f"profile_prefill_{PROFILE_LEN}"])
+            timed(serve_path)
+            report[gate_path] = lm_gate_phase(
+                torch, dev, lm_engine, DENSE_GATE_LENS, LM_PROMPTS,
+                greedy=False)
+            timed(gate_path)
+            del lm_engine
+            torch.cuda.empty_cache()
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -2935,7 +3043,8 @@ def main() -> int:
             "unpack_dot_launches_per_step_in_graph", "unpack_dot_by_shape")},
         "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                         for k in f32["profile"]["by_kernel"][:8]]}))
-    for path in ("lm_serve", "lm_hybrid_serve", "lm_ssm_serve"):
+    for path in ("lm_serve", "lm_hybrid_serve", "lm_ssm_serve",
+                 "lm_dense12b_serve", "lm_dense9b_serve"):
         lm = report[path]
         for name in ("eager", "cold", "warm"):
             run = lm["passes"][name]
@@ -2947,7 +3056,9 @@ def main() -> int:
                               "graphs": run["graphs"],
                               "launches": lm["launches_by_pass"][name]}))
         print(json.dumps({"path": path, "config": lm["config"],
-                          "params": lm["params"],
+                          "params": lm["params"], "init_s": lm["init_s"],
+                          "init_peak_mib": lm["init_peak_mib"],
+                          "param_mib": lm["param_mib"],
                           "tokens_identical": lm["tokens_identical"],
                           "graphed_warmup_s": lm["graphed_warmup_s"]}))
         for window in (f"profile_prefill_{PROFILE_LEN}",
@@ -2959,12 +3070,14 @@ def main() -> int:
                 "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                                 for k in prof["by_kernel"][:8]]}))
     print(json.dumps({"lm_gate": report["lm_gate"]}))
-    print(json.dumps({"lm_hybrid_gate": report["lm_hybrid_gate"]}))
+    for gate in ("lm_hybrid_gate", "lm_dense12b_gate", "lm_dense9b_gate"):
+        print(json.dumps({gate: report[gate]}))
     print(json.dumps({"spikformer_train": report["spikformer_train"]}))
     ex = report["examples"]
     print(json.dumps({"examples": {k: ex[k] for k in (
         "quickstart_launches", "serving_launches", "serve_under_load",
         "serve_events", "serve_lm", "engine_model")}}))
+    print(json.dumps({"phase_s": phase_s, "build_s": build_s}))
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ engine (``launch/serve.py:Engine``) share."""
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import traceback
 import weakref
@@ -137,7 +138,9 @@ class GraphCapturer:
         launches only (``ops.recording_launches``). A capture that fails
         raises and names the op (``_failed_at``); nothing then runs eagerly
         in its place. A failed capture's pool is left behind: torch keeps
-        it marked as recording, so the next capture starts a new one."""
+        it marked as recording, so the next capture starts a new one.
+        Python's cyclic collector is held off during the capture
+        (``_collector_held_off``)."""
         from .kernels import ops
         if self.stream is None:
             self.stream = borrow_stream(self.device)
@@ -155,7 +158,8 @@ class GraphCapturer:
             failure, out = None, None
             # the outer stream context restores the caller's stream even
             # when the capture's own exit raises before restoring it
-            with ops.recording_launches() as recorded, \
+            with _collector_held_off(), \
+                    ops.recording_launches() as recorded, \
                     torch.cuda.stream(stream):
                 try:
                     with torch.cuda.graph(graph, pool=self.pool,
@@ -173,6 +177,24 @@ class GraphCapturer:
             raise RuntimeError(f"CUDA graph capture of {what} failed at "
                                f"{_failed_at(failure)}: {failure}") from failure
         return graph, out, dict(recorded)
+
+
+@contextlib.contextmanager
+def _collector_held_off():
+    """Holds Python's cyclic collector off for the block. A CUDA graph
+    destroyed while this thread captures another invalidates that capture
+    (its destructor's calls are refused during a capture), and a dead graph
+    can wait in a reference cycle for the collector, to be destroyed
+    whenever it next runs: a failed capture's graph is held by its
+    exception's traceback, an engine's graphs by any cycle through the
+    engine. Outside a capture the collector destroys them harmlessly."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _stop_allocating_to(pool, device: torch.device) -> None:

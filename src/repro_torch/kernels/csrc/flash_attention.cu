@@ -25,12 +25,12 @@
 // ~2^-21 of each product, well inside the 2e-4 the kernel is held to. expf
 // (not __expf), no fast-math flags.
 // Design (the skeleton of csrc/flash_attention_tc.cu): one block of three
-// warpgroups per (128-query tile, batch, head); blocks with the longest
+// warpgroups per (query tile, batch, head); blocks with the longest
 // causal rows launch first. Warpgroup 2 is the producer: one thread loads
 // the Q tile once and then K and V tiles of 64 keys by TMA, completion on
 // mbarriers; each box has padded rows (TMA zero-fills the columns past Dh).
-// Warpgroups 0 and 1 own 64 query rows each, scale their q rows in place
-// once, and per KV tile compute S = Q K^T, mask the blocks that cross the
+// The consumer warpgroups 0 and 1 scale the q tile in place once, and
+// per KV tile compute S = Q K^T, mask the blocks that cross the
 // diagonal or Nkv, run the online softmax on the accumulator fragments
 // with quad shuffles for the row max and sum, and accumulate O += P V with
 // P straight from the S fragments. Tiles wholly above a consumer's
@@ -40,12 +40,18 @@
 //   pipeline of tf32x3::Pipe: the producer warpgroup also splits each K
 //   and V tile once into big and small K and V^T, which 3xTF32 wgmma
 //   products read from shared memory.
-// - Dh 128: flash_attention_kernel, mma.sync over fragments each warp
-//   splits in registers (the split K and V^T of 64 keys would not fit in
-//   shared memory beside the ring); the K and V tiles come through a ring
-//   of STAGES stages, with rows of Dh + 8 (q, k) and Dh + 4 (v) floats that
-//   keep every fragment load free of bank conflicts, and each warp skips
-//   the 8-key blocks wholly above its own rows.
+// - Dh 128 and 160 (stablelm-12b's 160): flash_attention_kernel,
+//   mma.sync over fragments each warp splits in registers (the split K and
+//   V^T of 64 keys would not fit in shared memory beside the ring); the K
+//   and V tiles come through a ring of two stages, with rows of Dh + 8
+//   (q, k) and Dh + 4 (v) floats that keep every fragment load free of
+//   bank conflicts, and each warp skips the 8-key blocks wholly above its
+//   own rows. At Dh 160 a block takes 64 query rows, and the two warps of
+//   each 16 rows both compute S and its softmax (the same values) and
+//   each accumulate half of Dh's output columns: with 128 rows the q tile
+//   and two stages (255 KB) would not fit the 227 KB a block has, and a
+//   warp's 2 x 160 split accumulators would not fit its registers. The
+//   cost is S taken twice: 1.5 times Dh 128's products a column.
 // The shared-memory size is set once a device, not at every launch.
 #include <atomic>
 #include <cstdint>
@@ -86,14 +92,24 @@ struct Params {
 template <int DH>
 struct Layout {
   static constexpr int DB = DH / 8;
+  // Dh 128: the block's 128 query rows, 16 a consumer warp. Dh 160: 64
+  // rows, each 16 shared by two warps that own half of Dh's output
+  // columns each (both take the whole S): 128 rows would not fit two
+  // stages in shared memory, nor Dh 160's accumulators in registers.
+  static constexpr int SPLIT = DH > 128 ? 2 : 1;
+  static constexpr int ROWS = 128 / SPLIT;
+  static constexpr int DBW = DB / SPLIT;   // a warp's 8-column output blocks
   static constexpr int STAGES = 2;
   // row strides in floats: 8 (q, k) and 4 (v) past a multiple of 32
   static constexpr int QS = DH + 8, KS = DH + 8, VS = DH + 4;
-  static constexpr uint32_t Q_BYTES = BQ * QS * 4;
+  static constexpr uint32_t Q_BYTES = ROWS * QS * 4;
   static constexpr uint32_t K_BYTES = BKV * KS * 4;
   static constexpr uint32_t V_BYTES = BKV * VS * 4;
   static constexpr size_t SMEM = 128 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) +
                                  (2 * STAGES + 1) * sizeof(uint64_t);
+  static_assert(DB % SPLIT == 0 && ROWS / 16 * SPLIT == CONSUMER_WARPS,
+                "every consumer warp owns 16 rows and DB / SPLIT blocks");
+  static_assert(SMEM <= 232448, "over the H100's shared memory a block");
 };
 
 template <int DH>
@@ -103,7 +119,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                            const __grid_constant__ CUtensorMap map_v,
                            const Params p) {
   using L = Layout<DH>;
-  constexpr int DB = L::DB, STAGES = L::STAGES;
+  constexpr int DB = L::DB, DBW = L::DBW, ROWS = L::ROWS, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // TMA writes shared memory at 128-byte aligned addresses
   uint8_t* base = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
@@ -118,9 +134,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int bh = blockIdx.x % p.n_bh;
   const int qt = p.n_qtiles - 1 - blockIdx.x / p.n_bh;
   const int b = bh / p.heads, h = bh % p.heads, kvh = h / p.group;
-  const int q0 = qt * BQ;
+  const int q0 = qt * ROWS;
   const int q_offset = p.nkv - p.nq;
-  const int kv_end = p.causal ? min(p.nkv, q_offset + min(q0 + BQ, p.nq))
+  const int kv_end = p.causal ? min(p.nkv, q_offset + min(q0 + ROWS, p.nq))
                               : p.nkv;
   const int n_tiles = (kv_end + BKV - 1) / BKV;
 
@@ -165,7 +181,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
-  const int row0 = 16 * warp;    // the warp's rows in the tile
+  const int row0 = 16 * (warp % (ROWS / 16));   // the warp's rows in the tile
+  const int col0 = 8 * DBW * (warp / (ROWS / 16));   // its output columns
   const int wq0 = q0 + row0;     // its first query
   const int w_end =
       wq0 >= p.nq ? 0
@@ -174,16 +191,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int my_tiles = (w_end + BKV - 1) / BKV;
 
   mbar_wait(q_bar, 0);
-  for (int e = lane; e < 16 * DH; e += 32) {   // q * scale, once
-    float* x = q_s + (row0 + e / DH) * L::QS + e % DH;
+  for (int e = tid; e < ROWS * DH; e += 256) {   // q * scale, once
+    float* x = q_s + (e / DH) * L::QS + e % DH;
     *x *= p.scale;
   }
-  __syncwarp();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the consumers
   const float* qa = q_s + (row0 + g) * L::QS + 2 * t;
 
-  float o_hi[DB][4], o_lo[DB][4];
+  float o_hi[DBW][4], o_lo[DBW][4];
 #pragma unroll
-  for (int nd = 0; nd < DB; ++nd)
+  for (int nd = 0; nd < DBW; ++nd)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o_hi[nd][i] = o_lo[nd][i] = 0.f;
   // rows g (fragment entries 0, 1) and g + 8 (entries 2, 3)
@@ -276,7 +293,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         l_run[r] = l_run[r] * alpha[r] + sum[r];
       }
 #pragma unroll
-      for (int nd = 0; nd < DB; ++nd)
+      for (int nd = 0; nd < DBW; ++nd)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           o_hi[nd][i] *= alpha[i >> 1];
@@ -290,9 +307,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (nb < nkb) {
           FragA a;
           a.set(sc[nb][0], sc[nb][2], sc[nb][1], sc[nb][3]);
-          const float* v0 = vs + (8 * nb + 2 * t) * L::VS + g;
+          const float* v0 = vs + (8 * nb + 2 * t) * L::VS + col0 + g;
 #pragma unroll
-          for (int nd = 0; nd < DB; ++nd) {
+          for (int nd = 0; nd < DBW; ++nd) {
             FragB bf;
             bf.set(v0[8 * nd], v0[L::VS + 8 * nd]);
             mma3(o_hi[nd], o_lo[nd], a, bf);
@@ -309,9 +326,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int qi = wq0 + g + 8 * r;
     if (qi >= p.nq) continue;
     const float l = fmaxf(l_run[r], 1e-30f);
-    float* row = p.out + ((long long)bh * p.nq + qi) * DH + 2 * t;
+    float* row = p.out + ((long long)bh * p.nq + qi) * DH + col0 + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < DB; ++nd)
+    for (int nd = 0; nd < DBW; ++nd)
       *reinterpret_cast<float2*>(row + 8 * nd) =
           make_float2((o_hi[nd][2 * r] + o_lo[nd][2 * r]) / l,
                       (o_hi[nd][2 * r + 1] + o_lo[nd][2 * r + 1]) / l);
@@ -482,8 +499,8 @@ extern "C" const char* error_string(int err) {
 // k, v: (batch, kv_heads, nkv, dh) f32, strides (ks_*, 1) and (vs_*, 1), k
 // and v in one order of strides; every stride a multiple of 4 and every
 // base 16-byte aligned (TMA); heads a multiple of kv_heads; dh in {32, 64,
-// 128}; nkv >= 1, nq <= nkv when causal. out: (batch, heads, nq, dh) f32,
-// contiguous.
+// 128, 160}; nkv >= 1, nq <= nkv when causal. out: (batch, heads, nq, dh)
+// f32, contiguous.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, float* out, int batch,
     int heads, int kv_heads, int nq, int nkv, int dh, long long qs_b,
@@ -491,7 +508,7 @@ extern "C" int flash_attention_launch(
     long long ks_r, long long vs_b, long long vs_h, long long vs_r,
     float scale, int causal, void* stream) {
   if (batch == 0 || heads == 0 || nq == 0) return 0;
-  if ((dh != 32 && dh != 64 && dh != 128) || kv_heads <= 0 ||
+  if ((dh != 32 && dh != 64 && dh != 128 && dh != 160) || kv_heads <= 0 ||
       heads % kv_heads)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
@@ -499,12 +516,15 @@ extern "C" int flash_attention_launch(
   int dim_v[3];
   // unswizzled boxes of padded rows (TMA zero-fills the columns past Dh):
   // Dh + 4 columns for every operand of the wgmma kernel (Dh 32, 64);
-  // Dh + 8 (q, k) and Dh + 4 (v) for the mma.sync kernel (Dh 128)
+  // Dh + 8 (q, k) and Dh + 4 (v) for the mma.sync kernel (Dh 128 in q
+  // tiles of 128 rows, Dh 160 in q tiles of 64)
   constexpr auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   constexpr auto FLAT = CU_TENSOR_MAP_SWIZZLE_NONE;
-  const int qk_cols = dh == 128 ? dh + 8 : dh + 4;
+  const bool mma_sync = dh > 64;
+  const int qk_cols = mma_sync ? dh + 8 : dh + 4;
+  const int rows = dh == 160 ? Layout<160>::ROWS : BQ;
   if (!tma::make_map(&mq, F32, 4, FLAT, q, dh, qk_cols, nq, heads, batch,
-                     qs_r, qs_h, qs_b, BQ, prm.dim_q) ||
+                     qs_r, qs_h, qs_b, rows, prm.dim_q) ||
       !tma::make_map(&mk, F32, 4, FLAT, k, dh, qk_cols, nkv, kv_heads, batch,
                      ks_r, ks_h, ks_b, BKV, prm.dim_kv) ||
       !tma::make_map(&mv, F32, 4, FLAT, v, dh, dh + 4, nkv, kv_heads, batch,
@@ -517,19 +537,22 @@ extern "C" int flash_attention_launch(
   prm.group = heads / kv_heads;
   prm.nq = nq;
   prm.nkv = nkv;
-  prm.n_qtiles = (nq + BQ - 1) / BQ;
+  prm.n_qtiles = (nq + rows - 1) / rows;
   prm.n_bh = batch * heads;
   prm.scale = scale;
   prm.causal = causal;
   prm.out = out;
   const cudaStream_t s = (cudaStream_t)stream;
-  static std::atomic<unsigned long long> sized[3];   // a bit a device
+  static std::atomic<unsigned long long> sized[4];   // a bit a device
   if (dh == 32)
     return launch(flash_attention_kernel_wgmma<32>, tf32x3::Pipe<32>::SMEM,
                   sized[0], mq, mk, mv, prm, s);
   if (dh == 64)
     return launch(flash_attention_kernel_wgmma<64>, tf32x3::Pipe<64>::SMEM,
                   sized[1], mq, mk, mv, prm, s);
-  return launch(flash_attention_kernel<128>, Layout<128>::SMEM, sized[2], mq,
+  if (dh == 128)
+    return launch(flash_attention_kernel<128>, Layout<128>::SMEM, sized[2],
+                  mq, mk, mv, prm, s);
+  return launch(flash_attention_kernel<160>, Layout<160>::SMEM, sized[3], mq,
                 mk, mv, prm, s);
 }

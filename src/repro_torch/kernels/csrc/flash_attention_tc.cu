@@ -38,8 +38,13 @@
 // shared memory. Causal blocks stop at the last tile their last query
 // sees, and a warpgroup skips the tiles wholly above its own rows (both
 // would add exact zeros); only tiles that cross the diagonal or Nkv are
-// masked. Dh 32 loads 64-column boxes whose upper half TMA fills with
-// zeros; Dh 128 is two 64-column halves.
+// masked. Dh is tiled in NH = ceil(Dh / 64) boxes of 64 columns, and TMA
+// fills the columns past Dh with zeros (which add exact zeros to S and
+// are never stored): Dh 32 is one half-filled box, Dh 64 one, Dh 128 two,
+// Dh 160 (stablelm-12b) three, the last half filled. Any Dh that is a
+// multiple of 8 (TMA's 16-byte row stride) up to 192 runs: at NH 3 the
+// block holds 1 KiB + 3 x (2 + 2 x STAGES) x 8 KiB = 193 KiB of shared
+// memory and a consumer thread 96 f32 output accumulators.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -136,7 +141,7 @@ struct Params {
   float* out;   // (B, Hq, Nq, Dh) f32, contiguous
 };
 
-template <int NH>   // 64-column halves of Dh
+template <int NH>   // 64-column boxes of Dh
 __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -362,8 +367,8 @@ extern "C" const char* error_string(int err) {
 // q: (batch, heads, nq, dh) bf16 with element strides (qs_b, qs_h, qs_r, 1);
 // k, v: (batch, kv_heads, nkv, dh) bf16, strides (ks_*, 1) and (vs_*, 1);
 // every stride a multiple of 8 and every base 16-byte aligned (TMA); heads a
-// multiple of kv_heads; dh in {32, 64, 128}; nkv >= 1, nq <= nkv when
-// causal. out: (batch, heads, nq, dh) f32, contiguous.
+// multiple of kv_heads; dh a multiple of 8 from 8 to 192; nkv >= 1, nq <=
+// nkv when causal. out: (batch, heads, nq, dh) f32, contiguous.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, float* out, int batch,
     int heads, int kv_heads, int nq, int nkv, int dh, long long qs_b,
@@ -371,8 +376,7 @@ extern "C" int flash_attention_tc_launch(
     long long ks_r, long long vs_b, long long vs_h, long long vs_r,
     float scale, int causal, void* stream) {
   if (batch == 0 || heads == 0 || nq == 0) return 0;
-  if ((dh != 32 && dh != 64 && dh != 128) || kv_heads <= 0 ||
-      heads % kv_heads)
+  if (dh < 8 || dh > 192 || dh % 8 || kv_heads <= 0 || heads % kv_heads)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   Params prm;
@@ -399,10 +403,12 @@ extern "C" int flash_attention_tc_launch(
   prm.scale = scale;
   prm.causal = causal;
   prm.out = out;
-  const int nh = dh == 128 ? 2 : 1;
+  const int nh = (dh + 63) / 64;
   const size_t smem = 1024 + (size_t)nh * (2 + 2 * STAGES) * TILE_BYTES +
                       (2 * STAGES + 1) * sizeof(uint64_t);
-  auto kernel = nh == 2 ? flash_tc_kernel<2> : flash_tc_kernel<1>;
+  auto kernel = nh == 3   ? flash_tc_kernel<3>
+                : nh == 2 ? flash_tc_kernel<2>
+                          : flash_tc_kernel<1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -5,10 +5,13 @@ softmax (port of ``repro.kernels.flash_attention``).
 dispatches on the operands' dtype: bf16 launches
 ``csrc/flash_attention_tc.cu`` (bf16 wgmma), f32 launches
 ``csrc/flash_attention.cu`` (split TF32: wgmma at Dh 32 and 64, mma.sync at
-Dh 128); both load their tiles by TMA and read each KV head and strided
-view in place. CPU operands run the
-plain version, ``flash_attention_plain``. Each kernel's wrapper counts its
-launches."""
+Dh 128 and 160); both load their tiles by TMA and read each KV head and
+strided view in place. ``HEAD_DIMS`` holds the head dims each kernel
+takes: the bf16 kernel every multiple of 8 from 8 to 192 (64-column TMA
+boxes, zero-filled past Dh), the f32 kernel 32, 64, 128 and 160 (one
+instantiation each). On the card any other Dh raises. CPU operands run
+the plain version, ``flash_attention_plain``, at any Dh. Each kernel's
+wrapper counts its launches."""
 from __future__ import annotations
 
 import ctypes
@@ -21,7 +24,8 @@ from .ref import flash_attention_ref
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-HEAD_DIMS = (32, 64, 128)   # both kernels' instantiations
+HEAD_DIMS = {torch.bfloat16: tuple(range(8, 193, 8)),
+             torch.float32: (32, 64, 128, 160)}
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -81,9 +85,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"causal={causal}")
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, scale=scale, causal=causal)
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the flash kernels take Dh in {HEAD_DIMS}, got "
-                         f"{tuple(q.shape)}")
+    if dh not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"the {q.dtype} flash kernel takes Dh in "
+                         f"{HEAD_DIMS[q.dtype]}, got {tuple(q.shape)}")
     fn = flash_attention_tc if q.dtype == torch.bfloat16 else \
         flash_attention_f32
     return fn(q4, k4, v4, scale=scale, causal=causal).reshape(

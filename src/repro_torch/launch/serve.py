@@ -15,7 +15,8 @@ prefill as one graph per prompt length. ``jit=False`` runs them eagerly.
     python -m repro_torch.launch.serve --arch smollm-360m [--reduce] \\
         [--slots 4 --requests 8 --prompt-len 32 --max-new 16]
 
-``--arch`` takes each ported config: smollm-360m, hymba-1.5b, mamba2-130m.
+``--arch`` takes each ported config: smollm-360m, stablelm-12b, glm4-9b,
+hymba-1.5b, mamba2-130m.
 
 Runs on the card unless ``--device cpu`` is given.
 """

@@ -7,12 +7,17 @@ ones, and whose window (if any) cannot mask a key, runs
 ``kernels.ops.flash_attention``, the kernel that the reference names as
 the TPU form of ``chunked_attention``'s schedule: train and prefill
 without a cache, and a prompt into a cache at ``cache_pos == 0``, which
-attends over its own keys. Every other case (decode, prefill at an offset,
-per-row positions) is the reference's plain chunked softmax, in torch. So
-is a prompt longer than its layer's window: the reference has no Pallas
-kernel for windowed attention, so that branch is the reference's own
-schedule, not a kernel's plain stand-in. M-RoPE and cross-attention are not
-ported yet.
+attends over its own keys. On the card that is
+``csrc/flash_attention_tc.cu`` for bf16 (every head dim a multiple of 8 up
+to 192: the configs' 64, 128 and stablelm-12b's 160) and
+``csrc/flash_attention.cu`` for f32 (32, 64, 128, 160); a head dim the
+kernel does not take raises there (``kernels/flash_attention.py:
+HEAD_DIMS``), with no fallback. Every other case (decode, prefill at an
+offset, per-row positions) is the reference's plain chunked softmax, in
+torch. So is a prompt longer than its layer's window: the reference has no
+Pallas kernel for windowed attention, so that branch is the reference's
+own schedule, not a kernel's plain stand-in. M-RoPE and cross-attention
+are not ported yet.
 
 A prompt longer than a ring cache attends over its own keys, as the
 reference's train-mode forward does, and only then leaves its last

@@ -33,10 +33,11 @@ class KeyStream:
 def trunc_normal(gen: torch.Generator, shape, std: float = 0.02,
                  dtype=torch.float32) -> torch.Tensor:
     """Normal truncated at +-2 standard deviations, times ``std``, drawn in
-    f32 on ``gen``'s device."""
+    f32 on ``gen``'s device (scaled in place: no second copy of a large
+    f32 table)."""
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return x.to(dtype) * std
+    return x.mul_(std) if dtype == torch.float32 else x.to(dtype) * std
 
 
 def lecun_normal(gen: torch.Generator, shape, fan_in: int | None = None,

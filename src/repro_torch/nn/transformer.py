@@ -156,10 +156,31 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
 # ---------------------------------------------------------------------------
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(make, n: int, device):
+    """``make(i)`` for i < n, in order, as one tree of (n, ...) leaves on
+    ``device``: each tree is copied into its slot and dropped before the
+    next is made, so the peak is the stack and one tree (stacking a list
+    would hold every leaf twice: 93 GB for stablelm-12b's layers)."""
+    def alloc(x):
+        if isinstance(x, dict):
+            return {k: alloc(v) for k, v in x.items()}
+        return torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                           device=device)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    out = None
+    for i in range(n):
+        tree = make(i)
+        out = alloc(tree) if out is None else out
+        put(out, tree, i)
+        del tree
+    return out
 
 
 def _index(tree, i):
@@ -177,20 +198,22 @@ def _to(tree, device):
 def init_model(gen: torch.Generator, cfg, *, device=None):
     """Seeded parameters on ``device`` (default: the card), drawn from
     generators on ``gen``'s device. Not the reference's bits: parity goes
-    through ``repro_torch.weights.lm_from_reference``."""
+    through ``repro_torch.weights.lm_from_reference``. Each layer is drawn
+    and copied into the stacked (L, ...) leaves before the next is drawn,
+    so the peak on the card is the parameters and one layer."""
     require_ported(cfg)
     device = resolve_device(device)
     dtype = as_dtype(cfg.param_dtype)
     ks = KeyStream(gen)
-    p = {"embed": embedding_init(ks(), cfg.padded_vocab, cfg.d_model,
-                                 dtype=dtype),
-         "final_norm": _norm_init(cfg, gen.device)}
-    p["layers"] = _stack([layer_init(ks(), cfg, dtype)
-                          for _ in range(cfg.n_layers)])
+    p = {"embed": _to(embedding_init(ks(), cfg.padded_vocab, cfg.d_model,
+                                     dtype=dtype), device),
+         "final_norm": _to(_norm_init(cfg, gen.device), device)}
+    p["layers"] = _stacked(lambda i: layer_init(ks(), cfg, dtype),
+                           cfg.n_layers, device)
     if not cfg.tie_embeddings:
-        p["head"] = linear_init(ks(), cfg.d_model, cfg.padded_vocab,
-                                dtype=dtype)
-    return _to(p, device)
+        p["head"] = _to(linear_init(ks(), cfg.d_model, cfg.padded_vocab,
+                                    dtype=dtype), device)
+    return p
 
 
 def layer_flags(cfg):
@@ -286,5 +309,6 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
             c["ssm"], c["conv"] = init_ssm_state(batch, cfg, device=device)
         return c
 
-    layers = [one_layer(i) for i in range(cfg.n_layers)]
-    return _stack(layers) if cfg.scan_layers else layers
+    if cfg.scan_layers:
+        return _stacked(one_layer, cfg.n_layers, device)
+    return [one_layer(i) for i in range(cfg.n_layers)]

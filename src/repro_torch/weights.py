@@ -29,17 +29,29 @@ def lm_from_reference(tree, cfg, device=None):
     """``repro.nn.transformer.init_model``'s tree, numpy leaves, as the
     port's LM parameters on ``device`` (default: the card). The layout is
     the same in both packages (stacked (L, ...) layers, the SSM and hybrid
-    families' too), so this checks the shapes the config implies and
-    copies the leaves, dtypes kept."""
+    families' too), so this checks the shapes the config implies (the
+    norms' scales and biases, the QKV biases and QK-norm scales where the
+    config has them) and copies the leaves, dtypes kept."""
     require_ported(cfg)
     device = resolve_device(device)
     n_layers, d = cfg.n_layers, cfg.d_model
-    want = {"embed/embedding": (cfg.padded_vocab, d)}
+    want = {"embed/embedding": (cfg.padded_vocab, d),
+            "layers/ln1/scale": (n_layers, d)}
+    if cfg.norm == "layernorm":
+        want["layers/ln1/bias"] = (n_layers, d)
+        want["final_norm/bias"] = (d,)
     if cfg.family != "ssm":
-        want["layers/attn/wq/kernel"] = (n_layers, d,
-                                         cfg.n_heads * cfg.head_dim)
-        want["layers/attn/wk/kernel"] = (n_layers, d,
-                                         cfg.n_kv_heads * cfg.head_dim)
+        q_dim = cfg.n_heads * cfg.head_dim
+        kv_dim = cfg.n_kv_heads * cfg.head_dim
+        want["layers/attn/wq/kernel"] = (n_layers, d, q_dim)
+        want["layers/attn/wk/kernel"] = (n_layers, d, kv_dim)
+        if cfg.qkv_bias:
+            want["layers/attn/wq/bias"] = (n_layers, q_dim)
+            want["layers/attn/wk/bias"] = (n_layers, kv_dim)
+            want["layers/attn/wv/bias"] = (n_layers, kv_dim)
+        if cfg.qk_norm:
+            want["layers/attn/q_norm/scale"] = (n_layers, cfg.head_dim)
+            want["layers/attn/k_norm/scale"] = (n_layers, cfg.head_dim)
     if cfg.family in ("ssm", "hybrid"):
         d_inner, heads, conv_dim = ssm_dims(cfg)
         gn = cfg.ssm_groups * cfg.ssm_state
@@ -49,6 +61,9 @@ def lm_from_reference(tree, cfg, device=None):
     for path, shape in want.items():
         leaf = tree
         for key in path.split("/"):
+            if key not in leaf:
+                raise ValueError(f"{path} is missing, the config {cfg.name} "
+                                 f"needs {shape}")
             leaf = leaf[key]
         if tuple(np.shape(leaf)) != shape:
             raise ValueError(f"{path} is {tuple(np.shape(leaf))}, the config "

@@ -558,7 +558,9 @@ def test_lut_plan_past_the_fused_kernels_steps_runs_two_layers(cuda):
     (3, 128, 128, 32, True), (3, 64, 256, 64, True), (3, 1, 512, 32, True),
     (3, 200, 200, 64, True), (3, 100, 333, 128, True), (2, 77, 77, 64, True),
     (2, 100, 333, 64, False), (15, 2048, 2048, 64, True),
-    (4, 1000, 1000, 128, False)])
+    (4, 1000, 1000, 128, False), (3, 100, 333, 160, True),
+    (2, 77, 77, 160, True), (3, 1, 512, 160, True),
+    (2, 100, 333, 160, False), (4, 1000, 1000, 160, False)])
 def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
     """Kernel 7 against its plain version (exact softmax in f32 on the same
     values) within atol = rtol = 2e-4, the reference's flash tolerance;
@@ -582,7 +584,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
 @pytest.mark.parametrize("b,hq,kvh,nq,nkv,dh,causal", [
     (1, 15, 5, 2048, 2048, 64, True), (1, 25, 5, 2048, 2048, 64, True),
     (2, 6, 2, 200, 200, 64, True),
-    (2, 6, 2, 100, 333, 128, False), (3, 3, 1, 77, 300, 32, True)])
+    (2, 6, 2, 100, 333, 128, False), (3, 3, 1, 77, 300, 32, True),
+    (2, 8, 2, 200, 200, 160, True), (2, 8, 2, 100, 333, 160, False),
+    (1, 32, 2, 77, 300, 128, True)])
 def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
                                                       kvh, nq, nkv, dh,
                                                       causal):
@@ -607,6 +611,73 @@ def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
         got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              scale=dh ** -0.5, causal=causal),
         atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,kvh,dh", [(32, 8, 160), (32, 2, 128)],
+                         ids=["stablelm-12b", "glm4-9b"])
+def test_flash_kernel_at_the_dense_prefills(cuda, dtype, hq, kvh, dh):
+    """Kernel 7 at the 2048-token prefills of stablelm-12b (32 heads over 8
+    KV heads, Dh 160) and glm4-9b (32 over 2, Dh 128, group 16), laid out
+    as the LM path hands them over (q transposed from (1, S, Hq, Dh), k and
+    v the first S rows of a (1, KV, 2S, Dh) cache), causal: within 2e-4 of
+    the plain version and of SDPA in f32 on the same values (KV
+    expanded), in one launch of the dtype's kernel."""
+    s = 2048
+    g = gen(cuda, hq * kvh + dh)
+    q = torch.randn((1, s, hq, dh), generator=g, device=cuda).to(
+        dtype).transpose(1, 2)
+    k, v = (torch.randn((1, kvh, 2 * s, dh), generator=g, device=cuda).to(
+        dtype)[:, :, :s] for _ in range(2))
+    got = flash_attention(q, k, v, scale=dh ** -0.5)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (flash_attention_tc.launches, flash_attention_f32.launches) == (
+        int(bf16), int(not bf16))
+    assert got.shape == (1, hq, s, dh) and got.dtype == torch.float32
+    want = flash_attention_plain(q, k, v, scale=dh ** -0.5)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    ke, ve = (z.float().repeat_interleave(hq // kvh, dim=1) for z in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q.float(), ke, ve, is_causal=True, scale=dh ** -0.5)
+    torch.testing.assert_close(got, sdpa, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_kernel_takes_every_stated_head_dim(cuda, causal):
+    """Every head dim the bf16 kernel states (multiples of 8 up to 192) at
+    a ragged (2, 70, 133) shape, grouped 2 over 1: within 2e-4 of the plain
+    version."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    assert HEAD_DIMS[torch.bfloat16] == tuple(range(8, 193, 8))
+    for dh in HEAD_DIMS[torch.bfloat16]:
+        g = gen(cuda, dh)
+        q = torch.randn((1, 2, 70, dh), generator=g, device=cuda).to(
+            torch.bfloat16)
+        k, v = (torch.randn((1, 1, 133, dh), generator=g, device=cuda).to(
+            torch.bfloat16) for _ in range(2))
+        got = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, scale=dh ** -0.5,
+                                     causal=causal)
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4,
+                                   msg=lambda m: f"Dh {dh}: {m}")
+    assert flash_attention_tc.launches == len(HEAD_DIMS[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 200),
+                                      (torch.bfloat16, 12),
+                                      (torch.float32, 96),
+                                      (torch.float32, 192)])
+def test_flash_refuses_a_head_dim_outside_its_kernel(cuda, dtype, dh):
+    """A head dim the dtype's kernel does not take raises on the card,
+    launching nothing (no plain or library fallback)."""
+    q = torch.zeros((1, 2, 16, dh), dtype=dtype, device=cuda)
+    with pytest.raises(ValueError, match="Dh in"):
+        flash_attention(q, q, q, scale=0.125)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
 def test_flash_f32_kernel_reads_grouped_strided_views_in_place(cuda,
@@ -676,6 +747,98 @@ def test_lm_prefill_runs_the_flash_kernel(cuda):
     for i, n in enumerate((5, 77, 30)):
         eng.submit(Request(rid=i, prompt=list(range(n)), max_new=4))
     assert [len(r.out) for r in eng.run()] == [4, 4, 4]
+
+
+DENSE = {"stablelm-12b": dict(head_dim=160), "glm4-9b": {}}
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE))
+def test_dense_f32_prefill_runs_the_flash_kernel(cuda, arch):
+    """Reduced stablelm-12b at its full width's head dim (160: QK-norm, 40
+    rotary columns, layernorm) and reduced glm4-9b (QKV bias) in f32 on
+    the card: a prefill launches the f32 flash kernel once a layer, and
+    its logits and the decode step after it agree with the plain route
+    within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config(arch).reduced(**DENSE[arch])
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=gen(cuda, 1),
+                         device=cuda)
+    out = {}
+    for flash in (True, False):
+        ops.reset_launch_counts()
+        cache = T.init_cache(cfg, 2, 96, dtype=torch.float32)
+        pre, cache, _ = T.model_apply(
+            params, {"tokens": toks, "cache_pos": 0}, cfg, mode="prefill",
+            cache=cache, compute_dtype=torch.float32, flash=flash)
+        dec, _, _ = T.model_apply(
+            params, {"tokens": toks[:, :1],
+                     "cache_pos": torch.tensor([77, 80], device=cuda)},
+            cfg, mode="decode", cache=cache, compute_dtype=torch.float32,
+            flash=flash)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention_f32"] == (
+            cfg.n_layers if flash else 0)
+        out[flash] = (pre, dec)
+    for got, want in zip(out[True], out[False]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE))
+def test_dense_graphed_engine_serves_the_eager_tokens(cuda, arch):
+    """The two dense configs reduced as above, in bf16, two slots, prompts
+    of 5, 77, 5 and 130 tokens: the graphed engine's greedy tokens and
+    caches equal the eager engine's bit for bit, and captured launches x
+    replays equal the eager counts (one bf16 flash launch a layer and
+    prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+
+    cfg = get_config(arch).reduced(**DENSE[arch])
+    graphed = Engine(cfg, slots=2, cache_len=136, seed=3, device=cuda)
+    eager = Engine(cfg, slots=2, cache_len=136, params=graphed.params,
+                   device=cuda, jit=False)
+    prompts = [lm_prompt(cfg, n, i) for i, n in enumerate((5, 77, 5, 130))]
+    ops.reset_launch_counts()
+    want = serve_lm(eager, prompts, 10)
+    eager_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert eager_counts == {"flash_attention_tc": 4 * cfg.n_layers}
+    assert serve_lm(graphed, prompts, 10) == want          # captures
+    graphed.reset_graph_launch_counts()
+    ops.reset_launch_counts()
+    assert serve_lm(graphed, prompts, 10) == want          # replays only
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert graphed.graph_launch_counts() == eager_counts
+    same_caches(graphed, eager, "after serving")
+
+
+def test_init_model_peak_is_the_params_and_one_layer(cuda):
+    """``init_model`` on the card draws each layer into the stacked leaves:
+    for smollm-360m at full width (32 layers, 1.26 GB of them) the peak
+    allocated memory stays within the parameters' bytes plus 1 GiB (the
+    list-and-stack build held every layer twice), and a second build from
+    the same seed gives the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import leaves, param_bytes
+
+    cfg = get_config("smollm-360m")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    layers = param_bytes(params["layers"])
+    assert layers >= 2 ** 30
+    assert peak <= param_bytes(params) + 2 ** 30, (peak, param_bytes(params))
+    again = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    assert all(torch.equal(x, y)
+               for x, y in zip(leaves(params), leaves(again)))
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ref import flash_attention_ref as jref
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as flash_kernels_module
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_f32,
                                                  flash_attention_tc)
@@ -44,13 +45,15 @@ def t_(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dh", [32, 64, 96, 160])
 @pytest.mark.parametrize("nq,nkv", [(128, 128), (64, 256), (1, 512),
                                     (200, 200), (100, 333)])
 def test_plain_flash_matches_pallas_interpret_and_ref(nq, nkv, dh):
     """Causal, query i at position nkv - nq + i: square, decode-like (one
     query over 512 keys), prefill against a longer cache, and lengths that
-    are not multiples of the 128-row tiles (both sides pad)."""
+    are not multiples of the 128-row tiles (both sides pad); at head dims
+    of the kernels (stablelm-12b's 160 among them) and one that is not a
+    multiple of 64 (96)."""
     q, k, v = qkv(nq * 1000 + nkv + dh, 3, nq, nkv, dh)
     scale = dh ** -0.5
     got = flash_attention(*t_(q, k, v), scale=scale)
@@ -77,6 +80,63 @@ def test_non_causal_masks_padded_keys(nq, nkv):
     else:
         close(got, jflash(q, k, v, scale=0.125, causal=False,
                           interpret=True))
+
+
+@pytest.mark.parametrize("dh", [96, 160])
+@pytest.mark.parametrize("nq,nkv", [(128, 256), (100, 333), (77, 40)])
+def test_non_causal_masks_padded_keys_at_wide_heads(nq, nkv, dh):
+    """``test_non_causal_masks_padded_keys`` at Dh 96 and 160: the plain
+    version against ``flash_attention_ref``, and against the Pallas kernel
+    where its wrapper takes the padding."""
+    q, k, v = qkv(nq + nkv + dh, 2, nq, nkv, dh)
+    scale = dh ** -0.5
+    got = flash_attention(*t_(q, k, v), scale=scale, causal=False)
+    assert got.shape == (2, nq, dh)
+    close(got, jref(q, k, v, scale=scale, causal=False))
+    if nkv % min(128, nkv) == 0:
+        close(got, jflash(q, k, v, scale=scale, causal=False,
+                          interpret=True))
+
+
+# what each kernel takes on the card (flash_attention.HEAD_DIMS)
+HEAD_DIM_CASES = [(torch.bfloat16, dh, True) for dh in (8, 32, 96, 160, 192)]
+HEAD_DIM_CASES += [(torch.bfloat16, dh, False) for dh in (4, 12, 200, 256)]
+HEAD_DIM_CASES += [(torch.float32, dh, True) for dh in (32, 64, 128, 160)]
+HEAD_DIM_CASES += [(torch.float32, dh, False) for dh in (48, 96, 192, 256)]
+
+
+@pytest.mark.parametrize("dtype,dh,takes", HEAD_DIM_CASES)
+def test_card_dispatch_by_head_dim(monkeypatch, dtype, dh, takes):
+    """On card operands (``_build.on_cpu`` patched to say so; the launcher
+    replaced by a recorder) a head dim the dtype's kernel takes goes to
+    that kernel, in one launch with Dh as given; any other raises
+    ``ValueError`` naming the head dims taken, with no launch and no
+    fallback to the plain version."""
+    calls = []
+
+    def kernel_function(name, symbol, argtypes):
+        return lambda *args: calls.append((name, args)) or 0
+    monkeypatch.setattr(_build, "on_cpu", lambda *z: False)
+    monkeypatch.setattr(_build, "kernel_function", kernel_function)
+    monkeypatch.setattr(_build, "stream", lambda z: 0)
+    monkeypatch.setattr(flash_kernels_module, "flash_attention_plain",
+                        None)
+    q = torch.zeros((1, 4, 16, dh), dtype=dtype)
+    k = torch.zeros((1, 2, 16, dh), dtype=dtype)
+    ops.reset_launch_counts()
+    if takes:
+        out = flash_attention(q, k, k, scale=0.125)
+        assert out.shape == q.shape
+        [(name, args)] = calls
+        assert name == ("flash_attention_tc" if dtype == torch.bfloat16
+                        else "flash_attention")
+        assert args[9] == dh
+    else:
+        with pytest.raises(ValueError, match="Dh in"):
+            flash_attention(q, k, k, scale=0.125)
+        assert calls == []
+    assert sum(ops.launch_counts().values()) == int(takes)
+    ops.reset_launch_counts()
 
 
 def test_bf16_operands_compute_in_f32():
@@ -176,6 +236,43 @@ def test_kernel_wrappers_hand_the_lm_views_over_in_place(monkeypatch,
     ops.reset_launch_counts()
 
 
+@pytest.mark.parametrize("wrapper,lib", [
+    (flash_attention_f32, "flash_attention"),
+    (flash_attention_tc, "flash_attention_tc")])
+def test_kernel_wrappers_hand_dh160_views_over_in_place(monkeypatch, wrapper,
+                                                        lib):
+    """stablelm-12b's prefill layout at Dh 160: q transposed from (1, S,
+    32, 160), k and v the first rows of a (1, 8, L, 160) cache, handed to
+    each kernel's launcher at their own addresses and strides, no copy."""
+    calls = []
+
+    def kernel_function(name, symbol, argtypes):
+        return lambda *args: calls.append((name, args)) or 0
+
+    def refuse(*a, **kw):
+        raise AssertionError("the wrapper copied an operand")
+
+    dtype = torch.float32 if wrapper is flash_attention_f32 else \
+        torch.bfloat16
+    q = torch.zeros((1, 77, 32, 160), dtype=dtype).transpose(1, 2)
+    cache = torch.zeros((2, 1, 8, 96, 160), dtype=dtype)
+    k, v = cache[0, :, :, :77], cache[1, :, :, :77]
+    monkeypatch.setattr(_build, "kernel_function", kernel_function)
+    monkeypatch.setattr(_build, "stream", lambda z: 0)
+    for name in ("repeat_interleave", "contiguous", "clone"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    out = wrapper(q, k, v, scale=160 ** -0.5)
+    monkeypatch.undo()
+    assert out.shape == (1, 32, 77, 160) and out.dtype == torch.float32
+    [(name, args)] = calls
+    assert name == lib
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[4:10] == (1, 32, 8, 77, 77, 160)
+    assert args[10:19] == (8 * 160, 160, 32 * 160, 8 * 160, 96 * 160, 160,
+                           8 * 160, 96 * 160, 160)
+    ops.reset_launch_counts()
+
+
 def test_ref_matches_reference_ref():
     """The port's oracle against the reference's, causal and not, with
     Nq < Nkv."""
@@ -252,13 +349,15 @@ def emulate_tensor_core_scheme(q, k, v, *, scale, causal, split=True,
 
 @pytest.mark.parametrize("bh,nq,nkv,dh,causal", [
     (3, 200, 200, 64, True), (2, 100, 333, 64, False),
-    (15, 2048, 2048, 64, True)])
+    (15, 2048, 2048, 64, True), (3, 200, 200, 160, True),
+    (2, 100, 333, 160, False), (32, 2048, 2048, 160, True)])
 def test_tensor_core_scheme_holds_the_flash_tolerance(bh, nq, nkv, dh,
                                                       causal):
     """With p split into two bf16 terms, the kernel's scheme stays within
     atol = rtol = 2e-4 of ``flash_attention_ref`` on the same bf16 values,
-    at the card tests' shapes and smollm's 2048-token prefill (the
-    reference is taken one head at a time to bound memory)."""
+    at the card tests' shapes and the 2048-token prefills of smollm-360m
+    (Dh 64) and stablelm-12b (32 heads of Dh 160) (the reference is taken
+    one head at a time to bound memory)."""
     q, k, v = (x.to(torch.bfloat16) for x in t_(*qkv(nq + dh, bh, nq, nkv,
                                                       dh)))
     got = emulate_tensor_core_scheme(q, k, v, scale=dh ** -0.5,

@@ -408,7 +408,8 @@ def test_entry_points_default_to_the_card(cfgs, trees, monkeypatch):
             call()
 
 
-@pytest.mark.parametrize("arch", [ARCH, "hymba-1.5b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", [ARCH, "hymba-1.5b", "mamba2-130m",
+                                  "stablelm-12b", "glm4-9b"])
 def test_serve_main_on_the_cpu(capsys, arch):
     out = serve.main(["--arch", arch, "--reduce", "--device", "cpu",
                       "--requests", "3", "--slots", "2", "--prompt-len", "8",

@@ -190,3 +190,39 @@ def test_ssm_splice_and_pool_storage(arch):
         advance()
         assert addresses() == before
     assert sorted(len(r.out) for r in eng.done) == [4, 4, 4]
+
+
+def test_captures_hold_the_cyclic_collector_off():
+    """``device._collector_held_off``, around every capture: objects that
+    wait in a reference cycle (a failed capture's graph, held by its
+    traceback) are not destroyed during the block, however much it
+    allocates, since a CUDA graph's destructor run during a capture
+    invalidates that capture; the collector is on again after the block,
+    also when the block raises, and then destroys them."""
+    import gc
+    import weakref
+
+    from repro_torch import device
+
+    class Graph:
+        pass
+
+    def dead_cycle():
+        g = Graph()
+        g.self = g
+        return weakref.ref(g)
+
+    assert gc.isenabled()
+    with device._collector_held_off():
+        assert not gc.isenabled()
+        dead = dead_cycle()
+        junk = [[] for _ in range(20 * gc.get_threshold()[0])]
+        assert dead() is not None        # no automatic collection ran
+        del junk
+    assert gc.isenabled()
+    gc.collect()
+    assert dead() is None
+    with pytest.raises(ValueError):
+        with device._collector_held_off():
+            raise ValueError("capture failed")
+    assert gc.isenabled()

@@ -180,7 +180,7 @@ def test_stdp_scheme_on_spikes_is_exact(n, dh):
                                            (100, 100, True), (196, 196, True),
                                            (1, 196, True), (65, 100, False),
                                            (196, 65, False)])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128, 160])
 def test_flash_scheme_holds_the_flash_tolerance(nq, nkv, causal, dh):
     """Within atol = rtol = 2e-4 of the reference's exact softmax
     (``flash_attention_ref``) and the port's, on the kernel's head dims."""
