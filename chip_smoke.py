@@ -15,8 +15,9 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    plane-group layout,
    bf16 flash attention on the tensor cores at smollm-360m's 2048-token
    prefill with its 15 heads over 5 KV heads read in place (and at
-   hymba-1.5b's, 25 heads over 5, glm4-9b's, 32 over 2 at Dh 128, and
-   stablelm-12b's, 32 over 8 at Dh 160), the f32 unpack
+   hymba-1.5b's, 25 heads over 5, glm4-9b's, 32 over 2 at Dh 128,
+   stablelm-12b's, 32 over 8 at Dh 160, and qwen3-moe-30b-a3b's, 32 over
+   4 at Dh 128), the f32 unpack
    dot on the bf16 tensor cores, and the f32 STDP (spikes, then real
    values) and f32 flash attention in split TF32 on the tensor cores, at
    (15, 2048, 64) and at stablelm-12b's prefill layout, Dh 160),
@@ -125,7 +126,18 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    identical, 40 bf16 flash launches a prefill, 320 a pass, profiles),
    its ``init_model`` timed and its peak memory gated to the parameters
    plus 1 GiB, then its f32 prefill gate at 2048 tokens (40 f32 flash
-   launches, views in place, logits within 1e-4 of the plain route).
+   launches, views in place, logits within 1e-4 of the plain route);
+8. drives the MoE family the same way, last: qwen3-moe-30b-a3b at full
+   width and depth (48 layers, d_model 2048, 32 heads over 4 KV heads at
+   Dh 128, QK-norm, 128 experts top-8 of moe_d_ff 768 in every layer,
+   vocab 151936; 30.5B params) in bf16 weights (61.1 GB; its config's f32
+   params, 122 GB, do not fit the card), the router and norms in f32:
+   the three passes (tokens identical, 48 bf16 flash launches a prefill,
+   384 a pass), ``init_model``'s peak gated to the parameters plus 1 GiB,
+   then its f32 prefill gate at 2048 tokens (48 f32 flash launches),
+   reporting the (token, expert) choices each layer dropped past
+   capacity in that prefill, in f32 and in bf16, and the tokens whose
+   experts differ between the flash and plain routes.
 
 Prints the serving stats and profiles as JSON lines, the fitted route
 constants (``route_fit``) and the 2x2 of constants x ``jit``
@@ -181,6 +193,10 @@ SSM_ARCH = "mamba2-130m"
 # 16, QKV bias, half rotary); each f32 gate at 2048 tokens
 DENSE12B_ARCH, DENSE9B_ARCH = "stablelm-12b", "glm4-9b"
 DENSE_GATE_LENS = (2048,)
+# the MoE path at full width and depth, the smollm path's prompts:
+# qwen3-moe-30b-a3b (128 experts top-8, Dh 128, 32 heads over 4) in bf16
+# weights, the only dtype in which it fits one card
+MOE_ARCH, MOE_PARAM_DTYPE = "qwen3-moe-30b-a3b", "bfloat16"
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -748,8 +764,10 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     route. bf16 again at hymba-1.5b's 2048-token prefill (``at_hymba_shape``:
     25 heads over 5 KV heads, group 5), at glm4-9b's (``at_glm4_shape``: 32
     over 2, group 16, Dh 128) and at stablelm-12b's (``at_stablelm_shape``:
-    32 over 8, Dh 160), laid out the same way; f32 again at stablelm-12b's,
-    in that layout too (the gate route hands the kernel those views)."""
+    32 over 8, Dh 160) and at qwen3-moe-30b-a3b's (``at_qwen3moe_shape``:
+    32 over 4, Dh 128), laid out the same way; f32 again at
+    stablelm-12b's, in that layout too (the gate route hands the kernel
+    those views)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -819,6 +837,7 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     tc["at_hymba_shape"] = at(HYBRID_HEADS, HYBRID_KV_HEADS, dh, HYBRID_ARCH)
     tc["at_glm4_shape"] = at(32, 2, 128, DENSE9B_ARCH)
     tc["at_stablelm_shape"] = at(32, 8, 160, DENSE12B_ARCH)
+    tc["at_qwen3moe_shape"] = at(32, 4, 128, MOE_ARCH)
 
     scale = dh ** -0.5
     q3, k3, v3 = (torch.randn((h, s, dh), generator=gen, device=dev)
@@ -2249,8 +2268,13 @@ def describe(cfg) -> str:
     if cfg.family != "ssm":
         parts.append(f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
                      f"head_dim {cfg.head_dim}")
+    if cfg.n_experts:
+        parts.append(f"{cfg.n_experts} experts top-{cfg.top_k} of moe_d_ff "
+                     f"{cfg.moe_d_ff}, capacity factor "
+                     f"{cfg.moe_capacity_factor}")
     if cfg.d_ff:
-        parts.append(f"d_ff {cfg.d_ff}")
+        parts.append(f"d_ff {cfg.d_ff}"
+                     + (" beside the experts" if cfg.dense_parallel else ""))
     for flag, what in ((cfg.qk_norm, "QK-norm"), (cfg.qkv_bias, "QKV bias"),
                        (cfg.rotary_frac < 1, f"rotary fraction "
                                              f"{cfg.rotary_frac}"),
@@ -2267,12 +2291,16 @@ def describe(cfg) -> str:
     parts.append(f"vocab {cfg.vocab}")
     if cfg.tie_embeddings:
         parts.append("tied embeddings")
+    params = {"float32": "f32", "bfloat16": "bf16"}[cfg.param_dtype]
+    params += " params" + (" (router and norms f32)" if cfg.n_experts
+                           and cfg.param_dtype != "float32" else "")
     return (f"{cfg.name} [{cfg.family}]: {', '.join(parts)}; seeded "
-            "init_model, f32 params, bf16 compute and cache")
+            f"init_model, {params}, bf16 compute and cache")
 
 
 def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
-                   lengths=LM_PROMPTS) -> tuple:
+                   lengths=LM_PROMPTS, param_dtype: str | None = None
+                   ) -> tuple:
     """An LM path at full width from a seeded ``init_model``, served by
     ``Engine(slots=4, cache_len=4096)`` in bf16 in three passes of the
     same 8 requests (``lengths`` tokens, 32 new tokens each) over the same
@@ -2287,14 +2315,17 @@ def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
     seeded with SEED (the engines' own default), drawn first: its time
     (``init_s``) and peak allocated memory above what was allocated
     before (``init_peak_mib``, gated to the parameters' bytes plus 1 GiB:
-    each layer is drawn into the stacked leaves). Returns the report and
-    the graphed engine."""
+    each layer is drawn into the stacked leaves). ``param_dtype`` replaces
+    the config's (qwen3-moe's bf16 weights). Returns the report and the
+    graphed engine."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, Request
     from repro_torch.nn import transformer as T
     from repro_torch.nn.module import param_bytes, param_count
 
     cfg = get_config(arch)
+    if param_dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
     prompts = lm_prompts(cfg.vocab, lengths)
     profiled = prompts[lengths.index(PROFILE_LEN)]
 
@@ -2412,6 +2443,52 @@ def operand_addresses(ops, build):
         ops.flash_attention, build.kernel_function = entry, kernel_function
 
 
+def bf16_dropped(torch, cfg, params, tokens, n: int) -> list:
+    """The (token, expert) choices each MoE layer drops past capacity in
+    one eager bf16 prefill of ``tokens`` (n of them), as the engine serves
+    it."""
+    from repro_torch.nn import moe
+    from repro_torch.nn import transformer as T
+
+    cache = T.init_cache(cfg, 1, n, dtype=torch.bfloat16,
+                         device=tokens.device)
+    with recorded_routing(moe) as routes:
+        T.model_apply(params, {"tokens": tokens, "cache_pos": 0}, cfg,
+                      mode="prefill", cache=cache,
+                      compute_dtype=torch.bfloat16)
+    return [int(r.dropped()) for r in routes]
+
+
+@contextlib.contextmanager
+def recorded_routing(moe):
+    """Every ``moe.route`` call's ``Routing`` in call order (one an MoE
+    layer), kept while the block runs."""
+    seen, route = [], moe.route
+    moe.route = lambda *a: seen.append(route(*a)) or seen[-1]
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def routing_report(torch, flash_routes, plain_routes) -> dict:
+    """An MoE prefill's routing on the flash and plain routes: the (token,
+    expert) choices each layer dropped past capacity, and the tokens of
+    each layer whose chosen experts differ between the routes."""
+    def expert_sets(r):
+        return torch.sort(r.idx, dim=-1).values
+    dropped = [int(r.dropped()) for r in flash_routes]
+    flips = [int((expert_sets(a) != expert_sets(b)).any(-1).sum())
+             for a, b in zip(flash_routes, plain_routes)]
+    r = flash_routes[0]
+    return dict(choices_per_layer=r.idx.numel(),
+                slots_per_layer=r.valid.numel(),
+                dropped_by_layer=dropped, dropped_total=sum(dropped),
+                dropped_plain_total=sum(int(p.dropped())
+                                        for p in plain_routes),
+                routing_flips_by_layer=flips, routing_flips=sum(flips))
+
+
 def lm_gate_phase(torch, dev, eng, lengths=(LM_GATE_LEN,),
                   prompt_lengths=LM_PROMPTS, greedy: bool = True) -> dict:
     """For each of ``lengths``, one f32 prefill of that prompt (of the
@@ -2423,9 +2500,12 @@ def lm_gate_phase(torch, dev, eng, lengths=(LM_GATE_LEN,),
     launch a layer whose window cuts no key (``flash_per_prefill``), each
     handed the layer's q, k, v views at their own addresses. With
     ``greedy``, then 8 greedy tokens of both routes in f32 and in bf16 for
-    the first length, printed; the bf16 tokens are not gated."""
+    the first length, printed; the bf16 tokens are not gated. An MoE
+    config also reports each prefill's routing (``routing_report``) and
+    the choices one bf16 prefill, as served, dropped past capacity."""
     from repro_torch.kernels import _build, ops
     from repro_torch.launch.serve import Engine, Request
+    from repro_torch.nn import moe
     from repro_torch.nn import transformer as T
 
     cfg, params = eng.cfg, eng.params
@@ -2433,11 +2513,12 @@ def lm_gate_phase(torch, dev, eng, lengths=(LM_GATE_LEN,),
     by_length, total = {}, {}
     for n in lengths:
         tokens = torch.tensor([prompts[prompt_lengths.index(n)]], device=dev)
-        logits = {}
+        logits, routes = {}, {}
         for flash in (True, False):
             cache = T.init_cache(cfg, 1, n, dtype=torch.float32, device=dev)
             ops.reset_launch_counts()
-            with operand_addresses(ops, _build) as addresses:
+            with operand_addresses(ops, _build) as addresses, \
+                    recorded_routing(moe) as routes[flash]:
                 logits[flash], _, _ = T.model_apply(
                     params, {"tokens": tokens, "cache_pos": 0}, cfg,
                     mode="prefill", cache=cache, compute_dtype=torch.float32,
@@ -2461,17 +2542,24 @@ def lm_gate_phase(torch, dev, eng, lengths=(LM_GATE_LEN,),
         check(got.shape == (1, 1, cfg.padded_vocab)
               and bool(torch.isfinite(got).all()),
               f"LM prefill logits: shape {tuple(got.shape)} or non-finite")
+        routing = (routing_report(torch, routes[True], routes[False])
+                   if cfg.n_experts else None)
         err = max_abs_err(got, want)
         check(bool(((got - want).abs() <= LM_LOGITS_TOL
                     + LM_LOGITS_TOL * want.abs()).all()),
               f"{cfg.name} f32 prefill logits at {n}, flash route against "
-              f"plain: off by {err}")
+              f"plain: off by {err}"
+              + (f"; routing {routing}" if routing else ""))
         by_length[n] = dict(launches=launches, max_abs_err=err,
                             operands_in_place=in_place,
                             logits_absmax=float(want.abs().max()))
+        if routing:
+            by_length[n]["routing"] = routing
+            by_length[n]["bf16_dropped_by_layer"] = bf16_dropped(
+                torch, cfg, params, tokens, n)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        del logits, got, want
+        del logits, got, want, routes
         torch.cuda.empty_cache()
     out = dict(prompt_lens=list(lengths), launches=total,
                max_abs_err=max(r["max_abs_err"] for r in by_length.values()),
@@ -2824,7 +2912,8 @@ EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
               "ms_fc1_f32", "bound_ms_fc1_f32", "library_ms_fc1_f32",
               "ms_conv0_int16", "ms_conv0_f32", "ms_packed_default_f32",
-              "at_hymba_shape", "at_glm4_shape", "at_stablelm_shape")
+              "at_hymba_shape", "at_glm4_shape", "at_stablelm_shape",
+              "at_qwen3moe_shape")
 
 
 def kernel_table(report: dict, paths) -> list:
@@ -2890,7 +2979,8 @@ def main() -> int:
              "events_full_width", "packed_default_f32", "lm_serve",
              "lm_gate", "lm_hybrid_serve", "lm_hybrid_gate", "lm_ssm_serve",
              "spikformer_train", "examples", "lm_dense12b_serve",
-             "lm_dense12b_gate", "lm_dense9b_serve", "lm_dense9b_gate")
+             "lm_dense12b_gate", "lm_dense9b_serve", "lm_dense9b_gate",
+             "lm_moe_serve", "lm_moe_gate")
     phase_s = report["phase_s"] = {}     # wall seconds, build excluded
     t_phase = [time.perf_counter()]
 
@@ -2973,15 +3063,17 @@ def main() -> int:
         report[paths[14]] = examples_phase(torch, dev, report)
         timed(paths[14])
         torch.cuda.empty_cache()
-        # the two large dense paths last, so that every earlier phase runs
-        # as it did without them; one large model alive at a time: each
-        # engine (and its weights) is freed before the next path draws
-        # its own
-        for i, (arch, shape) in enumerate(((DENSE12B_ARCH,
-                                            "at_stablelm_shape"),
-                                           (DENSE9B_ARCH, "at_glm4_shape"))):
+        # the two large dense paths and the MoE path last, so that every
+        # earlier phase runs as it did without them; one large model alive
+        # at a time: each engine (and its weights) is freed before the
+        # next path draws its own
+        for i, (arch, shape, dtype) in enumerate((
+                (DENSE12B_ARCH, "at_stablelm_shape", None),
+                (DENSE9B_ARCH, "at_glm4_shape", None),
+                (MOE_ARCH, "at_qwen3moe_shape", MOE_PARAM_DTYPE))):
             serve_path, gate_path = paths[15 + 2 * i], paths[16 + 2 * i]
-            report[serve_path], lm_engine = lm_serve_phase(torch, dev, arch)
+            report[serve_path], lm_engine = lm_serve_phase(
+                torch, dev, arch, param_dtype=dtype)
             report["kernels"]["flash_attention_tc"][shape]["ms_in_graph"] = \
                 graphed_flash_ms(
                     report[serve_path][f"profile_prefill_{PROFILE_LEN}"])
@@ -3044,7 +3136,7 @@ def main() -> int:
         "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                         for k in f32["profile"]["by_kernel"][:8]]}))
     for path in ("lm_serve", "lm_hybrid_serve", "lm_ssm_serve",
-                 "lm_dense12b_serve", "lm_dense9b_serve"):
+                 "lm_dense12b_serve", "lm_dense9b_serve", "lm_moe_serve"):
         lm = report[path]
         for name in ("eager", "cold", "warm"):
             run = lm["passes"][name]
@@ -3070,7 +3162,8 @@ def main() -> int:
                 "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                                 for k in prof["by_kernel"][:8]]}))
     print(json.dumps({"lm_gate": report["lm_gate"]}))
-    for gate in ("lm_hybrid_gate", "lm_dense12b_gate", "lm_dense9b_gate"):
+    for gate in ("lm_hybrid_gate", "lm_dense12b_gate", "lm_dense9b_gate",
+                 "lm_moe_gate"):
         print(json.dumps({gate: report[gate]}))
     print(json.dumps({"spikformer_train": report["spikformer_train"]}))
     ex = report["examples"]

@@ -16,7 +16,12 @@ prefill as one graph per prompt length. ``jit=False`` runs them eagerly.
         [--slots 4 --requests 8 --prompt-len 32 --max-new 16]
 
 ``--arch`` takes each ported config: smollm-360m, stablelm-12b, glm4-9b,
-hymba-1.5b, mamba2-130m.
+hymba-1.5b, mamba2-130m, and the MoE configs qwen3-moe-30b-a3b and
+arctic-480b with ``--reduce`` only. Their full widths do not fit one
+card: qwen3-moe's f32 params (its config's ``param_dtype``) take 122 GB
+of the card's 80 (in bf16 weights, 61 GB, it is served by
+``chip_smoke.py``, which replaces the config's ``param_dtype``), and
+arctic's 477B params take 954 GB even in its bf16.
 
 Runs on the card unless ``--device cpu`` is given.
 """

@@ -30,14 +30,31 @@ class KeyStream:
         return torch.Generator(device=dev).manual_seed(seed)
 
 
+# f32 bytes a non-f32 leaf is drawn in at a time
+SLAB_BYTES = 64 << 20
+
+
+def _draw(gen, shape) -> torch.Tensor:
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+
+
 def trunc_normal(gen: torch.Generator, shape, std: float = 0.02,
                  dtype=torch.float32) -> torch.Tensor:
     """Normal truncated at +-2 standard deviations, times ``std``, drawn in
-    f32 on ``gen``'s device (scaled in place: no second copy of a large
-    f32 table)."""
-    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return x.mul_(std) if dtype == torch.float32 else x.to(dtype) * std
+    f32 on ``gen``'s device. An f32 leaf is scaled in place (no second
+    copy of a large table); any other dtype is drawn in slabs along the
+    first axis of at most ``SLAB_BYTES`` of f32, each cast and scaled into
+    its rows of the leaf, so a large bf16 leaf (128 experts' (2048, 768)
+    kernels: 0.4 GB) never has an f32 copy beside it."""
+    if dtype == torch.float32:
+        return _draw(gen, shape).mul_(std)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, SLAB_BYTES // (4 * math.prod(shape[1:])))
+    for i in range(0, shape[0], rows):
+        part = out[i:i + rows]
+        torch.mul(_draw(gen, part.shape).to(dtype), std, out=part)
+    return out
 
 
 def lecun_normal(gen: torch.Generator, shape, fan_in: int | None = None,

@@ -1,5 +1,5 @@
 """The LM backbone assembled from an ArchConfig (port of
-``repro.nn.transformer``: the dense, SSM and hybrid families).
+``repro.nn.transformer``: the dense, MoE, SSM and hybrid families).
 
 Layer parameters are stacked as in the reference: every leaf of
 ``params["layers"]`` carries a leading (L, ...) axis, and layer i runs on
@@ -8,8 +8,10 @@ the views ``[i]``. The cache follows the reference's layout rule: stacked
 per-layer dicts where not (Hymba, whose three global layers hold
 full-length KV caches and whose windowed layers hold rings). The layers
 run in a Python loop either way, with per-layer flags as Python bools.
-The MoE, encoder-decoder and VLM families are not ported yet and raise
-``NotImplementedError``.
+An MoE layer's FFN is ``nn.moe.moe_apply`` (plus the dense MLP beside it
+where ``cfg.dense_parallel``); its aux losses, averaged over the layers,
+are ``model_apply``'s third result. The encoder-decoder and VLM families
+are not ported yet and raise ``NotImplementedError``.
 
 Modes:
   train   — the full-sequence forward (logits of every position).
@@ -25,14 +27,14 @@ from .layers import (embed, embedding_init, gelu, layernorm, layernorm_init,
                      linear, linear_init, rmsnorm, rmsnorm_init, swiglu,
                      unembed)
 from .module import KeyStream
+from .moe import moe_apply, moe_init
 from .ssm import init_ssm_state, ssm_apply, ssm_init
 from ..device import resolve_device
 
 # what each family still waits for, by reference module
-_NOT_PORTED = {"moe": "repro.nn.moe", "encdec": "repro.nn.transformer "
-               "(encoder, cross-attention)", "vlm": "repro.nn.layers "
-               "(apply_mrope)"}
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+_NOT_PORTED = {"encdec": "repro.nn.transformer (encoder, cross-attention)",
+               "vlm": "repro.nn.layers (apply_mrope)"}
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(cfg) -> None:
@@ -104,7 +106,11 @@ def layer_init(gen, cfg, dtype=torch.float32):
         p["ssm_out_norm"] = _norm_init(cfg, dev)
     if cfg.family != "ssm":
         p["ln2"] = _norm_init(cfg, dev)
-        if cfg.d_ff > 0:
+        if cfg.n_experts > 0:
+            p["moe"] = moe_init(ks(), cfg, dtype)
+            if cfg.dense_parallel:
+                p["mlp"] = mlp_init(ks(), cfg, dtype)
+        elif cfg.d_ff > 0:
             p["mlp"] = mlp_init(ks(), cfg, dtype)
     return p
 
@@ -129,7 +135,8 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
                 flash: bool = True):
     """Returns (x, cache, aux); ``cache`` is this layer's dict or None,
     written in place. ``is_global``: the layer's flag (Python bool) where
-    the config has a sliding window."""
+    the config has a sliding window. ``aux`` holds an MoE layer's losses,
+    else it is empty."""
     h = _norm(cfg, p["ln1"], x)
     if cfg.family == "ssm":
         return x + _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype), \
@@ -145,10 +152,17 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
         mixer_out = 0.5 * (_norm(cfg, p["attn_out_norm"], mixer_out)
                            + _norm(cfg, p["ssm_out_norm"], s_out))
     x = x + mixer_out
-    if cfg.d_ff > 0:
+    aux = {}
+    if cfg.n_experts > 0:
+        h2 = _norm(cfg, p["ln2"], x)
+        y, aux = moe_apply(p["moe"], h2, cfg, compute_dtype=compute_dtype)
+        if cfg.dense_parallel:
+            y = y + mlp_apply(p["mlp"], h2, cfg, compute_dtype=compute_dtype)
+        x = x + y
+    elif cfg.d_ff > 0:
         x = x + mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg,
                           compute_dtype=compute_dtype)
-    return x, cache, {}
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +260,11 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
                 compute_dtype=None, flash: bool = True):
     """Returns (logits, new_cache, aux). ``batch["tokens"]`` is (B, S);
     ``batch["cache_pos"]`` an int, a 0-d or a (B,) tensor (default 0).
-    The cache is written in place and returned. ``flash=False`` runs the
-    plain attention everywhere (the reference's jnp schedule)."""
+    The cache is written in place and returned. ``aux`` is each of the
+    layers' aux losses averaged over the layers (an MoE model's
+    ``load_balance`` and ``router_z``; empty for the other families).
+    ``flash=False`` runs the plain attention everywhere (the reference's
+    jnp schedule)."""
     require_ported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -261,13 +278,15 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
     positions = (base + torch.arange(s, device=tokens.device)).expand(b, s)
 
     flags = layer_flags(cfg)
+    auxes = []
     for i in range(cfg.n_layers):
-        x, _, _ = layer_apply(
+        x, _, aux = layer_apply(
             _index(params["layers"], i), x, cfg, positions=positions,
             cache=None if cache is None else layer_cache(cache, i),
             cache_pos=cache_pos,
             is_global=None if flags is None else flags["is_global"][i],
             compute_dtype=compute_dtype, flash=flash)
+        auxes.append(aux)
 
     x = _norm(cfg, params["final_norm"], x)
     if mode in ("prefill", "decode"):
@@ -276,7 +295,8 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
         logits = unembed(params["embed"], x)
     else:
         logits = linear(params["head"], x, compute_dtype=torch.float32)
-    return logits, cache, {}
+    aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+    return logits, cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,11 @@ def from_reference(tree, device="cpu"):
         return {k: from_reference(v, device) for k, v in tree.items()}
     if isinstance(tree, bool):          # a planner flag, not a weight
         return tree
-    return torch.from_numpy(np.array(tree)).to(device)
+    x = np.array(tree)
+    if x.dtype.name == "bfloat16":      # numpy holds it as ml_dtypes'
+        return torch.from_numpy(x.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(x).to(device)
 
 
 def lm_from_reference(tree, cfg, device=None):
@@ -31,7 +35,9 @@ def lm_from_reference(tree, cfg, device=None):
     the same in both packages (stacked (L, ...) layers, the SSM and hybrid
     families' too), so this checks the shapes the config implies (the
     norms' scales and biases, the QKV biases and QK-norm scales where the
-    config has them) and copies the leaves, dtypes kept."""
+    config has them, an MoE layer's router, f32, and experts, and the
+    dense MLP beside them where ``cfg.dense_parallel``) and copies the
+    leaves, dtypes kept."""
     require_ported(cfg)
     device = resolve_device(device)
     n_layers, d = cfg.n_layers, cfg.d_model
@@ -58,6 +64,18 @@ def lm_from_reference(tree, cfg, device=None):
         want["layers/ssm/in_proj"] = (n_layers, d,
                                       2 * d_inner + 2 * gn + heads)
         want["layers/ssm/conv_w"] = (n_layers, cfg.ssm_conv, conv_dim)
+    if cfg.n_experts:
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        want["layers/moe/router"] = (n_layers, d, e)
+        want["layers/moe/w_gate"] = (n_layers, e, d, f)
+        want["layers/moe/w_up"] = (n_layers, e, d, f)
+        want["layers/moe/w_down"] = (n_layers, e, f, d)
+        if cfg.dense_parallel:
+            names = ("gate", "up", "down") if cfg.act == "swiglu" \
+                else ("up", "down")
+            for name in names:
+                shape = (cfg.d_ff, d) if name == "down" else (d, cfg.d_ff)
+                want[f"layers/mlp/{name}/kernel"] = (n_layers,) + shape
     for path, shape in want.items():
         leaf = tree
         for key in path.split("/"):
@@ -68,4 +86,9 @@ def lm_from_reference(tree, cfg, device=None):
         if tuple(np.shape(leaf)) != shape:
             raise ValueError(f"{path} is {tuple(np.shape(leaf))}, the config "
                              f"{cfg.name} needs {shape}")
+    if cfg.n_experts:
+        router = np.asarray(tree["layers"]["moe"]["router"])
+        if router.dtype != np.float32:
+            raise ValueError(f"layers/moe/router is {router.dtype}, the "
+                             "router is kept f32 whatever the param dtype")
     return from_reference(tree, device)

@@ -615,11 +615,13 @@ def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("hq,kvh,dh", [(32, 8, 160), (32, 2, 128)],
-                         ids=["stablelm-12b", "glm4-9b"])
+@pytest.mark.parametrize("hq,kvh,dh", [(32, 8, 160), (32, 2, 128),
+                                      (32, 4, 128)],
+                         ids=["stablelm-12b", "glm4-9b", "qwen3-moe-30b-a3b"])
 def test_flash_kernel_at_the_dense_prefills(cuda, dtype, hq, kvh, dh):
     """Kernel 7 at the 2048-token prefills of stablelm-12b (32 heads over 8
-    KV heads, Dh 160) and glm4-9b (32 over 2, Dh 128, group 16), laid out
+    KV heads, Dh 160), glm4-9b (32 over 2, Dh 128, group 16) and
+    qwen3-moe-30b-a3b (32 over 4, Dh 128), laid out
     as the LM path hands them over (q transposed from (1, S, Hq, Dh), k and
     v the first S rows of a (1, KV, 2S, Dh) cache), causal: within 2e-4 of
     the plain version and of SDPA in f32 on the same values (KV
@@ -839,6 +841,112 @@ def test_init_model_peak_is_the_params_and_one_layer(cuda):
     again = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
     assert all(torch.equal(x, y)
                for x, y in zip(leaves(params), leaves(again)))
+
+
+def test_bf16_init_model_whose_layer_outweighs_its_head(cuda):
+    """qwen3-moe-30b-a3b at full width in bf16 weights, cut to 2 layers:
+    a layer (1.25 GB, 1.21 of it three (128, 2048, 768)-sized expert
+    leaves) outweighs the head drawn after it (0.62 GB), so the peak is
+    the stack, the embedding and one layer's tree. Each bf16 leaf is drawn
+    in f32 slabs of ``SLAB_BYTES`` into the leaf: the peak stays within
+    the parameters' bytes plus 1 GiB (drawing a whole expert leaf in f32,
+    casting, then scaling into a third tensor would add 1.2 GB), the
+    router and norms are f32, and the same seed gives the same bits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import leaves, param_bytes
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=2,
+                              param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    layer = param_bytes(params["layers"]) // cfg.n_layers
+    assert layer > param_bytes(params["head"]) + 2 ** 29
+    assert peak <= param_bytes(params) + 2 ** 30, (peak, param_bytes(params))
+    moe = params["layers"]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert moe["w_gate"].dtype == torch.bfloat16
+    assert params["layers"]["ln1"]["scale"].dtype == torch.float32
+    assert 0 < float(moe["w_down"].float().std()) < 0.05
+    again = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    assert all(torch.equal(x, y)
+               for x, y in zip(leaves(params), leaves(again)))
+
+
+def test_moe_layer_on_the_card_routes_as_the_cpu(cuda):
+    """One qwen3-moe layer at full width (128 experts top-8 of moe_d_ff
+    768, d_model 2048) in bf16 weights, on bf16 inputs of 2 rows x 256
+    tokens (capacity 21 slots an expert, so tokens are dropped): on the
+    card and on the port's CPU route, the routing is equal (each token's
+    experts, the slot table, the empty slots: the router product runs in
+    f32 without TF32 even where the caller allowed TF32) and the gates
+    within 1e-6; the output within atol = rtol = 2e-2 (the experts'
+    products rounded to bf16 in other orders) and the aux losses within
+    1e-4. The CPU's routing is the reference's (``test_torch_moe.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import moe
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    p = moe.moe_init(gen(cuda, 0), cfg, dtype=torch.bfloat16)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen(cuda, 1),
+                    device=cuda).to(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        r = moe.route(p, x, cfg)
+        y, aux = moe.moe_apply(p, x, cfg)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    pc = {k: v.cpu() for k, v in p.items()}
+    want = moe.route(pc, x.cpu(), cfg)
+    for name in ("idx", "tok", "valid"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(want, name)), name
+    torch.testing.assert_close(r.gate.cpu(), want.gate, rtol=0, atol=1e-6)
+    assert int(want.dropped()) > 0
+    y_cpu, aux_cpu = moe.moe_apply(pc, x.cpu(), cfg)
+    torch.testing.assert_close(y.cpu().float(), y_cpu.float(), rtol=2e-2,
+                               atol=2e-2)
+    for k in aux_cpu:
+        torch.testing.assert_close(aux[k].cpu(), aux_cpu[k], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_moe_graphed_engine_serves_the_eager_tokens(cuda):
+    """Reduced qwen3-moe with drops (16 experts top-8, capacity factor 1)
+    in bf16, two slots, prompts of 5, 77, 5 and 130 tokens: the graphed
+    engine's greedy tokens and caches equal the eager engine's bit for bit
+    (each captured decode step replayed against the eager one: routing,
+    slot table and the ordered bf16 combine are deterministic on the
+    card), and captured launches x replays equal the eager counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+
+    cfg = get_config("qwen3-moe-30b-a3b").reduced(
+        n_experts=16, top_k=8, moe_capacity_factor=1.0)
+    graphed = Engine(cfg, slots=2, cache_len=136, seed=3, device=cuda)
+    eager = Engine(cfg, slots=2, cache_len=136, params=graphed.params,
+                   device=cuda, jit=False)
+    prompts = [lm_prompt(cfg, n, i) for i, n in enumerate((5, 77, 5, 130))]
+    ops.reset_launch_counts()
+    want = serve_lm(eager, prompts, 10)
+    eager_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert eager_counts == {"flash_attention_tc": 4 * cfg.n_layers}
+    assert serve_lm(graphed, prompts, 10) == want          # captures
+    graphed.reset_graph_launch_counts()
+    ops.reset_launch_counts()
+    assert serve_lm(graphed, prompts, 10) == want          # replays only
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert graphed.graph_launch_counts() == eager_counts
+    same_caches(graphed, eager, "after serving")
 
 
 # ---------------------------------------------------------------------------
