@@ -113,9 +113,10 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    defaults (loss falls, accuracy above chance, ``packed`` logits equal to
    ``reference``'s);
 6. runs ``examples/torch_quickstart.py`` (launching the f32 STDP, the f32
-   unpack dot, the shift-sum and TFLIF kernels) and short forms of the
-   three serving examples, and prints the analytic engine model's frames
-   per second beside the card's served rate;
+   unpack dot, the shift-sum and TFLIF kernels), short forms of the
+   three serving examples and ``examples/torch_train_lm_100m.py`` for 4
+   steps, and prints the analytic engine model's frames per second beside
+   the card's served rate;
 7. drives the dense family's two large one-card configs at full width and
    depth, one at a time (each engine and its weights freed before the
    next): stablelm-12b (40 layers, d_model 5120, 32 heads over 8 KV heads
@@ -137,7 +138,20 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    then its f32 prefill gate at 2048 tokens (48 f32 flash launches),
    reporting the (token, expert) choices each layer dropped past
    capacity in that prefill, in f32 and in bf16, and the tokens whose
-   experts differ between the flash and plain routes.
+   experts differ between the flash and plain routes;
+9. trains smollm-360m at full width and depth through the port's
+   ``launch.train.main`` (global batch 8 of 2048 tokens in microbatches of
+   4, remat, 6 AdamW steps, a checkpoint every 3 steps), uninterrupted
+   and again with a failure injected at step 4, the counters at 0 before
+   and read after: finite losses and gradient norms, the loss falls,
+   ``wq``/``wk``/``wv`` gradients nonzero in layers 0 and 31, the first
+   update past weight decay alone in every (leaf, layer), no launch of
+   kernel 7 (training runs the plain attention), the failed run restores
+   the tree it saved bit for bit and then logs the uninterrupted run's
+   losses within 1e-4, no ``.tmp`` left and at most 3 commits; reports ms
+   a step, tokens/s, peak memory, the checkpoint seconds and a profiled
+   step; then each ported family's reduced train step on the card against
+   the CPU (f32 compute: loss, every gradient leaf, the updated params).
 
 Prints the serving stats and profiles as JSON lines, the fitted route
 constants (``route_fit``) and the 2x2 of constants x ``jit``
@@ -2855,6 +2869,33 @@ def spikformer_train_phase(torch, dev) -> dict:
     return out
 
 
+def train_lm_100m_example(torch) -> dict:
+    """``examples/torch_train_lm_100m.py`` for 4 steps (its ``lm-100m``:
+    16 layers, d_model 768, its own batch 8 of 256 tokens, microbatches
+    of 4), checkpointing into a directory under ``build/``: it completes
+    with finite losses and launches no kernel (training runs the plain
+    attention)."""
+    import io
+    import math
+    import tempfile
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck, \
+            contextlib.redirect_stdout(out):
+        log = load_example("torch_train_lm_100m").main(
+            ["--steps", "4", "--ckpt-dir", ck])
+    got = {"log": log, "wall_s": time.perf_counter() - t0,
+           "result": json.loads(out.getvalue().splitlines()[-1])["result"],
+           "launches": {k: v for k, v in ops.launch_counts().items() if v}}
+    check(got["result"] == {"restarts": 0, "completed": True}
+          and log and all(math.isfinite(r["loss"]) for r in log)
+          and not got["launches"], f"train_lm_100m: {got}")
+    return got
+
+
 def examples_phase(torch, dev, report: dict) -> dict:
     """The port's quickstart on the card, then short forms of the serving
     examples, the launch counts set to 0 just before and read just after
@@ -2893,6 +2934,7 @@ def examples_phase(torch, dev, report: dict) -> dict:
     serving = example_launches(torch, models + [lm["engine"]])
     for k, v in serving.items():
         launches[k] = launches.get(k, 0) + v
+    out["train_lm_100m"] = train_lm_100m_example(torch)
     out.update({"serve_under_load": load,
                 "serve_events": {k: events[k] for k in ("stream", "encoding",
                                                         "session", "replay")},
@@ -2905,6 +2947,352 @@ def examples_phase(torch, dev, report: dict) -> dict:
             engine_model.frames_per_second(calibrated=True),
         "card_int8_default_closed_loop_fps": served.get("fps")}
     return out
+
+
+LM_TRAIN_ARCH = "smollm-360m"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 2048       # smollm's context
+LM_TRAIN_STEPS = 6
+LM_TRAIN_CKPT_EVERY = 3
+LM_TRAIN_FAIL_AT = 4
+LM_TRAIN_KEEP = 3                            # the Checkpointer's default
+LM_TRAIN_ARGS = ("--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
+                 "--global-batch", str(LM_TRAIN_BATCH),
+                 "--seq", str(LM_TRAIN_SEQ), "--microbatch", "4",
+                 "--lr", "3e-4", "--warmup", "2",
+                 "--ckpt-every", str(LM_TRAIN_CKPT_EVERY),
+                 "--log-every", "1", "--seed", str(SEED))
+LM_TRAIN_RESTORE_RTOL = 1e-4   # losses after the restore vs uninterrupted
+# the reduced step of each ported family, card against CPU (arch,
+# reduced() overrides); the bars are TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL and
+# TRAIN_PARAM_TOL
+LM_TRAIN_FAMILIES = (("smollm-360m", {}), ("qwen3-moe-30b-a3b", {}),
+                     ("mamba2-130m", {}), ("hymba-1.5b", {"n_layers": 3}))
+FLASH_KERNELS = ("flash_attention_tc", "flash_attention_f32")
+
+
+def lm_grads(torch, params, batch, cfg):
+    """(loss, {path: gradient}) of ``lm_loss`` (the plain attention) by
+    autograd, every leaf's gradient (zeros where unused)."""
+    from repro_torch.nn import module
+    from repro_torch.nn import transformer as T
+    leaves = {p: t.detach().requires_grad_()
+              for p, t in module.tree_paths(params)}
+    loss, _ = T.lm_loss(module.map_with_path(lambda p, _: leaves[p], params),
+                        batch, cfg, flash=False)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return float(loss.detach()), {
+        p: torch.zeros_like(t) if g is None else g
+        for (p, t), g in zip(leaves.items(), grads)}
+
+
+def train_lm_reduced_against_cpu(torch, dev) -> dict:
+    """Each ported family's reduced config in f32 compute, from one seeded
+    CPU ``init_model`` and one ``synthetic_lm_batch``, on the card against
+    the CPU: ``lm_loss`` and every gradient leaf, then one
+    ``make_train_step`` (two microbatches of 2, AdamW): loss within
+    TRAIN_LOSS_RTOL, each gradient leaf within TRAIN_GRAD_TOL of its
+    largest |g|, the updated params within TRAIN_PARAM_TOL (rtol and
+    atol), and the step's loss as the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batch
+    from repro_torch.infer.compile import to_device
+    from repro_torch.launch import steps
+    from repro_torch.nn import module
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adamw
+    out = {}
+    for arch, kw in LM_TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch).reduced(**kw),
+                                  compute_dtype="float32")
+        params = T.init_model(torch.Generator().manual_seed(SEED), cfg,
+                              device="cpu")
+        raw = synthetic_lm_batch(DataConfig(seq=64, global_batch=4,
+                                            vocab=cfg.padded_vocab,
+                                            seed=SEED), 0)
+        ts = steps.TrainSettings(microbatch=2, opt=adamw.OptConfig(
+            peak_lr=3e-4, warmup_steps=1, decay_steps=4))
+        runs = {}
+        for where in ("cpu", "cuda"):
+            d = torch.device(where)
+            p = to_device(params, d)
+            batch = {k: torch.from_numpy(v).to(d) for k, v in raw.items()}
+            loss, grads = lm_grads(torch, p, batch, cfg)
+            new, _, m = steps.make_train_step(cfg, ts)(
+                p, adamw.init(p, steps.opt_config(cfg, ts)), batch)
+            runs[where] = (loss, float(m["loss"]),
+                           {k: g.cpu() for k, g in grads.items()},
+                           {k: v.cpu() for k, v in module.tree_paths(new)})
+        (l0, s0, g0, p0), (l1, s1, g1, p1) = runs["cpu"], runs["cuda"]
+        worst = 0.0
+        for k, want in g0.items():
+            scale = float(want.abs().max())
+            err = float((g1[k] - want).abs().max())
+            worst = max(worst, err / scale if scale > 0 else err)
+        misses = {k: int(((p1[k] - w).abs() > TRAIN_PARAM_TOL
+                          + TRAIN_PARAM_TOL * w.abs()).sum())
+                  for k, w in p0.items()}
+        row = {"loss_cpu": l0, "loss_card": l1,
+               "loss_rel_err": abs(l1 - l0) / abs(l0),
+               "step_loss_rel_err": abs(s1 - s0) / abs(s0),
+               "grad_err_of_leaf_max": worst, "leaves": len(g0),
+               "updated_param_misses": {k: v for k, v in misses.items()
+                                        if v}}
+        out[arch] = row
+        check(row["loss_rel_err"] <= TRAIN_LOSS_RTOL
+              and row["step_loss_rel_err"] <= TRAIN_LOSS_RTOL,
+              f"{arch}: reduced LM loss, card vs CPU: {row}")
+        check(worst <= TRAIN_GRAD_TOL,
+              f"{arch}: reduced LM gradients, card vs CPU: {row}")
+        check(not row["updated_param_misses"],
+              f"{arch}: reduced LM updated params, card vs CPU: {row}")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_training(torch, rec: dict):
+    """While the block runs, ``launch.train`` builds its checkpointer, its
+    train step and its AdamW update through recording wrappers (the real
+    ones put back after):
+      - each step's device-synced ms and its exact loss, gradient norm
+        and learning rate (``rec["steps"]``);
+      - the gradient norms of ``wq``, ``wk``, ``wv`` in the first and the
+        last layer at every step (``rec["attn_grad_norms"]``);
+      - at the first update, each (leaf, layer) whose update equals the
+        update of zero gradients from the same state, i.e. what weight
+        decay alone does (``rec["not_past_decay"]``);
+      - each save's seconds (the call: the host copy, and the write too
+        with ``block``) and each wait on a write in flight; at
+        ``rec["snapshot_at"]`` a device copy of
+        the saved tree, held against what ``restore`` returns
+        (``rec["restores"]``: ``equal_to_saved``) and the restore's
+        seconds."""
+    from repro_torch.launch import steps, train
+    from repro_torch.nn import module
+    from repro_torch.optim import adamw
+    real_make, real_update, real_ckpt = (steps.make_train_step,
+                                         adamw.update, train.Checkpointer)
+    rec.update(steps=[], attn_grad_norms=[], saves=[], waits=[],
+               restores=[])
+
+    class RecordingCheckpointer(real_ckpt):
+        def save(self, step, tree, **kw):
+            if step == rec.get("snapshot_at") and "snapshot" not in rec:
+                rec["snapshot"] = {p: t.detach().clone()
+                                   for p, t in module.tree_paths(tree)}
+            t0 = time.perf_counter()
+            super().save(step, tree, **kw)
+            rec["saves"].append({"step": step,
+                                 "block": bool(kw.get("block")),
+                                 "s": time.perf_counter() - t0})
+
+        def wait(self):
+            # the seconds the caller blocks on a write still in flight
+            busy = self._thread is not None
+            t0 = time.perf_counter()
+            super().wait()
+            if busy:
+                rec["waits"].append(time.perf_counter() - t0)
+
+        def restore(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree, extra = super().restore(*a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = dict(module.tree_paths(tree))
+            snap = rec.pop("snapshot", {})
+            rec["restores"].append({
+                "step": extra["step"], "s": dt, "leaves": len(got),
+                "equal_to_saved": sorted(snap) == sorted(got) and all(
+                    t.dtype == got[p].dtype and torch.equal(t, got[p])
+                    for p, t in snap.items())})
+            return tree, extra
+
+    def make_train_step(cfg, ts):
+        step = real_make(cfg, ts)
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            m = out[2]
+            rec["steps"].append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "lr": float(m["lr"])})
+            return out
+        return timed
+
+    def update(grads, state, params, cfg):
+        a = grads["layers"]["attn"]
+        last = a["wq"]["kernel"].shape[0] - 1
+        rec["attn_grad_norms"].append({
+            f"{w}_layer{i}": float(a[w]["kernel"][i].norm())
+            for w in ("wq", "wk", "wv") for i in (0, last)})
+        new = real_update(grads, state, params, cfg)
+        if "not_past_decay" not in rec:
+            decayed = dict(module.tree_paths(real_update(
+                zeros_like_tree(torch, grads), state, params, cfg)[0]))
+            stacked = [p for p in decayed if p.startswith("layers/")]
+            rec["not_past_decay"] = [
+                (p, i) for p, t in module.tree_paths(new[0])
+                for i in (range(t.shape[0]) if p in stacked else [None])
+                if torch.equal(t if i is None else t[i],
+                               decayed[p] if i is None else decayed[p][i])]
+            rec["leaves_checked"] = len(decayed)
+            del decayed
+        return new
+
+    train.Checkpointer = RecordingCheckpointer
+    steps.make_train_step = make_train_step
+    adamw.update = update
+    try:
+        yield rec
+    finally:
+        train.Checkpointer = real_ckpt
+        steps.make_train_step = real_make
+        adamw.update = real_update
+
+
+def lm_train_phase(torch, dev) -> dict:
+    """The port's LM training at full width and depth: ``python -m
+    repro_torch.launch.train`` (``train.main``) on smollm-360m (32 layers,
+    d_model 960, 15 heads over 5 KV heads, d_ff 2560, vocab 49152, tied
+    embeddings, f32 params, bf16 compute, remat), global batch 8 of 2048
+    tokens in two microbatches of 4, 6 AdamW steps (lr 3e-4, warmup 2), a
+    checkpoint every 3 steps into a directory under ``build/``; run
+    uninterrupted, then again with a failure injected at step 4, which the
+    supervisor recovers from step 3's checkpoint. Counters set to 0
+    before the two runs and read after them. Gates: every loss and
+    gradient norm finite; the last loss below the first; ``wq``, ``wk``,
+    ``wv`` gradients nonzero in layers 0 and 31 at every step; the first
+    update moved every (leaf, layer) past where weight decay alone takes
+    it; no launch of kernel 7 (training runs the plain chunked softmax);
+    the failed run restarted once and completed, restored exactly the
+    tree it saved, and its losses after the restore are the uninterrupted
+    run's within LM_TRAIN_RESTORE_RTOL; no ``.tmp`` directory left and at
+    most LM_TRAIN_KEEP commits. Then each family's reduced step on the
+    card against the CPU."""
+    import io
+    import math
+    import shutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    root = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    ops.reset_launch_counts()
+    try:
+        for name, extra in (("uninterrupted", []), ("failed", [
+                "--inject-failure-at", str(LM_TRAIN_FAIL_AT)])):
+            rec = {"snapshot_at": LM_TRAIN_CKPT_EVERY if extra else None}
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with recorded_training(torch, rec), \
+                    contextlib.redirect_stdout(out):
+                train.main(list(LM_TRAIN_ARGS)
+                           + ["--ckpt-dir", str(root / name)] + extra)
+            lines = out.getvalue().splitlines()
+            ms = [s["ms"] for s in rec["steps"][1:]]
+            runs[name] = {
+                "wall_s": time.perf_counter() - t0,
+                "result": json.loads(lines[-1])["result"],
+                "restore_lines": [x for x in lines
+                                  if x.startswith("[restore]")],
+                "steps": rec["steps"],
+                "ms_per_step": sum(ms) / len(ms),
+                "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ
+                * len(ms) / (sum(ms) / 1e3),
+                "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "attn_grad_norms": rec["attn_grad_norms"],
+                "saves": rec["saves"], "waits_s": rec["waits"],
+                "restores": rec["restores"],
+                "ckpt_dirs": sorted(p.name for p in (root / name).iterdir())}
+            if name == "uninterrupted":
+                runs[name]["not_past_decay"] = rec["not_past_decay"]
+                runs[name]["leaves_checked_past_decay"] = rec["leaves_checked"]
+            del rec
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    clean, failed = runs["uninterrupted"], runs["failed"]
+    # the failed run's steps 0-3, then 3-5 again from step 3's checkpoint
+    after = failed["steps"][LM_TRAIN_FAIL_AT:]
+    want = clean["steps"][LM_TRAIN_CKPT_EVERY:]
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(after, want)]
+    out = {"config": f"{LM_TRAIN_ARCH} at full width and depth, f32 params, "
+                     "bf16 compute, remat; train.main "
+                     + " ".join(LM_TRAIN_ARGS),
+           "runs": runs, "launches": launches,
+           "losses_after_restore_rel_err": rel,
+           "losses_after_restore_bit_for_bit": all(
+               a["loss"] == b["loss"] for a, b in zip(after, want))}
+    for name, r in runs.items():
+        check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                  for s in r["steps"]),
+              f"{name}: a loss or gradient norm is not finite: {r['steps']}")
+        check(all(v > 0 for n in r["attn_grad_norms"] for v in n.values()),
+              f"{name}: a zero attention gradient: {r['attn_grad_norms']}")
+        check(not any(d.endswith(".tmp") for d in r["ckpt_dirs"])
+              and len(r["ckpt_dirs"]) <= LM_TRAIN_KEEP,
+              f"{name}: checkpoint directories left: {r['ckpt_dirs']}")
+    check(len(clean["steps"]) == LM_TRAIN_STEPS
+          and clean["result"] == {"restarts": 0, "completed": True},
+          f"uninterrupted run: {clean['result']}, {len(clean['steps'])} "
+          "steps")
+    check(clean["steps"][-1]["loss"] < clean["steps"][0]["loss"],
+          f"the loss did not fall: {clean['steps']}")
+    check(not clean["not_past_decay"],
+          "the first update moved these (leaf, layer) only as weight decay "
+          f"does: {clean['not_past_decay']}")
+    check(all(launches.get(k, 0) == 0 for k in FLASH_KERNELS),
+          f"training launched the flash kernel: {launches}")
+    check(failed["result"] == {"restarts": 1, "completed": True}
+          and len(failed["restore_lines"]) == 1
+          and [r["step"] for r in failed["restores"]] == [LM_TRAIN_CKPT_EVERY]
+          and failed["restores"][0]["equal_to_saved"],
+          f"failed run: {failed['result']}, {failed['restore_lines']}, "
+          f"{failed['restores']}")
+    check(len(after) == len(want) == LM_TRAIN_STEPS - LM_TRAIN_CKPT_EVERY
+          and max(rel) <= LM_TRAIN_RESTORE_RTOL,
+          f"losses after the restore: {after} against {want}")
+    out["profile_step"] = profile_train_step(torch, dev)
+    out["reduced_vs_cpu"] = train_lm_reduced_against_cpu(torch, dev)
+    return out
+
+
+def profile_train_step(torch, dev) -> dict:
+    """Where a full-width train step's time goes: the phase's step
+    (smollm-360m, batch 8 x 2048 in microbatches of 4, remat, AdamW) from
+    a seeded ``init_model`` on one synthetic batch, under ``profile_fn``
+    (device ms by kernel, idle share, peak memory)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adamw
+    cfg = get_config(LM_TRAIN_ARCH)
+    ts = steps.TrainSettings(microbatch=4, opt=adamw.OptConfig(
+        peak_lr=3e-4, warmup_steps=2, decay_steps=LM_TRAIN_STEPS))
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                          device=dev)
+    opt = adamw.init(params, steps.opt_config(cfg, ts))
+    raw = synthetic_lm_batch(DataConfig(seq=LM_TRAIN_SEQ,
+                                        global_batch=LM_TRAIN_BATCH,
+                                        vocab=cfg.padded_vocab, seed=SEED), 0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    step = steps.make_train_step(cfg, ts)
+    prof = profile_fn(torch, lambda: step(params, opt, batch), 1)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return prof
 
 
 # readings beyond the contract's keys, kept in the kernels line
@@ -2980,7 +3368,7 @@ def main() -> int:
              "lm_gate", "lm_hybrid_serve", "lm_hybrid_gate", "lm_ssm_serve",
              "spikformer_train", "examples", "lm_dense12b_serve",
              "lm_dense12b_gate", "lm_dense9b_serve", "lm_dense9b_gate",
-             "lm_moe_serve", "lm_moe_gate")
+             "lm_moe_serve", "lm_moe_gate", "lm_train")
     phase_s = report["phase_s"] = {}     # wall seconds, build excluded
     t_phase = [time.perf_counter()]
 
@@ -3084,6 +3472,9 @@ def main() -> int:
             timed(gate_path)
             del lm_engine
             torch.cuda.empty_cache()
+        report[paths[21]] = lm_train_phase(torch, dev)
+        timed(paths[21])
+        torch.cuda.empty_cache()
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -3169,7 +3560,22 @@ def main() -> int:
     ex = report["examples"]
     print(json.dumps({"examples": {k: ex[k] for k in (
         "quickstart_launches", "serving_launches", "serve_under_load",
-        "serve_events", "serve_lm", "engine_model")}}))
+        "serve_events", "serve_lm", "engine_model", "train_lm_100m")}}))
+    lt = report["lm_train"]
+    print(json.dumps({"lm_train": {
+        **{k: lt[k] for k in ("config", "launches",
+                              "losses_after_restore_rel_err",
+                              "losses_after_restore_bit_for_bit",
+                              "reduced_vs_cpu")},
+        "runs": {name: {k: v for k, v in r.items()
+                        if k not in ("attn_grad_norms", "not_past_decay")}
+                 for name, r in lt["runs"].items()},
+        "attn_grad_norms_step0": lt["runs"]["uninterrupted"][
+            "attn_grad_norms"][0],
+        "profile_step": {k: v for k, v in lt["profile_step"].items()
+                         if k != "by_kernel"},
+        "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 2))
+                        for k in lt["profile_step"]["by_kernel"][:10]]}}))
     print(json.dumps({"phase_s": phase_s, "build_s": build_s}))
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -1,1 +1,1 @@
-"""Data sources (port of ``repro.data``; the image half)."""
+"""Data sources (port of ``repro.data``)."""

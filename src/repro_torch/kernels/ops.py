@@ -408,6 +408,18 @@ def flash_attention(q, k, v, *, scale: float, causal: bool = True,
     place), or all three (BH, N, Dh); f32 or bf16, any strides with a unit
     last stride; causal over absolute positions (query i at
     ``Nkv - Nq + i``). Returns f32 of q's shape; callers cast to their
-    compute dtype."""
+    compute dtype.
+
+    The kernel has no backward (nor has the reference's Pallas kernel):
+    its output is written through ``ctypes``, where autograd cannot see,
+    so a gradient through it would silently be zero. With grad mode on
+    and an operand that requires grad, this raises, on the card and on
+    the CPU alike; training runs the plain chunked softmax
+    (``nn.transformer.lm_loss(..., flash=False)``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: an operand requires grad. "
+            "Train with flash=False (the plain chunked softmax), or call it "
+            "under torch.no_grad()")
     return (_PLAIN if plain else _WRAPPERS).flash(q, k, v, scale=scale,
                                                   causal=causal)

@@ -1,5 +1,6 @@
-"""Common layers: linear, embedding, norms, rotary embeddings (port of
-``repro.nn.layers``; M-RoPE and the loss are not ported yet).
+"""Common layers: linear, embedding, norms, rotary embeddings and the
+token cross-entropy (port of ``repro.nn.layers``; M-RoPE is not ported
+yet).
 
 Pure functions over nested-dict params; the compute dtype is the caller's
 and params keep the dtype they were made in. The large products are
@@ -128,3 +129,16 @@ def swiglu(gate, up):
 
 def gelu(x):
     return F.gelu(x, approximate="tanh")
+
+
+def softmax_xent(logits, labels, *, ignore_id: int = -100):
+    """Mean token cross-entropy in f32; labels == ``ignore_id`` are
+    masked out, and the sum is divided by the count of the others (at
+    least 1)."""
+    logits = logits.to(torch.float32)
+    mask = labels != ignore_id
+    labels_safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels_safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

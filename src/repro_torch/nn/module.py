@@ -1,14 +1,24 @@
-"""Parameter trees and initializers (port of ``repro.nn.module``).
+"""Parameter trees, initializers and tree helpers (port of
+``repro.nn.module``).
 
 Params are nested dicts of tensors; every layer is an ``init(gen, ...)`` /
 ``apply(params, x, ...)`` pair, as in the reference. Random numbers come
 from ``torch.Generator`` streams: the same seed gives the same tree, but
 not the reference's bits (parity tests carry the reference's tree across
-with ``repro_torch.weights.lm_from_reference``).
+with ``repro_torch.weights.lm_from_reference``). Under ``with
+torch.device("meta")`` an init draws nothing and gives the tree's shapes
+and dtypes only (``launch.steps.abstract_params``).
+
+A leaf's path is its keys joined by ``/`` (``"layers/attn/wq/kernel"``),
+and trees are walked in sorted key order, as ``jax.tree_util`` flattens a
+dict: the path strings and their order are the reference's, so a
+checkpoint's leaves carry the same names in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any, Callable, Iterator
 
 import torch
 
@@ -34,8 +44,16 @@ class KeyStream:
 SLAB_BYTES = 64 << 20
 
 
+def _draw_device(gen) -> torch.device:
+    """Where a draw from ``gen`` lands: ``gen``'s device, or the meta
+    device inside ``with torch.device("meta")``, where nothing is drawn."""
+    if torch.get_default_device().type == "meta":
+        return torch.device("meta")
+    return gen.device
+
+
 def _draw(gen, shape) -> torch.Tensor:
-    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    x = torch.empty(shape, dtype=torch.float32, device=_draw_device(gen))
     return torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
 
 
@@ -49,7 +67,7 @@ def trunc_normal(gen: torch.Generator, shape, std: float = 0.02,
     kernels: 0.4 GB) never has an f32 copy beside it."""
     if dtype == torch.float32:
         return _draw(gen, shape).mul_(std)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    out = torch.empty(shape, dtype=dtype, device=_draw_device(gen))
     rows = max(1, SLAB_BYTES // (4 * math.prod(shape[1:])))
     for i in range(0, shape[0], rows):
         part = out[i:i + rows]
@@ -87,3 +105,64 @@ def param_count(params: Params) -> int:
 
 def param_bytes(params: Params) -> int:
     return sum(x.numel() * x.element_size() for x in leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# tree utilities
+# ---------------------------------------------------------------------------
+
+
+def _key_str(k) -> str:
+    return str(k)
+
+
+def _children(tree):
+    """(key, subtree) pairs of a dict (sorted by key, as JAX flattens it)
+    or a list or tuple (by index); None for a leaf."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def tree_paths(params: Params) -> Iterator[tuple[str, Any]]:
+    """Yield ('a/b/c', leaf) pairs of a nested dict (or list) tree, in the
+    reference's order."""
+    def walk(tree, prefix):
+        kids = _children(tree)
+        if kids is None:
+            yield "/".join(prefix), tree
+            return
+        for k, sub in kids:
+            yield from walk(sub, prefix + (_key_str(k),))
+    yield from walk(params, ())
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Params) -> Params:
+    """A tree of the same layout with ``fn('a/b/c', leaf)`` at each leaf,
+    called in the reference's order."""
+    def walk(tree, prefix):
+        kids = _children(tree)
+        if kids is None:
+            return fn("/".join(prefix), tree)
+        out = {k: walk(sub, prefix + (_key_str(k),)) for k, sub in kids}
+        if isinstance(tree, dict):
+            return {k: out[k] for k in tree}
+        return type(tree)(out[i] for i in range(len(tree)))
+    return walk(tree, ())
+
+
+def cast_tree(tree: Params, dtype) -> Params:
+    """Floating leaves cast to ``dtype``; the others kept."""
+    return map_with_path(
+        lambda _, x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypes:
+    """Mixed-precision policy."""
+
+    param: Any = torch.float32     # storage dtype of weights
+    compute: Any = torch.bfloat16  # matmul dtype
+    accum: Any = torch.float32     # reductions / softmax / losses

@@ -13,6 +13,13 @@ where ``cfg.dense_parallel``); its aux losses, averaged over the layers,
 are ``model_apply``'s third result. The encoder-decoder and VLM families
 are not ported yet and raise ``NotImplementedError``.
 
+``lm_loss`` is the training loss. In train mode with ``cfg.remat`` and
+autograd on, each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of the layer body): its activations are
+recomputed in the backward pass, and with ``remat_policy="dots"`` on the
+stacked path the outputs of the matmuls without batch dimensions are
+kept. Remat changes no value.
+
 Modes:
   train   — the full-sequence forward (logits of every position).
   prefill — forward + cache build, returns logits of the last position.
@@ -20,12 +27,15 @@ Modes:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .attention import attn_apply, attn_init, init_kv_cache
 from .layers import (embed, embedding_init, gelu, layernorm, layernorm_init,
-                     linear, linear_init, rmsnorm, rmsnorm_init, swiglu,
-                     unembed)
+                     linear, linear_init, rmsnorm, rmsnorm_init,
+                     softmax_xent, swiglu, unembed)
 from .module import KeyStream
 from .moe import moe_apply, moe_init
 from .ssm import init_ssm_state, ssm_apply, ssm_init
@@ -256,6 +266,24 @@ def _cache_pos(cache_pos):
     return int(cache_pos)
 
 
+def _remat(cfg):
+    """``layer_apply`` under a non-reentrant checkpoint: nothing saved
+    (the reference's ``nothing_saveable``), or, for ``remat_policy=
+    "dots"`` on the stacked path, the outputs of the products without
+    batch dimensions (``checkpoint_dots_with_no_batch_dims``: ``aten.mm``;
+    the attention's batched einsums are recomputed)."""
+    kw = {}
+    if cfg.remat_policy == "dots" and cfg.scan_layers:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts,
+            [torch.ops.aten.mm.default])
+
+    def run(*args, **kwargs):
+        return ckpt.checkpoint(layer_apply, *args, use_reentrant=False,
+                               **kw, **kwargs)
+    return run
+
+
 def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
                 compute_dtype=None, flash: bool = True):
     """Returns (logits, new_cache, aux). ``batch["tokens"]`` is (B, S);
@@ -278,9 +306,11 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
     positions = (base + torch.arange(s, device=tokens.device)).expand(b, s)
 
     flags = layer_flags(cfg)
+    run = (_remat(cfg) if mode == "train" and cfg.remat
+           and torch.is_grad_enabled() else layer_apply)
     auxes = []
     for i in range(cfg.n_layers):
-        x, _, aux = layer_apply(
+        x, _, aux = run(
             _index(params["layers"], i), x, cfg, positions=positions,
             cache=None if cache is None else layer_cache(cache, i),
             cache_pos=cache_pos,
@@ -332,3 +362,26 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
     if cfg.scan_layers:
         return _stacked(one_layer, cfg.n_layers, device)
     return [one_layer(i) for i in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(params, batch, cfg, *, flash: bool = False):
+    """Returns ``(loss, aux)``: the mean token cross-entropy of the train-
+    mode logits against ``batch["labels"]``, plus ``0.01 * load_balance +
+    0.001 * router_z`` where the model has aux losses (MoE).
+
+    ``flash=False`` (the reference's training formulation) runs the plain
+    chunked softmax in every layer. The flash kernel has no backward, and
+    ``ops.flash_attention`` raises when autograd would need one, so
+    ``flash=True`` is for a loss computed without gradients."""
+    logits, _, aux = model_apply(params, batch, cfg, mode="train",
+                                 flash=flash)
+    loss = softmax_xent(logits, batch["labels"])
+    if aux:
+        loss = loss + 0.01 * aux.get("load_balance", 0.0) \
+                    + 0.001 * aux.get("router_z", 0.0)
+    return loss, aux

@@ -1,2 +1,2 @@
-"""Optimizers (port of ``repro.optim``; ``compression`` is not ported
-yet)."""
+"""Optimizers (port of ``repro.optim``: ``adamw``, and ``compression``'s
+error-feedback numerics)."""

@@ -1619,3 +1619,148 @@ def test_reduced_training_step_on_the_card_equals_the_cpu(cuda):
             scale, 1e-30), k
     for k, v in leaves(p1):
         torch.testing.assert_close(v.cpu(), want_p[k], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_FAMILIES = {"smollm-360m": {}, "qwen3-moe-30b-a3b": {},
+                     "mamba2-130m": {}, "hymba-1.5b": {"n_layers": 3}}
+
+
+def _lm_grads(params, batch, cfg):
+    from repro_torch.nn import module
+    from repro_torch.nn import transformer as T
+    leaves = {p: t.detach().requires_grad_()
+              for p, t in module.tree_paths(params)}
+    loss, _ = T.lm_loss(module.map_with_path(lambda p, _: leaves[p], params),
+                        batch, cfg, flash=False)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return loss.detach(), {p: torch.zeros_like(t) if g is None else g
+                           for (p, t), g in zip(leaves.items(), grads)}
+
+
+@pytest.mark.parametrize("arch", sorted(LM_TRAIN_FAMILIES))
+def test_lm_reduced_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """Each ported family's reduced config in f32 compute, one seeded CPU
+    tree and one synthetic batch: ``lm_loss`` and every gradient leaf on
+    the card against the CPU (loss within rtol 1e-5, each leaf within
+    1e-4 of its largest |g|), then one microbatched ``make_train_step``
+    (the updated params within 1e-4)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batch
+    from repro_torch.infer.compile import to_device
+    from repro_torch.launch import steps
+    from repro_torch.nn import module
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(
+        get_config(arch).reduced(**LM_TRAIN_FAMILIES[arch]),
+        compute_dtype="float32")
+    params = T.init_model(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    raw = synthetic_lm_batch(DataConfig(seq=64, global_batch=4,
+                                        vocab=cfg.padded_vocab), 0)
+    ts = steps.TrainSettings(microbatch=2, opt=adamw.OptConfig(
+        peak_lr=3e-4, warmup_steps=1, decay_steps=4))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = to_device(params, dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        loss, grads = _lm_grads(p, batch, cfg)
+        new, _, _ = steps.make_train_step(cfg, ts)(
+            p, adamw.init(p, steps.opt_config(cfg, ts)), batch)
+        runs[str(dev)] = (float(loss), grads, dict(module.tree_paths(new)))
+    (l0, g0, p0), (l1, g1, p1) = runs["cpu"], runs["cuda"]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for k, g in g1.items():
+        scale = float(g0[k].abs().max())
+        assert float((g.cpu() - g0[k]).abs().max()) <= 1e-4 * max(
+            scale, 1e-30), k
+    for k, v in p1.items():
+        torch.testing.assert_close(v.cpu(), p0[k], rtol=1e-4, atol=1e-4)
+    assert ops.launch_counts()["flash_attention_tc"] == 0
+    assert ops.launch_counts()["flash_attention_f32"] == 0
+
+
+def test_lm_attention_gradients_are_nonzero_on_the_card(cuda):
+    """Reduced smollm in bf16 compute on the card: the gradients of
+    ``wq``, ``wk`` and ``wv`` are nonzero in the first and the last layer
+    (no attention output comes from a kernel autograd cannot see), and
+    the flash kernel refuses operands that require grad."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batch
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config("smollm-360m").reduced()
+    params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg,
+                          device=cuda)
+    raw = synthetic_lm_batch(DataConfig(seq=128, global_batch=2,
+                                        vocab=cfg.padded_vocab), 0)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in raw.items()}
+    _, grads = _lm_grads(params, batch, cfg)
+    for w in ("wq", "wk", "wv"):
+        g = grads[f"layers/attn/{w}/kernel"]
+        for i in (0, cfg.n_layers - 1):
+            assert float(g[i].norm()) > 0, (w, i)
+    q = torch.randn(1, 4, 64, 32, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 2, 64, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, k, scale=32 ** -0.5)
+    with torch.no_grad():
+        ops.flash_attention(q, k, k, scale=32 ** -0.5)
+    assert ops.launch_counts()["flash_attention_tc"] == 1
+
+
+@pytest.mark.parametrize("method", ["int8", "topk"])
+def test_ef_compress_on_the_card_is_the_cpu_s_bits(cuda, method):
+    from repro_torch.optim.compression import ef_compress, ef_init
+    g = torch.Generator().manual_seed(3)
+    grads = {"w": torch.randn(512, 960, generator=g),
+             "b": torch.randn(960, generator=g).bfloat16()}
+    grads["w"][7, :50] = grads["w"][0, 0]          # ties at the threshold
+    out = {}
+    for dev in ("cpu", cuda):
+        gd = {k: v.to(dev) for k, v in grads.items()}
+        ef = ef_init(gd)
+        for _ in range(2):
+            deq, ef = ef_compress(gd, ef, method=method)
+        out[str(dev)] = (deq, ef)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        for k in a:
+            assert torch.equal(a[k], b[k].cpu()), k
+
+
+def test_pipeline_and_checkpoint_on_the_card(cuda, tmp_path):
+    """The pipeline's batches reach the card from pinned memory equal to
+    the host's; a tree on the card (f32, bf16, int32 leaves) saved and
+    restored onto the card is the same bits."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data.pipeline import (DataConfig, DataPipeline,
+                                           synthetic_lm_batch)
+    cfg = DataConfig(seq=64, global_batch=4, vocab=1000, seed=2)
+    pipe = DataPipeline(cfg, device=cuda)
+    try:
+        for step in range(3):
+            got = next(pipe)
+            want = synthetic_lm_batch(cfg, step)
+            for k, v in want.items():
+                assert got[k].device.type == "cuda"
+                assert np.array_equal(got[k].cpu().numpy(), v)
+    finally:
+        pipe.close()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(33, 17, generator=g, device=cuda),
+            "h": torch.randn(9, generator=g, device=cuda).bfloat16(),
+            "step": torch.tensor(5, dtype=torch.int32, device=cuda)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, tree, block=True)
+    got, _ = ck.restore(skeleton=tree, device=cuda)
+    for k, v in tree.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v), k
