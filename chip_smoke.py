@@ -16,8 +16,11 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    bf16 flash attention on the tensor cores at smollm-360m's 2048-token
    prefill with its 15 heads over 5 KV heads read in place (and at
    hymba-1.5b's, 25 heads over 5, glm4-9b's, 32 over 2 at Dh 128,
-   stablelm-12b's, 32 over 8 at Dh 160, and qwen3-moe-30b-a3b's, 32 over
-   4 at Dh 128), the f32 unpack
+   stablelm-12b's, 32 over 8 at Dh 160, qwen3-moe-30b-a3b's, 32 over
+   4 at Dh 128, qwen2-vl-7b's, 28 over 4 at Dh 128, and whisper-large-v3's
+   three layouts of a 4-row, 440-token prefill over 1500 frames: the
+   encoder's and the cross-attention's non-causal, the decoder's causal),
+   the f32 unpack
    dot on the bf16 tensor cores, and the f32 STDP (spikes, then real
    values) and f32 flash attention in split TF32 on the tensor cores, at
    (15, 2048, 64) and at stablelm-12b's prefill layout, Dh 160),
@@ -151,7 +154,25 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    losses within 1e-4, no ``.tmp`` left and at most 3 commits; reports ms
    a step, tokens/s, peak memory, the checkpoint seconds and a profiled
    step; then each ported family's reduced train step on the card against
-   the CPU (f32 compute: loss, every gradient leaf, the updated params).
+   the CPU (f32 compute: loss, every gradient leaf, the updated params);
+10. drives the encoder-decoder and VLM families at full width and depth,
+   last, one large model alive at a time: whisper-large-v3 (32 encoder
+   and 32 decoder layers, d_model 1280, 20 heads at Dh 64, 1500 seeded
+   frame embeddings; the reference's Engine takes no frames, so each pass
+   prefills 4 rows through ``model_apply`` and takes 32 greedy decode
+   steps of ``make_serve_step``, one pass at each of 4, 64, 200 and 440
+   tokens), 96 bf16 flash launches a prefill (the encoder's non-causal
+   self-attention over the 1500 frames, each decoder layer's causal
+   self-attention and its non-causal cross-attention) and none in decode,
+   then its f32 gates (flash against plain within 1e-4 with 96 f32
+   launches; prefill plus three decode steps within the reference's 5e-2
+   of the train-mode forward); qwen2-vl-7b (28 layers, d_model 3584, 28
+   heads over 4 at Dh 128, M-RoPE 16/24/24, f32 params) through the
+   engine as a text model in the dense paths' three passes (28 flash
+   launches a prefill), one image prompt (256 seeded image embeddings of
+   a 16 x 16 patch grid, then 512 text tokens, with Qwen2-VL's 3-D
+   positions) and 32 decode steps, and its f32 gates at 2048 text tokens
+   and on the image prompt.
 
 Prints the serving stats and profiles as JSON lines, the fitted route
 constants (``route_fit``) and the 2x2 of constants x ``jit``
@@ -211,6 +232,24 @@ DENSE_GATE_LENS = (2048,)
 # qwen3-moe-30b-a3b (128 experts top-8, Dh 128, 32 heads over 4) in bf16
 # weights, the only dtype in which it fits one card
 MOE_ARCH, MOE_PARAM_DTYPE = "qwen3-moe-30b-a3b", "bfloat16"
+
+# the encoder-decoder path: whisper-large-v3 at full width and depth, eager
+# through model_apply and make_serve_step (the reference's Engine takes no
+# frames): ENCDEC_ROWS rows a pass, each its own seeded 1500 frames and
+# prompt, one pass a prompt length (448 is Whisper's decoder context)
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_HEADS, ENCDEC_HEAD_DIM, ENCDEC_FRAMES = 20, 64, 1500
+ENCDEC_ROWS = 4
+ENCDEC_PROMPTS = (4, 64, 200, 440)
+ENCDEC_PROFILE_LEN = 440
+ENCDEC_MAX_NEW = 32
+ENCDEC_DECODE_TOL = 5e-2   # the reference's own prefill + decode bar
+# the VLM path: qwen2-vl-7b at full width and depth served as the dense
+# paths are, then one image prompt: a 16 x 16 patch grid (256 seeded image
+# embeddings) and 512 text tokens
+VLM_ARCH = "qwen2-vl-7b"
+VLM_GRID = 16
+VLM_TEXT = 512
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -781,7 +820,16 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     32 over 8, Dh 160) and at qwen3-moe-30b-a3b's (``at_qwen3moe_shape``:
     32 over 4, Dh 128), laid out the same way; f32 again at
     stablelm-12b's, in that layout too (the gate route hands the kernel
-    those views)."""
+    those views). bf16 again at whisper-large-v3's three layouts of a
+    prefill of ENCDEC_ROWS rows of 440 tokens over 1500 frames (20 heads,
+    Dh 64): the encoder's non-causal self-attention over the frames
+    (``at_whisper_encoder_shape``: q, k, v transposed projections), the
+    decoder's causal self-attention (``at_whisper_self_shape``: k, v
+    slices of a cache 32 longer) and its non-causal cross-attention of the
+    440 queries over the 1500 frames' keys (``at_whisper_cross_shape``),
+    and at qwen2-vl-7b's 2048-token prefill (``at_qwen2vl_shape``: 28 over
+    4, group 7, Dh 128); SDPA beside each with ``is_causal`` as the
+    kernel's."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -799,48 +847,64 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
               f"flash_attention ({what}) off its plain version by {err}")
         return err
 
-    def at(h, kvh, dh, model, dtype=torch.bfloat16):
-        """The kernel of ``dtype`` at one model's 2048-token prefill
-        layout: q transposed from (1, S, H, Dh), k and v the first S rows
-        of a (1, KV, 2S, Dh) cache, read in place; SDPA on KV expanded to
-        the H heads beforehand. The f32 bound counts three TF32 products
-        (and gives the f32 units' beside it)."""
+    def at(h, kvh, dh, model, dtype=torch.bfloat16, *, b=1, nq=s, nkv=s,
+           causal=True, kv="cache", cache_len=None, what=None):
+        """The kernel of ``dtype`` at one model's prefill layout (default:
+        a 2048-token prefill): q transposed from (B, Nq, H, Dh); k and v
+        the first Nkv rows of a (B, KV, ``cache_len``, Dh) cache (default
+        2 Nkv) where ``kv="cache"``, else transposed from (B, Nkv, KV, Dh)
+        projections; read in place; SDPA on KV expanded to the H heads
+        beforehand, ``is_causal=causal``. The bound counts the (query,
+        key) pairs the mask keeps; the f32 bound counts three TF32
+        products (and gives the f32 units' beside it)."""
         scale = dh ** -0.5
-        q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(
+        q = torch.randn((b, nq, h, dh), generator=gen, device=dev).to(
             dtype).transpose(1, 2)
-        k, v = (torch.randn((1, kvh, 2 * s, dh), generator=gen,
-                            device=dev).to(dtype)[:, :, :s]
-                for _ in range(2))
+        if kv == "cache":
+            k, v = (torch.randn((b, kvh, cache_len or 2 * nkv, dh),
+                                generator=gen, device=dev).to(dtype)[
+                                    :, :, :nkv] for _ in range(2))
+        else:
+            k, v = (torch.randn((b, nkv, kvh, dh), generator=gen,
+                                device=dev).to(dtype).transpose(1, 2)
+                    for _ in range(2))
         name = str(dtype).removeprefix("torch.")
-        err = held(flash_attention(q, k, v, scale=scale),
-                   flash_attention_plain(q, k, v, scale=scale),
+        err = held(flash_attention(q, k, v, scale=scale, causal=causal),
+                   flash_attention_plain(q, k, v, scale=scale,
+                                         causal=causal),
                    f"{name}, {model}")
         qc = q.contiguous()
         ke, ve = (z.repeat_interleave(h // kvh, dim=1).contiguous()
                   for z in (k, v))
         size = q.element_size()
         nbytes = (q.numel() + k.numel() + v.numel()) * size + q.numel() * 4
-        ops_h = 4 * h * pairs * dh
+        kept = (nq * (nkv - nq) + nq * (nq + 1) // 2 if causal
+                else nq * nkv)                # (query, key) pairs a head
+        ops_h = 4 * b * h * kept * dh
         if dtype == torch.bfloat16:
             kernel = "flash_tc_kernel"
             b_ms, b_by = bound_ms(nbytes, ops_h, BF16_OPS_PER_S)
         else:
             kernel = "flash_attention_kernel"
             b_ms, b_by = bound_ms(nbytes, 3 * ops_h, TF32_OPS_PER_S)
-        call = lambda: flash_attention(q, k, v, scale=scale)  # noqa: E731
+        call = lambda: flash_attention(  # noqa: E731
+            q, k, v, scale=scale, causal=causal)
+        views = "cache slices" if kv == "cache" else "transposed views"
+        what = what or f"{model}'s 2048-token prefill"
         row = dict(
             shape=f"q {tuple(q.shape)} {name} (transposed view) over k, v "
-                  f"{tuple(k.shape)} {name} (cache slices), causal, scale "
-                  f"{scale} ({model}'s 2048-token prefill, one layer)",
+                  f"{tuple(k.shape)} {name} ({views}), "
+                  f"{'causal' if causal else 'non-causal'}, scale {scale} "
+                  f"({what}, one layer)",
             max_abs_err=err, tolerance=f"atol = rtol = {FLASH_TOL}",
             ms=device_ms(torch, call, kernel),
             ms_events=time_ms(torch, call),
             plain_ms=time_ms(torch, lambda: flash_attention_plain(
-                q, k, v, scale=scale)),
+                q, k, v, scale=scale, causal=causal)),
             bound_ms=b_ms, bound_by=b_by,
             bytes_bound_ms=bound_ms(nbytes, 0, BF16_OPS_PER_S)[0],
             library_ms=graph_ms(torch, lambda: sdpa(
-                qc, ke, ve, is_causal=True, scale=scale)))
+                qc, ke, ve, is_causal=causal, scale=scale)))
         if dtype == torch.float32:
             row["bound_ms_f32_units"] = bound_ms(nbytes, ops_h,
                                                  F32_OPS_PER_S)[0]
@@ -852,6 +916,21 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     tc["at_glm4_shape"] = at(32, 2, 128, DENSE9B_ARCH)
     tc["at_stablelm_shape"] = at(32, 8, 160, DENSE12B_ARCH)
     tc["at_qwen3moe_shape"] = at(32, 4, 128, MOE_ARCH)
+    wh, wd, frames = ENCDEC_HEADS, ENCDEC_HEAD_DIM, ENCDEC_FRAMES
+    rows, n = ENCDEC_ROWS, ENCDEC_PROFILE_LEN
+    prefill = (f"{ENCDEC_ARCH}'s prefill of {rows} rows of {n} tokens over "
+               f"{frames} frames")
+    tc["at_whisper_encoder_shape"] = at(
+        wh, wh, wd, ENCDEC_ARCH, b=rows, nq=frames, nkv=frames,
+        causal=False, kv="projection", what=f"{prefill}: the encoder")
+    tc["at_whisper_self_shape"] = at(
+        wh, wh, wd, ENCDEC_ARCH, b=rows, nq=n, nkv=n,
+        cache_len=n + ENCDEC_MAX_NEW,
+        what=f"{prefill}: decoder self-attention")
+    tc["at_whisper_cross_shape"] = at(
+        wh, wh, wd, ENCDEC_ARCH, b=rows, nq=n, nkv=frames, causal=False,
+        kv="projection", what=f"{prefill}: cross-attention")
+    tc["at_qwen2vl_shape"] = at(28, 4, 128, VLM_ARCH)
 
     scale = dh ** -0.5
     q3, k3, v3 = (torch.randn((h, s, dh), generator=gen, device=dev)
@@ -2312,6 +2391,28 @@ def describe(cfg) -> str:
             f"init_model, {params}, bf16 compute and cache")
 
 
+def init_timed(torch, cfg, dev) -> tuple:
+    """``init_model`` of a generator on the card seeded with SEED: the
+    params, its seconds and its peak allocated memory above what was
+    allocated before, gated to the parameters' bytes plus 1 GiB."""
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import param_bytes
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak <= param_bytes(params) + 2 ** 30,
+          f"{cfg.name} init_model peaked at {peak} B, over its "
+          f"{param_bytes(params)} B of parameters plus 1 GiB")
+    return params, init_s, peak
+
+
 def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
                    lengths=LM_PROMPTS, param_dtype: str | None = None
                    ) -> tuple:
@@ -2334,7 +2435,6 @@ def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
     graphed engine."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine, Request
-    from repro_torch.nn import transformer as T
     from repro_torch.nn.module import param_bytes, param_count
 
     cfg = get_config(arch)
@@ -2342,19 +2442,7 @@ def lm_serve_phase(torch, dev, arch: str = LM_ARCH,
         cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
     prompts = lm_prompts(cfg.vocab, lengths)
     profiled = prompts[lengths.index(PROFILE_LEN)]
-
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
-                          device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated() - base
-    check(init_peak <= param_bytes(params) + 2 ** 30,
-          f"{arch} init_model peaked at {init_peak} B, over its "
-          f"{param_bytes(params)} B of parameters plus 1 GiB")
+    params, init_s, init_peak = init_timed(torch, cfg, dev)
 
     def engine(jit):
         t0 = time.perf_counter()
@@ -2503,6 +2591,71 @@ def routing_report(torch, flash_routes, plain_routes) -> dict:
                 routing_flips_by_layer=flips, routing_flips=sum(flips))
 
 
+def f32_prefill_routes(torch, cfg, params, batch, length: int, dev,
+                       keep_cache: bool = False) -> dict:
+    """One f32 prefill of ``batch`` (at cache_pos 0) into a fresh cache of
+    ``length`` on the flash route and then on the plain route (the
+    reference's chunked softmax), on the card. The counters are set to 0
+    just before the flash route and read just after it. Returns the
+    last-position ``logits`` by route (True: flash), the flash route's
+    ``launches``, whether its kernel was handed each layer's q, k, v views
+    at their own addresses (``in_place``), every ``moe.route`` call's
+    ``Routing`` by route (``routes``), and with ``keep_cache`` the flash
+    route's ``cache``."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.nn import moe
+    from repro_torch.nn import transformer as T
+
+    rows = batch["tokens"].shape[0]
+    out = {"logits": {}, "routes": {}}
+    for flash in (True, False):
+        cache = T.init_cache(cfg, rows, length, dtype=torch.float32,
+                             device=dev)
+        ops.reset_launch_counts()
+        with operand_addresses(ops, _build) as addresses, \
+                recorded_routing(moe) as out["routes"][flash]:
+            out["logits"][flash], _, _ = T.model_apply(
+                params, dict(batch, cache_pos=0), cfg, mode="prefill",
+                cache=cache, compute_dtype=torch.float32, flash=flash)
+            torch.cuda.synchronize()
+        if flash:
+            out["launches"] = ops.launch_counts()
+            out["in_place"] = bool(addresses["called"]) and (
+                addresses["called"] == addresses["launched"])
+            if keep_cache:
+                out["cache"] = cache
+        del cache
+    return out
+
+
+def check_f32_gate(torch, cfg, run: dict, f32_launches: int, what: str,
+                   detail=None) -> float:
+    """The f32 gate of one ``f32_prefill_routes`` run: the flash route
+    launched the f32 flash kernel ``f32_launches`` times and nothing else,
+    each handed its views in place, and its logits are finite and within
+    atol = rtol = LM_LOGITS_TOL of the plain route's (``detail()`` adds
+    to that failure's message). Returns the largest difference."""
+    launches = run["launches"]
+    expect = {**dict.fromkeys(launches, 0),
+              "flash_attention_f32": f32_launches}
+    check(launches == expect,
+          f"{cfg.name} f32 gate {what}: launch counts {launches} != "
+          f"{expect}")
+    check(run["in_place"], f"{cfg.name} f32 gate {what}: the f32 flash "
+          "kernel was not handed the layers' q, k, v views at their own "
+          "addresses (a copy came first)")
+    got, want = run["logits"][True], run["logits"][False]
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(got.shape[1:] == (1, cfg.padded_vocab) == want.shape[1:]
+          and bool(torch.isfinite(got).all())
+          and bool(((got - want).abs() <= LM_LOGITS_TOL
+                    + LM_LOGITS_TOL * want.abs()).all()),
+          f"{cfg.name} f32 prefill logits {what}, flash route against "
+          f"plain: off by {err}" + (f"; {detail()}" if detail else ""))
+    return err
+
+
 def lm_gate_phase(torch, dev, eng, lengths=(LM_GATE_LEN,),
                   prompt_lengths=LM_PROMPTS, greedy: bool = True) -> dict:
     """For each of ``lengths``, one f32 prefill of that prompt (of the
@@ -2517,63 +2670,34 @@ def lm_gate_phase(torch, dev, eng, lengths=(LM_GATE_LEN,),
     the first length, printed; the bf16 tokens are not gated. An MoE
     config also reports each prefill's routing (``routing_report``) and
     the choices one bf16 prefill, as served, dropped past capacity."""
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import Engine, Request
-    from repro_torch.nn import moe
-    from repro_torch.nn import transformer as T
 
     cfg, params = eng.cfg, eng.params
     prompts = lm_prompts(cfg.vocab, prompt_lengths)
     by_length, total = {}, {}
     for n in lengths:
         tokens = torch.tensor([prompts[prompt_lengths.index(n)]], device=dev)
-        logits, routes = {}, {}
-        for flash in (True, False):
-            cache = T.init_cache(cfg, 1, n, dtype=torch.float32, device=dev)
-            ops.reset_launch_counts()
-            with operand_addresses(ops, _build) as addresses, \
-                    recorded_routing(moe) as routes[flash]:
-                logits[flash], _, _ = T.model_apply(
-                    params, {"tokens": tokens, "cache_pos": 0}, cfg,
-                    mode="prefill", cache=cache, compute_dtype=torch.float32,
-                    flash=flash)
-                torch.cuda.synchronize()
-            if flash:
-                launches = ops.launch_counts()
-                in_place = bool(addresses["called"]) and (
-                    addresses["called"] == addresses["launched"])
-            del cache
-        expect = dict.fromkeys(launches, 0)
-        expect["flash_attention_f32"] = flash_per_prefill(cfg, n)
-        check(launches == expect,
-              f"{cfg.name} f32 gate at {n}: launch counts {launches} != "
-              f"{expect}")
-        check(in_place, f"{cfg.name} f32 gate at {n}: the f32 flash kernel "
-              "was not handed the layers' q, k, v views at their own "
-              "addresses (a copy came first)")
-        got, want = logits[True], logits[False]
-        torch.cuda.synchronize()
-        check(got.shape == (1, 1, cfg.padded_vocab)
-              and bool(torch.isfinite(got).all()),
-              f"LM prefill logits: shape {tuple(got.shape)} or non-finite")
+        run = f32_prefill_routes(torch, cfg, params, {"tokens": tokens}, n,
+                                 dev)
+        routes = run["routes"]
         routing = (routing_report(torch, routes[True], routes[False])
                    if cfg.n_experts else None)
-        err = max_abs_err(got, want)
-        check(bool(((got - want).abs() <= LM_LOGITS_TOL
-                    + LM_LOGITS_TOL * want.abs()).all()),
-              f"{cfg.name} f32 prefill logits at {n}, flash route against "
-              f"plain: off by {err}"
-              + (f"; routing {routing}" if routing else ""))
+        err = check_f32_gate(
+            torch, cfg, run, flash_per_prefill(cfg, n), f"at {n}",
+            (lambda: f"routing {routing}") if routing else None)
+        launches = run["launches"]
         by_length[n] = dict(launches=launches, max_abs_err=err,
-                            operands_in_place=in_place,
-                            logits_absmax=float(want.abs().max()))
+                            operands_in_place=run["in_place"],
+                            logits_absmax=float(
+                                run["logits"][False].abs().max()))
         if routing:
             by_length[n]["routing"] = routing
             by_length[n]["bf16_dropped_by_layer"] = bf16_dropped(
                 torch, cfg, params, tokens, n)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        del logits, got, want, routes
+        del run, routes
         torch.cuda.empty_cache()
     out = dict(prompt_lens=list(lengths), launches=total,
                max_abs_err=max(r["max_abs_err"] for r in by_length.values()),
@@ -2966,7 +3090,8 @@ LM_TRAIN_RESTORE_RTOL = 1e-4   # losses after the restore vs uninterrupted
 # reduced() overrides); the bars are TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL and
 # TRAIN_PARAM_TOL
 LM_TRAIN_FAMILIES = (("smollm-360m", {}), ("qwen3-moe-30b-a3b", {}),
-                     ("mamba2-130m", {}), ("hymba-1.5b", {"n_layers": 3}))
+                     ("mamba2-130m", {}), ("hymba-1.5b", {"n_layers": 3}),
+                     ("whisper-large-v3", {}), ("qwen2-vl-7b", {}))
 FLASH_KERNELS = ("flash_attention_tc", "flash_attention_f32")
 
 
@@ -2984,6 +3109,24 @@ def lm_grads(torch, params, batch, cfg):
     return float(loss.detach()), {
         p: torch.zeros_like(t) if g is None else g
         for (p, t), g in zip(leaves.items(), grads)}
+
+
+def stub_inputs(torch, cfg, b: int, s: int) -> dict:
+    """A family's seeded modality inputs on the CPU: bf16 frames (B,
+    n_frames, D) for an encoder-decoder; bf16 image embeddings (B,
+    img_tokens, D) and distinct M-RoPE streams (3, B, S) for a VLM (so
+    that the microbatch split of the positions is seen); else none."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((b, cfg.n_frames, cfg.d_model),
+                                      generator=g).to(torch.bfloat16)}
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.randn(
+                    (b, cfg.img_tokens, cfg.d_model),
+                    generator=g).to(torch.bfloat16),
+                "mrope_positions": torch.randint(0, 2 * s, (3, b, s),
+                                                 generator=g)}
+    return {}
 
 
 def train_lm_reduced_against_cpu(torch, dev) -> dict:
@@ -3010,13 +3153,15 @@ def train_lm_reduced_against_cpu(torch, dev) -> dict:
         raw = synthetic_lm_batch(DataConfig(seq=64, global_batch=4,
                                             vocab=cfg.padded_vocab,
                                             seed=SEED), 0)
+        raw = {k: torch.from_numpy(v) for k, v in raw.items()}
+        raw.update(stub_inputs(torch, cfg, 4, 64))
         ts = steps.TrainSettings(microbatch=2, opt=adamw.OptConfig(
             peak_lr=3e-4, warmup_steps=1, decay_steps=4))
         runs = {}
         for where in ("cpu", "cuda"):
             d = torch.device(where)
             p = to_device(params, d)
-            batch = {k: torch.from_numpy(v).to(d) for k, v in raw.items()}
+            batch = {k: v.to(d) for k, v in raw.items()}
             loss, grads = lm_grads(torch, p, batch, cfg)
             new, _, m = steps.make_train_step(cfg, ts)(
                 p, adamw.init(p, steps.opt_config(cfg, ts)), batch)
@@ -3295,13 +3440,311 @@ def profile_train_step(torch, dev) -> dict:
     return prof
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder and VLM families at full width and depth
+# ---------------------------------------------------------------------------
+
+def encdec_inputs(torch, cfg, n: int, dev) -> tuple:
+    """ENCDEC_ROWS rows, each its own seeded prompt of ``n`` tokens and
+    1500 frame embeddings (the audio frontend is a stub in the reference
+    too): tokens (B, n) int64, frames (B, 1500, D) bf16."""
+    toks, frames = [], []
+    for row in range(ENCDEC_ROWS):
+        g = torch.Generator(device=dev).manual_seed(SEED + 1000 * n + row)
+        toks.append(torch.randint(0, cfg.vocab, (1, n), generator=g,
+                                  device=dev))
+        frames.append(torch.randn((1, cfg.n_frames, cfg.d_model),
+                                  generator=g, device=dev).to(torch.bfloat16))
+    return torch.cat(toks), torch.cat(frames)
+
+
+def greedy_decode(torch, cfg, params, cache, tok, batch_at,
+                  steps_n: int) -> tuple:
+    """``steps_n`` greedy decode steps of ``steps.make_serve_step`` from
+    ``tok`` (B,), step i's batch ``batch_at(i, tok)``: (tokens (B,
+    steps_n) on the host, host ms a step, each synced by its tokens'
+    read)."""
+    from repro_torch.launch import steps
+    serve_step = steps.make_serve_step(cfg)
+    out, ms = [], []
+    for i in range(steps_n):
+        t0 = time.perf_counter()
+        tok, cache = serve_step(params, cache, batch_at(i, tok))
+        out.append(tok.tolist())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.tensor(out).T, ms
+
+
+def lm_encdec_phase(torch, dev) -> tuple:
+    """whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+    layers, d_model 1280, 20 heads, Dh 64, 1500 frames) from a seeded
+    ``init_model`` (f32 params, bf16 compute and cache), driven as the
+    reference's own tests compose it (``tests/test_archs.py``: prefill
+    through ``model_apply``, then ``make_serve_step``; the reference's
+    Engine takes no frames): one pass a prompt length in ENCDEC_PROMPTS,
+    ENCDEC_ROWS rows of it (``model_apply`` has no padding mask), each
+    row its own seeded frames and prompt, prefilled into
+    ``init_cache(cfg, B, S + 32)`` and then 32 greedy decode steps. The
+    counters are set to 0 just before each prefill and read just after,
+    then again around the decode steps: a prefill launches the bf16 flash
+    kernel 96 times (the encoder's non-causal self-attention over the 1500
+    frames, then each decoder layer's causal self-attention and its
+    non-causal cross-attention over the frames' keys), a decode step never
+    (its cross-attention reads the cached keys by the grouped softmax).
+    Profiles a 440-token prefill and a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import param_bytes, param_count
+
+    cfg = get_config(ENCDEC_ARCH)
+    check(cfg.n_frames == ENCDEC_FRAMES and cfg.head_dim == ENCDEC_HEAD_DIM
+          and cfg.n_heads == ENCDEC_HEADS, f"{cfg.name}: {describe(cfg)}")
+    params, init_s, init_peak = init_timed(torch, cfg, dev)
+    per_prefill = {"flash_attention_tc": cfg.encoder_layers
+                   + 2 * cfg.n_layers}
+    passes, launches = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for n in ENCDEC_PROMPTS:
+        tokens, frames = encdec_inputs(torch, cfg, n, dev)
+        cache = T.init_cache(cfg, ENCDEC_ROWS, n + ENCDEC_MAX_NEW,
+                             device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _, _ = T.model_apply(
+            params, {"tokens": tokens, "frames": frames, "cache_pos": 0},
+            cfg, mode="prefill", cache=cache)
+        first = logits[:, -1].argmax(-1)
+        first_list = first.tolist()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pre = ops.launch_counts()
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (ENCDEC_ROWS, 1, cfg.padded_vocab),
+              f"{cfg.name} prefill at {n}: logits {tuple(logits.shape)} "
+              "or non-finite")
+        check(pre == {**dict.fromkeys(pre, 0), **per_prefill},
+              f"{cfg.name} prefill at {n}: launches {pre}, want "
+              f"{per_prefill}")
+        ops.reset_launch_counts()
+        toks, step_ms = greedy_decode(
+            torch, cfg, params, cache, first,
+            lambda i, t: {"tokens": t[:, None].long(), "cache_pos": n + i},
+            ENCDEC_MAX_NEW)
+        dec = ops.launch_counts()
+        check(not any(dec.values()),
+              f"{cfg.name} decode at {n}: launched {dec}")
+        toks = torch.cat([torch.tensor(first_list)[:, None], toks], dim=1)
+        check(bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+              f"{cfg.name} at {n}: a token outside the vocabulary")
+        total_ms = prefill_ms + sum(step_ms)
+        passes[n] = dict(
+            prefill_ms=prefill_ms,
+            decode_step_p50_ms=sorted(step_ms)[len(step_ms) // 2],
+            tok_per_s=toks.numel() / total_ms * 1e3,
+            tokens_first_row=toks[0].tolist())
+        for k, v in pre.items():
+            launches[k] = launches.get(k, 0) + v
+        del cache, logits
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    n = ENCDEC_PROFILE_LEN
+    tokens, frames = encdec_inputs(torch, cfg, n, dev)
+    cache = T.init_cache(cfg, ENCDEC_ROWS, n + ENCDEC_MAX_NEW, device=dev)
+    batch = {"tokens": tokens, "frames": frames, "cache_pos": 0}
+    prof_prefill = profile_fn(torch, lambda: T.model_apply(
+        params, batch, cfg, mode="prefill", cache=cache), steps=2)
+    step = {"tokens": tokens[:, :1], "cache_pos": n}
+    prof_decode = profile_fn(torch, lambda: T.model_apply(
+        params, step, cfg, mode="decode", cache=cache), steps=4)
+    del cache
+    torch.cuda.empty_cache()
+    report = dict(
+        config=describe(cfg) + f", {cfg.encoder_layers} encoder layers over "
+        f"{cfg.n_frames} seeded frame embeddings (frontend stubbed)",
+        params=param_count(params), param_mib=param_bytes(params) / 2 ** 20,
+        init_s=init_s, init_peak_mib=init_peak / 2 ** 20,
+        init_peak_over_params_mib=(init_peak - param_bytes(params)) / 2 ** 20,
+        rows=ENCDEC_ROWS, prompts=list(ENCDEC_PROMPTS),
+        max_new=ENCDEC_MAX_NEW, passes=passes, peak_mem_mib=peak_mib,
+        launches=launches, flash_tc_per_prefill=per_prefill,
+        **{f"profile_prefill_{n}": prof_prefill,
+           "profile_decode": prof_decode})
+    return report, cfg, params
+
+
+def lm_encdec_gate_phase(torch, dev, cfg, params) -> dict:
+    """whisper-large-v3's f32 gates on the served weights, ENCDEC_ROWS rows
+    of ENCDEC_PROFILE_LEN tokens: (1) the prefill's last-position logits on
+    the flash route (the f32 kernel, 96 launches, counted from 0, handed
+    each layer's q, k, v views at their own addresses) against the plain
+    route, within atol = rtol = LM_LOGITS_TOL; (2) the logits of that
+    prefill and three decode steps against the train-mode forward over the
+    same tokens, within the reference's own ENCDEC_DECODE_TOL."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn import transformer as T
+
+    n, f32 = ENCDEC_PROFILE_LEN, torch.float32
+    tokens, frames = encdec_inputs(torch, cfg, n + 3, dev)
+    run = f32_prefill_routes(torch, cfg, params, {
+        "tokens": tokens[:, :n], "frames": frames}, n + 3, dev,
+        keep_cache=True)
+    err = check_f32_gate(torch, cfg, run,
+                         cfg.encoder_layers + 2 * cfg.n_layers,
+                         f"at {ENCDEC_ROWS} x {n}")
+    served = run.pop("cache")
+    seq = [run["logits"][True][:, -1]]
+    for i in range(3):
+        logits, served, _ = T.model_apply(
+            params, {"tokens": tokens[:, n + i:n + i + 1],
+                     "cache_pos": n + i}, cfg, mode="decode", cache=served,
+            compute_dtype=f32)
+        seq.append(logits[:, -1])
+    full, _, _ = T.model_apply(params, {"tokens": tokens, "frames": frames},
+                               cfg, mode="train", compute_dtype=f32)
+    seq, ref = torch.stack(seq, 1), full[:, n - 1:n + 3]
+    dec_err = max_abs_err(seq, ref)
+    check(bool(((seq - ref).abs() <= ENCDEC_DECODE_TOL
+                + ENCDEC_DECODE_TOL * ref.abs()).all()),
+          f"{cfg.name} f32 prefill + 3 decode steps off the train-mode "
+          f"forward by {dec_err}")
+    ops.reset_launch_counts()
+    out = dict(rows=ENCDEC_ROWS, prompt_len=n, launches=run["launches"],
+               operands_in_place=run["in_place"], max_abs_err=err,
+               tolerance=f"atol = rtol = {LM_LOGITS_TOL}",
+               logits_absmax=float(run["logits"][False].abs().max()),
+               decode_vs_forward_max_abs_err=dec_err,
+               decode_vs_forward_tolerance=f"atol = rtol = "
+                                           f"{ENCDEC_DECODE_TOL}")
+    del served, full, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_image_prompt(torch, cfg, dev) -> dict:
+    """One image prompt as Qwen2-VL lays it out: a VLM_GRID x VLM_GRID
+    patch grid of seeded image embeddings (bf16) at the front, then
+    VLM_TEXT seeded text tokens. M-RoPE positions (3, 1, S): image token i
+    at (0, i // 16, i % 16); text token j at 16 + j in all three
+    streams."""
+    n_img = VLM_GRID * VLM_GRID
+    check(n_img == cfg.img_tokens, f"{cfg.name}: {cfg.img_tokens} image "
+          f"tokens, not a {VLM_GRID} x {VLM_GRID} grid")
+    s = n_img + VLM_TEXT
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    image = torch.randn((1, n_img, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=g, device=dev)
+    i = torch.arange(n_img, device=dev)
+    text = VLM_GRID + torch.arange(VLM_TEXT, device=dev)
+    pos = torch.stack([torch.cat([torch.zeros_like(i), text]),
+                       torch.cat([i // VLM_GRID, text]),
+                       torch.cat([i % VLM_GRID, text])])[:, None]
+    return {"tokens": tokens, "image_embeds": image, "mrope_positions": pos}
+
+
+def vlm_decode_batch(torch, tok, n: int, step: int) -> dict:
+    """Decode step ``step`` after the image prompt of ``n`` positions: the
+    sequence index for the cache, M-RoPE position 16 + 512 + step in all
+    three streams."""
+    p = VLM_GRID + VLM_TEXT + step
+    return {"tokens": tok[:, None].long(), "cache_pos": n + step,
+            "mrope_positions": torch.full((3, 1, 1), p, device=tok.device)}
+
+
+def lm_vlm_phase(torch, dev) -> tuple:
+    """qwen2-vl-7b at full width and depth (28 layers, d_model 3584, 28
+    heads over 4 KV heads at Dh 128, QKV bias, M-RoPE sections 16/24/24;
+    f32 params): the dense paths' three passes through ``Engine(slots=4,
+    cache_len=4096)`` as a text model, as the reference's Engine serves it
+    (``lm_serve_phase``: tokens identical, 28 bf16 flash launches a
+    prefill), then one image prompt (``vlm_image_prompt``: 256 image
+    embeddings and 512 text tokens) prefilled through ``model_apply`` with
+    its M-RoPE positions (28 bf16 flash launches, counted from 0) and 32
+    greedy decode steps; its TTFT, decode p50, and profiles of its prefill
+    and of a decode step."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn import transformer as T
+
+    report, eng = lm_serve_phase(torch, dev, VLM_ARCH)
+    cfg, params = eng.cfg, eng.params
+    batch = vlm_image_prompt(torch, cfg, dev)
+    n = batch["tokens"].shape[1]
+    cache = T.init_cache(cfg, 1, n + LM_MAX_NEW, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, _, _ = T.model_apply(params, dict(batch, cache_pos=0), cfg,
+                                 mode="prefill", cache=cache)
+    tok = logits[:, -1].argmax(-1)
+    out = tok.tolist()
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    pre = ops.launch_counts()
+    want = {**dict.fromkeys(pre, 0), "flash_attention_tc": cfg.n_layers}
+    check(pre == want, f"{cfg.name} image prefill: launches {pre} != {want}")
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name} image prefill: non-finite logits")
+    toks, step_ms = greedy_decode(
+        torch, cfg, params, cache, tok,
+        lambda i, t: vlm_decode_batch(torch, t, n, i), LM_MAX_NEW)
+    out += toks[0].tolist()
+    check(all(0 <= t < cfg.padded_vocab for t in out),
+          f"{cfg.name} image prompt: a token outside the vocabulary")
+    prof_prefill = profile_fn(torch, lambda: T.model_apply(
+        params, dict(batch, cache_pos=0), cfg, mode="prefill",
+        cache=cache), steps=2)
+    last = vlm_decode_batch(torch, toks[:, -1].to(dev), n, LM_MAX_NEW - 1)
+    prof_decode = profile_fn(torch, lambda: T.model_apply(
+        params, last, cfg, mode="decode", cache=cache), steps=4)
+    for k, v in pre.items():
+        report["launches"][k] = report["launches"].get(k, 0) + v
+    report["image_prompt"] = dict(
+        image_tokens=cfg.img_tokens, text_tokens=VLM_TEXT,
+        launches=pre, ttft_ms=ttft_ms,
+        decode_step_p50_ms=sorted(step_ms)[len(step_ms) // 2],
+        tokens=out, profile_prefill=prof_prefill,
+        profile_decode=prof_decode)
+    del cache
+    torch.cuda.empty_cache()
+    return report, eng
+
+
+def lm_vlm_gate_phase(torch, dev, eng) -> dict:
+    """qwen2-vl-7b's f32 gates: the 2048-token text prefill
+    (``lm_gate_phase``), then the image prompt with its M-RoPE positions:
+    flash route (28 f32 launches, counted from 0, operands in place)
+    against plain, last-position logits within LM_LOGITS_TOL."""
+    from repro_torch.kernels import ops
+
+    out = lm_gate_phase(torch, dev, eng, DENSE_GATE_LENS, LM_PROMPTS,
+                        greedy=False)
+    cfg, params = eng.cfg, eng.params
+    batch = vlm_image_prompt(torch, cfg, dev)
+    n = batch["tokens"].shape[1]
+    run = f32_prefill_routes(torch, cfg, params, batch, n, dev)
+    err = check_f32_gate(torch, cfg, run, cfg.n_layers, "on the image prompt")
+    launches = run["launches"]
+    out["image_prompt"] = dict(
+        prompt_len=n, launches=launches, operands_in_place=run["in_place"],
+        max_abs_err=err, logits_absmax=float(run["logits"][False].abs().max()))
+    for k, v in launches.items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return out
+
+
 # readings beyond the contract's keys, kept in the kernels line
 EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
               "ms_fc1_f32", "bound_ms_fc1_f32", "library_ms_fc1_f32",
               "ms_conv0_int16", "ms_conv0_f32", "ms_packed_default_f32",
               "at_hymba_shape", "at_glm4_shape", "at_stablelm_shape",
-              "at_qwen3moe_shape")
+              "at_qwen3moe_shape", "at_whisper_encoder_shape",
+              "at_whisper_self_shape", "at_whisper_cross_shape",
+              "at_qwen2vl_shape")
 
 
 def kernel_table(report: dict, paths) -> list:
@@ -3368,7 +3811,8 @@ def main() -> int:
              "lm_gate", "lm_hybrid_serve", "lm_hybrid_gate", "lm_ssm_serve",
              "spikformer_train", "examples", "lm_dense12b_serve",
              "lm_dense12b_gate", "lm_dense9b_serve", "lm_dense9b_gate",
-             "lm_moe_serve", "lm_moe_gate", "lm_train")
+             "lm_moe_serve", "lm_moe_gate", "lm_train", "lm_encdec",
+             "lm_encdec_gate", "lm_vlm", "lm_vlm_gate")
     phase_s = report["phase_s"] = {}     # wall seconds, build excluded
     t_phase = [time.perf_counter()]
 
@@ -3475,6 +3919,24 @@ def main() -> int:
         report[paths[21]] = lm_train_phase(torch, dev)
         timed(paths[21])
         torch.cuda.empty_cache()
+        # the encoder-decoder and VLM paths after every earlier phase, one
+        # large model alive at a time
+        report[paths[22]], cfg_e, params_e = lm_encdec_phase(torch, dev)
+        timed(paths[22])
+        report[paths[23]] = lm_encdec_gate_phase(torch, dev, cfg_e,
+                                                 params_e)
+        timed(paths[23])
+        del params_e
+        torch.cuda.empty_cache()
+        report[paths[24]], lm_engine = lm_vlm_phase(torch, dev)
+        report["kernels"]["flash_attention_tc"]["at_qwen2vl_shape"][
+            "ms_in_graph"] = graphed_flash_ms(
+                report[paths[24]][f"profile_prefill_{PROFILE_LEN}"])
+        timed(paths[24])
+        report[paths[25]] = lm_vlm_gate_phase(torch, dev, lm_engine)
+        timed(paths[25])
+        del lm_engine
+        torch.cuda.empty_cache()
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -3527,7 +3989,8 @@ def main() -> int:
         "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 4))
                         for k in f32["profile"]["by_kernel"][:8]]}))
     for path in ("lm_serve", "lm_hybrid_serve", "lm_ssm_serve",
-                 "lm_dense12b_serve", "lm_dense9b_serve", "lm_moe_serve"):
+                 "lm_dense12b_serve", "lm_dense9b_serve", "lm_moe_serve",
+                 "lm_vlm"):
         lm = report[path]
         for name in ("eager", "cold", "warm"):
             run = lm["passes"][name]
@@ -3554,7 +4017,7 @@ def main() -> int:
                                 for k in prof["by_kernel"][:8]]}))
     print(json.dumps({"lm_gate": report["lm_gate"]}))
     for gate in ("lm_hybrid_gate", "lm_dense12b_gate", "lm_dense9b_gate",
-                 "lm_moe_gate"):
+                 "lm_moe_gate", "lm_encdec_gate", "lm_vlm_gate"):
         print(json.dumps({gate: report[gate]}))
     print(json.dumps({"spikformer_train": report["spikformer_train"]}))
     ex = report["examples"]
@@ -3576,6 +4039,18 @@ def main() -> int:
                          if k != "by_kernel"},
         "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 2))
                         for k in lt["profile_step"]["by_kernel"][:10]]}}))
+    ed = report["lm_encdec"]
+    print(json.dumps({"lm_encdec": {
+        **{k: v for k, v in ed.items() if not k.startswith("profile")},
+        **{k: {"summary": {x: y for x, y in v.items() if x != "by_kernel"},
+               "top_kernels": [(r["kernel"][:48], round(r["ms_per_step"], 4))
+                               for r in v["by_kernel"][:8]]}
+           for k, v in ed.items() if k.startswith("profile")}}}))
+    img = report["lm_vlm"]["image_prompt"]
+    print(json.dumps({"lm_vlm_image_prompt": {
+        **{k: v for k, v in img.items() if not k.startswith("profile")},
+        **{k: {x: y for x, y in v.items() if x != "by_kernel"}
+           for k, v in img.items() if k.startswith("profile")}}}))
     print(json.dumps({"phase_s": phase_s, "build_s": build_s}))
     print(smi)
     print(json.dumps({"kernels": table}))

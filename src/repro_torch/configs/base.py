@@ -81,6 +81,13 @@ class ArchConfig:
         kept so that parameter trees cross between the packages)."""
         return -(-self.vocab // 256) * 256
 
+    def encoder_cfg(self) -> "ArchConfig":
+        """The encoder's config (Whisper): non-causal, no RoPE, no
+        cross-attention, no experts, no window."""
+        return dataclasses.replace(
+            self, causal=False, cross_attention=False, n_experts=0,
+            sliding_window=None, use_rope=False)
+
     def reduced(self, **overrides) -> "ArchConfig":
         """Same-family tiny config, runnable on the CPU; keeps every
         structural flag (GQA, MoE, SSM, M-RoPE, windows...)."""

@@ -15,9 +15,13 @@ prefill as one graph per prompt length. ``jit=False`` runs them eagerly.
     python -m repro_torch.launch.serve --arch smollm-360m [--reduce] \\
         [--slots 4 --requests 8 --prompt-len 32 --max-new 16]
 
-``--arch`` takes each ported config: smollm-360m, stablelm-12b, glm4-9b,
-hymba-1.5b, mamba2-130m, and the MoE configs qwen3-moe-30b-a3b and
-arctic-480b with ``--reduce`` only. Their full widths do not fit one
+``--arch`` takes each ported config the reference's engine serves:
+smollm-360m, stablelm-12b, glm4-9b, hymba-1.5b, mamba2-130m, qwen2-vl-7b
+(as a text model: no image embeddings, and RoPE, which is M-RoPE with
+three equal streams), and the MoE configs qwen3-moe-30b-a3b and
+arctic-480b with ``--reduce`` only. An encoder-decoder config
+(whisper-large-v3) raises: the engine takes no frames, as the
+reference's does not. Their full widths do not fit one
 card: qwen3-moe's f32 params (its config's ``param_dtype``) take 122 GB
 of the card's 80 (in bf16 weights, 61 GB, it is served by
 ``chip_smoke.py``, which replaces the config's ``param_dtype``), and
@@ -127,6 +131,12 @@ class Engine:
                  params=None, compute_dtype=None,
                  cache_dtype=torch.bfloat16, device=None,
                  flash: bool = True, jit: bool = True):
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the engine serves text prompts and takes no "
+                "encoder frames, as the reference's Engine takes none (its "
+                "prefill fails on the missing batch['frames']); drive an "
+                "encoder-decoder model through model_apply")
         self.cfg = cfg
         self.slots = slots
         self.cache_len = cache_len

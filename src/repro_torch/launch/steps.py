@@ -40,15 +40,23 @@ def opt_config(cfg, ts: TrainSettings) -> adamw.OptConfig:
         ts.opt, state_dtype=T.as_dtype(cfg.opt_state_dtype))
 
 
+def microbatch(name: str, value, start: int, stop: int):
+    """Rows ``start:stop`` of one batch value: on dim 1 of
+    ``mrope_positions`` (3, B, S), as the reference's ``mrope_split``
+    cuts it, on dim 0 of every other value."""
+    return value[:, start:stop] if name == "mrope_positions" \
+        else value[start:stop]
+
+
 def make_train_step(cfg, ts: TrainSettings):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "lr"})``, the metrics 0-d tensors.
 
     The global batch (B rows) splits into ``accum = B // micro``
     microbatches as the reference's reshape does: row ``j * micro + i`` is
-    row i of microbatch j. Each microbatch's gradients are added, in
-    order, into an ``accum_dtype`` accumulator, then divided by
-    ``accum``; the loss is the microbatches' sum over ``accum``. With
+    row i of microbatch j (``microbatch``). Each microbatch's gradients
+    are added, in order, into an ``accum_dtype`` accumulator, then divided
+    by ``accum``; the loss is the microbatches' sum over ``accum``. With
     compression on, ``opt_state["ef"]`` holds the error feedback and the
     gradients pass through ``ef_compress`` before AdamW."""
     T.require_ported(cfg)
@@ -70,7 +78,7 @@ def make_train_step(cfg, ts: TrainSettings):
         lsum = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
         for j in range(accum):
-            mbatch = {k: v[j * micro:(j + 1) * micro]
+            mbatch = {k: microbatch(k, v, j * micro, (j + 1) * micro)
                       for k, v in batch.items()}
             with torch.enable_grad():
                 loss, _ = T.lm_loss(tracked, mbatch, cfg, flash=False)

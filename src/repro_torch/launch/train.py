@@ -6,7 +6,9 @@ token-file data with the full loop: the microbatched train step
 guard, straggler bookkeeping and a metrics log. It runs on one device,
 the card unless ``--device`` names another, with no mesh: sharding over a
 mesh comes with the port of ``repro.sharding``. The encoder-decoder and
-VLM families are not ported and raise.
+VLM families train on the synthetic stream plus the reference's stub
+modality inputs (``augment``): zero frames, zero image embeddings and
+M-RoPE positions whose three streams are each row's ``arange``.
 
 Prints one JSON line a logged step (``step``, ``loss``, ``grad_norm``,
 ``lr``, ``step_s``), ``[restore] step N from DIR`` after a restart, and
@@ -69,6 +71,27 @@ def build_parser():
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     return ap
+
+
+def augment(batch: dict, cfg) -> dict:
+    """Add the stub modality inputs the synthetic LM stream lacks, as the
+    reference's ``augment``: for a VLM, zero image embeddings (B,
+    img_tokens, D) in bf16 and the (3, B, S) M-RoPE positions, each
+    stream ``arange(S)``; for an encoder-decoder, zero frames (B,
+    n_frames, D) in bf16."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.zeros(
+            (b, cfg.img_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
+        batch["mrope_positions"] = torch.arange(
+            s, dtype=torch.int32, device=dev).expand(3, b, s)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((b, cfg.n_frames, cfg.d_model),
+                                      dtype=torch.bfloat16, device=dev)
+    return batch
 
 
 @dataclasses.dataclass
@@ -136,7 +159,7 @@ def main(argv=None):
                 data.close()
                 raise NodeFailure(f"injected at step {step}")
             t0 = time.time()
-            batch = next(data)
+            batch = augment(next(data), cfg)
             params, opt_state, m = step_fn(params, opt_state, batch)
             loss = float(m["loss"])
             dt = time.time() - t0

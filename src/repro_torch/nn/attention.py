@@ -1,6 +1,7 @@
 """Attention for the LM stack (port of ``repro.nn.attention``: GQA, RoPE /
-partial RoPE, QK-norm, QKV bias, sliding windows with Hymba's per-layer
-global flag, linear and ring-buffer KV caches).
+partial RoPE / M-RoPE, QK-norm, QKV bias, sliding windows with Hymba's
+per-layer global flag, linear and ring-buffer KV caches, and Whisper's
+cross-attention).
 
 Full-sequence causal attention whose positions are the default contiguous
 ones, and whose window (if any) cannot mask a key, runs
@@ -16,8 +17,17 @@ HEAD_DIMS``), with no fallback. Every other case (decode, prefill at an
 offset, per-row positions) is the reference's plain chunked softmax, in
 torch. So is a prompt longer than its layer's window: the reference has no
 Pallas kernel for windowed attention, so that branch is the reference's
-own schedule, not a kernel's plain stand-in. M-RoPE and cross-attention
-are not ported yet.
+own schedule, not a kernel's plain stand-in.
+
+M-RoPE (Qwen2-VL, ``mrope_positions`` (3, B, S)) rotates q and k by three
+position streams; the causal mask stays by sequence index, as in the
+reference (whose ``chunked_attention`` gets ``positions[0]``, not the
+streams), so an M-RoPE prefill takes the flash kernel as any other.
+Cross-attention (Whisper's decoder, ``cross_kv``) attends non-causally
+over the encoder's precomputed keys and values: through the flash kernel
+for more than one query (Nq != Nkv, 1500 keys at full width, the keys past
+the last tile masked by the kernel), by the plain grouped softmax for one
+(decode).
 
 A prompt longer than a ring cache attends over its own keys, as the
 reference's train-mode forward does, and only then leaves its last
@@ -34,7 +44,8 @@ from __future__ import annotations
 
 import torch
 
-from .layers import apply_rope, linear, linear_init, rmsnorm, rmsnorm_init
+from .layers import (apply_mrope, apply_rope, linear, linear_init, rmsnorm,
+                     rmsnorm_init)
 from .module import KeyStream
 from ..kernels import ops
 
@@ -61,23 +72,33 @@ def attn_init(gen, cfg, dtype=torch.float32):
     return p
 
 
+def _project_q(p, x, cfg, *, compute_dtype):
+    b, s, _ = x.shape
+    q = linear(p["wq"], x, compute_dtype=compute_dtype).reshape(
+        b, s, cfg.n_heads, cfg.head_dim)
+    return rmsnorm(p["q_norm"], q) if cfg.qk_norm else q
+
+
 def _project_qkv(p, x, cfg, *, compute_dtype):
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = linear(p["wq"], x, compute_dtype=compute_dtype).reshape(
-        b, s, cfg.n_heads, dh)
+    q = _project_q(p, x, cfg, compute_dtype=compute_dtype)
     k = linear(p["wk"], x, compute_dtype=compute_dtype).reshape(
         b, s, cfg.n_kv_heads, dh)
     v = linear(p["wv"], x, compute_dtype=compute_dtype).reshape(
         b, s, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
     return q, k, v
 
 
-def _rope(q, k, cfg, positions):
-    if cfg.use_rope:
+def _rope(q, k, cfg, positions, mrope_positions=None):
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                        theta=cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                        theta=cfg.rope_theta)
+    elif cfg.use_rope:
         q = apply_rope(q, positions, theta=cfg.rope_theta,
                        rotary_frac=cfg.rotary_frac)
         k = apply_rope(k, positions, theta=cfg.rope_theta,
@@ -296,17 +317,24 @@ def attend_cache(q, cache, *, scale: float, q_positions, window=None,
 
 
 def attn_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
-               window=None, is_global=None, compute_dtype=torch.bfloat16,
+               mrope_positions=None, window=None, is_global=None,
+               cross_kv=None, compute_dtype=torch.bfloat16,
                chunk: int = 512, flash: bool = True):
-    """Self-attention; returns (out, cache). ``positions`` (B, S) are
+    """Attention; returns (out, cache). ``positions`` (B, S) are
     ``cache_pos + arange(S)`` per row, as ``model_apply`` builds them;
     ``cache_pos`` is an int or, for continuous-batching decode, a (B,)
-    tensor. ``window``/``is_global``: the layer's sliding window and
-    whether it is a global layer. Modes:
+    tensor. ``mrope_positions`` (3, B, S): M-RoPE's streams, where the
+    config has sections (else RoPE by ``positions``). ``window``/
+    ``is_global``: the layer's sliding window and whether it is a global
+    layer. Modes:
       - train/prefill: cache=None -> self-attention over x;
       - prefill with a cache at cache_pos=0 -> fills the cache and attends
         over the prompt's own keys;
-      - decode: x is (B, 1, D), cache_pos the current position(s).
+      - decode: x is (B, 1, D), cache_pos the current position(s);
+      - cross: ``cross_kv`` = {"k", "v"} (B, KV, Se, Dh) precomputed ->
+        non-causal attention of q over them, no RoPE, no cache (the
+        reference also projects k and v from x here and drops them; they
+        are not computed).
     The cache is a ring, as in the reference, iff ``window`` is set and
     the cache is no longer than it (a global layer's too, when its cache
     is that short). ``flash=False`` runs the plain chunked softmax
@@ -314,8 +342,14 @@ def attn_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
     """
     b, s, _ = x.shape
     scale = cfg.head_dim ** -0.5
+    if cross_kv is not None:
+        q = _project_q(p, x, cfg, compute_dtype=compute_dtype).transpose(1, 2)
+        out = chunked_attention(q, cross_kv["k"], cross_kv["v"], scale=scale,
+                                causal=False, chunk=chunk, flash=flash)
+        out = out.transpose(1, 2).reshape(b, s, -1)
+        return linear(p["wo"], out, compute_dtype=compute_dtype), cache
     q, k, v = _project_qkv(p, x, cfg, compute_dtype=compute_dtype)
-    q, k = _rope(q, k, cfg, positions)
+    q, k = _rope(q, k, cfg, positions, mrope_positions)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     aligned = isinstance(cache_pos, int)
     attend = dict(scale=scale, window=window, is_global=is_global,

@@ -1,6 +1,6 @@
-"""Common layers: linear, embedding, norms, rotary embeddings and the
-token cross-entropy (port of ``repro.nn.layers``; M-RoPE is not ported
-yet).
+"""Common layers: linear, embedding, norms, rotary embeddings (RoPE and
+Qwen2-VL's M-RoPE) and the token cross-entropy (port of
+``repro.nn.layers``).
 
 Pure functions over nested-dict params; the compute dtype is the caller's
 and params keep the dtype they were made in. The large products are
@@ -116,6 +116,34 @@ def apply_rope(x, positions, *, theta: float = 10000.0,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
+
+
+def apply_mrope(x, positions_3d, sections, *, theta: float = 1000000.0):
+    """Multimodal RoPE (Qwen2-VL): the head_dim/2 frequency slots are split
+    into (temporal, height, width) sections, each driven by its own
+    position stream.
+
+    x: (..., S, H, Dh); positions_3d: (3, ..., S); sections sum to Dh//2.
+    The whole head rotates, with RoPE's inverse frequencies and
+    half-rotation: three equal streams give ``apply_rope``'s values."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {half}")
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    inv = 1.0 / (theta ** exps)
+    # each frequency slot's position, from the stream of its section (no
+    # index tensor: nothing is copied from the host)
+    p3 = positions_3d.to(torch.float32).movedim(0, -1)   # (..., S, 3)
+    pos = torch.cat([p3[..., i:i + 1].expand(*p3.shape[:-1], n)
+                     for i, n in enumerate(sections)], dim=-1)
+    ang = pos * inv                                      # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                   # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The LM backbone assembled from an ArchConfig (port of
-``repro.nn.transformer``: the dense, MoE, SSM and hybrid families).
+``repro.nn.transformer``: the dense, MoE, SSM, hybrid, encoder-decoder and
+VLM families).
 
 Layer parameters are stacked as in the reference: every leaf of
 ``params["layers"]`` carries a leading (L, ...) axis, and layer i runs on
@@ -10,8 +11,20 @@ full-length KV caches and whose windowed layers hold rings). The layers
 run in a Python loop either way, with per-layer flags as Python bools.
 An MoE layer's FFN is ``nn.moe.moe_apply`` (plus the dense MLP beside it
 where ``cfg.dense_parallel``); its aux losses, averaged over the layers,
-are ``model_apply``'s third result. The encoder-decoder and VLM families
-are not ported yet and raise ``NotImplementedError``.
+are ``model_apply``'s third result.
+
+The encoder-decoder family (Whisper) runs ``encode`` over precomputed
+frame embeddings (the audio frontend is a stub in the reference too) plus
+sinusoidal positions: ``cfg.encoder_layers`` non-causal layers without
+RoPE (``params["enc_layers"]``, stacked like the decoder's) and
+``enc_norm``. Each decoder layer adds a cross-attention block (``cross``,
+``ln_cross``) after self-attention: in train and prefill mode its keys and
+values are projected from the encoder's output, and a cache's
+``cross_k``/``cross_v`` are written with them in place; in decode mode
+they are read from the cache. The VLM family (Qwen2-VL) overwrites the
+first ``img_tokens`` embeddings with ``batch["image_embeds"]`` (the vision
+tower is a stub in the reference too) and rotates q and k by
+``batch["mrope_positions"]`` (3, B, S) where given.
 
 ``lm_loss`` is the training loss. In train mode with ``cfg.remat`` and
 autograd on, each layer runs under ``torch.utils.checkpoint`` (the
@@ -41,20 +54,16 @@ from .moe import moe_apply, moe_init
 from .ssm import init_ssm_state, ssm_apply, ssm_init
 from ..device import resolve_device
 
-# what each family still waits for, by reference module
-_NOT_PORTED = {"encdec": "repro.nn.transformer (encoder, cross-attention)",
-               "vlm": "repro.nn.layers (apply_mrope)"}
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the reference module a config
-    needs that the port does not have yet."""
+    """Raise ``NotImplementedError`` for a family the reference does not
+    define (every one it defines is ported)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} needs "
-            f"{_NOT_PORTED.get(cfg.family, 'an unported module')}, which is "
-            "not ported yet")
+            f"family {cfg.family!r} is not ported: the port has "
+            f"{', '.join(PORTED_FAMILIES)}")
 
 
 def as_dtype(name) -> torch.dtype:
@@ -122,6 +131,9 @@ def layer_init(gen, cfg, dtype=torch.float32):
                 p["mlp"] = mlp_init(ks(), cfg, dtype)
         elif cfg.d_ff > 0:
             p["mlp"] = mlp_init(ks(), cfg, dtype)
+    if cfg.cross_attention:
+        p["cross"] = attn_init(ks(), cfg, dtype)
+        p["ln_cross"] = _norm_init(cfg, dev)
     return p
 
 
@@ -140,13 +152,34 @@ def _ssm_mix(p, h, cfg, cache, *, compute_dtype):
     return y
 
 
+def _cross_kv(p, cfg, cache, enc_out, *, compute_dtype):
+    """The cross-attention's keys and values (B, KV, Se, Dh): projected
+    from ``enc_out`` (and written into the cache's ``cross_k``/``cross_v``
+    in place, rounded to the cache's dtype), else the cache's, else
+    None."""
+    if enc_out is not None:
+        b, se, _ = enc_out.shape
+        ck, cv = (linear(p["cross"][w], enc_out, compute_dtype=compute_dtype)
+                  .reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
+                  .transpose(1, 2) for w in ("wk", "wv"))
+        if cache is not None and "cross_k" in cache:
+            cache["cross_k"].copy_(ck)
+            cache["cross_v"].copy_(cv)
+        return {"k": ck, "v": cv}
+    if cache is not None and "cross_k" in cache:
+        return {"k": cache["cross_k"], "v": cache["cross_v"]}
+    return None
+
+
 def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
-                is_global=None, compute_dtype=torch.bfloat16,
-                flash: bool = True):
+                is_global=None, mrope_positions=None, enc_out=None,
+                compute_dtype=torch.bfloat16, flash: bool = True):
     """Returns (x, cache, aux); ``cache`` is this layer's dict or None,
     written in place. ``is_global``: the layer's flag (Python bool) where
-    the config has a sliding window. ``aux`` holds an MoE layer's losses,
-    else it is empty."""
+    the config has a sliding window. ``mrope_positions``: M-RoPE's (3, B,
+    S) streams; ``enc_out``: the encoder's output (B, Se, D), which the
+    cross-attention block reads in train and prefill mode. ``aux`` holds
+    an MoE layer's losses, else it is empty."""
     h = _norm(cfg, p["ln1"], x)
     if cfg.family == "ssm":
         return x + _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype), \
@@ -155,13 +188,24 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
     mixer_out, _ = attn_apply(
         p["attn"], h, cfg, positions=positions,
         cache=None if cache is None else cache["kv"], cache_pos=cache_pos,
-        window=window, is_global=is_global if window is not None else None,
+        mrope_positions=mrope_positions, window=window,
+        is_global=is_global if window is not None else None,
         compute_dtype=compute_dtype, chunk=cfg.attn_chunk, flash=flash)
     if cfg.family == "hybrid":
         s_out = _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype)
         mixer_out = 0.5 * (_norm(cfg, p["attn_out_norm"], mixer_out)
                            + _norm(cfg, p["ssm_out_norm"], s_out))
     x = x + mixer_out
+    if cfg.cross_attention:
+        cross_kv = _cross_kv(p, cfg, cache, enc_out,
+                             compute_dtype=compute_dtype)
+        if cross_kv is not None:
+            cross_out, _ = attn_apply(
+                p["cross"], _norm(cfg, p["ln_cross"], x), cfg,
+                positions=positions, cross_kv=cross_kv,
+                compute_dtype=compute_dtype, chunk=cfg.attn_chunk,
+                flash=flash)
+            x = x + cross_out
     aux = {}
     if cfg.n_experts > 0:
         h2 = _norm(cfg, p["ln2"], x)
@@ -237,7 +281,43 @@ def init_model(gen: torch.Generator, cfg, *, device=None):
     if not cfg.tie_embeddings:
         p["head"] = _to(linear_init(ks(), cfg.d_model, cfg.padded_vocab,
                                     dtype=dtype), device)
+    if cfg.family == "encdec":
+        enc_cfg = cfg.encoder_cfg()
+        p["enc_layers"] = _stacked(lambda i: layer_init(ks(), enc_cfg, dtype),
+                                   cfg.encoder_layers, device)
+        p["enc_norm"] = _to(_norm_init(cfg, gen.device), device)
     return p
+
+
+def _sinusoidal(positions, d: int):
+    """(B, S) -> (B, S, D) f32 sinusoidal embeddings (Whisper's), sines
+    then cosines, frequencies computed in f32 as in the reference."""
+    half = d // 2
+    dev = positions.device
+    neg_log = -torch.full((), 10000.0, dtype=torch.float32, device=dev).log()
+    freqs = torch.exp(neg_log * torch.arange(half, dtype=torch.float32,
+                                             device=dev) / max(half - 1, 1))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params, frames, cfg, *, compute_dtype=torch.bfloat16,
+           flash: bool = True):
+    """Whisper's encoder over precomputed frame embeddings (B, Se, D)
+    (the frontend is stubbed): sinusoidal positions added, then the
+    ``cfg.encoder_cfg()`` layers (non-causal self-attention, no RoPE) and
+    ``enc_norm``. Its attention is the flash kernel's non-causal branch
+    where ``flash``."""
+    enc_cfg = cfg.encoder_cfg()
+    b, s, _ = frames.shape
+    positions = torch.arange(s, device=frames.device).expand(b, s)
+    x = frames.to(compute_dtype) + _sinusoidal(
+        positions, cfg.d_model).to(compute_dtype)
+    for i in range(cfg.encoder_layers):
+        x, _, _ = layer_apply(_index(params["enc_layers"], i), x, enc_cfg,
+                              positions=positions,
+                              compute_dtype=compute_dtype, flash=flash)
+    return _norm(cfg, params["enc_norm"], x)
 
 
 def layer_flags(cfg):
@@ -288,11 +368,15 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
                 compute_dtype=None, flash: bool = True):
     """Returns (logits, new_cache, aux). ``batch["tokens"]`` is (B, S);
     ``batch["cache_pos"]`` an int, a 0-d or a (B,) tensor (default 0).
-    The cache is written in place and returned. ``aux`` is each of the
-    layers' aux losses averaged over the layers (an MoE model's
-    ``load_balance`` and ``router_z``; empty for the other families).
-    ``flash=False`` runs the plain attention everywhere (the reference's
-    jnp schedule)."""
+    An encoder-decoder config takes ``batch["frames"]`` (B, Se, D) in
+    train and prefill mode (decode reads the cross keys and values from
+    the cache); a VLM config takes ``batch["image_embeds"]`` (B, n, D),
+    which replace the first n embeddings, and ``batch["mrope_positions"]``
+    (3, B, S), both optional. The cache is written in place and returned.
+    ``aux`` is each of the layers' aux losses averaged over the layers (an
+    MoE model's ``load_balance`` and ``router_z``; empty for the other
+    families). ``flash=False`` runs the plain attention everywhere (the
+    reference's jnp schedule)."""
     require_ported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -300,10 +384,23 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed(params["embed"], tokens, compute_dtype=compute_dtype)
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        img = batch["image_embeds"].to(compute_dtype)
+        if img.shape[1] > s:
+            raise ValueError(f"{img.shape[1]} image embeddings do not fit "
+                             f"a sequence of {s} tokens")
+        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
+    mrope_positions = batch.get("mrope_positions")
     cache_pos = _cache_pos(batch.get("cache_pos"))
     base = cache_pos[:, None] if isinstance(cache_pos, torch.Tensor) \
         else cache_pos
     positions = (base + torch.arange(s, device=tokens.device)).expand(b, s)
+    enc_out = None
+    if cfg.family == "encdec":
+        if mode != "decode":
+            enc_out = encode(params, batch["frames"], cfg,
+                             compute_dtype=compute_dtype, flash=flash)
+        x = x + _sinusoidal(positions, cfg.d_model).to(compute_dtype)
 
     flags = layer_flags(cfg)
     run = (_remat(cfg) if mode == "train" and cfg.remat
@@ -315,6 +412,7 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
             cache=None if cache is None else layer_cache(cache, i),
             cache_pos=cache_pos,
             is_global=None if flags is None else flags["is_global"][i],
+            mrope_positions=mrope_positions, enc_out=enc_out,
             compute_dtype=compute_dtype, flash=flash)
         auxes.append(aux)
 
@@ -341,8 +439,10 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
     the family is ``ssm``, and ``"ssm"`` (B, H, P, N) and ``"conv"`` (B,
     k-1, conv_dim), both f32, for the SSM families. L_i is ``length``, or
     ``min(window, length)`` for a windowed layer that is not global (a
-    ring). Stacked into (L, ...) leaves where ``cfg.scan_layers``, else a
-    list of per-layer dicts, as the reference builds it."""
+    ring). An encoder-decoder layer also holds ``"cross_k"`` and
+    ``"cross_v"`` (B, KV, n_frames, Dh), in ``dtype``. Stacked into (L,
+    ...) leaves where ``cfg.scan_layers``, else a list of per-layer dicts,
+    as the reference builds it."""
     require_ported(cfg)
     device = resolve_device(device)
     dtype = as_dtype(dtype)
@@ -357,6 +457,10 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
                                     cfg.head_dim, dtype=dtype, device=device)
         if cfg.family in ("ssm", "hybrid"):
             c["ssm"], c["conv"] = init_ssm_state(batch, cfg, device=device)
+        if cfg.cross_attention:
+            shape = (batch, cfg.n_kv_heads, cfg.n_frames, cfg.head_dim)
+            c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
         return c
 
     if cfg.scan_layers:

@@ -29,15 +29,25 @@ def from_reference(tree, device="cpu"):
     return torch.from_numpy(x).to(device)
 
 
+def _mlp_names(cfg):
+    return ("gate", "up", "down") if cfg.act == "swiglu" else ("up", "down")
+
+
+def _mlp_shape(cfg, name):
+    return (cfg.d_ff, cfg.d_model) if name == "down" else (cfg.d_model,
+                                                           cfg.d_ff)
+
+
 def lm_from_reference(tree, cfg, device=None):
     """``repro.nn.transformer.init_model``'s tree, numpy leaves, as the
     port's LM parameters on ``device`` (default: the card). The layout is
     the same in both packages (stacked (L, ...) layers, the SSM and hybrid
     families' too), so this checks the shapes the config implies (the
     norms' scales and biases, the QKV biases and QK-norm scales where the
-    config has them, an MoE layer's router, f32, and experts, and the
-    dense MLP beside them where ``cfg.dense_parallel``) and copies the
-    leaves, dtypes kept."""
+    config has them, an MoE layer's router, f32, and experts, the dense
+    MLP beside them where ``cfg.dense_parallel``, an encoder-decoder's
+    encoder layers, ``enc_norm`` and each decoder layer's cross-attention
+    and ``ln_cross``) and copies the leaves, dtypes kept."""
     require_ported(cfg)
     device = resolve_device(device)
     n_layers, d = cfg.n_layers, cfg.d_model
@@ -46,18 +56,41 @@ def lm_from_reference(tree, cfg, device=None):
     if cfg.norm == "layernorm":
         want["layers/ln1/bias"] = (n_layers, d)
         want["final_norm/bias"] = (d,)
-    if cfg.family != "ssm":
-        q_dim = cfg.n_heads * cfg.head_dim
-        kv_dim = cfg.n_kv_heads * cfg.head_dim
-        want["layers/attn/wq/kernel"] = (n_layers, d, q_dim)
-        want["layers/attn/wk/kernel"] = (n_layers, d, kv_dim)
+    q_dim = cfg.n_heads * cfg.head_dim
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+
+    def attention(prefix, n):
+        want[f"{prefix}/wq/kernel"] = (n, d, q_dim)
+        want[f"{prefix}/wk/kernel"] = (n, d, kv_dim)
+        want[f"{prefix}/wv/kernel"] = (n, d, kv_dim)
+        want[f"{prefix}/wo/kernel"] = (n, q_dim, d)
         if cfg.qkv_bias:
-            want["layers/attn/wq/bias"] = (n_layers, q_dim)
-            want["layers/attn/wk/bias"] = (n_layers, kv_dim)
-            want["layers/attn/wv/bias"] = (n_layers, kv_dim)
+            want[f"{prefix}/wq/bias"] = (n, q_dim)
+            want[f"{prefix}/wk/bias"] = (n, kv_dim)
+            want[f"{prefix}/wv/bias"] = (n, kv_dim)
         if cfg.qk_norm:
-            want["layers/attn/q_norm/scale"] = (n_layers, cfg.head_dim)
-            want["layers/attn/k_norm/scale"] = (n_layers, cfg.head_dim)
+            want[f"{prefix}/q_norm/scale"] = (n, cfg.head_dim)
+            want[f"{prefix}/k_norm/scale"] = (n, cfg.head_dim)
+
+    def norm(prefix, lead):
+        want[f"{prefix}/scale"] = lead + (d,)
+        if cfg.norm == "layernorm":
+            want[f"{prefix}/bias"] = lead + (d,)
+
+    if cfg.family != "ssm":
+        attention("layers/attn", n_layers)
+    if cfg.cross_attention:
+        attention("layers/cross", n_layers)
+        norm("layers/ln_cross", (n_layers,))
+    if cfg.family == "encdec":
+        n_enc = cfg.encoder_layers
+        attention("enc_layers/attn", n_enc)
+        for name in ("ln1", "ln2"):
+            norm(f"enc_layers/{name}", (n_enc,))
+        for name in _mlp_names(cfg):
+            want[f"enc_layers/mlp/{name}/kernel"] = (n_enc,) + _mlp_shape(
+                cfg, name)
+        norm("enc_norm", ())
     if cfg.family in ("ssm", "hybrid"):
         d_inner, heads, conv_dim = ssm_dims(cfg)
         gn = cfg.ssm_groups * cfg.ssm_state
@@ -71,11 +104,9 @@ def lm_from_reference(tree, cfg, device=None):
         want["layers/moe/w_up"] = (n_layers, e, d, f)
         want["layers/moe/w_down"] = (n_layers, e, f, d)
         if cfg.dense_parallel:
-            names = ("gate", "up", "down") if cfg.act == "swiglu" \
-                else ("up", "down")
-            for name in names:
-                shape = (cfg.d_ff, d) if name == "down" else (d, cfg.d_ff)
-                want[f"layers/mlp/{name}/kernel"] = (n_layers,) + shape
+            for name in _mlp_names(cfg):
+                want[f"layers/mlp/{name}/kernel"] = (n_layers,) + _mlp_shape(
+                    cfg, name)
     for path, shape in want.items():
         leaf = tree
         for key in path.split("/"):

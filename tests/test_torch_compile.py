@@ -42,6 +42,7 @@ from repro_torch.weights import from_reference
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
                        / "scripts"))
 import autotune_routes as jtune  # noqa: E402  (the reference script)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 GAIN, GAIN_RESIDUAL = 4.0, 0.7        # kernel gains; wo/fc2 get both
 

@@ -25,6 +25,7 @@ from repro_torch.core.spikformer import (SpikformerConfig,
                                          fold_inference_params, init)
 from repro_torch.infer import ExecutionPlan, compile as port_compile
 from repro_torch.weights import from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

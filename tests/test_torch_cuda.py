@@ -646,6 +646,107 @@ def test_flash_kernel_at_the_dense_prefills(cuda, dtype, hq, kvh, dh):
     torch.testing.assert_close(got, sdpa, atol=2e-4, rtol=2e-4)
 
 
+# (b, hq, kvh, nq, nkv, dh, causal, k/v layout) of each layout: whisper's
+# prefill of 4 rows of 440 tokens over 1500 frames, qwen2-vl's 2048 tokens
+ENCDEC_VLM_LAYOUTS = {
+    "whisper-encoder": (4, 20, 20, 1500, 1500, 64, False, "projection"),
+    "whisper-cross": (4, 20, 20, 440, 1500, 64, False, "projection"),
+    "whisper-self": (4, 20, 20, 440, 440, 64, True, "cache"),
+    "qwen2-vl-7b": (1, 28, 4, 2048, 2048, 128, True, "cache")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", sorted(ENCDEC_VLM_LAYOUTS))
+def test_flash_kernel_at_the_encdec_and_vlm_prefills(cuda, dtype, layout):
+    """Kernel 7 at whisper-large-v3's three prefill layouts (the encoder's
+    non-causal self-attention over 1500 frames, which no tile divides;
+    the decoder's 440 queries over the 1500 frames' keys, non-causal;
+    its causal self-attention over k, v slices of a cache 32 longer) and
+    qwen2-vl-7b's 2048-token prefill (28 heads over 4, group 7, Dh 128),
+    read in place as the LM path hands them over (q transposed from (B,
+    Nq, Hq, Dh); k, v transposed projections or cache slices): one launch
+    of the dtype's kernel, within 2e-4 of the plain version."""
+    b, hq, kvh, nq, nkv, dh, causal, kv = ENCDEC_VLM_LAYOUTS[layout]
+    g = gen(cuda, nq + nkv + dh)
+    q = torch.randn((b, nq, hq, dh), generator=g, device=cuda).to(
+        dtype).transpose(1, 2)
+    if kv == "cache":
+        k, v = (torch.randn((b, kvh, nkv + 32, dh), generator=g,
+                            device=cuda).to(dtype)[:, :, :nkv]
+                for _ in range(2))
+    else:
+        k, v = (torch.randn((b, nkv, kvh, dh), generator=g,
+                            device=cuda).to(dtype).transpose(1, 2)
+                for _ in range(2))
+    got = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (flash_attention_tc.launches, flash_attention_f32.launches) == (
+        int(bf16), int(not bf16))
+    assert got.shape == (b, hq, nq, dh) and got.dtype == torch.float32
+    want = flash_attention_plain(q, k, v, scale=dh ** -0.5, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-7b"])
+def test_encdec_and_vlm_reduced_prefill_on_the_card_equals_the_cpu(cuda,
+                                                                    arch):
+    """Reduced whisper (the encoder over 16 frames, cross-attention) and
+    reduced qwen2-vl (image embeddings, distinct M-RoPE streams) in f32
+    from one seeded CPU tree: a prefill on the card launches the f32 flash
+    kernel (whisper: the encoder's layers plus two a decoder layer;
+    qwen2-vl: one a layer), and its logits, cache and a decode step after
+    it are the CPU's within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.infer.compile import to_device
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config(arch).reduced()
+    params = T.init_model(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=g)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg.n_frames, cfg.d_model),
+                                      generator=g).bfloat16()
+    else:
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.img_tokens, cfg.d_model), generator=g).bfloat16()
+        batch["mrope_positions"] = torch.randint(0, 80, (3, 2, 40),
+                                                 generator=g)
+    step = {"tokens": batch["tokens"][:, :1], "cache_pos": 40}
+    if cfg.family == "vlm":
+        step["mrope_positions"] = torch.full((3, 2, 1), 81)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = to_device(params, dev)
+        ops.reset_launch_counts()
+        cache = T.init_cache(cfg, 2, 48, dtype=torch.float32, device=dev)
+        pre, cache, _ = T.model_apply(
+            p, {**to_device(batch, dev), "cache_pos": 0}, cfg,
+            mode="prefill", cache=cache, compute_dtype=torch.float32)
+        dec, cache, _ = T.model_apply(
+            p, to_device(step, dev), cfg, mode="decode", cache=cache,
+            compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        out[str(dev)] = (pre.cpu(), dec.cpu(), to_device(cache, "cpu"))
+    n = cfg.n_layers * (2 if cfg.family == "encdec" else 1) + (
+        cfg.encoder_layers if cfg.family == "encdec" else 0)
+    assert ops.launch_counts()["flash_attention_f32"] == n
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for name in out["cpu"][2]:
+        want = out["cpu"][2][name]
+        got = out["cuda"][2][name]
+        if isinstance(want, dict):
+            for k in want:
+                torch.testing.assert_close(got[k], want[k], atol=1e-4,
+                                           rtol=1e-4)
+        else:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_flash_kernel_takes_every_stated_head_dim(cuda, causal):
     """Every head dim the bf16 kernel states (multiples of 8 up to 192) at
@@ -1626,7 +1727,23 @@ def test_reduced_training_step_on_the_card_equals_the_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 LM_TRAIN_FAMILIES = {"smollm-360m": {}, "qwen3-moe-30b-a3b": {},
-                     "mamba2-130m": {}, "hymba-1.5b": {"n_layers": 3}}
+                     "mamba2-130m": {}, "hymba-1.5b": {"n_layers": 3},
+                     "whisper-large-v3": {}, "qwen2-vl-7b": {}}
+
+
+def _stub_inputs(cfg, b, s):
+    """Seeded frames (encdec) or image embeddings and distinct M-RoPE
+    streams (vlm), bf16 embeddings, on the CPU."""
+    g = torch.Generator().manual_seed(2)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((b, cfg.n_frames, cfg.d_model),
+                                      generator=g).bfloat16()}
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.randn((b, cfg.img_tokens, cfg.d_model),
+                                            generator=g).bfloat16(),
+                "mrope_positions": torch.randint(0, 2 * s, (3, b, s),
+                                                 generator=g)}
+    return {}
 
 
 def _lm_grads(params, batch, cfg):
@@ -1665,12 +1782,14 @@ def test_lm_reduced_train_step_on_the_card_equals_the_cpu(cuda, arch):
                           device="cpu")
     raw = synthetic_lm_batch(DataConfig(seq=64, global_batch=4,
                                         vocab=cfg.padded_vocab), 0)
+    raw = {k: torch.from_numpy(v) for k, v in raw.items()}
+    raw.update(_stub_inputs(cfg, 4, 64))
     ts = steps.TrainSettings(microbatch=2, opt=adamw.OptConfig(
         peak_lr=3e-4, warmup_steps=1, decay_steps=4))
     runs = {}
     for dev in ("cpu", cuda):
         p = to_device(params, dev)
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        batch = {k: v.to(dev) for k, v in raw.items()}
         loss, grads = _lm_grads(p, batch, cfg)
         new, _, _ = steps.make_train_step(cfg, ts)(
             p, adamw.init(p, steps.opt_config(cfg, ts)), batch)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from lm_parity import close, leaf_paths, nonzero_norms_and_biases, t_
 from repro.configs.base import get_config as jget_config
 from repro.launch.serve import Engine as JEngine, Request as JRequest
 from repro.nn import module as jmodule
@@ -40,23 +41,13 @@ from repro_torch.nn import attention as attn
 from repro_torch.nn import layers, module
 from repro_torch.nn import transformer as T
 from repro_torch.weights import lm_from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
-TOL = 1e-4
 F32 = dict(compute_dtype=torch.float32)
 ARCHS = ("stablelm-12b", "glm4-9b")
 # the reduced configs compared: (arch, reduced() overrides)
 CASES = {"stablelm": ("stablelm-12b", {}), "glm4": ("glm4-9b", {}),
          "stablelm_dh160": ("stablelm-12b", {"head_dim": 160})}
-
-
-def close(got, want, tol=TOL):
-    np.testing.assert_allclose(np.asarray(got, np.float64),
-                               np.asarray(want, np.float64), rtol=tol,
-                               atol=tol)
-
-
-def t_(x):
-    return torch.from_numpy(np.array(x))
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,26 +56,6 @@ def japply(mode):
     return jax.jit(functools.partial(JT.model_apply, mode=mode,
                                      compute_dtype=jnp.float32),
                    static_argnames=("cfg",))
-
-
-def nonzero_norms_and_biases(tree, seed):
-    """The numpy tree with every ``bias`` leaf drawn from N(0, 0.1^2) and
-    every ``scale`` leaf from 1 + N(0, 0.1^2), seeded."""
-    r = np.random.default_rng(seed)
-
-    def walk(node):
-        out = {}
-        for k, v in node.items():
-            if isinstance(v, dict):
-                out[k] = walk(v)
-            elif k == "bias":
-                out[k] = (0.1 * r.normal(size=v.shape)).astype(v.dtype)
-            elif k == "scale":
-                out[k] = (1 + 0.1 * r.normal(size=v.shape)).astype(v.dtype)
-            else:
-                out[k] = v
-        return out
-    return walk(tree)
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,14 +68,6 @@ def setup(case):
     tree = nonzero_norms_and_biases(jax.tree_util.tree_map(np.asarray, jp),
                                     seed=len(case))
     return jcfg, cfg, tree, lm_from_reference(tree, cfg, device="cpu")
-
-
-def leaf_paths(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from leaf_paths(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
 
 
 # ---------------------------------------------------------------------------

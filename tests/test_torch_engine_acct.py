@@ -28,6 +28,7 @@ from repro_torch.infer import ExecutionPlan, MicroBatchEngine, compile
 from repro_torch.infer import registry
 from repro_torch.infer.backends import FloatBackend, PackedBackend
 from repro_torch.weights import from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 PROPS = ("batches", "images_done", "padded_rows", "total_rows", "pad_waste")
 

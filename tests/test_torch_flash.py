@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_f32,
                                                  flash_attention_tc)
 from repro_torch.kernels.ref import flash_attention_ref
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 2e-4
 

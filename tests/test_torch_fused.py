@@ -20,6 +20,7 @@ from repro_torch.kernels import lut_matmul as lut
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused import tflif_lut_matmul, tflif_lut_plain
 from repro_torch.kernels.spike_matmul import shift_sum_matmul, spike_matmul
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # f32 weights, K <= 64. per_plane: each plane's dot of 0-or-w terms, summed
 # in XLA's and torch's own orders; |sums| stay below ~10 (ulp ~1e-6), so

@@ -34,6 +34,7 @@ from repro_torch.launch.serve import Engine, Request
 from repro_torch.nn import attention as attn
 from repro_torch.nn import transformer as T
 from repro_torch.weights import lm_from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 ATTN_TOL = 1e-5

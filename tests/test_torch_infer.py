@@ -42,6 +42,7 @@ from repro_torch.infer.quant import (map_folded_layers, quantize_folded,
                                      quantize_layer)
 from repro_torch.kernels import ops
 from repro_torch.weights import from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # the head dot ``rate @ head`` is the one float reduction outside the
 # packed datapath, summed in another order by XLA and torch: rates are

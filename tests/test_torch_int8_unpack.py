@@ -35,6 +35,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.spike_matmul import (MAX_S8_K, kmajor_weights,
                                               spike_matmul_grouped_s8)
 from repro_torch.weights import from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # the kernel's tile: 128 A-rows (planes x rows), 128 columns, 128-byte K
 BM = BN = BK = 128

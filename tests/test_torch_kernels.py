@@ -29,6 +29,7 @@ from repro_torch.kernels.stdp_attention import (STDP_F32_TOL,
                                                 stdp_attention,
                                                 stdp_attention_packed)
 from repro_torch.kernels.tflif import tflif_fused, tflif_plain
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 # f32 weights through the unpack dot: the same products summed in another
 # order. |sums| stay below ~20 at these shapes (ulp ~2e-6), so 1e-5 absolute

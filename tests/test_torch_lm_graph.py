@@ -16,6 +16,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.serve import Engine, Request, cache_leaves
 from repro_torch.nn import attention as attn
 from repro_torch.nn import transformer as T
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CACHE_LEN = 96
 

@@ -1,10 +1,12 @@
 """The port's LM training (``nn.layers.softmax_xent``,
 ``nn.transformer.lm_loss`` and remat, ``launch.steps``) against the JAX
-reference, at ``reduced()`` configs of the four ported families (dense
+reference, at ``reduced()`` configs of the six ported families (dense
 smollm-360m, MoE qwen3-moe-30b-a3b, SSM mamba2-130m, hybrid hymba-1.5b at
-three layers), one reference ``init_model`` tree carried across by
+three layers, encoder-decoder whisper-large-v3, VLM qwen2-vl-7b), one
+reference ``init_model`` tree carried across by
 ``weights.lm_from_reference``, batches from the reference's
-``synthetic_lm_batch``. The JAX side runs jitted, with no mesh set (under
+``synthetic_lm_batch`` (plus seeded frames, image embeddings and M-RoPE
+streams for the last two). The JAX side runs jitted, with no mesh set (under
 a mesh its sharding hints fail on this JAX: ROADMAP §3).
 
 Tolerances:
@@ -16,7 +18,8 @@ Tolerances:
     ``BF16_GRAD_L2`` by family. Both packages round the products to bf16
     at the same points but sum in different orders, and a hidden state one
     bf16 ulp off can move a token's top-2 experts: measured 0.012 (dense),
-    0.006 (ssm), 0.044 (hybrid, ``a_log``), 0.118 (MoE, the router).
+    0.006 (ssm), 0.044 (hybrid, ``a_log``), 0.118 (MoE, the router),
+    0.014 (encdec, ``ln_cross``), 0.024 (vlm, the k bias).
   * int8 compression: its quantizer rounds ``g / scale`` half to even, so
     an element whose two f32 gradient sums differ by an ulp at a rounding
     boundary moves by a quantum; three steps leave 15 of ~1.2M param and
@@ -52,10 +55,12 @@ from repro_torch.nn import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import ef_init
 from repro_torch.weights import lm_from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 BF16_LOSS_RTOL = 1e-3
-BF16_GRAD_L2 = {"dense": 3e-2, "moe": 0.25, "ssm": 2e-2, "hybrid": 0.1}
+BF16_GRAD_L2 = {"dense": 3e-2, "moe": 0.25, "ssm": 2e-2, "hybrid": 0.1,
+                "encdec": 3e-2, "vlm": 5e-2}
 INT8_MISS_FRACTION = 1e-4
 SEQ = 40          # past the reduced hybrid's window of 32
 
@@ -63,7 +68,9 @@ SEQ = 40          # past the reduced hybrid's window of 32
 FAMILIES = {"dense": ("smollm-360m", {}),
             "moe": ("qwen3-moe-30b-a3b", {}),
             "ssm": ("mamba2-130m", {}),
-            "hybrid": ("hymba-1.5b", {"n_layers": 3})}
+            "hybrid": ("hymba-1.5b", {"n_layers": 3}),
+            "encdec": ("whisper-large-v3", {}),
+            "vlm": ("qwen2-vl-7b", {})}
 
 
 def close(got, want, tol=TOL):
@@ -87,12 +94,28 @@ def trees(family, seed=0):
     return jp, tp
 
 
-def lm_batch(vocab, step=0, batch=2, seq=SEQ, seed=1):
+def lm_batch(vocab, step=0, batch=2, seq=SEQ, seed=1, family=None):
+    """A ``synthetic_lm_batch``, plus a family's stub modality inputs,
+    seeded: bf16 frames for ``encdec``; bf16 image embeddings and distinct
+    M-RoPE streams for ``vlm``."""
     b = jpipeline.synthetic_lm_batch(
         jpipeline.DataConfig(seq=seq, global_batch=batch, vocab=vocab,
                              seed=seed), step)
+    if family in ("encdec", "vlm"):
+        cfg = cfgs(family)[1]
+        rng = np.random.default_rng(seed + 100 * step)
+        n = cfg.n_frames if family == "encdec" else cfg.img_tokens
+        emb = np.asarray(jnp.asarray(rng.standard_normal(
+            (batch, n, cfg.d_model)).astype(np.float32)).astype(
+                jnp.bfloat16))
+        b["frames" if family == "encdec" else "image_embeds"] = emb
+        if family == "vlm":
+            b["mrope_positions"] = rng.integers(
+                0, 2 * seq, (3, batch, seq)).astype(np.int32)
     return ({k: jnp.asarray(v) for k, v in b.items()},
-            {k: torch.from_numpy(np.array(v)) for k, v in b.items()})
+            {k: torch.from_numpy(np.array(v).view(np.uint16)).view(
+                torch.bfloat16) if v.dtype == jnp.bfloat16
+             else torch.from_numpy(np.array(v)) for k, v in b.items()})
 
 
 @functools.lru_cache(maxsize=None)
@@ -143,7 +166,7 @@ def test_softmax_xent_matches_reference(masked):
 def test_lm_loss_and_every_gradient_leaf_match_reference(family):
     jcfg, cfg = cfgs(family, compute_dtype="float32")
     jp, tp = trees(family)
-    jb, tb = lm_batch(cfg.padded_vocab)
+    jb, tb = lm_batch(cfg.padded_vocab, family=family)
     (jloss, jaux), jg = jgrad_fn()(jp, jb, jcfg)
     loss, grads = port_grads(tp, tb, cfg)
     close(loss, jloss)
@@ -161,7 +184,7 @@ def test_lm_loss_in_bf16_compute_within_the_stated_bar(family):
     jcfg, cfg = cfgs(family)
     assert cfg.compute_dtype == "bfloat16"
     jp, tp = trees(family)
-    jb, tb = lm_batch(cfg.padded_vocab)
+    jb, tb = lm_batch(cfg.padded_vocab, family=family)
     (jloss, _), jg = jgrad_fn()(jp, jb, jcfg)
     loss, grads = port_grads(tp, tb, cfg)
     np.testing.assert_allclose(float(loss), float(jloss),
@@ -417,11 +440,9 @@ def test_abstract_params_and_opt_state_match_the_reference_shapes(family):
 
 def test_unported_families_raise_in_the_train_step():
     _, cfg = cfgs("dense")
-    for family, name in (("encdec", "cross-attention"),
-                         ("vlm", "apply_mrope")):
-        with pytest.raises(NotImplementedError, match=name):
-            steps.make_train_step(dataclasses.replace(cfg, family=family),
-                                  steps.TrainSettings())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        steps.make_train_step(dataclasses.replace(cfg, family="retnet"),
+                              steps.TrainSettings())
 
 
 # ---------------------------------------------------------------------------

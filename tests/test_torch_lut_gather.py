@@ -17,6 +17,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.spike_matmul import (lut_gather_matmul,
                                               lut_gather_packed,
                                               lut_gather_packed_plain)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def exact(a, b, msg=""):

@@ -42,6 +42,7 @@ from repro_torch.launch.serve import Engine, Request
 from repro_torch.nn import module, moe
 from repro_torch.nn import transformer as T
 from repro_torch.weights import from_reference, lm_from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 BF16_TOL = 2e-2

@@ -34,6 +34,7 @@ from repro_torch.infer.backends import FloatBackend, PackedBackend
 from repro_torch.infer.compile import lower
 from repro_torch.kernels import lut_matmul as lut
 from repro_torch.weights import from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 GAIN, GAIN_RESIDUAL = 4.0, 0.7        # kernel gains; wo/fc2 get both
 # f32 weights in one dot: XLA and torch sum the same products in their own

@@ -30,6 +30,7 @@ from repro_torch.launch.serve import Engine, Request
 from repro_torch.nn import ssm
 from repro_torch.nn import transformer as T
 from repro_torch.weights import lm_from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SSD_TOL = 1e-5
 TOL = 1e-4

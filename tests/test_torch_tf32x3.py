@@ -34,6 +34,7 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
 from repro_torch.kernels.stdp_attention import STDP_F32_TOL
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 FLASH_TOL = 2e-4
 NEG_INF = -1e30

@@ -12,6 +12,7 @@ import torch
 from repro.kernels.tflif import tflif_fused as jtflif
 from repro_torch.kernels import ops
 from repro_torch.kernels.tflif import tflif_fused
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def exact(a, b, msg=""):

@@ -39,6 +39,7 @@ from repro_torch.core.spikformer import (SpikformerConfig, _combine, apply,
 from repro_torch.data import pipeline
 from repro_torch.optim import adamw
 from repro_torch.weights import from_reference
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4          # of each leaf's largest |g|

@@ -30,6 +30,7 @@ from repro_torch.data import pipeline
 from repro_torch.launch import train
 from repro_torch.nn import module
 from repro_torch.optim import compression
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -613,7 +614,9 @@ def test_train_cli_resumes_from_its_checkpoint(tmp_path, capsys):
 @pytest.mark.parametrize("arch,extra", [
     ("qwen3-moe-30b-a3b", ["--compression", "int8"]),
     ("mamba2-130m", ["--compression", "topk"]),
-    ("hymba-1.5b", [])])
+    ("hymba-1.5b", []),
+    ("whisper-large-v3", []),
+    ("qwen2-vl-7b", ["--microbatch", "1"])])
 def test_train_cli_runs_every_ported_family(arch, extra, capsys):
     log, lines = _run(["--arch", arch, "--reduce", "--device", "cpu",
                        "--steps", "2", "--global-batch", "2", "--seq", "16",
@@ -625,7 +628,7 @@ def test_train_cli_runs_every_ported_family(arch, extra, capsys):
 
 def test_train_cli_refuses_unported_families():
     with pytest.raises(KeyError, match="not ported"):
-        train.main(["--arch", "whisper-large-v3", "--reduce",
+        train.main(["--arch", "qwen1.5-110b", "--reduce",
                     "--device", "cpu"])
 
 

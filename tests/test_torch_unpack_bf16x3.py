@@ -57,6 +57,7 @@ from repro_torch.weights import from_reference
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
                        / "scripts"))
 import wgmma_accumulation as wgmma  # noqa: E402  (the tensor cores' model)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 compile_module = importlib.import_module("repro_torch.infer.compile")
 GAIN, GAIN_RESIDUAL = 4.0, 0.7        # kernel gains; wo/fc2 get both
