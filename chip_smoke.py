@@ -828,8 +828,9 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     slices of a cache 32 longer) and its non-causal cross-attention of the
     440 queries over the 1500 frames' keys (``at_whisper_cross_shape``),
     and at qwen2-vl-7b's 2048-token prefill (``at_qwen2vl_shape``: 28 over
-    4, group 7, Dh 128); SDPA beside each with ``is_causal`` as the
-    kernel's."""
+    4, group 7, Dh 128) and qwen1.5-110b's (``at_qwen110b_shape``: 64 over
+    8, group 8, Dh 128, the sharded path's); SDPA beside each with
+    ``is_causal`` as the kernel's."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -931,6 +932,7 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
         wh, wh, wd, ENCDEC_ARCH, b=rows, nq=n, nkv=frames, causal=False,
         kv="projection", what=f"{prefill}: cross-attention")
     tc["at_qwen2vl_shape"] = at(28, 4, 128, VLM_ARCH)
+    tc["at_qwen110b_shape"] = at(64, 8, 128, SHARDED_ARCH)
 
     scale = dh ** -0.5
     q3, k3, v3 = (torch.randn((h, s, dh), generator=gen, device=dev)
@@ -3094,6 +3096,13 @@ LM_TRAIN_FAMILIES = (("smollm-360m", {}), ("qwen3-moe-30b-a3b", {}),
                      ("whisper-large-v3", {}), ("qwen2-vl-7b", {}))
 FLASH_KERNELS = ("flash_attention_tc", "flash_attention_f32")
 
+# the sharded phase: the sharded entry points on a (1, 1) mesh over NCCL
+SHARDED_ARCH = "qwen1.5-110b"
+SHARDED_LAYERS = 16          # of its 80: 2.72 GB a layer in bf16
+SHARDED_ROWS, SHARDED_LEN = 4, 2048
+SHARDED_MAX_NEW = 32
+SHARDED_TRAIN_STEPS = 2
+
 
 def lm_grads(torch, params, batch, cfg):
     """(loss, {path: gradient}) of ``lm_loss`` (the plain attention) by
@@ -3736,6 +3745,258 @@ def lm_vlm_gate_phase(torch, dev, eng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharding layer: the sharded steps on a one-card mesh
+# ---------------------------------------------------------------------------
+
+def sharded_serve(torch, dev, mesh) -> dict:
+    """qwen1.5-110b at full width (d_model 8192, 64 heads over 8 KV heads,
+    Dh 128, d_ff 49152, vocab 152064, QKV bias, bf16 params), cut to
+    SHARDED_LAYERS of its 80 layers, seeded: ``jit_prefill`` of
+    SHARDED_ROWS rows of SHARDED_LEN tokens into a cache with room for
+    SHARDED_MAX_NEW more, then SHARDED_MAX_NEW steps of ``jit_serve_step``,
+    greedy, on the params placed by ``param_shardings``. Gates:
+    ``init_model`` within the params' bytes + 1 GiB; the tokens equal,
+    bit for bit, those of ``make_prefill`` / ``make_serve_step`` on the
+    same params; kernel 7 launched once a layer in the sharded prefill
+    and never in a decode step (counters set to 0 just before each and
+    read just after). The sharded prefill and one decode step are then
+    profiled (wall and device ms, idle share)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as T
+    from repro_torch.nn.module import param_bytes
+    from repro_torch.sharding import rules
+
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH),
+                              n_layers=SHARDED_LAYERS)
+    params, init_s, init_peak = init_timed(torch, cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (SHARDED_ROWS, SHARDED_LEN),
+                           generator=g, device=dev)
+    length = SHARDED_LEN + SHARDED_MAX_NEW
+
+    def meta(shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def greedy(prefill, serve, params):
+        """The prompt's next token, then SHARDED_MAX_NEW decode steps:
+        (tokens (B, 1 + new), prefill launches, decode launches)."""
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            logits, cache = prefill(params, {"tokens": tokens})
+            tok = torch.argmax(rules.full_value(logits)[:, -1], dim=-1)
+            torch.cuda.synchronize()
+            pre = {k: v for k, v in ops.launch_counts().items() if v}
+            out = [tok]
+            ops.reset_launch_counts()
+            for i in range(SHARDED_MAX_NEW):
+                tok, cache = serve(params, cache, {
+                    "tokens": out[-1][:, None],
+                    "cache_pos": SHARDED_LEN + i})
+                out.append(rules.full_value(tok).to(torch.int64))
+            torch.cuda.synchronize()
+            dec = {k: v for k, v in ops.launch_counts().items() if v}
+        return torch.stack(out, dim=1), pre, dec, cache
+
+    # unsharded: the plain step builders on the plain params
+    t0 = time.perf_counter()
+    plain_tok, plain_pre, plain_dec, cache = greedy(
+        steps.make_prefill(cfg, cache_len=length),
+        steps.make_serve_step(cfg), params)
+    plain_s = time.perf_counter() - t0
+    del cache
+    torch.cuda.empty_cache()
+
+    # sharded: the same params placed on the mesh (one rank: no copy)
+    b_shapes = {"tokens": meta((SHARDED_ROWS, SHARDED_LEN))}
+    prefill, _, in_sh = steps.jit_prefill(cfg, mesh, b_shapes,
+                                          cache_len=length)
+    serve, _, _ = steps.jit_serve_step(
+        cfg, mesh, T.init_cache(cfg, SHARDED_ROWS, length, device="meta"),
+        {"tokens": meta((SHARDED_ROWS, 1)),
+         "cache_pos": meta((), torch.int32)})
+    placed = rules.place_tree(params, in_sh[0])
+    check(all(t.to_local().data_ptr() == params_t.data_ptr()
+              for (_, t), (_, params_t) in zip(tree_leaves(placed),
+                                               tree_leaves(params))),
+          "placing the params on a one-rank mesh copied a leaf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh_tok, pre, dec, cache = greedy(prefill, serve, placed)
+    sharded_s = time.perf_counter() - t0
+    check(torch.equal(sh_tok, plain_tok),
+          f"{SHARDED_ARCH}: the sharded tokens differ from the unsharded "
+          f"steps' in {int((sh_tok != plain_tok).sum())} of "
+          f"{sh_tok.numel()}")
+    check(pre.get("flash_attention_tc", 0) == SHARDED_LAYERS
+          and set(pre) == {"flash_attention_tc"},
+          f"sharded prefill launched {pre}, not {SHARDED_LAYERS} x "
+          "flash_attention_tc")
+    check(not dec, f"sharded decode launched {dec}")
+    launches = dict(pre)
+
+    def one_prefill():
+        prefill(placed, {"tokens": tokens})
+
+    def one_decode():
+        serve(placed, cache, {"tokens": sh_tok[:, -1:],
+                              "cache_pos": length - 1})
+
+    with torch.no_grad():
+        prof_pre = profile_fn(torch, one_prefill, 1)
+        prof_dec = profile_fn(torch, one_decode, 4)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    param_mib = param_bytes(params) / 2 ** 20
+    del placed, cache, params
+    torch.cuda.empty_cache()
+    return {"config": describe(cfg) + f"; {SHARDED_LAYERS} of 80 layers",
+            "params": n_params, "param_mib": param_mib,
+            "init_s": init_s, "init_peak_mib": init_peak / 2 ** 20,
+            "prompt": [SHARDED_ROWS, SHARDED_LEN],
+            "new_tokens": SHARDED_MAX_NEW,
+            "tokens_identical": True,
+            "launches_prefill": pre, "launches_decode": dec,
+            "plain_launches_prefill": plain_pre,
+            "plain_launches_decode": plain_dec,
+            "plain_s": plain_s, "sharded_s": sharded_s,
+            "launches": launches,
+            "profile_prefill": prof_pre, "profile_decode": prof_dec}
+
+
+def sharded_train(torch, dev, mesh) -> dict:
+    """smollm-360m at full width and depth: SHARDED_TRAIN_STEPS steps of
+    ``jit_train_step`` on the mesh and of ``make_train_step`` from the
+    same seeded params, moments and batches (8 x 2048 in microbatches of
+    4). Gates: the loss, the gradient norm, the learning rate and every
+    updated param and moment bit for bit. Then the sharded run's tree
+    saved and restored elastically onto the mesh (``restore(...,
+    shardings=...)``): bit for bit, each leaf a DTensor."""
+    import shutil
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    ts = steps.TrainSettings(microbatch=4, opt=adamw.OptConfig(
+        peak_lr=3e-4, warmup_steps=1, decay_steps=4))
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                          device=dev)
+    opt = adamw.init(params, steps.opt_config(cfg, ts))
+    dcfg = DataConfig(seq=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH,
+                      vocab=cfg.padded_vocab, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                synthetic_lm_batch(dcfg, i).items()}
+               for i in range(SHARDED_TRAIN_STEPS)]
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batches[0].items()}
+    step, _, in_sh = steps.jit_train_step(cfg, mesh, ts, shapes)
+    plain = steps.make_train_step(cfg, ts)
+    p1, o1, p2, o2 = params, opt, params, opt
+    rows, ms = [], {"plain": [], "sharded": []}
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p1, o1, m1 = plain(p1, o1, b)
+        torch.cuda.synchronize()
+        ms["plain"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        p2, o2, m2 = step(p2, o2, b)
+        torch.cuda.synchronize()
+        ms["sharded"].append((time.perf_counter() - t0) * 1e3)
+        m2 = {k: rules.full_value(v) for k, v in m2.items()}
+        rows.append({k: [float(m1[k]), float(m2[k])] for k in m1})
+        check(all(torch.equal(m1[k], m2[k]) for k in m1),
+              f"sharded train step {i}: metrics {rows[-1]}")
+    want = dict(tree_leaves({"p": p1, "o": o1}))
+    got = dict(tree_leaves({"p": p2, "o": o2}))
+    differ = [k for k in want if not torch.equal(want[k], got[k].to_local())]
+    check(not differ and len(got) == len(want),
+          f"sharded train step: leaves differ from the unsharded step's: "
+          f"{differ[:8]}")
+    del p1, o1, want
+    torch.cuda.empty_cache()
+
+    root = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        ck = Checkpointer(str(root))
+        t0 = time.perf_counter()
+        ck.save(SHARDED_TRAIN_STEPS, {"params": p2, "opt": o2}, block=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, _ = ck.restore(SHARDED_TRAIN_STEPS, shardings={
+            "params": in_sh[0], "opt": in_sh[1]})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    back = dict(tree_leaves({"p": tree["params"], "o": tree["opt"]}))
+    check(sorted(back) == sorted(got)
+          and all(hasattr(t, "placements") for t in back.values())
+          and all(back[k].dtype == got[k].dtype
+                  and torch.equal(back[k].to_local(), got[k].to_local())
+                  for k in got),
+          "the checkpoint round trip on the mesh is not bit for bit")
+    return {"config": f"{LM_TRAIN_ARCH} at full width and depth, f32 params, "
+                      f"bf16 compute, remat; batch {LM_TRAIN_BATCH} x "
+                      f"{LM_TRAIN_SEQ} in microbatches of 4",
+            "steps": rows, "metrics_bit_for_bit": True,
+            "leaves_bit_for_bit": len(got), "ms_per_step": ms,
+            "checkpoint": {"leaves": len(back), "save_s": save_s,
+                           "restore_s": restore_s, "bit_for_bit": True}}
+
+
+def sharded_psum(torch, dev, mesh) -> dict:
+    """``compressed_psum_int8`` over NCCL at world size 1 on each mesh
+    axis: the reference's formula, quantise and then dequantise."""
+    from repro_torch.optim.compression import compressed_psum_int8
+    from repro_torch.sharding import set_mesh
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((4096,), generator=g, device=dev) * 3.0
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    want = torch.clamp(torch.round(x / scale), -127, 127) * scale
+    out = {}
+    with set_mesh(mesh):
+        for axis in ("data", "model"):
+            got = compressed_psum_int8(x, axis)
+            out[axis] = max_abs_err(got, want)
+            check(torch.equal(got, want),
+                  f"compressed_psum_int8 over {axis}: off by {out[axis]}")
+    return {"max_abs_err": out, "exact": True}
+
+
+def sharded_phase(torch, dev) -> dict:
+    """The sharding layer on the card: ``make_cpu_mesh`` on the card (a
+    one-rank NCCL group through a ``HashStore``, a (1, 1) ``("data",
+    "model")`` mesh), then ``sharded_serve``, ``sharded_train`` and
+    ``sharded_psum`` on it; the group is destroyed after. On one rank
+    every redistribution is the identity, so each gate is bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_cpu_mesh
+    check(not dist.is_initialized(), "a process group is already up")
+    mesh = make_cpu_mesh(device=dev)
+    try:
+        out = {"mesh": {"shape": list(mesh.shape),
+                        "names": list(mesh.mesh_dim_names),
+                        "backend": dist.get_backend()}}
+        out["serve"] = sharded_serve(torch, dev, mesh)
+        torch.cuda.empty_cache()
+        out["train"] = sharded_train(torch, dev, mesh)
+        torch.cuda.empty_cache()
+        out["psum"] = sharded_psum(torch, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = out["serve"]["launches"]
+    return out
+
+
 # readings beyond the contract's keys, kept in the kernels line
 EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "ms_in_graph", "ms_conv0_stride0", "ms_index_entry",
@@ -3744,7 +4005,7 @@ EXTRA_KEYS = ("library_int8_ms", "ms_int16_table", "ms_events",
               "at_hymba_shape", "at_glm4_shape", "at_stablelm_shape",
               "at_qwen3moe_shape", "at_whisper_encoder_shape",
               "at_whisper_self_shape", "at_whisper_cross_shape",
-              "at_qwen2vl_shape")
+              "at_qwen2vl_shape", "at_qwen110b_shape")
 
 
 def kernel_table(report: dict, paths) -> list:
@@ -3812,7 +4073,7 @@ def main() -> int:
              "spikformer_train", "examples", "lm_dense12b_serve",
              "lm_dense12b_gate", "lm_dense9b_serve", "lm_dense9b_gate",
              "lm_moe_serve", "lm_moe_gate", "lm_train", "lm_encdec",
-             "lm_encdec_gate", "lm_vlm", "lm_vlm_gate")
+             "lm_encdec_gate", "lm_vlm", "lm_vlm_gate", "sharded")
     phase_s = report["phase_s"] = {}     # wall seconds, build excluded
     t_phase = [time.perf_counter()]
 
@@ -3937,6 +4198,10 @@ def main() -> int:
         timed(paths[25])
         del lm_engine
         torch.cuda.empty_cache()
+        # the sharded entry points last, after every earlier phase
+        report[paths[26]] = sharded_phase(torch, dev)
+        timed(paths[26])
+        torch.cuda.empty_cache()
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -4051,6 +4316,14 @@ def main() -> int:
         **{k: v for k, v in img.items() if not k.startswith("profile")},
         **{k: {x: y for x, y in v.items() if x != "by_kernel"}
            for k, v in img.items() if k.startswith("profile")}}}))
+    sh = report["sharded"]
+    print(json.dumps({"sharded": {
+        "mesh": sh["mesh"],
+        "serve": {k: v for k, v in sh["serve"].items()
+                  if not k.startswith("profile")},
+        **{f"serve_{k}": {x: y for x, y in v.items() if x != "by_kernel"}
+           for k, v in sh["serve"].items() if k.startswith("profile")},
+        "train": sh["train"], "psum": sh["psum"]}}))
     print(json.dumps({"phase_s": phase_s, "build_s": build_s}))
     print(smi)
     print(json.dumps({"kernels": table}))

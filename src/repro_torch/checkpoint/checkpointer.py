@@ -19,9 +19,16 @@ A leaf's path is its keys joined by ``/`` (``nn.module.tree_paths``, the
 reference's names), its file the path with ``.`` for ``/``. A bf16 leaf is
 stored as its uint16 bits with ``"bfloat16"`` in the manifest (the same
 bytes, and checksum, as the reference's ``ml_dtypes`` array; numpy has no
-bf16 of its own). ``restore`` puts each leaf on the caller's device. The
-reference's elastic restore onto a mesh (its ``shardings``) comes with the
-port of ``repro.sharding``.
+bf16 of its own). ``restore`` puts each leaf on the caller's device.
+
+Elastic: leaves are saved UNSHARDED. A ``DTensor`` leaf is gathered to its
+full value (``full_tensor``, a collective: every rank of its mesh calls
+``save``), and only rank 0 writes; the other ranks' ``wait`` returns once
+rank 0 has committed. ``restore(..., shardings=...)`` places each leaf
+onto the target mesh: a rank maps each leaf's file, checks it, and
+copies only its own shard to its device (``sharding.rules.local_slices``),
+one leaf at a time, so no rank holds the whole tree. Nothing in the
+layout records the mesh it was saved from.
 """
 from __future__ import annotations
 
@@ -34,8 +41,13 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..nn.module import map_with_path, tree_paths
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _host(t) -> tuple[np.ndarray, str]:
@@ -47,6 +59,16 @@ def _host(t) -> tuple[np.ndarray, str]:
         return arr, "bfloat16"
     arr = t.to("cpu", copy=True).numpy()
     return arr, str(arr.dtype)
+
+
+def _crc32(arr: np.ndarray, chunk: int = 1 << 26) -> int:
+    """The crc32 of ``arr``'s C-order bytes, read a chunk at a time (a
+    mapped file is not loaded whole)."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    crc = 0
+    for i in range(0, flat.size, chunk):
+        crc = zlib.crc32(flat[i:i + chunk], crc)
+    return crc
 
 
 def _tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
@@ -66,6 +88,7 @@ class Checkpointer:
         self.dir.mkdir(parents=True, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._shared = False  # a save of DTensors awaits rank 0's commit
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, tree, *, extra: dict | None = None,
@@ -74,8 +97,18 @@ class Checkpointer:
         once the leaves are in host memory; the files are written on a
         background thread."""
         self.wait()  # one in-flight save at a time
-        host = {p: _host(t) for p, t in tree_paths(tree)}
+        host = {}
+        for p, t in tree_paths(tree):
+            if hasattr(t, "full_tensor"):
+                self._shared = True
+                t = t.full_tensor()
+            if _rank() == 0:
+                host[p] = _host(t)
         extra = dict(extra or {})
+        if _rank() != 0:
+            if block:
+                self.wait()
+            return
 
         def write():
             try:
@@ -112,9 +145,14 @@ class Checkpointer:
             self.wait()
 
     def wait(self):
+        """Join the write in flight; after a save of DTensors, every rank
+        returns once rank 0 has committed it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._shared:
+            self._shared = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -142,14 +180,17 @@ class Checkpointer:
 
     # -- restore ------------------------------------------------------------------
     def restore(self, step: int | None = None, *, skeleton=None,
-                device="cpu", verify: bool = True):
+                shardings=None, device="cpu", verify: bool = True):
         """Load checkpoint ``step`` (default the latest) onto ``device``.
         Returns ``(tree, extra)``.
 
         ``skeleton``: a tree of the target layout (its leaves may be meta
         tensors, as ``launch.steps.abstract_params`` gives); each restored
         leaf must have its leaf's shape. Without one, the flat ``{path:
-        tensor}`` dict is returned."""
+        tensor}`` dict is returned. ``shardings``: a tree of
+        ``sharding.rules.NamedSharding`` congruent with the result; each
+        leaf is placed by its sharding as a DTensor on that mesh's
+        devices (``device`` is then the mesh's)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -157,23 +198,33 @@ class Checkpointer:
         cdir = self.dir / f"step_{step:08d}"
         manifest = json.loads((cdir / "manifest.json").read_text())
 
+        where = None
+        if shardings is not None:
+            from ..sharding.rules import from_shard, local_slices
+            where = dict(tree_paths(shardings))
         flat = {}
         for path, meta in manifest["leaves"].items():
-            arr = np.load(cdir / meta["file"])
-            if verify:
-                crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
-                if crc != meta["crc32"]:
-                    raise IOError(f"checksum mismatch for {path} at step {step}")
-            flat[path] = _tensor(arr, meta["dtype"], device)
-
-        if skeleton is None:
+            arr = np.load(cdir / meta["file"], mmap_mode="r")
+            if verify and _crc32(arr) != meta["crc32"]:
+                raise IOError(f"checksum mismatch for {path} at step {step}")
+            if where is None:
+                flat[path] = _tensor(np.array(arr), meta["dtype"], device)
+            else:
+                sh = where[path]
+                part = np.array(arr[local_slices(arr.shape, sh)])
+                flat[path] = from_shard(_tensor(part, meta["dtype"], "cpu"),
+                                        sh, arr.shape)
+            del arr
+        if skeleton is None and shardings is None:
             return flat, manifest.get("extra", {})
 
         def leaf(path, want):
             got = flat[path]
-            if tuple(got.shape) != tuple(want.shape):
+            if skeleton is not None and \
+                    tuple(got.shape) != tuple(want.shape):
                 raise ValueError(f"{path} is {tuple(got.shape)} in the "
                                  f"checkpoint, the skeleton wants "
                                  f"{tuple(want.shape)}")
             return got
-        return map_with_path(leaf, skeleton), manifest.get("extra", {})
+        return (map_with_path(leaf, shardings if skeleton is None
+                              else skeleton), manifest.get("extra", {}))

@@ -18,13 +18,16 @@ prefill as one graph per prompt length. ``jit=False`` runs them eagerly.
 ``--arch`` takes each ported config the reference's engine serves:
 smollm-360m, stablelm-12b, glm4-9b, hymba-1.5b, mamba2-130m, qwen2-vl-7b
 (as a text model: no image embeddings, and RoPE, which is M-RoPE with
-three equal streams), and the MoE configs qwen3-moe-30b-a3b and
-arctic-480b with ``--reduce`` only. An encoder-decoder config
+three equal streams), and qwen1.5-110b and the MoE configs
+qwen3-moe-30b-a3b and arctic-480b with ``--reduce`` only. An
+encoder-decoder config
 (whisper-large-v3) raises: the engine takes no frames, as the
 reference's does not. Their full widths do not fit one
 card: qwen3-moe's f32 params (its config's ``param_dtype``) take 122 GB
 of the card's 80 (in bf16 weights, 61 GB, it is served by
-``chip_smoke.py``, which replaces the config's ``param_dtype``), and
+``chip_smoke.py``, which replaces the config's ``param_dtype``),
+qwen1.5-110b's take 222 GB in its bf16 (``chip_smoke.py`` serves it cut
+to 16 of its 80 layers through ``launch.steps``' sharded steps), and
 arctic's 477B params take 954 GB even in its bf16.
 
 Runs on the card unless ``--device cpu`` is given.

@@ -8,21 +8,34 @@ logits only ever exist for one microbatch at a time. Gradients come from
 runs ``lm_loss(..., flash=False)``: the reference's chunked softmax, its
 own training formulation, since the flash kernel has no backward.
 
-The reference's ``jit_*`` functions wrap these steps in XLA sharding (in
-and out shardings over a mesh, donated buffers); they come with the port
-of ``repro.sharding``. Here every step runs on the device its inputs lie
-on.
+``jit_train_step``, ``jit_serve_step`` and ``jit_prefill`` are the
+reference's sharded builders: each returns the step, its abstract inputs
+(meta tensors) and its input shardings (``sharding.rules``). The step
+places its inputs by those shardings as ``DTensor``s on the mesh (a rank
+keeps its own shard of a full tensor; a DTensor is redistributed), runs
+eagerly on them with the mesh active (``sharding.set_mesh``: the model's
+``shard_hint`` calls pin the reference's activation layouts) and returns
+its outputs in the reference's output layouts. Plain tensors that the
+model makes on the way (positions, masks) count as replicated
+(``implicit_replication``). Nothing is compiled: the reference's ``jit``
+is the XLA program, here DTensor dispatch runs op by op. Donation
+(``donate_argnums``) has no counterpart: the inputs stay valid.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..nn import transformer as T
 from ..nn.module import map_with_path, tree_paths
 from ..optim import adamw
 from ..optim.compression import ef_compress, ef_init
+from ..sharding import rules
+from ..sharding.compat import set_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +65,10 @@ def make_train_step(cfg, ts: TrainSettings):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "lr"})``, the metrics 0-d tensors.
 
+    With DTensor params, the gradient accumulator is kept in the params'
+    layout (``zeros_like``), each microbatch's gradients redistributed
+    into it before they are added (the reference's ``constrain``).
+
     The global batch (B rows) splits into ``accum = B // micro``
     microbatches as the reference's reshape does: row ``j * micro + i`` is
     row i of microbatch j (``microbatch``). Each microbatch's gradients
@@ -73,7 +90,7 @@ def make_train_step(cfg, ts: TrainSettings):
         leaves = {p: t.detach().requires_grad_() for p, t in
                   tree_paths(params)}
         tracked = map_with_path(lambda p, _: leaves[p], params)
-        gsum = {p: torch.zeros(t.shape, dtype=acc_dt, device=t.device)
+        gsum = {p: torch.zeros_like(t, dtype=acc_dt)
                 for p, t in leaves.items()}
         lsum = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
@@ -86,7 +103,7 @@ def make_train_step(cfg, ts: TrainSettings):
                     loss, list(leaves.values()), allow_unused=True)
             for p, g in zip(leaves, grads):
                 if g is not None:
-                    gsum[p].add_(g.to(acc_dt))
+                    gsum[p].add_(_constrain(g, gsum[p]).to(acc_dt))
             lsum = lsum + loss.detach()
         grads = map_with_path(lambda p, _: gsum[p] / accum, params)
         loss = lsum / accum
@@ -105,14 +122,24 @@ def make_train_step(cfg, ts: TrainSettings):
     return train_step
 
 
-def make_prefill(cfg):
+def _constrain(g, like):
+    """A gradient in its accumulator's layout (a plain tensor as it is)."""
+    if not isinstance(g, DTensor) or tuple(g.placements) == \
+            tuple(like.placements):
+        return g
+    return g.redistribute(like.device_mesh, like.placements)
+
+
+def make_prefill(cfg, cache_len: int | None = None):
     """``prefill(params, batch) -> (logits, cache)``: a fresh bf16 cache
-    the prompt's length, filled from position 0; the logits of the last
+    the prompt's length (or ``cache_len`` slots, room for the decode
+    steps after it), filled from position 0; the logits of the last
     position. (The reference's ``shape`` argument, a dry-run
     ``ShapeSpec``, is not ported: the batch gives the shape.)"""
     def prefill(params, batch):
         b, s = batch["tokens"].shape
-        cache = T.init_cache(cfg, b, s, device=batch["tokens"].device)
+        cache = T.init_cache(cfg, b, cache_len or s,
+                             device=batch["tokens"].device)
         logits, new_cache, _ = T.model_apply(
             params, dict(batch, cache_pos=0), cfg, mode="prefill",
             cache=cache)
@@ -150,3 +177,114 @@ def abstract_opt_state(cfg, params_shapes, ts: TrainSettings):
     if ts.compression != "none":
         st = dict(st, ef=ef_init(params_shapes))
     return st
+
+
+# ---------------------------------------------------------------------------
+# sharded builders
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _on(mesh):
+    """The mesh active, and the model's plain tensors replicated."""
+    with set_mesh(mesh), implicit_replication():
+        yield
+
+
+def _place_batch(batch, shardings):
+    """The batch placed by ``shardings``; ``cache_pos`` (the reference's
+    traced 0-d scalar) taken as the host int it stands for."""
+    out = {}
+    for k, v in batch.items():
+        if k == "cache_pos" and (isinstance(v, int) or v.dim() == 0):
+            out[k] = int(v)
+        else:
+            out[k] = rules.place(v, shardings[k])
+    return out
+
+
+def jit_train_step(cfg, mesh, ts: TrainSettings, batch_shapes: dict):
+    """The train step over ``mesh`` (a ``DeviceMesh``): params and
+    optimizer state in their FSDP x TP storage layout, the batch over dp.
+    Returns ``(step, (params_shapes, opt_shapes, batch_shapes),
+    in_shardings)``; the step returns params and state in their input
+    layouts and the metrics replicated."""
+    p_sh = abstract_params(cfg)
+    o_sh = abstract_opt_state(cfg, p_sh, ts)
+    in_sh = (rules.param_shardings(mesh, p_sh),
+             rules.opt_state_shardings(mesh, o_sh),
+             rules.batch_shardings(mesh, batch_shapes))
+    rep = rules.NamedSharding(mesh, rules.P())
+    inner = make_train_step(cfg, ts)
+
+    def step(params, opt_state, batch):
+        params = rules.place_tree(params, in_sh[0])
+        opt_state = rules.place_tree(opt_state, in_sh[1])
+        batch = _place_batch(batch, in_sh[2])
+        with _on(mesh):
+            new_p, new_o, metrics = inner(params, opt_state, batch)
+            new_p = rules.place_tree(new_p, in_sh[0])
+            new_o = rules.place_tree(new_o, in_sh[1])
+            metrics = {k: rules.place(v, rep) for k, v in metrics.items()}
+        return new_p, new_o, metrics
+
+    return step, (p_sh, o_sh, batch_shapes), in_sh
+
+
+def jit_serve_step(cfg, mesh, cache_shapes, batch_shapes):
+    """One decode step over ``mesh``: params in their storage layout, the
+    cache by ``rules.cache_shardings`` (KV sequence over the model axis,
+    written in place), the batch over dp. Returns ``(step, (params_shapes,
+    cache_shapes, batch_shapes), in_shardings)``; the step returns the
+    tokens (B,) over dp and the cache in its layout. A plain cache passed
+    in is placed as a new DTensor tree: pass the returned one to the next
+    step."""
+    p_sh = abstract_params(cfg)
+    c_sh = rules.cache_shardings(mesh, cache_shapes)
+    in_sh = (rules.param_shardings(mesh, p_sh), c_sh,
+             rules.batch_shardings(mesh, batch_shapes))
+    b = batch_shapes["tokens"].shape[0]
+    tok_sh = rules.batch_shardings(
+        mesh, {"t": torch.empty((b,), dtype=torch.int32, device="meta")})["t"]
+    inner = make_serve_step(cfg)
+
+    def step(params, cache, batch):
+        params = rules.place_tree(params, in_sh[0])
+        cache = rules.place_tree(cache, in_sh[1])
+        batch = _place_batch(batch, in_sh[2])
+        with torch.no_grad(), _on(mesh):
+            token, new_cache = inner(params, cache, batch)
+            token = rules.place(token, tok_sh)
+        return token, new_cache
+
+    return step, (p_sh, cache_shapes, batch_shapes), in_sh
+
+
+def jit_prefill(cfg, mesh, batch_shapes, cache_len: int | None = None):
+    """The prefill over ``mesh``: a fresh cache laid out by
+    ``rules.cache_shardings`` (``cache_len`` slots, default the prompt's
+    length), filled by each rank's shard, with the flash kernel run per
+    rank on its local heads. Returns ``(prefill, (params_shapes,
+    batch_shapes), in_shardings)``; the prefill returns the logits of the
+    last position (layout unconstrained, as the reference's ``None``) and
+    the cache in its layout."""
+    p_sh = abstract_params(cfg)
+    in_sh = (rules.param_shardings(mesh, p_sh),
+             rules.batch_shardings(mesh, batch_shapes))
+    b, s = batch_shapes["tokens"].shape
+    cache_shapes = T.init_cache(cfg, b, cache_len or s, device="meta")
+    c_sh = rules.cache_shardings(mesh, cache_shapes)
+
+    def prefill(params, batch):
+        params = rules.place_tree(params, in_sh[0])
+        batch = _place_batch(batch, in_sh[1])
+        dev = rules.device_mesh_of(mesh).device_type
+        cache = rules.place_tree(
+            T.init_cache(cfg, b, cache_len or s, device=dev), c_sh)
+        with torch.no_grad(), _on(mesh):
+            logits, new_cache, _ = T.model_apply(
+                params, dict(batch, cache_pos=0), cfg, mode="prefill",
+                cache=cache)
+        return logits, new_cache
+
+    return prefill, (p_sh, batch_shapes), in_sh

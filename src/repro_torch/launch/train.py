@@ -3,10 +3,22 @@
 Trains the requested arch (optionally ``--reduce``d) on synthetic or
 token-file data with the full loop: the microbatched train step
 (``launch/steps.py``), async checkpointing, restart supervision, the loss
-guard, straggler bookkeeping and a metrics log. It runs on one device,
-the card unless ``--device`` names another, with no mesh: sharding over a
-mesh comes with the port of ``repro.sharding``. The encoder-decoder and
-VLM families train on the synthetic stream plus the reference's stub
+guard, straggler bookkeeping and a metrics log, on the card unless
+``--device`` names another.
+
+``--mesh DATA,MODEL`` shards the run as the reference's ``main`` does:
+the step is ``steps.jit_train_step`` over ``make_cpu_mesh(DATA, MODEL)``
+(a ``DeviceMesh`` over the caller's process group of DATA x MODEL ranks,
+or one made from a launcher's environment, ``torchrun``'s ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``), params and moments
+are placed by ``rules.param_shardings`` / ``opt_state_shardings`` and a
+restart restores through them, each rank reading only its shard of each
+leaf. Every rank draws the full initial tree before it keeps its shard:
+a sharded init is not ported. Rank 0 prints. On one rank (the default)
+the step is ``make_train_step`` on plain tensors: a mesh of one rank
+would make every redistribution the identity and compute the same
+values, at DTensor's cost of dispatch on every op. The encoder-decoder
+and VLM families train on the synthetic stream plus the reference's stub
 modality inputs (``augment``): zero frames, zero image embeddings and
 M-RoPE positions whose three streams are each row's ``arange``.
 
@@ -20,16 +32,21 @@ Examples:
       --ckpt-dir /tmp/ck --ckpt-every 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --reduce --device cpu --steps 3 --global-batch 4 --seq 32
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --arch smollm-360m --reduce --device cpu --mesh 2,4 --steps 3 \\
+      --global-batch 8 --seq 32 --microbatch 4
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.checkpointer import Checkpointer
 from ..configs.base import get_config
@@ -40,7 +57,9 @@ from ..optim import adamw
 from ..optim.compression import ef_init
 from ..runtime.fault_tolerance import (LossGuard, NodeFailure, RestartPolicy,
                                        StragglerDetector, TrainSupervisor)
+from ..sharding import rules
 from . import steps
+from .mesh import make_cpu_mesh
 
 
 def build_parser():
@@ -70,6 +89,9 @@ def build_parser():
                     help="test hook: raise NodeFailure at this step once")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL",
+                    help="shard over a (data, model) mesh of DATA x MODEL "
+                         "ranks (default: one rank, unsharded)")
     return ap
 
 
@@ -102,6 +124,32 @@ class TrainState:
     step: int
 
 
+def batch_shapes(cfg, global_batch: int, seq: int) -> dict:
+    """The train batch's shapes as meta tensors: tokens and labels, plus
+    ``augment``'s stub modality inputs."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    shapes = {"tokens": meta((global_batch, seq), torch.int32),
+              "labels": meta((global_batch, seq), torch.int32)}
+    if cfg.family == "vlm":
+        shapes["image_embeds"] = meta(
+            (global_batch, cfg.img_tokens, cfg.d_model), torch.bfloat16)
+        shapes["mrope_positions"] = meta((3, global_batch, seq), torch.int32)
+    if cfg.family == "encdec":
+        shapes["frames"] = meta((global_batch, cfg.n_frames, cfg.d_model),
+                                torch.bfloat16)
+    return shapes
+
+
+def mesh_shape(text: str) -> tuple[int, int]:
+    """``--mesh``'s ``DATA,MODEL`` as two ints."""
+    try:
+        data, model = (int(v) for v in text.split(","))
+    except ValueError:
+        raise ValueError(f"--mesh takes DATA,MODEL, got {text!r}") from None
+    return data, model
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = get_config(args.arch)
@@ -109,6 +157,31 @@ def main(argv=None):
         cfg = cfg.reduced()
     T.require_ported(cfg)
     device = resolve_device(args.device)
+    shape = mesh_shape(args.mesh)
+    if shape == (1, 1):
+        return _main(args, cfg, device, None)
+    own_group = not dist.is_initialized()
+    if own_group:
+        # a launcher's group (torchrun): one rank a process, one card a rank
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _main(args, cfg, device, make_cpu_mesh(*shape, device=device))
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _main(args, cfg, device, mesh):
+    """The training loop; ``mesh`` None for one rank, unsharded."""
+    lead = mesh is None or dist.get_rank() == 0
+
+    def say(text):
+        if lead:
+            print(text, flush=True)
 
     dcfg = DataConfig(seq=args.seq, global_batch=args.global_batch,
                       vocab=cfg.padded_vocab, seed=args.seed,
@@ -118,7 +191,11 @@ def main(argv=None):
         compression=args.compression,
         opt=adamw.OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                             decay_steps=max(args.steps, 2 * args.warmup)))
-    step_fn = steps.make_train_step(cfg, ts)
+    if mesh is None:
+        step_fn, in_sh = steps.make_train_step(cfg, ts), None
+    else:
+        step_fn, _, in_sh = steps.jit_train_step(
+            cfg, mesh, ts, batch_shapes(cfg, args.global_batch, args.seq))
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     guard = LossGuard()
@@ -136,15 +213,17 @@ def main(argv=None):
                 skel_o = steps.abstract_opt_state(cfg, skel_p, ts)
                 tree, extra = ckpt.restore(
                     skeleton={"params": skel_p, "opt": skel_o},
-                    device=device)
+                    device=device, shardings=None if in_sh is None else
+                    {"params": in_sh[0], "opt": in_sh[1]})
                 data = DataPipeline.restore(dcfg, extra["data"],
                                             device=device)
-                print(f"[restore] step {extra['step']} from {ckpt.dir}",
-                      flush=True)
+                say(f"[restore] step {extra['step']} from {ckpt.dir}")
                 return TrainState(tree["params"], tree["opt"], data,
                                   int(extra["step"]))
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = T.init_model(gen, cfg, device=device)
+        if in_sh is not None:
+            params = rules.place_tree(params, in_sh[0])
         opt_state = adamw.init(params, steps.opt_config(cfg, ts))
         if ts.compression != "none":
             opt_state["ef"] = ef_init(params)
@@ -161,6 +240,7 @@ def main(argv=None):
             t0 = time.time()
             batch = augment(next(data), cfg)
             params, opt_state, m = step_fn(params, opt_state, batch)
+            m = {k: rules.full_value(v) for k, v in m.items()}
             loss = float(m["loss"])
             dt = time.time() - t0
             straggler.update([dt])
@@ -172,7 +252,7 @@ def main(argv=None):
                        "grad_norm": round(float(m["grad_norm"]), 4),
                        "lr": float(m["lr"]), "step_s": round(dt, 3)}
                 metrics_log.append(rec)
-                print(json.dumps(rec), flush=True)
+                say(json.dumps(rec))
             if ckpt is not None and (step + 1) % args.ckpt_every == 0:
                 ckpt.save(step + 1, {"params": params, "opt": opt_state},
                           extra={"step": step + 1,
@@ -190,9 +270,9 @@ def main(argv=None):
     sup = TrainSupervisor(RestartPolicy(backoff_s=0.01), make_state,
                           run_segment)
     result = sup.run()
-    print(json.dumps({"result": result}), flush=True)
+    say(json.dumps({"result": result}))
 
-    if args.metrics_out:
+    if args.metrics_out and lead:
         pathlib.Path(args.metrics_out).write_text(json.dumps(metrics_log))
     return metrics_log
 

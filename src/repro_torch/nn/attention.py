@@ -39,15 +39,29 @@ Conventions: x is (B, S, D); caches are (B, KV, S_cache, Dh); all softmax
 math in f32. Layer flags (``is_global``) are Python bools. Unlike the
 reference, whose arrays are immutable, ``cache_update`` writes the cache in
 place and returns it.
+
+Under a mesh (``sharding.set_mesh``, tensors that are ``DTensor``s) the
+reference's ``shard_hint`` calls pin the layouts at its places: heads over
+the model axis where they divide it, else the query sequence; a decode
+step's KV sequence over the model axis. Two ops have no DTensor rule and
+run per rank under ``local_map``: the flash kernel, on each rank's local
+heads (or query rows, with the keys cut at the rank's last row, which
+keeps the causal mask) with the KV heads those heads read, and the cache
+write, each rank writing the slots of its sequence shard.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from .layers import (apply_mrope, apply_rope, linear, linear_init, rmsnorm,
                      rmsnorm_init)
 from .module import KeyStream
 from ..kernels import ops
+from ..sharding.compat import get_abstract_mesh
+from ..sharding.hints import hint_spec, rowwise, shard_hint
+from ..sharding.rules import placements
 
 NEG_INF = -1e30
 
@@ -72,21 +86,52 @@ def attn_init(gen, cfg, dtype=torch.float32):
     return p
 
 
+def _uneven_heads(n: int) -> bool:
+    """Under a mesh, whether ``n`` heads do not divide its model axis."""
+    am = get_abstract_mesh()
+    return not am.empty and n % am.shape.get("model", 1) != 0
+
+
+def split_heads(y, n: int, dh: int):
+    """(B, S, n * Dh) -> (B, S, n, Dh). Under a mesh, the product's
+    columns are first pinned over the model axis where the n heads divide
+    it; where they do not, the split runs on each rank's batch rows with
+    the rest replicated (``rowwise``), in both passes: a DTensor view can
+    neither split a sharded dim unevenly nor fold it back (XLA reshards
+    there by itself)."""
+    b, s, _ = y.shape
+    if not isinstance(y, DTensor):
+        return y.reshape(b, s, n, dh)
+    if _uneven_heads(n):
+        return rowwise(lambda t: t.reshape(t.shape[0], s, n, dh), y)
+    return shard_hint(y, "dp", None, "model").reshape(b, s, n, dh)
+
+
+def merge_heads(o):
+    """(B, H, S, Dh) -> (B, S, H * Dh), ``wo``'s input. Where the H heads
+    do not divide a mesh's model axis, on each rank's batch rows with the
+    rest replicated, in both passes (``split_heads``): the gradient that
+    ``wo``'s product hands back is sharded over that axis."""
+    b, h, s, _ = o.shape
+    if isinstance(o, DTensor) and _uneven_heads(h):
+        return rowwise(lambda t: t.transpose(1, 2).reshape(t.shape[0], s, -1),
+                       o)
+    return o.transpose(1, 2).reshape(b, s, -1)
+
+
 def _project_q(p, x, cfg, *, compute_dtype):
-    b, s, _ = x.shape
-    q = linear(p["wq"], x, compute_dtype=compute_dtype).reshape(
-        b, s, cfg.n_heads, cfg.head_dim)
+    q = split_heads(linear(p["wq"], x, compute_dtype=compute_dtype),
+                    cfg.n_heads, cfg.head_dim)
     return rmsnorm(p["q_norm"], q) if cfg.qk_norm else q
 
 
 def _project_qkv(p, x, cfg, *, compute_dtype):
-    b, s, _ = x.shape
     dh = cfg.head_dim
     q = _project_q(p, x, cfg, compute_dtype=compute_dtype)
-    k = linear(p["wk"], x, compute_dtype=compute_dtype).reshape(
-        b, s, cfg.n_kv_heads, dh)
-    v = linear(p["wv"], x, compute_dtype=compute_dtype).reshape(
-        b, s, cfg.n_kv_heads, dh)
+    k = split_heads(linear(p["wk"], x, compute_dtype=compute_dtype),
+                    cfg.n_kv_heads, dh)
+    v = split_heads(linear(p["wv"], x, compute_dtype=compute_dtype),
+                    cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         k = rmsnorm(p["k_norm"], k)
     return q, k, v
@@ -126,9 +171,17 @@ def _decode_grouped(q, k, v, *, scale, causal, q_positions, k_positions,
     reference's ``preferred_element_type``)."""
     b, hq, _, dh = q.shape
     kvh = k.shape[1]
+    am = get_abstract_mesh()
+    seq_ok = (not am.empty and "model" in am.axis_names
+              and k.shape[2] % am.shape["model"] == 0)
+    if seq_ok:
+        k = shard_hint(k, "dp", None, "model", None)
+        v = shard_hint(v, "dp", None, "model", None)
     qg = q.reshape(b, kvh, hq // kvh, dh)
     s = torch.einsum("bkgd,bksd->bkgs", qg.to(torch.float32),
                      k.to(torch.float32)) * scale            # (B, KV, g, S)
+    if seq_ok:
+        s = shard_hint(s, "dp", None, None, "model")
     mask = _mask(q_positions[:, None, None, :], k_positions[:, None, None, :],
                  causal=causal, window=window, is_global=is_global)
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
@@ -142,10 +195,65 @@ def _flash(q, k, v, *, scale, causal):
     their common dtype. The kernel maps each q head to its KV head (the
     reference's ``jnp.repeat(k, g, axis=1)``) and reads strided views in
     place, so neither the GQA expansion nor a cache slice is copied."""
+    if isinstance(q, DTensor):
+        return _flash_sharded(q, k, v, scale=scale, causal=causal)
     dt = torch.promote_types(q.dtype, k.dtype)
     out = ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), scale=scale,
                               causal=causal)
     return out.to(q.dtype)
+
+
+def _kv_for_heads(k, hq: int, h0: int, hl: int):
+    """The KV heads that q heads ``h0 .. h0 + hl`` of ``hq`` read, so that
+    the kernel's own map (q head j -> KV head j // (hl / KV)) holds."""
+    kvh = k.shape[1]
+    g = hq // kvh
+    if hl % g == 0:
+        return k[:, h0 // g:(h0 + hl) // g]
+    if g % hl == 0:
+        return k[:, h0 // g:h0 // g + 1]
+    return k.repeat_interleave(g, dim=1)[:, h0:h0 + hl]
+
+
+def _flash_sharded(q, k, v, *, scale, causal):
+    """The flash kernel on DTensors: each rank runs it under ``local_map``
+    on its shard, with the layout the reference's hints pin
+    (``attention.py:349-355``): q's heads over the model axis where they
+    divide it, else q's rows; k and v replicated over the model axis; the
+    batch over dp throughout."""
+    mesh = q.device_mesh
+    am = get_abstract_mesh()
+    tp = am.shape.get("model", 1)
+    hq, sq = q.shape[1], q.shape[2]
+    skv = k.shape[2]
+    if hq % tp == 0:
+        q_dims, mode = ("dp", "model", None, None), "heads"
+    elif sq % tp == 0:
+        q_dims, mode = ("dp", None, "model", None), "rows"
+    else:
+        q_dims, mode = ("dp", None, None, None), "whole"
+    q_pl = placements(am, hint_spec(q.shape, q_dims, am))
+    kv_pl = placements(am, hint_spec(k.shape, ("dp", None, None, None), am))
+    rank = (mesh.get_local_rank("model")
+            if "model" in (mesh.mesh_dim_names or ()) else 0)
+
+    def local(ql, kl, vl):
+        if mode == "heads" and tp > 1:
+            hl = ql.shape[1]
+            kl = _kv_for_heads(kl, hq, rank * hl, hl)
+            vl = _kv_for_heads(vl, hq, rank * hl, hl)
+        elif mode == "rows" and tp > 1 and causal:
+            # keys up to this rank's last query row: query i of the shard
+            # sits at skv - sq + rank * n + i, the kernel's causal rule
+            end = skv - sq + (rank + 1) * ql.shape[2]
+            kl, vl = kl[:, :, :end], vl[:, :, :end]
+        dt = torch.promote_types(ql.dtype, kl.dtype)
+        return ops.flash_attention(ql.to(dt), kl.to(dt), vl.to(dt),
+                                   scale=scale, causal=causal).to(ql.dtype)
+
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def chunked_attention(q, k, v, *, scale: float, causal: bool = True,
@@ -186,14 +294,28 @@ def chunked_attention(q, k, v, *, scale: float, causal: bool = True,
                                k_positions=k_positions, window=window,
                                is_global=is_global)
     g = hq // kvh
+    # the reference's TP layout: heads over the model axis where they
+    # divide it, else the query sequence, one chunk (its seq_tp)
+    am = get_abstract_mesh()
+    tp = am.shape.get("model", 1)
     if g > 1:
-        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        kv_dims = ("dp", "model", None, None) if hq % tp == 0 \
+            else ("dp", None, None, None)
+        k = shard_hint(_repeat_heads(k, g), *kv_dims)
+        v = shard_hint(_repeat_heads(v, g), *kv_dims)
+    seq_tp = hq % tp != 0 and sq % tp == 0
+    if seq_tp:
+        chunk = sq
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     kp = k_positions[:, None, None, :]                      # (B, 1, 1, Skv)
     cq = sq // max(1, sq // chunk)
     outs = []
     for qc, qpos in zip(q.split(cq, dim=2), q_positions.split(cq, dim=1)):
+        if seq_tp:
+            qc = shard_hint(qc, "dp", None, "model", None)
         s = torch.einsum("bhcd,bhsd->bhcs", qc.to(torch.float32), kf) * scale
+        if seq_tp:
+            s = shard_hint(s, "dp", None, "model", None)
         mask = _mask(qpos[:, None, :, None], kp, causal=causal,
                      window=window, is_global=is_global)
         p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
@@ -201,6 +323,16 @@ def chunked_attention(q, k, v, *, scale: float, causal: bool = True,
                                  p.to(v.dtype).to(torch.float32), vf
                                  ).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def _repeat_heads(k, g: int):
+    """k (B, KV, S, Dh) with each head repeated g times in place
+    (``repeat_interleave``; as an expand and a view on a DTensor, which
+    has no rule for the former)."""
+    if not isinstance(k, DTensor):
+        return k.repeat_interleave(g, dim=1)
+    b, kvh, s, dh = k.shape
+    return k[:, :, None].expand(b, kvh, g, s, dh).reshape(b, kvh * g, s, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +356,19 @@ def init_kv_cache(batch: int, kv_heads: int, length: int, head_dim: int,
     }
 
 
-def _write_slice(cache, start: int, k_new, v_new, pos: int):
+def _write_slice(cache, start: int, k_new, v_new, pos: int,
+                 offset: int = 0):
+    """Slots ``start .. start + n`` of the cache, whose k and v hold the
+    slots from ``offset`` on (a sequence shard's; ``positions`` holds all
+    of them)."""
     n = k_new.shape[2]
-    cache["k"][:, :, start:start + n] = k_new
-    cache["v"][:, :, start:start + n] = v_new
+    lo = max(start, offset)
+    hi = min(start + n, offset + cache["k"].shape[2])
+    if lo < hi:
+        cache["k"][:, :, lo - offset:hi - offset] = k_new[:, :, lo - start:
+                                                          hi - start]
+        cache["v"][:, :, lo - offset:hi - offset] = v_new[:, :, lo - start:
+                                                          hi - start]
     cache["positions"][:, start:start + n] = torch.arange(
         pos, pos + n, dtype=torch.int32, device=k_new.device)
 
@@ -244,6 +385,8 @@ def cache_update(cache, k_new, v_new, pos, *, ring: bool = False):
     reference. A linear cache refuses an aligned write that does not fit;
     as in the reference's scatter, a row's writes past its end are
     dropped."""
+    if isinstance(cache["k"], DTensor):
+        return _cache_update_sharded(cache, k_new, v_new, pos, ring=ring)
     length = cache["k"].shape[2]
     s_new = k_new.shape[2]
     if ring and s_new > length:
@@ -251,20 +394,7 @@ def cache_update(cache, k_new, v_new, pos, *, ring: bool = False):
         pos = pos + (s_new - length)
         s_new = length
     if isinstance(pos, int):
-        if ring:
-            # at most two runs: up to the ring's end, then from slot 0
-            start = pos % length
-            first = min(s_new, length - start)
-            _write_slice(cache, start, k_new[:, :, :first],
-                         v_new[:, :, :first], pos)
-            if first < s_new:
-                _write_slice(cache, 0, k_new[:, :, first:],
-                             v_new[:, :, first:], pos + first)
-            return cache
-        if pos < 0 or pos + s_new > length:
-            raise ValueError(f"{s_new} tokens at position {pos} do not fit a "
-                             f"cache of {length}")
-        _write_slice(cache, pos, k_new, v_new, pos)
+        _write_aligned(cache, k_new, v_new, pos, ring=ring, length=length)
         return cache
 
     b = cache["k"].shape[0]
@@ -299,6 +429,64 @@ def cache_update(cache, k_new, v_new, pos, *, ring: bool = False):
     cache["k"][r, :, j] = k_rows[src].to(cache["k"].dtype)
     cache["v"][r, :, j] = v_rows[src].to(cache["v"].dtype)
     cache["positions"][r, j] = j.to(torch.int32)
+    return cache
+
+
+def _write_aligned(cache, k_new, v_new, pos: int, *, ring: bool,
+                   length: int, offset: int = 0):
+    """An aligned write of s_new <= length (ring) tokens at ``pos`` into
+    ``cache``, whose k and v hold slots ``offset`` on."""
+    s_new = k_new.shape[2]
+    if ring:
+        # at most two runs: up to the ring's end, then from slot 0
+        start = pos % length
+        first = min(s_new, length - start)
+        _write_slice(cache, start, k_new[:, :, :first], v_new[:, :, :first],
+                     pos, offset)
+        if first < s_new:
+            _write_slice(cache, 0, k_new[:, :, first:], v_new[:, :, first:],
+                         pos + first, offset)
+        return
+    if pos < 0 or pos + s_new > length:
+        raise ValueError(f"{s_new} tokens at position {pos} do not fit a "
+                         f"cache of {length}")
+    _write_slice(cache, pos, k_new, v_new, pos, offset)
+
+
+def _cache_update_sharded(cache, k_new, v_new, pos, *, ring: bool):
+    """``cache_update`` of a DTensor cache (k, v sequence-sharded over the
+    model axis by ``rules.cache_shardings``, the batch over dp): under
+    ``local_map`` each rank writes the new tokens' slots that fall in its
+    sequence shard, and every slot's position. Aligned writes only (an
+    int ``pos``, as the sharded steps make)."""
+    if not isinstance(pos, int):
+        raise NotImplementedError(
+            "a sharded cache takes aligned writes (an int cache_pos) only")
+    mesh = cache["k"].device_mesh
+    k_pl = tuple(cache["k"].placements)
+    p_pl = tuple(cache["positions"].placements)
+    length = cache["k"].shape[2]
+    # the new tokens: the cache's batch layout, every token on each rank
+    new_pl = tuple(Replicate() if pl.is_shard(2) else pl for pl in k_pl)
+    seq_dims = [i for i, pl in enumerate(k_pl) if pl.is_shard(2)]
+    s_new = k_new.shape[2]
+    if ring and s_new > length:
+        k_new, v_new = k_new[:, :, -length:], v_new[:, :, -length:]
+        pos = pos + (s_new - length)
+
+    def local(kc, vc, pc, kn, vn):
+        shard = kc.shape[2]
+        index = 0
+        for i in seq_dims:
+            index = index * mesh.size(i) + mesh.get_local_rank(i)
+        _write_aligned({"k": kc, "v": vc, "positions": pc}, kn, vn, pos,
+                       ring=ring, length=length, offset=index * shard)
+
+    local_map(local, out_placements=None,
+              in_placements=(k_pl, k_pl, p_pl, new_pl, new_pl),
+              device_mesh=mesh, redistribute_inputs=True)(
+        cache["k"], cache["v"], cache["positions"],
+        k_new.to(cache["k"].dtype), v_new.to(cache["v"].dtype))
     return cache
 
 
@@ -346,11 +534,25 @@ def attn_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
         q = _project_q(p, x, cfg, compute_dtype=compute_dtype).transpose(1, 2)
         out = chunked_attention(q, cross_kv["k"], cross_kv["v"], scale=scale,
                                 causal=False, chunk=chunk, flash=flash)
-        out = out.transpose(1, 2).reshape(b, s, -1)
-        return linear(p["wo"], out, compute_dtype=compute_dtype), cache
+        return linear(p["wo"], merge_heads(out),
+                      compute_dtype=compute_dtype), cache
     q, k, v = _project_qkv(p, x, cfg, compute_dtype=compute_dtype)
     q, k = _rope(q, k, cfg, positions, mrope_positions)
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    # the TP layout (reference attention.py:339-355): one query token
+    # replicated over the model axis (the cache stays sequence-sharded);
+    # else heads over it where they divide it, else the sequence
+    am = get_abstract_mesh()
+    heads_divide = (not am.empty and "model" in am.axis_names
+                    and cfg.n_heads % am.shape["model"] == 0)
+    if s == 1:
+        q = shard_hint(q, "dp", None, None, None)
+    elif heads_divide:
+        q = shard_hint(q, "dp", "model", None, None)
+    else:
+        q = shard_hint(q, "dp", None, "model", None)
+    k = shard_hint(k, "dp", None, None, None)
+    v = shard_hint(v, "dp", None, None, None)
     aligned = isinstance(cache_pos, int)
     attend = dict(scale=scale, window=window, is_global=is_global,
                   chunk=chunk)
@@ -370,7 +572,7 @@ def attn_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
             # position j (the slots past it are empty or stale and masked
             # by causality), or, past a ring's length, as computed (the
             # reference's train-mode forward), rounded as stored
-            if s <= length:
+            if s <= length and not isinstance(cache["k"], DTensor):
                 ks, vs = cache["k"][:, :, :s], cache["v"][:, :, :s]
             else:
                 ks, vs = (z.to(cache["k"].dtype) for z in (k, v))
@@ -380,5 +582,5 @@ def attn_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
             qpos = (cache_pos if aligned else cache_pos[:, None]) \
                 + torch.arange(s, device=x.device)
             out = attend_cache(q, cache, q_positions=qpos, **attend)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return linear(p["wo"], out, compute_dtype=compute_dtype), cache
+    return linear(p["wo"], merge_heads(out), compute_dtype=compute_dtype), \
+        cache

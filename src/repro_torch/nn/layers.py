@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from .module import KeyStream, lecun_normal, trunc_normal
 
@@ -31,12 +32,49 @@ def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False,
     return p
 
 
+def _rows_foldable(x):
+    """x with no sharded dim between its first and its last: a DTensor's
+    (B, S, D) @ W folds (B, S) into the product's rows, which DTensor
+    allows only where S is not split (Megatron-SP's all-gather of the
+    sequence before a column-parallel product). A plain tensor as it is."""
+    if not isinstance(x, DTensor) or x.dim() <= 2:
+        return x
+    want = tuple(Replicate() if pl.is_shard() and 0 < pl.dim < x.dim() - 1
+                 else pl for pl in x.placements)
+    return x if want == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, want)
+
+
+def matmul(x, w):
+    """``x @ w`` for a 2-D ``w``. On a DTensor x of 3 or more dims, the
+    rows are folded into one 2-D product exactly where ``at::matmul``
+    folds a plain tensor (``w`` requires grad, or x's leading dims are
+    one contiguous run), judged on x's local strides: the DTensor's
+    global strides can differ (a view's metadata), and with them
+    ``at::matmul``'s choice between one ``mm`` and a ``bmm`` of
+    expanded weights, which round differently."""
+    if not isinstance(x, DTensor) or x.dim() < 3:
+        return x @ w
+    x = _rows_foldable(x)
+    xl = x.to_local()
+    st, sh = xl.stride(), xl.shape
+    if (w.requires_grad or xl.numel() == 0
+            or all(st[i] == st[i + 1] * sh[i + 1]
+                   for i in range(x.dim() - 2))):
+        y = x.reshape(-1, x.shape[-1]) @ w
+        return y.view(*x.shape[:-1], w.shape[-1])
+    if x.dim() != 3:
+        raise NotImplementedError("a strided DTensor product of more than "
+                                  "3 dims")
+    return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+
+
 def linear(p, x, *, compute_dtype=None):
     w = p["kernel"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    y = x @ w
+    y = matmul(x, w)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -56,7 +94,7 @@ def embed(p, ids, *, compute_dtype=None):
 
 def unembed(p, x):
     """Tied LM head: logits in f32 for a stable softmax."""
-    return x.to(torch.float32) @ p["embedding"].to(torch.float32).T
+    return matmul(x.to(torch.float32), p["embedding"].to(torch.float32).T)
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +205,13 @@ def softmax_xent(logits, labels, *, ignore_id: int = -100):
     mask = labels != ignore_id
     labels_safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels_safe[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # the label's logit out of a vocab-sharded DTensor: every rank
+        # keeps it where its shard holds it, and the sum over the vocab
+        # (one value and zeros) is exact (DTensor's sharded gather fails)
+        ids = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(ids == labels_safe[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = logits.gather(-1, labels_safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1)

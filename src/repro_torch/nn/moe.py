@@ -18,8 +18,13 @@ bf16 zeros tensor does exactly that, which an f32 sum rounded once or an
 ``index_add_`` (atomics on the card) would not.
 
 Every op runs on the device with no host read, so a step that routes is
-captured whole in a CUDA graph. The reference's ``shard_hint`` calls are
-the identity without a mesh and are left out.
+captured whole in a CUDA graph.
+
+Under a mesh the reference's ``shard_hint`` calls pin its layouts (a
+decode step's dispatch with the experts over dp, to match the expert
+weights' storage); routing, the slot gather and the combine (a sort,
+``searchsorted`` and gathers, which have no DTensor rule) run on each
+rank's batch rows under ``local_map`` (``sharding.hints.rowwise``).
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import swiglu
+from .layers import matmul, swiglu
 from .module import KeyStream, lecun_normal
+from ..sharding.hints import rowwise, shard_hint
 
 
 def moe_init(gen, cfg, dtype=torch.float32):
@@ -84,12 +90,19 @@ def route(p, x, cfg) -> Routing:
     """The reference's routing of x (B, S, D): top-k over the softmax of
     the f32 router logits (renormalised where ``moe_norm_topk``), a stable
     sort by expert id within each row, and the (E, C) slot table."""
-    b, s, _ = x.shape
+    with _full_f32(x.device):
+        logits = matmul(x.to(torch.float32), p["router"])
+    out = rowwise(lambda z: _route_rows(z, cfg), logits, n_out=5)
+    return Routing(logits, *out)
+
+
+def _route_rows(logits, cfg):
+    """``route`` from the logits (B, S, E) on: (probs, idx, tok, gate,
+    valid)."""
+    b, s, _ = logits.shape
     e, k = cfg.n_experts, cfg.top_k
     c = capacity(s, k, e, cfg.moe_capacity_factor)
-    dev = x.device
-    with _full_f32(dev):
-        logits = x.to(torch.float32) @ p["router"]
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, k, dim=-1)
     if cfg.moe_norm_topk:
@@ -113,17 +126,20 @@ def route(p, x, cfg) -> Routing:
     slots_c = slots.clamp(0, s * k - 1).reshape(b, e * c)
     tok = st.gather(1, slots_c).reshape(b, e, c)
     gate = torch.where(valid, sg.gather(1, slots_c).reshape(b, e, c), 0.0)
-    return Routing(logits, probs, idx, tok, gate, valid)
+    return probs, idx, tok, gate, valid
 
 
-def experts_apply(p, xin, *, compute_dtype):
+def experts_apply(p, xin, *, compute_dtype, decode_ep: bool = False):
     """The experts' SwiGLU over their slots: xin (B, E, C, D) -> (B, E, C,
     D), one batched product (batch E) a weight, over all B x C rows of an
-    expert."""
+    expert. ``decode_ep``: the hidden F over the model axis, E over dp
+    (the reference's decode hint on h, in this (E, B*C, F) layout)."""
     b, e, c, d = xin.shape
     xe = xin.transpose(0, 1).reshape(e, b * c, d)
     h = swiglu(torch.bmm(xe, p["w_gate"].to(compute_dtype)),
                torch.bmm(xe, p["w_up"].to(compute_dtype)))
+    if decode_ep:
+        h = shard_hint(h, "dp", None, "model")
     out = torch.bmm(h, p["w_down"].to(compute_dtype))
     return out.reshape(e, b, c, d).transpose(0, 1)
 
@@ -161,11 +177,25 @@ def moe_apply(p, x, cfg, *, compute_dtype=torch.bfloat16):
     r = route(p, x, cfg)
     c = r.tok.shape[-1]
 
-    xin = x.gather(1, r.tok.reshape(b, e * c, 1).expand(b, e * c, d))
-    xin = (xin.reshape(b, e, c, d) * r.valid[..., None]).to(compute_dtype)
-    out = experts_apply(p, xin, compute_dtype=compute_dtype)
+    def gather_slots(x, tok, valid):
+        rows = x.shape[0]          # this rank's rows under a mesh
+        xin = x.gather(1, tok.reshape(rows, e * c, 1).expand(rows, e * c, d))
+        return (xin.reshape(rows, e, c, d)
+                * valid[..., None]).to(compute_dtype)
+
+    xin = rowwise(gather_slots, x, r.tok, r.valid)
+    # expert parallelism for decode (s == 1): the dispatch E over dp, as
+    # the expert weights are stored, so tokens move and weights stay
+    decode_ep = s == 1
+    if decode_ep:
+        xin = shard_hint(xin, None, "dp", None, "model")
+    out = experts_apply(p, xin, compute_dtype=compute_dtype,
+                        decode_ep=decode_ep)
     out = out * r.gate[..., None].to(compute_dtype)
-    y = combine(out.reshape(b, e * c, d), r.tok, r.valid, s, cfg.top_k)
+    if decode_ep:
+        out = shard_hint(out, "dp", None, None, None)
+    y = rowwise(lambda o, t, v: combine(o, t, v, s, cfg.top_k),
+                out.reshape(b, e * c, d), r.tok, r.valid)
 
     # aux: Switch-style load balance over the top-1 choice; router z-loss
     me = r.probs.mean(dim=(0, 1))

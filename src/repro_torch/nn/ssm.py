@@ -23,8 +23,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import rmsnorm, rmsnorm_init
+from .layers import matmul, rmsnorm, rmsnorm_init
 from .module import KeyStream, lecun_normal
+from ..sharding.hints import shard_hint
 
 
 def ssm_dims(cfg):
@@ -150,7 +151,10 @@ def ssm_apply(p, x, cfg, *, state=None, conv_state=None, decode: bool = False,
     p_dim = cfg.ssm_head_dim
     k_conv = cfg.ssm_conv
 
-    zxbcdt = x.to(compute_dtype) @ p["in_proj"].to(compute_dtype)
+    zxbcdt = matmul(x.to(compute_dtype), p["in_proj"].to(compute_dtype))
+    if cfg.family == "hybrid":
+        # under a mesh, batch over dp (the reference's hybrid-only pin)
+        zxbcdt = shard_hint(zxbcdt, "dp", None, "model")
     z, xbc, dt = _split_proj(cfg, zxbcdt)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])   # (B,S,H)
     a = -torch.exp(p["a_log"])                             # (H,)
@@ -200,7 +204,7 @@ def ssm_apply(p, x, cfg, *, state=None, conv_state=None, decode: bool = False,
     y = y.reshape(bsz, s, d_inner)
     y = rmsnorm(p["norm"],
                 (y * F.silu(z.to(torch.float32))).to(compute_dtype))
-    out = y @ p["out_proj"].to(compute_dtype)
+    out = matmul(y, p["out_proj"].to(compute_dtype))
     return out.to(x.dtype), new_state, new_conv_state
 
 

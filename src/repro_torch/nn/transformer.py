@@ -45,7 +45,7 @@ import functools
 import torch
 from torch.utils import checkpoint as ckpt
 
-from .attention import attn_apply, attn_init, init_kv_cache
+from .attention import attn_apply, attn_init, init_kv_cache, split_heads
 from .layers import (embed, embedding_init, gelu, layernorm, layernorm_init,
                      linear, linear_init, rmsnorm, rmsnorm_init,
                      softmax_xent, swiglu, unembed)
@@ -53,6 +53,7 @@ from .module import KeyStream
 from .moe import moe_apply, moe_init
 from .ssm import init_ssm_state, ssm_apply, ssm_init
 from ..device import resolve_device
+from ..sharding.hints import shard_hint
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -103,6 +104,8 @@ def mlp_apply(p, x, cfg, *, compute_dtype):
                    linear(p["up"], x, compute_dtype=compute_dtype))
     else:
         h = gelu(linear(p["up"], x, compute_dtype=compute_dtype))
+    # Megatron TP: the hidden F dim lives on the model axis
+    h = shard_hint(h, "dp", None, "model")
     return linear(p["down"], h, compute_dtype=compute_dtype)
 
 
@@ -158,10 +161,10 @@ def _cross_kv(p, cfg, cache, enc_out, *, compute_dtype):
     in place, rounded to the cache's dtype), else the cache's, else
     None."""
     if enc_out is not None:
-        b, se, _ = enc_out.shape
-        ck, cv = (linear(p["cross"][w], enc_out, compute_dtype=compute_dtype)
-                  .reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
-                  .transpose(1, 2) for w in ("wk", "wv"))
+        ck, cv = (split_heads(linear(p["cross"][w], enc_out,
+                                compute_dtype=compute_dtype),
+                         cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+                  for w in ("wk", "wv"))
         if cache is not None and "cross_k" in cache:
             cache["cross_k"].copy_(ck)
             cache["cross_v"].copy_(cv)
@@ -182,8 +185,8 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
     an MoE layer's losses, else it is empty."""
     h = _norm(cfg, p["ln1"], x)
     if cfg.family == "ssm":
-        return x + _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype), \
-            cache, {}
+        x = x + _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype)
+        return shard_hint(x, "dp", "model", None), cache, {}
     window = cfg.sliding_window
     mixer_out, _ = attn_apply(
         p["attn"], h, cfg, positions=positions,
@@ -216,6 +219,9 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
     elif cfg.d_ff > 0:
         x = x + mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg,
                           compute_dtype=compute_dtype)
+    # Megatron-SP layout between layers: the sequence over the model axis
+    # (replicated for decode's S = 1 by the divisibility guard)
+    x = shard_hint(x, "dp", "model", None)
     return x, cache, aux
 
 
@@ -384,6 +390,7 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed(params["embed"], tokens, compute_dtype=compute_dtype)
+    x = shard_hint(x, "dp", "model", None)
     if cfg.family == "vlm" and "image_embeds" in batch:
         img = batch["image_embeds"].to(compute_dtype)
         if img.shape[1] > s:
@@ -423,6 +430,7 @@ def model_apply(params, batch, cfg, *, mode: str = "train", cache=None,
         logits = unembed(params["embed"], x)
     else:
         logits = linear(params["head"], x, compute_dtype=torch.float32)
+    logits = shard_hint(logits, "dp", None, "model")
     aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
     return logits, cache, aux
 

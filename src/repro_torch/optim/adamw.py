@@ -60,8 +60,8 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init(params: dict, cfg: OptConfig) -> dict:
     """Zero moments in ``state_dtype`` beside each param, and step 0."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+    def zeros(p):   # in p's layout, for a DTensor
+        return torch.zeros_like(p, dtype=cfg.state_dtype)
     device = next(_leaves(params)).device
     return {"m": _map(zeros, params), "v": _map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -616,12 +616,14 @@ def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,kvh,dh", [(32, 8, 160), (32, 2, 128),
-                                      (32, 4, 128)],
-                         ids=["stablelm-12b", "glm4-9b", "qwen3-moe-30b-a3b"])
+                                      (32, 4, 128), (64, 8, 128)],
+                         ids=["stablelm-12b", "glm4-9b", "qwen3-moe-30b-a3b",
+                              "qwen1.5-110b"])
 def test_flash_kernel_at_the_dense_prefills(cuda, dtype, hq, kvh, dh):
     """Kernel 7 at the 2048-token prefills of stablelm-12b (32 heads over 8
-    KV heads, Dh 160), glm4-9b (32 over 2, Dh 128, group 16) and
-    qwen3-moe-30b-a3b (32 over 4, Dh 128), laid out
+    KV heads, Dh 160), glm4-9b (32 over 2, Dh 128, group 16),
+    qwen3-moe-30b-a3b (32 over 4, Dh 128) and qwen1.5-110b (64 over 8, Dh
+    128, the sharded path's), laid out
     as the LM path hands them over (q transposed from (1, S, Hq, Dh), k and
     v the first S rows of a (1, KV, 2S, Dh) cache), causal: within 2e-4 of
     the plain version and of SDPA in f32 on the same values (KV
@@ -1883,3 +1885,125 @@ def test_pipeline_and_checkpoint_on_the_card(cuda, tmp_path):
     for k, v in tree.items():
         assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
         assert torch.equal(got[k], v), k
+
+
+
+# ---------------------------------------------------------------------------
+# the sharding layer on a one-card mesh
+# ---------------------------------------------------------------------------
+
+SHARDED_REDUCED = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                       vocab=512)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """``make_cpu_mesh`` on the card: a one-rank NCCL group (HashStore, no
+    port) and its (1, 1) mesh, destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_cpu_mesh
+    assert not dist.is_initialized()
+    mesh = make_cpu_mesh(device=cuda)
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen1.5-110b"])
+def test_sharded_train_step_on_one_card_is_the_unsharded_step(
+        cuda, nccl_mesh, arch):
+    """``jit_train_step`` on the (1, 1) NCCL mesh against
+    ``make_train_step`` from the same params (reduced: 2 layers, d_model
+    128, 4 heads over 2), two steps of batch 8 x 32 in microbatches of 4:
+    metrics and every param and moment bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.nn import module
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adamw
+    cfg = get_config(arch).reduced(**SHARDED_REDUCED)
+    ts = steps.TrainSettings(microbatch=4)
+    params = T.init_model(gen(cuda, 0), cfg, device=cuda)
+    opt = adamw.init(params, steps.opt_config(cfg, ts))
+    g = gen(cuda, 1)
+    batches = [{k: torch.randint(0, cfg.vocab, (8, 32), generator=g,
+                                 device=cuda) for k in ("tokens", "labels")}
+               for _ in range(2)]
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batches[0].items()}
+    step, _, _ = steps.jit_train_step(cfg, nccl_mesh, ts, shapes)
+    plain = steps.make_train_step(cfg, ts)
+    p1, o1, p2, o2 = params, opt, params, opt
+    for b in batches:
+        p1, o1, m1 = plain(p1, o1, b)
+        p2, o2, m2 = step(p2, o2, b)
+        for k in m1:
+            assert torch.equal(m1[k], m2[k].full_tensor()), k
+    want = dict(module.tree_paths({"p": p1, "o": o1}))
+    got = dict(module.tree_paths({"p": p2, "o": o2}))
+    assert list(got) == list(want)
+    for k, t in want.items():
+        assert torch.equal(t, got[k].to_local()), k
+
+
+def test_sharded_prefill_and_decode_on_one_card_are_the_unsharded_steps(
+        cuda, nccl_mesh):
+    """Reduced qwen1.5-110b (bf16 params, QKV bias): ``jit_prefill`` of 2
+    rows of 64 tokens into a cache of 72, then 8 ``jit_serve_step``s,
+    against ``make_prefill`` / ``make_serve_step``: the greedy tokens and
+    every cache leaf bit for bit; the sharded prefill launches kernel 7
+    once a layer (under ``local_map``), a decode step never."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.nn import module
+    from repro_torch.nn import transformer as T
+    cfg = get_config("qwen1.5-110b").reduced(**SHARDED_REDUCED)
+    params = T.init_model(gen(cuda, 2), cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen(cuda, 3),
+                         device=cuda)
+    meta = {"tokens": torch.empty((2, 64), dtype=torch.int64,
+                                  device="meta")}
+    prefill, _, _ = steps.jit_prefill(cfg, nccl_mesh, meta, cache_len=72)
+    serve, _, _ = steps.jit_serve_step(
+        cfg, nccl_mesh, T.init_cache(cfg, 2, 72, device="meta"),
+        {"tokens": torch.empty((2, 1), dtype=torch.int64, device="meta"),
+         "cache_pos": torch.empty((), dtype=torch.int32, device="meta")})
+
+    def run(pre, step):
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            logits, cache = pre(params, {"tokens": toks})
+            launches = [flash_attention_tc.launches]
+            tok = torch.argmax(getattr(logits, "full_tensor", lambda: logits)()
+                               [:, -1], dim=-1)
+            out = [tok]
+            for i in range(8):
+                ops.reset_launch_counts()
+                tok, cache = step(params, cache, {"tokens": out[-1][:, None],
+                                                  "cache_pos": 64 + i})
+                launches.append(ops.launch_counts()["flash_attention_tc"])
+                out.append(getattr(tok, "full_tensor", lambda: tok)().long())
+        return torch.stack(out, 1), cache, launches
+
+    want, wc, wl = run(steps.make_prefill(cfg, cache_len=72),
+                       steps.make_serve_step(cfg))
+    got, gc, gl = run(prefill, serve)
+    assert torch.equal(got, want)
+    assert wl == gl == [cfg.n_layers] + [0] * 8
+    for (p, a), (_, b) in zip(module.tree_paths(gc), module.tree_paths(wc)):
+        assert torch.equal(a.to_local(), b), p
+
+
+def test_compressed_psum_int8_over_nccl(cuda, nccl_mesh):
+    """At world size 1 the int8 payload's mean is the reference's formula,
+    quantise and then dequantise, bit for bit, over either mesh axis."""
+    from repro_torch.optim.compression import compressed_psum_int8
+    from repro_torch.sharding import set_mesh
+    x = torch.randn((1000,), generator=gen(cuda, 4), device=cuda) * 5
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    want = torch.clamp(torch.round(x / scale), -127, 127) * scale
+    with set_mesh(nccl_mesh):
+        for axis in ("data", "model"):
+            assert torch.equal(compressed_psum_int8(x, axis), want), axis
+    assert torch.equal(compressed_psum_int8(x, nccl_mesh["model"]), want)

@@ -1,7 +1,9 @@
 """The port's dense family past smollm: stablelm-12b (QK-norm, a quarter of
-each head rotated, layernorm, swiglu; head dim 160 at full width) and
-glm4-9b (QKV bias, half rotary, 32 q heads over 2 KV heads), against the
-JAX reference at ``reduced()`` in f32, and stablelm again at
+each head rotated, layernorm, swiglu; head dim 160 at full width),
+glm4-9b (QKV bias, half rotary, 32 q heads over 2 KV heads) and
+qwen1.5-110b (QKV bias, 64 q heads over 8, bf16 params and moments; three
+train steps too), against the JAX reference at ``reduced()`` in f32
+compute, and stablelm again at
 ``reduced(head_dim=160)`` so that the CPU route sees the full width's head
 dim (a rotary width of 40). One reference ``init_model`` tree is carried
 across by ``weights.lm_from_reference``, after its zero biases and unit
@@ -44,10 +46,11 @@ from repro_torch.weights import lm_from_reference
 from torch_threads import one_thread  # noqa: F401  (autouse)
 
 F32 = dict(compute_dtype=torch.float32)
-ARCHS = ("stablelm-12b", "glm4-9b")
+ARCHS = ("stablelm-12b", "glm4-9b", "qwen1.5-110b")
 # the reduced configs compared: (arch, reduced() overrides)
 CASES = {"stablelm": ("stablelm-12b", {}), "glm4": ("glm4-9b", {}),
-         "stablelm_dh160": ("stablelm-12b", {"head_dim": 160})}
+         "stablelm_dh160": ("stablelm-12b", {"head_dim": 160}),
+         "qwen110b": ("qwen1.5-110b", {})}
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,3 +304,56 @@ def test_init_cache_stacked_in_place():
             assert leaf.shape[:2] == (3, 2), name
             fill = -1 if name.endswith("positions") else 0
             assert bool((leaf == fill).all()), name
+
+
+def test_qwen110b_three_train_steps_match_reference():
+    """qwen1.5-110b at ``reduced()`` keeps its bf16 params and bf16 AdamW
+    moments: three steps of a global batch of 4 in microbatches of 2 from
+    the same tree and batches, in f32 compute. Losses, gradient norms and
+    learning rates within 1e-4 (the first step's within 1e-5: later ones
+    start from bf16 params that a rounding boundary may have sent either
+    way); every param and moment, stored in bf16, within 1e-4 + 1e-4 x
+    |value|, at most 1 in 10^4 elements off (by one bf16 ulp)."""
+    from repro.launch import steps as jsteps
+    from repro.optim import adamw as jadamw
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    jcfg, cfg, tree, tp = setup("qwen110b")
+    jcfg = dataclasses.replace(jcfg, compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    assert tp["layers"]["attn"]["wq"]["kernel"].dtype == torch.bfloat16
+    jts = jsteps.TrainSettings(microbatch=2, opt=jadamw.OptConfig(
+        peak_lr=1e-3, warmup_steps=1, decay_steps=4,
+        state_dtype=jnp.bfloat16))
+    ts = steps.TrainSettings(microbatch=2, opt=adamw.OptConfig(
+        peak_lr=1e-3, warmup_steps=1, decay_steps=4))
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    jo = jadamw.init(jp, jts.opt)
+    to = adamw.init(tp, steps.opt_config(cfg, ts))
+    assert to["m"]["embed"]["embedding"].dtype == torch.bfloat16
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jts))
+    step = steps.make_train_step(cfg, ts)
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        toks = rng.integers(0, cfg.vocab, (4, 33))
+        jb = {"tokens": jnp.asarray(toks[:, :-1], jnp.int32),
+              "labels": jnp.asarray(toks[:, 1:], jnp.int32)}
+        tb = {"tokens": t_(toks[:, :-1]).long(),
+              "labels": t_(toks[:, 1:]).long()}
+        jp, jo, jm = jstep(jp, jo, jb)
+        tp, to, m = step(tp, to, tb)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       rtol=1e-5 if i == 0 else 1e-4,
+                                       err_msg=f"step {i} {k}")
+    want = dict(jmodule.tree_paths({"p": jp, "o": jo}))
+    got = dict(module.tree_paths({"p": tp, "o": to}))
+    assert list(got) == list(want)
+    misses = total = 0
+    for path, t in got.items():
+        w = np.asarray(want[path], np.float64)
+        g = t.double().numpy()
+        assert g.shape == w.shape, path
+        misses += int((np.abs(g - w) > 1e-4 + 1e-4 * np.abs(w)).sum())
+        total += w.size
+    assert misses <= 1e-4 * total, (misses, total)

@@ -81,10 +81,11 @@ def test_config_matches_reference(reduced):
 
 
 def test_unported_configs_and_families_raise():
-    """qwen1.5-110b's config is not ported (222 GB of params even in
-    bf16); every family the reference defines is, and any other raises."""
+    """An arch id the port has no config for raises (spikformer-v2, the
+    reference's vision config, is not an LM config of the port); every
+    family the reference defines is ported, and any other raises."""
     with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen1.5-110b")
+        get_config("spikformer-v2")
     assert set(T.PORTED_FAMILIES) == {"dense", "moe", "ssm", "hybrid",
                                       "encdec", "vlm"}
     cfg = get_config(ARCH).reduced()
