@@ -1541,6 +1541,35 @@ def check_graphed_run(torch, model, per_step: dict, captures: int) -> dict:
     return {k: eager[k] + graphed.get(k, 0) for k in eager}
 
 
+@contextlib.contextmanager
+def collector_passes():
+    """Python's cyclic-collector passes during the block, each as
+    (generation, ms) on the host clock (``gc.callbacks``): ROADMAP §3's
+    open SLO miss of this phase was a host stall."""
+    import gc
+    passes, start = [], []
+
+    def note(phase, info):
+        if phase == "start":
+            start[:] = [time.perf_counter()]
+        elif start:
+            passes.append((info["generation"],
+                           (time.perf_counter() - start[0]) * 1e3))
+
+    gc.callbacks.append(note)
+    try:
+        yield passes
+    finally:
+        gc.callbacks.remove(note)
+
+
+def passes_summary(passes) -> dict:
+    return {"count": len(passes),
+            "full": sum(1 for g, _ in passes if g == 2),
+            "max_ms": max((ms for _, ms in passes), default=0.0),
+            "total_ms": sum(ms for _, ms in passes)}
+
+
 def events_cli_phase(torch, dev) -> dict:
     """``serve_spikformer``'s event workload with ``--events --smoke``:
     ``main`` on the synthetic trace and on ``--trace`` of the committed
@@ -1572,7 +1601,7 @@ def events_cli_phase(torch, dev) -> dict:
     for flags, gained in (([], False), (fixture, False), (fixture, True)):
         args = cli.parse_args(["--events", "--smoke", *flags])
         ops.reset_launch_counts()
-        with cpu_branch_calls() as calls:
+        with cpu_branch_calls() as calls, collector_passes() as passes:
             try:
                 if gained:
                     trace = cli.event_trace(args)
@@ -1585,7 +1614,8 @@ def events_cli_phase(torch, dev) -> dict:
                 else:
                     summary = cli.main(["--events", "--smoke", *flags])
             except AssertionError as e:
-                raise CheckFailed(f"events CLI {flags}: smoke gate: {e}")
+                raise CheckFailed(f"events CLI {flags}: smoke gate: {e}; "
+                                  f"collector passes {passes_summary(passes)}")
         model = summary.pop("model")
         what = f"events CLI {flags}{' gained' if gained else ''}"
         check(model.plan.backend == "packed" and model.backend.name ==
@@ -1618,7 +1648,8 @@ def events_cli_phase(torch, dev) -> dict:
             "latency_p99_s": summary["latency_p99_s"],
             "per_step_launches": per_step, "replays": graph_replays(model),
             "launches": {k: v for k, v in launches.items() if v},
-            "cpu_branch_calls": sum(calls.values())}
+            "cpu_branch_calls": sum(calls.values()),
+            "collector_passes": passes_summary(passes)}
         if gained:
             # comparison launches, after the counted window
             _, make = trace_to_load(trace)
@@ -3102,6 +3133,11 @@ SHARDED_LAYERS = 16          # of its 80: 2.72 GB a layer in bf16
 SHARDED_ROWS, SHARDED_LEN = 4, 2048
 SHARDED_MAX_NEW = 32
 SHARDED_TRAIN_STEPS = 2
+# the sharded engine: more requests than slots, prompts of other lengths
+SHARDED_ENGINE_PROMPTS = (2048, 77, 1000, 300, 1536, 512)
+SHARDED_ENGINE_SLOTS = 4
+DRYRUN_DEMO = ("qwen3-moe-30b-a3b", "train_4k")   # 2x16x16, the demo's cell
+DRYRUN_DEMO_TIMEOUT_S = 240    # a subprocess: ~54 s of trace, ~67 in all
 
 
 def lm_grads(torch, params, batch, cfg):
@@ -3849,11 +3885,18 @@ def sharded_serve(torch, dev, mesh) -> dict:
         prof_pre = profile_fn(torch, one_prefill, 1)
         prof_dec = profile_fn(torch, one_decode, 4)
     n_params = sum(t.numel() for _, t in tree_leaves(params))
-    param_mib = param_bytes(params) / 2 ** 20
-    del placed, cache, params
+    p_bytes = param_bytes(params)
+    cache_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for _, t in tree_leaves(cache))
+    del placed, cache
+    torch.cuda.empty_cache()
+    engine = sharded_engine(torch, dev, mesh, cfg, params)
+    del params
     torch.cuda.empty_cache()
     return {"config": describe(cfg) + f"; {SHARDED_LAYERS} of 80 layers",
-            "params": n_params, "param_mib": param_mib,
+            "params": n_params, "param_mib": p_bytes / 2 ** 20,
+            "param_bytes": p_bytes, "cache_bytes": cache_bytes,
+            "cache_shape": [SHARDED_ROWS, length], "engine": engine,
             "init_s": init_s, "init_peak_mib": init_peak / 2 ** 20,
             "prompt": [SHARDED_ROWS, SHARDED_LEN],
             "new_tokens": SHARDED_MAX_NEW,
@@ -3864,6 +3907,71 @@ def sharded_serve(torch, dev, mesh) -> dict:
             "plain_s": plain_s, "sharded_s": sharded_s,
             "launches": launches,
             "profile_prefill": prof_pre, "profile_decode": prof_dec}
+
+
+def sharded_engine(torch, dev, mesh, cfg, params) -> dict:
+    """Continuous batching over the mesh: ``Engine(slots=4)`` with a cache
+    of 2048 + 32 slots, on the same params (qwen1.5-110b at full width,
+    SHARDED_LAYERS layers) unsharded and then with ``mesh=`` (the params
+    placed by ``param_shardings``: on one rank each leaf is the tensor
+    itself, checked, so both share the params' 46 GB; the pool and the
+    row cache made by ``cache_shardings``), each graphed. Six requests of
+    SHARDED_ENGINE_PROMPTS tokens over 4 slots, 32 new tokens each
+    (``lm_pass``): slots finish at different steps and new requests are
+    spliced into them mid-run, so one decode step writes rows at
+    different positions. Gates: the tokens of the two engines bit for
+    bit; kernel 7 16 times a prefill and never in decode, eager or
+    replayed (``check_lm_launches``); both engines graphed, so neither
+    launches anything eagerly beyond each graph's warm-up run and capture.
+    A capture that cannot hold under the mesh raises, names its op and
+    fails the phase. Reported: each pass's serving
+    figures and peak memory, and one decode step's wall and device ms
+    (``profile_fn``)."""
+    from repro_torch.launch.serve import Engine
+
+    prompts = lm_prompts(cfg.vocab, SHARDED_ENGINE_PROMPTS)
+    length = max(SHARDED_ENGINE_PROMPTS) + LM_MAX_NEW
+    positions = [n - 1 for n in SHARDED_ENGINE_PROMPTS[:SHARDED_ENGINE_SLOTS]]
+    out, tokens, launches = {}, {}, {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        eng = Engine(cfg, slots=SHARDED_ENGINE_SLOTS, cache_len=length,
+                     params=params, device=dev, mesh=m)
+        check(eng.graphed, f"the {name} engine is not graphed")
+        if m is not None:
+            check(all(t.to_local().data_ptr() == p.data_ptr() for (_, t), (
+                _, p) in zip(tree_leaves(eng.params), tree_leaves(params))),
+                  "the sharded engine's params are not the params' tensors")
+        run = lm_pass(torch, eng, prompts)
+        launches[name] = check_lm_launches(eng, run, SHARDED_ENGINE_PROMPTS,
+                                           f"{name} engine")
+        with torch.no_grad():
+            prof = profile_fn(torch, lambda: eng.decode(
+                [1] * SHARDED_ENGINE_SLOTS, positions), 4)
+        tokens[name] = run["tokens"]
+        out[name] = {"graphed": eng.graphed, "stats": run["stats"],
+                     "peak_mem_mib": run["peak_mem_mib"],
+                     "peak_reserved_mib": run["peak_reserved_mib"],
+                     "graphs": run["graphs"], "launches": launches[name],
+                     "profile_decode": {k: v for k, v in prof.items()
+                                        if k != "by_kernel"},
+                     "top_kernels_decode": [
+                         (k["kernel"][:48], round(k["ms_per_step"], 4))
+                         for k in prof["by_kernel"][:6]]}
+        if m is not None:
+            out[name]["pool_placements"] = [
+                str(pl) for pl in next(t for n_, t in tree_leaves(eng.pool)
+                                       if n_.endswith("/k")).placements]
+        del eng
+        torch.cuda.empty_cache()
+    differ = [rid for rid in tokens["unsharded"]
+              if tokens["sharded"][rid] != tokens["unsharded"][rid]]
+    check(not differ, f"the sharded engine's tokens differ from the "
+                      f"unsharded engine's in requests {differ}")
+    out.update(prompts=list(SHARDED_ENGINE_PROMPTS),
+               slots=SHARDED_ENGINE_SLOTS, cache_len=length,
+               new_tokens=LM_MAX_NEW, tokens_identical=True,
+               launches=launches["sharded"])
+    return out
 
 
 def sharded_train(torch, dev, mesh) -> dict:
@@ -3993,7 +4101,104 @@ def sharded_phase(torch, dev) -> dict:
         out["psum"] = sharded_psum(torch, dev, mesh)
     finally:
         dist.destroy_process_group()
-    out["launches"] = out["serve"]["launches"]
+    out["launches"] = {k: out["serve"]["launches"].get(k, 0)
+                       + out["serve"]["engine"]["launches"].get(k, 0)
+                       for k in set(out["serve"]["launches"])
+                       | set(out["serve"]["engine"]["launches"])}
+    return out
+
+
+def dryrun_phase(torch, dev, sharded: dict) -> dict:
+    """The dry run (``launch/dryrun.py``) on the card's host, after the
+    sharded phase's group is gone: the sharded phase's own prefill (4 x
+    2048 into a cache of 2080) and decode step (4 rows at 2080) of
+    qwen1.5-110b at SHARDED_LAYERS layers, traced on a fake (1, 1) world
+    of meta tensors (a ``cuda`` mesh: NCCL's collectives). Gate: the
+    predicted argument bytes of the params (prefill) and of the params
+    and the cache (decode) equal exactly what the card allocated for
+    them. Reported: the predicted peak beside ``max_memory_allocated`` of
+    the profiled calls, and the predicted FLOPs and ``bound_s`` beside the
+    measured device ms, each gap as a ratio. Then the demo's production
+    cell (qwen3-moe-30b-a3b train_4k on 2x16x16) in a subprocess, its
+    trace seconds reported: it must end within DRYRUN_DEMO_TIMEOUT_S, or
+    the phase fails (the cell pins the reduction of mixed partials one
+    mesh axis at a time, which only the card's torch refuses otherwise)."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    check(not dist.is_initialized(), "a process group is still up")
+    cfg = dataclasses.replace(get_config(SHARDED_ARCH),
+                              n_layers=SHARDED_LAYERS)
+    serve = sharded["serve"]
+    length = SHARDED_LEN + SHARDED_MAX_NEW
+    out = {}
+    for kind, shape, card_bytes, prof in (
+            ("prefill", ShapeSpec("prefill", "prefill", SHARDED_LEN,
+                                  SHARDED_ROWS),
+             {"params": serve["param_bytes"]}, serve["profile_prefill"]),
+            ("decode", ShapeSpec("decode", "decode", length, SHARDED_ROWS),
+             {"params": serve["param_bytes"], "cache": serve["cache_bytes"]},
+             serve["profile_decode"])):
+        t0 = time.perf_counter()
+        rec, _ = dryrun.dry_run(cfg, shape, (1, 1), ("data", "model"),
+                                cache_len=length)
+        seconds = time.perf_counter() - t0
+        check(not dist.is_initialized(), "the fake world was left up")
+        got = {k: rec["memory"]["argument_bytes_by_kind"][k]
+               for k in card_bytes}
+        check(got == card_bytes, f"dry run {kind}: predicted argument bytes "
+                                 f"{got} != the card's {card_bytes}")
+        peak = rec["memory"]["peak_gb_per_chip"] * 1e9
+        measured_peak = prof["peak_mem_mib"] * 2 ** 20
+        device_ms = prof["device_ms_per_step"]
+        bound_ms = rec["roofline"]["bound_s"] * 1e3
+        out[kind] = {
+            "seconds": seconds, "compile_s": rec["compile_s"],
+            "argument_bytes_by_kind": rec["memory"]["argument_bytes_by_kind"],
+            "card_bytes": card_bytes, "argument_bytes_exact": True,
+            "predicted_peak_bytes": peak, "card_max_allocated": measured_peak,
+            "peak_ratio": peak / measured_peak,
+            "predicted_flops": rec["cost"]["flops_per_chip"],
+            "predicted_hbm_bytes": rec["cost"]["hbm_bytes_per_chip"],
+            "roofline": {k: rec["roofline"][k] for k in (
+                "compute_s", "memory_s", "collective_s", "dominant",
+                "bound_s")},
+            "device_ms": device_ms, "wall_ms": prof["wall_ms_per_step"],
+            "bound_over_device": (bound_ms / device_ms
+                                  if isinstance(device_ms, float) else None),
+            "achieved_flops_per_s": (rec["cost"]["flops_per_chip"]
+                                     / (device_ms / 1e3)
+                                     if isinstance(device_ms, float)
+                                     else None)}
+    code = ("import json, sys, time; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch import dryrun; t0 = time.perf_counter(); "
+            f"rec, _ = dryrun.lower_cell({DRYRUN_DEMO[0]!r}, "
+            f"{DRYRUN_DEMO[1]!r}, multi_pod=True); "
+            "print(json.dumps({'seconds': time.perf_counter() - t0, "
+            "'compile_s': rec['compile_s'], 'lower_s': rec['lower_s'], "
+            "'mesh_device_type': rec['mesh_device_type'], "
+            "'peak_gb_per_chip': rec['memory']['peak_gb_per_chip'], "
+            "'fits_80gb': rec['memory']['fits_80gb'], "
+            "'roofline': rec['roofline'], 'cost': rec['cost'], "
+            "'collectives': rec['collectives']}))")
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True,
+                             timeout=DRYRUN_DEMO_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise CheckFailed(f"the demo cell's dry run did not end within "
+                          f"{DRYRUN_DEMO_TIMEOUT_S} s") from None
+    check(res.returncode == 0, f"the demo cell's dry run failed: "
+                               f"{res.stderr[-1500:]}")
+    demo = json.loads(res.stdout.strip().splitlines()[-1])
+    demo["process_s"] = time.perf_counter() - t0
+    out["production_cell"] = {"arch": DRYRUN_DEMO[0], "shape": DRYRUN_DEMO[1],
+                              "mesh": "2x16x16", **demo}
+    out["launches"] = {}
     return out
 
 
@@ -4073,7 +4278,7 @@ def main() -> int:
              "spikformer_train", "examples", "lm_dense12b_serve",
              "lm_dense12b_gate", "lm_dense9b_serve", "lm_dense9b_gate",
              "lm_moe_serve", "lm_moe_gate", "lm_train", "lm_encdec",
-             "lm_encdec_gate", "lm_vlm", "lm_vlm_gate", "sharded")
+             "lm_encdec_gate", "lm_vlm", "lm_vlm_gate", "sharded", "dryrun")
     phase_s = report["phase_s"] = {}     # wall seconds, build excluded
     t_phase = [time.perf_counter()]
 
@@ -4202,6 +4407,9 @@ def main() -> int:
         report[paths[26]] = sharded_phase(torch, dev)
         timed(paths[26])
         torch.cuda.empty_cache()
+        # the dry run after the sharded phase's group is destroyed
+        report[paths[27]] = dryrun_phase(torch, dev, report[paths[26]])
+        timed(paths[27])
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
@@ -4324,6 +4532,7 @@ def main() -> int:
         **{f"serve_{k}": {x: y for x, y in v.items() if x != "by_kernel"}
            for k, v in sh["serve"].items() if k.startswith("profile")},
         "train": sh["train"], "psum": sh["psum"]}}))
+    print(json.dumps({"dryrun": report["dryrun"]}))
     print(json.dumps({"phase_s": phase_s, "build_s": build_s}))
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -1,14 +1,23 @@
-"""ArchConfig and the config registry (port of ``repro.configs.base``).
+"""ArchConfig, the shape registry and the config registry (port of
+``repro.configs.base``): every (architecture x input-shape) cell of the
+dry-run grid is addressable as (arch_id, shape_id) and yields the step's
+input specs.
 
-The fields and ``reduced()`` are the reference's, so one config drives both
-packages. The dry-run tooling (``ShapeSpec``, ``cell_applicable``,
-``input_specs``) is not ported. Only the configs whose model code is ported
-are registered: ``get_config`` of any other arch raises.
+The fields, ``reduced()``, ``n_params()``, ``n_active_params()``,
+``SHAPES``, ``ARCH_IDS`` and ``cell_applicable`` are the reference's, so one
+config and one grid drive both packages. ``input_specs`` returns meta
+tensors where the reference returns ``ShapeDtypeStruct``s: shapes and
+dtypes, nothing allocated (``launch/dryrun.py`` traces against them).
+``get_config`` of an arch id that names no ``ArchConfig`` raises
+``KeyError``: an id with no config module, and ``spikformer-v2``, whose
+module holds the paper's vision configs and registers none.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +90,12 @@ class ArchConfig:
         kept so that parameter trees cross between the packages)."""
         return -(-self.vocab // 256) * 256
 
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k (SSM / hybrid with sliding windows)."""
+        return self.family == "ssm" or (
+            self.family == "hybrid" and self.sliding_window is not None)
+
     def encoder_cfg(self) -> "ArchConfig":
         """The encoder's config (Whisper): non-causal, no RoPE, no
         cross-attention, no experts, no window."""
@@ -119,6 +134,65 @@ class ArchConfig:
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
 
+    def n_params(self) -> int:
+        """Analytic parameter count (for 6ND roofline math)."""
+        d, f, v = self.d_model, self.d_ff, self.padded_vocab
+        dh, h, kv = self.head_dim, self.n_heads, self.n_kv_heads
+        attn = d * dh * (h + 2 * kv) + h * dh * d
+        mlp = 3 * d * f if self.act == "swiglu" else 2 * d * f
+        per_layer = 0
+        if self.family != "ssm":
+            per_layer += attn
+        if self.family in ("ssm", "hybrid"):
+            d_inner = self.ssm_expand * d
+            heads = d_inner // self.ssm_head_dim
+            per_layer += d * (2 * d_inner + 2 * self.ssm_groups
+                              * self.ssm_state + heads) + d_inner * d
+        if self.n_experts > 0:
+            per_layer += d * self.n_experts \
+                + 3 * self.n_experts * d * self.moe_d_ff
+            if self.dense_parallel:
+                per_layer += mlp
+        elif self.family != "ssm" and f > 0:
+            per_layer += mlp
+        total = self.n_layers * per_layer + v * d
+        if not self.tie_embeddings:
+            total += v * d
+        if self.family == "encdec":
+            total += self.encoder_layers * (attn + 2 * d * f) \
+                + self.n_layers * attn  # cross attention
+        return total
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.n_params()
+        d = self.d_model
+        moe_all = 3 * self.n_experts * d * self.moe_d_ff
+        moe_active = 3 * self.top_k * d * self.moe_d_ff
+        return self.n_params() - self.n_layers * (moe_all - moe_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str        # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+ARCH_IDS = [
+    "stablelm-12b", "glm4-9b", "qwen1.5-110b", "smollm-360m", "hymba-1.5b",
+    "whisper-large-v3", "mamba2-130m", "arctic-480b", "qwen3-moe-30b-a3b",
+    "qwen2-vl-7b",
+]
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
@@ -139,4 +213,45 @@ def get_config(arch_id: str) -> ArchConfig:
                 raise
             raise KeyError(f"arch {arch_id!r} is not ported yet; the port "
                            f"has {sorted(_REGISTRY)}") from None
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"arch {arch_id!r} names no ArchConfig: its module "
+                       f"registers none (the LM archs are {ARCH_IDS})")
     return _REGISTRY[arch_id]
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Is this (arch x shape) cell runnable? (the brief's skip rules)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "full quadratic attention at 500k — skipped per brief"
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell (the
+    reference's ``ShapeDtypeStruct``s): no allocation. The decode cache is
+    ``init_cache``'s tree on the meta device, ``cache_pos`` a 0-d int32."""
+    i32, bf16 = torch.int32, torch.bfloat16
+    b, s = shape.batch, shape.seq
+
+    def sds(shp, dt=i32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": sds((b, s))}
+        if shape.kind == "train":
+            batch["labels"] = sds((b, s))
+        if cfg.family == "vlm":
+            batch["image_embeds"] = sds((b, cfg.img_tokens, cfg.d_model),
+                                        bf16)
+            batch["mrope_positions"] = sds((3, b, s))
+        if cfg.family == "encdec":
+            batch["frames"] = sds((b, cfg.n_frames, cfg.d_model), bf16)
+        return {"batch": batch}
+
+    # decode: one new token against a seq-long cache
+    from ..nn.transformer import init_cache
+    cache = init_cache(cfg, b, s, device="meta")
+    batch = {"tokens": sds((b, 1)), "cache_pos": sds(())}
+    if cfg.family == "vlm":
+        batch["mrope_positions"] = sds((3, b, 1))
+    return {"batch": batch, "cache": cache}

@@ -13,7 +13,15 @@ engine) replays them as CUDA graphs on the card: decode as one graph,
 prefill as one graph per prompt length. ``jit=False`` runs them eagerly.
 
     python -m repro_torch.launch.serve --arch smollm-360m [--reduce] \\
-        [--slots 4 --requests 8 --prompt-len 32 --max-new 16]
+        [--slots 4 --requests 8 --prompt-len 32 --max-new 16] \\
+        [--mesh DATA,MODEL]
+
+With ``--mesh`` the engine serves over a ``(DATA, MODEL)`` mesh
+(``launch.mesh.make_cpu_mesh`` over the initialised world, a one-rank
+group if there is none): params by ``rules.param_shardings``, the slot
+pool and the row cache by ``rules.cache_shardings`` (the KV sequence over
+the model axis, the slots over dp), each decode step writing every row at
+its own position into the sharded pool.
 
 ``--arch`` takes each ported config the reference's engine serves:
 smollm-360m, stablelm-12b, glm4-9b, hymba-1.5b, mamba2-130m, qwen2-vl-7b
@@ -35,6 +43,7 @@ Runs on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -46,6 +55,8 @@ from ..configs.base import get_config
 from ..device import (GraphCapturer, StepGraph, graph_launch_counts,
                       resolve_device)
 from ..nn import transformer as T
+from ..sharding import rules
+from . import steps
 
 
 @dataclasses.dataclass
@@ -128,12 +139,28 @@ class Engine:
     graph replays (the argmax outputs): a later capture may place its
     tensors where an earlier graph keeps its temporaries.
 
-    On the CPU ``jit`` is recorded and the engine runs eagerly."""
+    On the CPU ``jit`` is recorded and the engine runs eagerly.
+
+    ``mesh`` (a ``DeviceMesh`` with axes ``("data", "model")``, on the
+    engine's device type): the engine serves over it, as the reference's
+    serves under its mesh. Params are placed by ``rules.param_shardings``
+    (on one rank a leaf is kept as it is, not copied), the slot pool and
+    the row cache are made shard by shard by ``rules.cache_shardings``
+    (``steps.sharded_cache``: KV sequence over the model axis, slots over
+    dp), both bodies run under ``steps._on(mesh)``, the decode's tokens
+    and positions are placed as ``jit_serve_step`` places its batch, and
+    each decode step writes every row at its own position into the
+    sharded pool (``nn/attention.py:_cache_update_sharded``). A splice
+    copies the row cache into the slot on the ranks that hold that slot.
+    With ``jit`` on the card the decode is captured as without a mesh: on
+    one rank every redistribution is the identity and no collective runs;
+    a capture that cannot hold raises and names the op, as any capture
+    does, and the caller passes ``jit=False``."""
 
     def __init__(self, cfg, *, slots: int, cache_len: int, seed: int = 0,
                  params=None, compute_dtype=None,
                  cache_dtype=torch.bfloat16, device=None,
-                 flash: bool = True, jit: bool = True):
+                 flash: bool = True, jit: bool = True, mesh=None):
         if cfg.family == "encdec":
             raise ValueError(
                 f"{cfg.name}: the engine serves text prompts and takes no "
@@ -150,14 +177,24 @@ class Engine:
         self.jit = jit
         # calls replay CUDA graphs (jit on the card); else they run eagerly
         self.graphed = jit and self.device.type == "cuda"
+        self.mesh = mesh
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = T.init_model(gen, cfg, device=self.device)
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot serve "
+                                 f"an engine on {self.device}")
+            params = rules.place_tree(params,
+                                      rules.param_shardings(mesh, params))
+            meta = {"tokens": torch.empty((slots, 1), dtype=torch.int64,
+                                          device="meta"),
+                    "cache_pos": torch.empty((slots,), dtype=torch.int64,
+                                             device="meta")}
+            self._batch_sh = rules.batch_shardings(mesh, meta)
         self.params = params
-        self.pool = T.init_cache(cfg, slots, cache_len, dtype=cache_dtype,
-                                 device=self.device)
-        self.row = T.init_cache(cfg, 1, cache_len, dtype=cache_dtype,
-                                device=self.device)
+        self.pool = self._new_cache(slots)
+        self.row = self._new_cache(1)
         # ("prefill", S) or ("decode", slots) -> its graph, under jit
         self.graphs: dict[tuple, StepGraph] = {}
         self._capture = GraphCapturer(self.device)
@@ -167,6 +204,21 @@ class Engine:
         self.done: list[Request] = []
         self.decode_step_s: list[float] = []            # host clock, synced
 
+    def _new_cache(self, batch: int):
+        """A fresh cache of ``batch`` rows: ``init_cache``'s, or over the
+        mesh each rank's shard of it."""
+        if self.mesh is None:
+            return T.init_cache(self.cfg, batch, self.cache_len,
+                                dtype=self.cache_dtype, device=self.device)
+        return steps.sharded_cache(self.cfg, self.mesh, batch,
+                                   self.cache_len, dtype=self.cache_dtype,
+                                   device=self.device)
+
+    def _sharded(self):
+        """The mesh active for a body (nothing without one)."""
+        return steps._on(self.mesh) if self.mesh is not None \
+            else contextlib.nullcontext()
+
     # -- the step bodies: no host read, no pageable copy, no new cache ------
 
     def _prefill_body(self, tokens):
@@ -175,21 +227,25 @@ class Engine:
         conv window) reset first to a fresh ``init_cache``."""
         for name, leaf in cache_leaves(self.row):
             leaf.fill_(-1 if name == "positions" else 0)
-        logits, _, _ = T.model_apply(
-            self.params, {"tokens": tokens, "cache_pos": 0}, self.cfg,
-            mode="prefill", cache=self.row, compute_dtype=self.compute_dtype,
-            flash=self.flash)
-        return logits[:, -1].argmax(-1)
+        with self._sharded():
+            logits, _, _ = T.model_apply(
+                self.params, {"tokens": tokens, "cache_pos": 0}, self.cfg,
+                mode="prefill", cache=self.row,
+                compute_dtype=self.compute_dtype, flash=self.flash)
+            return rules.full_value(logits[:, -1]).argmax(-1)
 
     def _decode_body(self, inputs):
         """inputs: (slots, 2), the tokens and each slot's cache position ->
         (slots,) argmax. One step advances every slot, each row at its own
         offset, writing the pool in place."""
-        logits, _, _ = T.model_apply(
-            self.params, {"tokens": inputs[:, :1], "cache_pos": inputs[:, 1]},
-            self.cfg, mode="decode", cache=self.pool,
-            compute_dtype=self.compute_dtype, flash=self.flash)
-        return logits[:, -1].argmax(-1)
+        batch = {"tokens": inputs[:, :1], "cache_pos": inputs[:, 1]}
+        with self._sharded():
+            if self.mesh is not None:
+                batch = steps._place_batch(batch, self._batch_sh)
+            logits, _, _ = T.model_apply(
+                self.params, batch, self.cfg, mode="decode", cache=self.pool,
+                compute_dtype=self.compute_dtype, flash=self.flash)
+            return rules.full_value(logits[:, -1]).argmax(-1)
 
     # -- graphed or eager calls --------------------------------------------
 
@@ -247,14 +303,17 @@ class Engine:
         """Copy the row cache into pool slot ``slot``, in place, clearing
         what the slot held. The batch axis follows the cache's layout, as
         in the reference, not its shapes: axis 1 of stacked (L, B, ...)
-        leaves, axis 0 of a per-layer list's (B, ...) leaves."""
-        stacked = not isinstance(self.pool, list)
+        leaves, axis 0 of a per-layer list's (B, ...) leaves. Over a mesh,
+        each rank that holds the slot copies its shard of the row (the
+        pool and the row share their sequence layout), the others
+        nothing."""
+        axis = 0 if isinstance(self.pool, list) else 1
         for (_, leaf), (_, row) in zip(cache_leaves(self.pool),
                                        cache_leaves(self.row)):
-            if stacked:
-                leaf[:, slot] = row[:, 0]
+            if self.mesh is None:
+                leaf.select(axis, slot).copy_(row.select(axis, 0))
             else:
-                leaf[slot] = row[0]
+                _splice_sharded(leaf, row, axis, slot)
 
     def submit(self, req: Request):
         req.t_arrival = time.perf_counter()
@@ -299,6 +358,27 @@ class Engine:
         return self.done
 
 
+def _splice_sharded(leaf, row, axis: int, slot: int) -> None:
+    """Pool leaf ``leaf`` (a DTensor, its batch axis ``axis`` over dp or
+    whole) takes the row cache's ``row`` (batch 1, replicated over dp) at
+    ``slot``, under ``local_map`` on the ranks whose batch rows hold it."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = leaf.device_mesh
+    dims = [i for i, pl in enumerate(leaf.placements) if pl.is_shard(axis)]
+
+    def local(dst, src):
+        b0 = 0
+        for d in dims:
+            b0 = b0 * mesh.size(d) + mesh.get_local_rank(d)
+        b0 *= dst.shape[axis]
+        if b0 <= slot < b0 + dst.shape[axis]:
+            dst.select(axis, slot - b0).copy_(src.select(axis, 0))
+
+    local_map(local, out_placements=None,
+              in_placements=(tuple(leaf.placements), tuple(row.placements)),
+              device_mesh=mesh, redistribute_inputs=False)(leaf, row)
+
+
 def _percentile(xs, q: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(q * len(xs)))]
@@ -333,13 +413,49 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL: serve over a mesh of that shape "
+                         "(default: no mesh)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = cfg.reduced()
+    with _serving_mesh(args.mesh, args.device) as mesh:
+        return _serve(args, cfg, mesh)
+
+
+@contextlib.contextmanager
+def _serving_mesh(spec, device):
+    """The mesh ``--mesh DATA,MODEL`` names (``train.mesh_shape``), None
+    without it: over the initialised world, else over a group this opens
+    (one rank through a ``HashStore`` for 1,1; a launcher's group, as
+    ``train.main`` opens it, for more) and destroys after."""
+    if spec is None:
+        yield None
+        return
+    import os
+    import torch.distributed as dist
+    from ..device import resolve_device
+    from .mesh import make_cpu_mesh
+    from .train import mesh_shape
+    shape = mesh_shape(spec)
+    own = not dist.is_initialized()
+    if own and shape != (1, 1):
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        yield make_cpu_mesh(*shape, device=device)
+    finally:
+        if own and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, mesh):
     eng = Engine(cfg, slots=args.slots, cache_len=args.cache_len,
-                 seed=args.seed, device=args.device)
+                 seed=args.seed, device=args.device, mesh=mesh)
     gen = torch.Generator().manual_seed(args.seed + 1)
     t0 = time.perf_counter()
     for i in range(args.requests):
@@ -349,6 +465,7 @@ def main(argv=None):
     done = eng.run()
     wall = time.perf_counter() - t0
     out = {"arch": cfg.name, "device": str(eng.device),
+           "mesh": None if mesh is None else list(mesh.shape),
            **summary(done, wall, eng.decode_step_s)}
     if eng.device.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(eng.device)

@@ -36,6 +36,7 @@ from ..optim import adamw
 from ..optim.compression import ef_compress, ef_init
 from ..sharding import rules
 from ..sharding.compat import set_mesh
+from ..sharding.hints import shard_hint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +57,13 @@ def opt_config(cfg, ts: TrainSettings) -> adamw.OptConfig:
 def microbatch(name: str, value, start: int, stop: int):
     """Rows ``start:stop`` of one batch value: on dim 1 of
     ``mrope_positions`` (3, B, S), as the reference's ``mrope_split``
-    cuts it, on dim 0 of every other value."""
-    return value[:, start:stop] if name == "mrope_positions" \
-        else value[start:stop]
+    cuts it, on dim 0 of every other value. Under a mesh the rows are
+    laid out over dp again (a DTensor's slice of its sharded batch dim
+    comes back whole on every rank, and the loss would then take the
+    whole microbatch's vocab-wide scores on each)."""
+    if name == "mrope_positions":
+        return shard_hint(value[:, start:stop], None, "dp", None)
+    return shard_hint(value[start:stop], "dp", *(None,) * (value.dim() - 1))
 
 
 def make_train_step(cfg, ts: TrainSettings):
@@ -97,14 +102,7 @@ def make_train_step(cfg, ts: TrainSettings):
         for j in range(accum):
             mbatch = {k: microbatch(k, v, j * micro, (j + 1) * micro)
                       for k, v in batch.items()}
-            with torch.enable_grad():
-                loss, _ = T.lm_loss(tracked, mbatch, cfg, flash=False)
-                grads = torch.autograd.grad(
-                    loss, list(leaves.values()), allow_unused=True)
-            for p, g in zip(leaves, grads):
-                if g is not None:
-                    gsum[p].add_(_constrain(g, gsum[p]).to(acc_dt))
-            lsum = lsum + loss.detach()
+            lsum = lsum + accumulate(tracked, leaves, gsum, mbatch, cfg)
         grads = map_with_path(lambda p, _: gsum[p] / accum, params)
         loss = lsum / accum
 
@@ -120,6 +118,22 @@ def make_train_step(cfg, ts: TrainSettings):
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def accumulate(tracked, leaves: dict, gsum: dict, mbatch, cfg):
+    """One microbatch of the train step: the gradients of its loss with
+    respect to ``leaves`` (path -> leaf; ``tracked`` is the tree of them)
+    added, in each accumulator's layout and dtype, into ``gsum``; returns
+    the loss, detached. (``launch/dryrun.py`` traces this per
+    microbatch.)"""
+    with torch.enable_grad():
+        loss, _ = T.lm_loss(tracked, mbatch, cfg, flash=False)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    for p, g in zip(leaves, grads):
+        if g is not None:
+            gsum[p].add_(_constrain(g, gsum[p]).to(gsum[p].dtype))
+    return loss.detach()
 
 
 def _constrain(g, like):
@@ -149,11 +163,14 @@ def make_prefill(cfg, cache_len: int | None = None):
 
 def make_serve_step(cfg):
     """``serve_step(params, cache, batch) -> (token, cache)``: one decode
-    step at ``batch["cache_pos"]``, the greedy next token of each row."""
+    step at ``batch["cache_pos"]``, the greedy next token of each row (on
+    DTensors, of the gathered last logits: DTensor's argmax over a
+    sharded vocab fails on a batch it does not split)."""
     def serve_step(params, cache, batch):
         logits, new_cache, _ = T.model_apply(
             params, batch, cfg, mode="decode", cache=cache)
-        token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        token = torch.argmax(rules.full_value(logits[:, -1]),
+                             dim=-1).to(torch.int32)
         return token, new_cache
     return serve_step
 
@@ -260,10 +277,26 @@ def jit_serve_step(cfg, mesh, cache_shapes, batch_shapes):
     return step, (p_sh, cache_shapes, batch_shapes), in_sh
 
 
+def _cache_fill(path: str) -> int:
+    """``init_cache``'s value of a leaf: -1 for positions, else 0."""
+    return -1 if path.endswith("positions") else 0
+
+
+def sharded_cache(cfg, mesh, batch: int, length: int,
+                  dtype=torch.bfloat16, device=None):
+    """``init_cache``'s tree laid out by ``rules.cache_shardings`` over
+    ``mesh``, each rank making only its shard (zeros, positions -1) on
+    ``device``."""
+    shapes = T.init_cache(cfg, batch, length, dtype=dtype, device="meta")
+    return rules.new_sharded(shapes, rules.cache_shardings(mesh, shapes),
+                             _cache_fill, device)
+
+
 def jit_prefill(cfg, mesh, batch_shapes, cache_len: int | None = None):
     """The prefill over ``mesh``: a fresh cache laid out by
     ``rules.cache_shardings`` (``cache_len`` slots, default the prompt's
-    length), filled by each rank's shard, with the flash kernel run per
+    length; each rank makes only its shard), filled by
+    each rank's shard, with the flash kernel run per
     rank on its local heads. Returns ``(prefill, (params_shapes,
     batch_shapes), in_shardings)``; the prefill returns the logits of the
     last position (layout unconstrained, as the reference's ``None``) and
@@ -278,9 +311,8 @@ def jit_prefill(cfg, mesh, batch_shapes, cache_len: int | None = None):
     def prefill(params, batch):
         params = rules.place_tree(params, in_sh[0])
         batch = _place_batch(batch, in_sh[1])
-        dev = rules.device_mesh_of(mesh).device_type
-        cache = rules.place_tree(
-            T.init_cache(cfg, b, cache_len or s, device=dev), c_sh)
+        cache = rules.new_sharded(cache_shapes, c_sh, _cache_fill,
+                                  batch["tokens"].device)
         with torch.no_grad(), _on(mesh):
             logits, new_cache, _ = T.model_apply(
                 params, dict(batch, cache_pos=0), cfg, mode="prefill",

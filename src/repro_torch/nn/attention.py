@@ -47,12 +47,13 @@ step's KV sequence over the model axis. Two ops have no DTensor rule and
 run per rank under ``local_map``: the flash kernel, on each rank's local
 heads (or query rows, with the keys cut at the rank's last row, which
 keeps the causal mask) with the KV heads those heads read, and the cache
-write, each rank writing the slots of its sequence shard.
+write, each rank writing its batch rows' slots of its sequence shard
+(aligned, or each row at its own position).
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.experimental import local_map
 
 from .layers import (apply_mrope, apply_rope, linear, linear_init, rmsnorm,
@@ -313,16 +314,41 @@ def chunked_attention(q, k, v, *, scale: float, causal: bool = True,
     for qc, qpos in zip(q.split(cq, dim=2), q_positions.split(cq, dim=1)):
         if seq_tp:
             qc = shard_hint(qc, "dp", None, "model", None)
-        s = torch.einsum("bhcd,bhsd->bhcs", qc.to(torch.float32), kf) * scale
+        s = _per_head("bhcd,bhsd->bhcs", qc.to(torch.float32), kf) * scale
         if seq_tp:
             s = shard_hint(s, "dp", None, "model", None)
         mask = _mask(qpos[:, None, :, None], kp, causal=causal,
                      window=window, is_global=is_global)
         p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-        outs.append(torch.einsum("bhcs,bhsd->bhcd",
-                                 p.to(v.dtype).to(torch.float32), vf
-                                 ).to(q.dtype))
+        outs.append(_per_head("bhcs,bhsd->bhcd",
+                              p.to(v.dtype).to(torch.float32), vf
+                              ).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def _per_head(eq: str, x, y):
+    """``torch.einsum(eq, x, y)`` for one of attention's products over
+    (B, H), x (B, H, Sq, .) and y (B, H, Skv, Dh). On DTensors each rank
+    multiplies its own blocks under ``local_map``: x in its layout (batch,
+    heads or query rows sharded), y on the same batch and heads with its
+    keys whole, the result in x's layout. (DTensor's einsum flattens
+    (B, H) to one dim and cannot unflatten it where each rank holds one
+    row of a sharded batch and of sharded heads: a microbatch of one row
+    a rank.)"""
+    if not (isinstance(x, DTensor) and isinstance(y, DTensor)):
+        return torch.einsum(eq, x, y)
+    x_pl = tuple(x.placements)
+    y_pl = tuple(pl if pl.is_shard(0) or pl.is_shard(1) else Replicate()
+                 for pl in x_pl)
+    # where x's query rows are split and y is whole, each rank's gradient
+    # of y is its rows' share: partial sums
+    y_grad = tuple(Partial() if xp.is_shard(2) else yp
+                   for xp, yp in zip(x_pl, y_pl))
+    return local_map(lambda a, b: torch.einsum(eq, a, b),
+                     out_placements=list(x_pl), in_placements=(x_pl, y_pl),
+                     in_grad_placements=(x_pl, y_grad),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, y)
 
 
 def _repeat_heads(k, g: int):
@@ -397,39 +423,54 @@ def cache_update(cache, k_new, v_new, pos, *, ring: bool = False):
         _write_aligned(cache, k_new, v_new, pos, ring=ring, length=length)
         return cache
 
-    b = cache["k"].shape[0]
+    _write_rows(cache, k_new, v_new, pos, ring=ring, length=length)
+    return cache
+
+
+def _write_rows(cache, k_new, v_new, pos, *, ring: bool, length: int,
+                offset: int = 0):
+    """A per-row write of (B, KV, s_new, Dh), s_new <= length for a ring,
+    at each row's position ``pos`` (B,) into ``cache``, whose k and v hold
+    the slots from ``offset`` on (a sequence shard's; ``positions`` holds
+    all ``length`` of them). A linear cache drops a row's writes past its
+    end; k and v keep only the slots of their shard. Computed on the
+    device: one slot a row (decode) and a whole ring take no host read."""
+    kc, vc, pc = cache["k"], cache["v"], cache["positions"]
+    shard = kc.shape[2]
+    s_new = k_new.shape[2]
     abs_pos = (pos.to(torch.int64)[:, None]
                + torch.arange(s_new, device=pos.device))     # (B, s_new)
-    rows = torch.arange(b, device=pos.device)[:, None]
-    k_rows = k_new.transpose(1, 2)                           # (B, s, KV, Dh)
-    v_rows = v_new.transpose(1, 2)
-    if ring:
-        # every slot is valid and, s_new <= length, distinct within a row
-        slot = abs_pos % length
-        cache["k"][rows, :, slot] = k_rows.to(cache["k"].dtype)
-        cache["v"][rows, :, slot] = v_rows.to(cache["v"].dtype)
-        cache["positions"][rows, slot] = abs_pos.to(torch.int32)
-        return cache
+    slot = abs_pos % length if ring else abs_pos
+    rows = torch.arange(kc.shape[0], device=pos.device)[:, None]
+    k_rows = k_new.transpose(1, 2).to(kc.dtype)              # (B, s, KV, Dh)
+    v_rows = v_new.transpose(1, 2).to(vc.dtype)
+    if ring and shard == length:
+        # every slot lands and, s_new <= length, is distinct within a row
+        kc[rows, :, slot] = k_rows
+        vc[rows, :, slot] = v_rows
+        pc[rows, slot] = abs_pos.to(torch.int32)
+        return
+    valid = torch.ones_like(abs_pos, dtype=torch.bool) if ring \
+        else abs_pos < length
+    local = slot - offset
+    mine = valid & (local >= 0) & (local < shard)
     if s_new == 1:
-        # one slot a row: a write past the end rewrites the last slot with
-        # its own contents, so no host sync is needed to drop it
-        valid = abs_pos < length
-        slot = abs_pos.clamp(max=length - 1)
-        keep = valid[:, :, None, None]
-        cache["k"][rows, :, slot] = torch.where(
-            keep, k_rows.to(cache["k"].dtype), cache["k"][rows, :, slot])
-        cache["v"][rows, :, slot] = torch.where(
-            keep, v_rows.to(cache["v"].dtype), cache["v"][rows, :, slot])
-        cache["positions"][rows, slot] = torch.where(
-            valid, abs_pos.to(torch.int32), cache["positions"][rows, slot])
-        return cache
-    valid = abs_pos < length
-    r, j = rows.expand_as(abs_pos)[valid], abs_pos[valid]
-    src = valid.nonzero(as_tuple=True)
-    cache["k"][r, :, j] = k_rows[src].to(cache["k"].dtype)
-    cache["v"][r, :, j] = v_rows[src].to(cache["v"].dtype)
-    cache["positions"][r, j] = j.to(torch.int32)
-    return cache
+        # one slot a row: a write this shard does not take rewrites a slot
+        # of the row with its own contents, so none is dropped on the host
+        at = local.clamp(0, shard - 1)
+        keep = mine[:, :, None, None]
+        kc[rows, :, at] = torch.where(keep, k_rows, kc[rows, :, at])
+        vc[rows, :, at] = torch.where(keep, v_rows, vc[rows, :, at])
+        at = slot.clamp(max=length - 1)
+        pc[rows, at] = torch.where(valid, abs_pos.to(torch.int32),
+                                   pc[rows, at])
+        return
+    r, j = rows.expand_as(abs_pos)[mine], local[mine]
+    src = mine.nonzero(as_tuple=True)
+    kc[r, :, j] = k_rows[src]
+    vc[r, :, j] = v_rows[src]
+    r, j = rows.expand_as(abs_pos)[valid], slot[valid]
+    pc[r, j] = abs_pos[valid].to(torch.int32)
 
 
 def _write_aligned(cache, k_new, v_new, pos: int, *, ring: bool,
@@ -455,13 +496,13 @@ def _write_aligned(cache, k_new, v_new, pos: int, *, ring: bool,
 
 def _cache_update_sharded(cache, k_new, v_new, pos, *, ring: bool):
     """``cache_update`` of a DTensor cache (k, v sequence-sharded over the
-    model axis by ``rules.cache_shardings``, the batch over dp): under
-    ``local_map`` each rank writes the new tokens' slots that fall in its
-    sequence shard, and every slot's position. Aligned writes only (an
-    int ``pos``, as the sharded steps make)."""
-    if not isinstance(pos, int):
-        raise NotImplementedError(
-            "a sharded cache takes aligned writes (an int cache_pos) only")
+    model axis by ``rules.cache_shardings``, the batch over dp; its
+    ``positions`` over dp only): under ``local_map`` each rank writes, for
+    its own batch rows, the new tokens' slots that fall in its sequence
+    shard, and their positions. ``pos`` is an int (aligned rows) or a (B,)
+    integer tensor (continuous batching; plain, or a DTensor), as in the
+    plain ``cache_update``; a ring wraps first, and a linear cache drops
+    writes past its end."""
     mesh = cache["k"].device_mesh
     k_pl = tuple(cache["k"].placements)
     p_pl = tuple(cache["positions"].placements)
@@ -469,24 +510,47 @@ def _cache_update_sharded(cache, k_new, v_new, pos, *, ring: bool):
     # the new tokens: the cache's batch layout, every token on each rank
     new_pl = tuple(Replicate() if pl.is_shard(2) else pl for pl in k_pl)
     seq_dims = [i for i, pl in enumerate(k_pl) if pl.is_shard(2)]
+    batch_dims = [i for i, pl in enumerate(k_pl) if pl.is_shard(0)]
     s_new = k_new.shape[2]
     if ring and s_new > length:
         k_new, v_new = k_new[:, :, -length:], v_new[:, :, -length:]
         pos = pos + (s_new - length)
+    aligned = isinstance(pos, int)
+    if isinstance(pos, DTensor):
+        pos = pos.redistribute(mesh, p_pl)
 
-    def local(kc, vc, pc, kn, vn):
-        shard = kc.shape[2]
-        index = 0
-        for i in seq_dims:
-            index = index * mesh.size(i) + mesh.get_local_rank(i)
-        _write_aligned({"k": kc, "v": vc, "positions": pc}, kn, vn, pos,
-                       ring=ring, length=length, offset=index * shard)
+    def index(dims):
+        i = 0
+        for d in dims:
+            i = i * mesh.size(d) + mesh.get_local_rank(d)
+        return i
 
-    local_map(local, out_placements=None,
-              in_placements=(k_pl, k_pl, p_pl, new_pl, new_pl),
-              device_mesh=mesh, redistribute_inputs=True)(
-        cache["k"], cache["v"], cache["positions"],
-        k_new.to(cache["k"].dtype), v_new.to(cache["v"].dtype))
+    def local(kc, vc, pc, kn, vn, rows_pos=None):
+        offset = index(seq_dims) * kc.shape[2]
+        part = {"k": kc, "v": vc, "positions": pc}
+        if aligned:
+            _write_aligned(part, kn, vn, pos, ring=ring, length=length,
+                           offset=offset)
+            return
+        if not isinstance(pos, DTensor):      # every row's: take this rank's
+            b0 = index(batch_dims) * kc.shape[0]
+            rows_pos = rows_pos[b0:b0 + kc.shape[0]]
+        _write_rows(part, kn, vn, rows_pos, ring=ring, length=length,
+                    offset=offset)
+
+    # plain new tokens count as replicated, as everywhere under a mesh
+    k_new, v_new = (z if isinstance(z, DTensor) else DTensor.from_local(
+        z, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        for z in (k_new, v_new))
+    args = [cache["k"], cache["v"], cache["positions"],
+            k_new.to(cache["k"].dtype), v_new.to(cache["v"].dtype)]
+    in_pl = [k_pl, k_pl, p_pl, new_pl, new_pl]
+    if not aligned:
+        args.append(pos)
+        in_pl.append(tuple(pos.placements) if isinstance(pos, DTensor)
+                     else None)
+    local_map(local, out_placements=None, in_placements=tuple(in_pl),
+              device_mesh=mesh, redistribute_inputs=True)(*args)
     return cache
 
 

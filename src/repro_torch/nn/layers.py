@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from .module import KeyStream, lecun_normal, trunc_normal
+from ..sharding.hints import grad_like
 
 # ---------------------------------------------------------------------------
 # Linear / Embedding
@@ -62,7 +63,9 @@ def matmul(x, w):
             or all(st[i] == st[i + 1] * sh[i + 1]
                    for i in range(x.dim() - 2))):
         y = x.reshape(-1, x.shape[-1]) @ w
-        return y.view(*x.shape[:-1], w.shape[-1])
+        # the view's backward folds the gradient's rows again, so it
+        # comes back in the view's layout (``hints.grad_like``)
+        return grad_like(y.view(*x.shape[:-1], w.shape[-1]))
     if x.dim() != 3:
         raise NotImplementedError("a strided DTensor product of more than "
                                   "3 dims")
@@ -70,6 +73,9 @@ def matmul(x, w):
 
 
 def linear(p, x, *, compute_dtype=None):
+    # under a mesh the input's gradient comes back in its layout: a tensor
+    # feeding several products adds their gradients there
+    x = grad_like(x)
     w = p["kernel"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
@@ -87,7 +93,15 @@ def embedding_init(gen, vocab: int, d_model: int, *, dtype=torch.float32):
 
 def embed(p, ids, *, compute_dtype=None):
     """Rows of the table, cast after the gather (the reference casts the
-    whole table first; the values are the same)."""
+    whole table first; the values are the same). DTensor ids split over
+    dp are gathered first, and the caller's hint lays the rows out over dp
+    again: torch 2.11's DTensor has no rule for an index by ids split over
+    two mesh dims (dp over ``("pod", "data")``), and its rule for the
+    gradient of one by ids split over one fails."""
+    if isinstance(ids, DTensor) and any(pl.is_shard()
+                                        for pl in ids.placements):
+        ids = ids.redistribute(ids.device_mesh,
+                               [Replicate()] * ids.device_mesh.ndim)
     rows = p["embedding"][ids]
     return rows if compute_dtype is None else rows.to(compute_dtype)
 

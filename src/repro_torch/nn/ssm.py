@@ -22,10 +22,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from .layers import matmul, rmsnorm, rmsnorm_init
 from .module import KeyStream, lecun_normal
-from ..sharding.hints import shard_hint
+from ..sharding.hints import grad_like, shard_hint
 
 
 def ssm_dims(cfg):
@@ -65,7 +67,21 @@ def _split_proj(cfg, zxbcdt):
 
 
 def _causal_conv(xbc, w, b):
-    """Depthwise causal conv, window k: explicit shift-mac (k is tiny)."""
+    """Depthwise causal conv, window k: explicit shift-mac (k is tiny).
+    On a DTensor, per rank on its batch rows under ``local_map`` (each
+    row's conv is its own; the sequence and channels whole): torch 2.11's
+    DTensor fails to plan the shifts' pad."""
+    if isinstance(xbc, DTensor):
+        x_pl = tuple(xbc.placements)
+        whole = (Replicate(),) * len(x_pl)
+        # a rank's gradient of the weights is its rows' share
+        grad = tuple(Partial() if pl.is_shard() else Replicate()
+                     for pl in x_pl)
+        return local_map(_causal_conv, out_placements=list(x_pl),
+                         in_placements=(x_pl, whole, whole),
+                         in_grad_placements=(x_pl, grad, grad),
+                         device_mesh=xbc.device_mesh,
+                         redistribute_inputs=True)(xbc, w, b)
     k = w.shape[0]
     y = xbc * w[k - 1]
     for i in range(1, k):
@@ -74,11 +90,24 @@ def _causal_conv(xbc, w, b):
     return F.silu(y + b)
 
 
+def _cumsum(x, dim: int):
+    """``torch.cumsum``; on a DTensor per rank under ``local_map``, ``dim``
+    whole (torch 2.11's DTensor has no rule for the flip in its
+    backward)."""
+    if not isinstance(x, DTensor):
+        return torch.cumsum(x, dim)
+    dim %= x.dim()
+    pl = tuple(Replicate() if q.is_shard(dim) else q for q in x.placements)
+    return local_map(lambda t: torch.cumsum(t, dim), out_placements=list(pl),
+                     in_placements=(pl,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
 def _segsum(a):
     """a: (..., Q) -> (..., Q, Q) lower-triangular cumulative sums:
     L[i, j] = sum a[j+1..i], -inf above the diagonal."""
     q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    cs = _cumsum(a, -1)
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
     return diff.masked_fill(~mask, float("-inf"))
@@ -101,7 +130,7 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int, init_state=None):
     bh = b_mat.reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, dim=3)
     ch = c_mat.reshape(bsz, nc, chunk, g, n).repeat_interleave(rep, dim=3)
     da = dtc * a                                           # (B,nc,Q,H)
-    da_cum = torch.cumsum(da, dim=2)                       # within a chunk
+    da_cum = _cumsum(da, 2)                                # within a chunk
     da_total = da_cum[:, :, -1]                            # (B,nc,H)
 
     # intra-chunk (diagonal blocks): an attention-like quadratic form
@@ -168,6 +197,9 @@ def ssm_apply(p, x, cfg, *, state=None, conv_state=None, decode: bool = False,
         xin = F.silu(torch.einsum("bkc,kc->bc", window, w) + b)[:, None]
         new_conv_state = window[:, 1:]
     else:
+        # under a mesh, batch over dp and the rest whole (the conv runs
+        # per rank on its rows)
+        xbc = shard_hint(xbc, "dp", None, None)
         xin = _causal_conv(xbc, w, b)
         new_conv_state = xbc[:, -(k_conv - 1):]
         short = k_conv - 1 - new_conv_state.shape[1]
@@ -201,7 +233,7 @@ def ssm_apply(p, x, cfg, *, state=None, conv_state=None, decode: bool = False,
         y = y[:, :s]
 
     y = y + xs[:, :s] * p["d_skip"][:, None]               # D skip
-    y = y.reshape(bsz, s, d_inner)
+    y = grad_like(y.reshape(bsz, s, d_inner))
     y = rmsnorm(p["norm"],
                 (y * F.silu(z.to(torch.float32))).to(compute_dtype))
     out = matmul(y, p["out_proj"].to(compute_dtype))

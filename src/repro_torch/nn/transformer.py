@@ -53,7 +53,8 @@ from .module import KeyStream
 from .moe import moe_apply, moe_init
 from .ssm import init_ssm_state, ssm_apply, ssm_init
 from ..device import resolve_device
-from ..sharding.hints import shard_hint
+from ..sharding.hints import grad_like, shard_hint
+from ..sharding.rules import reduce_partials
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -174,6 +175,14 @@ def _cross_kv(p, cfg, cache, enc_out, *, compute_dtype):
     return None
 
 
+def _residual(x, branch):
+    """``x + branch``, the branch first laid out as the residual stream
+    (Megatron-SP: the sequence over the model axis) where a mesh is
+    active: a product's partial sums are reduced into that layout, which
+    torch 2.11's DTensor would not do inside the add."""
+    return x + shard_hint(branch, "dp", "model", None)
+
+
 def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
                 is_global=None, mrope_positions=None, enc_out=None,
                 compute_dtype=torch.bfloat16, flash: bool = True):
@@ -183,9 +192,11 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
     S) streams; ``enc_out``: the encoder's output (B, Se, D), which the
     cross-attention block reads in train and prefill mode. ``aux`` holds
     an MoE layer's losses, else it is empty."""
-    h = _norm(cfg, p["ln1"], x)
+    # each branch's gradient joins the residual's in its layout
+    h = _norm(cfg, p["ln1"], grad_like(x))
     if cfg.family == "ssm":
-        x = x + _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype)
+        x = _residual(x, _ssm_mix(p, h, cfg, cache,
+                                  compute_dtype=compute_dtype))
         return shard_hint(x, "dp", "model", None), cache, {}
     window = cfg.sliding_window
     mixer_out, _ = attn_apply(
@@ -198,27 +209,28 @@ def layer_apply(p, x, cfg, *, positions, cache=None, cache_pos=0,
         s_out = _ssm_mix(p, h, cfg, cache, compute_dtype=compute_dtype)
         mixer_out = 0.5 * (_norm(cfg, p["attn_out_norm"], mixer_out)
                            + _norm(cfg, p["ssm_out_norm"], s_out))
-    x = x + mixer_out
+    x = _residual(x, mixer_out)
     if cfg.cross_attention:
         cross_kv = _cross_kv(p, cfg, cache, enc_out,
                              compute_dtype=compute_dtype)
         if cross_kv is not None:
             cross_out, _ = attn_apply(
-                p["cross"], _norm(cfg, p["ln_cross"], x), cfg,
+                p["cross"], _norm(cfg, p["ln_cross"], grad_like(x)), cfg,
                 positions=positions, cross_kv=cross_kv,
                 compute_dtype=compute_dtype, chunk=cfg.attn_chunk,
                 flash=flash)
-            x = x + cross_out
+            x = _residual(x, cross_out)
     aux = {}
     if cfg.n_experts > 0:
-        h2 = _norm(cfg, p["ln2"], x)
+        h2 = _norm(cfg, p["ln2"], grad_like(x))
         y, aux = moe_apply(p["moe"], h2, cfg, compute_dtype=compute_dtype)
         if cfg.dense_parallel:
             y = y + mlp_apply(p["mlp"], h2, cfg, compute_dtype=compute_dtype)
-        x = x + y
+        x = _residual(x, y)
     elif cfg.d_ff > 0:
-        x = x + mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg,
-                          compute_dtype=compute_dtype)
+        x = _residual(x, mlp_apply(p["mlp"],
+                                   _norm(cfg, p["ln2"], grad_like(x)), cfg,
+                                   compute_dtype=compute_dtype))
     # Megatron-SP layout between layers: the sequence over the model axis
     # (replicated for decode's S = 1 by the divisibility guard)
     x = shard_hint(x, "dp", "model", None)
@@ -494,6 +506,9 @@ def lm_loss(params, batch, cfg, *, flash: bool = False):
                                  flash=flash)
     loss = softmax_xent(logits, batch["labels"])
     if aux:
-        loss = loss + 0.01 * aux.get("load_balance", 0.0) \
-                    + 0.001 * aux.get("router_z", 0.0)
+        # under a mesh each term reduced first: partial values of two
+        # kinds (sums and means) do not add (``rules.reduce_partials``)
+        loss = reduce_partials(loss) \
+            + 0.01 * reduce_partials(aux.get("load_balance", 0.0)) \
+            + 0.001 * reduce_partials(aux.get("router_z", 0.0))
     return loss, aux

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import math
 
-from torch.distributed.tensor import DTensor
+import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import local_map
 
 from .compat import as_abstract, get_abstract_mesh
@@ -46,6 +47,31 @@ def shard_hint(x, *dims):
     if tuple(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+class _GradLike(torch.autograd.Function):
+    """The identity, whose gradient is laid out as its input was."""
+
+    @staticmethod
+    def forward(ctx, x):
+        # a partial sum's gradient is whole
+        ctx.placements = tuple(Replicate() if pl.is_partial() else pl
+                               for pl in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_like(x):
+    """``x``, whose gradient arrives in ``x``'s own layout (a plain tensor
+    as it is): where a tensor feeds two branches, or a view, torch 2.11's
+    DTensor cannot add two gradients of other layouts (a shard and a
+    partial sum) nor split a dim the gradient comes back sharded on."""
+    return _GradLike.apply(x) if isinstance(x, DTensor) else x
 
 
 def rowwise(fn, *xs, n_out: int = 1):

@@ -148,11 +148,14 @@ def from_shard(local: torch.Tensor, sharding: NamedSharding, shape,
     """The ``DTensor`` of global ``shape`` (and ``stride``, default
     contiguous) whose shard on this rank is ``local`` (the part
     ``local_slices`` names), moved to the mesh's device type if it is not
-    there; nothing is sent between ranks."""
+    there (a meta tensor stays meta, as in ``DTensor.from_local``: a dry
+    run's shapes); nothing is sent between ranks."""
     dm = device_mesh_of(sharding.mesh)
-    local = local.to(dm.device_type).contiguous()
+    if not local.is_meta:
+        local = local.to(dm.device_type)
+    local = local.contiguous()
     if stride is None:
-        stride = torch.empty(tuple(shape), device="meta").stride()
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
     return DTensor.from_local(local, dm, sharding.placements,
                               run_check=False, shape=torch.Size(shape),
                               stride=stride)
@@ -165,10 +168,45 @@ def place(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
     ranks. A ``DTensor`` is redistributed instead."""
     if isinstance(x, DTensor):
         want = sharding.placements
-        return x if tuple(x.placements) == want else \
-            x.redistribute(device_mesh_of(sharding.mesh), want)
+        if tuple(x.placements) == want:
+            return x
+        if len({pl.reduce_op for pl in x.placements if pl.is_partial()}) > 1:
+            x = reduce_partials(x)
+        return x.redistribute(device_mesh_of(sharding.mesh), want)
     return from_shard(x[local_slices(x.shape, sharding)], sharding, x.shape,
                       x.stride())
+
+
+def new_sharded(shapes, shardings, fill, device):
+    """A tree of ``DTensor``s of ``shapes`` (a tree of tensors; meta
+    tensors will do) laid out by ``shardings``, each rank making only its
+    own shard on ``device``, filled with ``fill(path)``: nothing is sent
+    between ranks and no rank holds a whole leaf (on the meta device,
+    nothing is allocated)."""
+    flat = dict(tree_paths(shardings))
+
+    def one(path, t):
+        sh = flat[path]
+        local = [s.stop - s.start for s in local_slices(t.shape, sh)]
+        return from_shard(torch.full(local, fill(path), dtype=t.dtype,
+                                     device=device), sh, t.shape)
+
+    return map_with_path(one, shapes)
+
+
+def reduce_partials(x):
+    """``x`` with every partial value reduced, one mesh dim at a time (a
+    plain tensor as it is): a loss's mean over dp and its sum over the
+    vocab's shards are partial values of two kinds, which torch 2.11's
+    DTensor neither adds nor reduces in one step."""
+    if not isinstance(x, DTensor):
+        return x
+    for i, pl in enumerate(x.placements):
+        if pl.is_partial():
+            x = x.redistribute(x.device_mesh, tuple(
+                Replicate() if j == i else q
+                for j, q in enumerate(x.placements)))
+    return x
 
 
 def place_tree(tree, shardings):

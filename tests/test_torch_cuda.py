@@ -2007,3 +2007,63 @@ def test_compressed_psum_int8_over_nccl(cuda, nccl_mesh):
         for axis in ("data", "model"):
             assert torch.equal(compressed_psum_int8(x, axis), want), axis
     assert torch.equal(compressed_psum_int8(x, nccl_mesh["model"]), want)
+
+
+@pytest.mark.parametrize("case", ["linear", "ring", "past_end", "several"])
+def test_sharded_per_row_write_on_one_card_is_the_plain_write(
+        cuda, nccl_mesh, case):
+    """``cache_update`` of a cache placed by ``cache_shardings`` on the
+    (1, 1) NCCL mesh, each row at its own position (a (B,) tensor on the
+    card): every leaf equals the plain write's bit for bit; one token a
+    row (the decode's form, no host read) in a linear cache, a wrapped
+    16-slot ring and past a linear cache's end, and several a row."""
+    from repro_torch.nn import attention as attn
+    from repro_torch.sharding import rules, set_mesh
+    ring = case == "ring"
+    s_new = 3 if case == "several" else 1
+    pos = {"linear": [3, 15, 0, 8], "ring": [17, 3, 31, 48],
+           "past_end": [16, 5, 19, 15], "several": [2, 9, 12, 0]}[case]
+    base = {"k": torch.randn((4, 2, 16, 8), generator=gen(cuda, 5),
+                             device=cuda),
+            "v": torch.randn((4, 2, 16, 8), generator=gen(cuda, 6),
+                             device=cuda),
+            "positions": torch.randint(-1, 40, (4, 16), generator=gen(cuda, 7),
+                                       device=cuda, dtype=torch.int32)}
+    k_new, v_new = (torch.randn((4, 2, s_new, 8), generator=gen(cuda, s),
+                                device=cuda) for s in (8, 9))
+    p = torch.tensor(pos, device=cuda)
+    want = attn.cache_update({k: t.clone() for k, t in base.items()},
+                             k_new, v_new, p, ring=ring)
+    placed = rules.place_tree({k: t.clone() for k, t in base.items()},
+                              rules.cache_shardings(nccl_mesh,
+                                                    {"kv": base})["kv"])
+    with set_mesh(nccl_mesh):
+        got = attn.cache_update(placed, k_new, v_new, p, ring=ring)
+    for k in want:
+        assert torch.equal(got[k].to_local(), want[k]), k
+
+
+def test_sharded_engine_on_one_card_serves_the_unsharded_tokens(
+        cuda, nccl_mesh):
+    """Reduced qwen1.5-110b (bf16 params, QKV bias), ``Engine(slots=2)``
+    graphed, unsharded and with ``mesh=`` the (1, 1) NCCL mesh on the same
+    params (kept, not copied): five prompts of 5-70 tokens over two slots,
+    6 new tokens each, so slots are spliced mid-run at other positions:
+    the tokens equal, and the sharded engine captured its decode and its
+    prefills as graphs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.nn import module
+    cfg = get_config("qwen1.5-110b").reduced(**SHARDED_REDUCED)
+    plain = Engine(cfg, slots=2, cache_len=80, seed=4, device=cuda)
+    sharded = Engine(cfg, slots=2, cache_len=80, params=plain.params,
+                     device=cuda, mesh=nccl_mesh)
+    assert all(a.to_local().data_ptr() == b.data_ptr() for (_, a), (_, b) in
+               zip(module.tree_paths(sharded.params),
+                   module.tree_paths(plain.params)))
+    prompts = [lm_prompt(cfg, n, 30 + n) for n in (5, 40, 9, 70, 13)]
+    want = serve_lm(plain, prompts, 6)
+    got = serve_lm(sharded, prompts, 6)
+    assert got == want
+    assert sharded.graphed and ("decode", 2) in sharded.graphs
+    assert sum(1 for k in sharded.graphs if k[0] == "prefill") == 5
