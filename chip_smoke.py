@@ -2899,7 +2899,9 @@ def spikformer_train_phase(torch, dev) -> dict:
     ``init``, TRAIN_STEPS AdamW steps at batch TRAIN_BATCH on seeded
     ``image_batch`` data, eager autograd through the float graph (atan
     surrogate at every LIF, BN on batch statistics), the BN stats merged
-    after each step. Gates: every loss and gradient leaf finite, gradient
+    after each step; then the same steps through ``make_train_step``,
+    eagerly and as one CUDA graph (``train_graph_against_eager``). Gates:
+    every loss and gradient leaf finite, gradient
     norms > 0 at ``scs/conv0`` and in the last block; the first update
     moved a trainable leaf at ``scs/conv0`` and in the last block past
     where weight decay alone takes it (the same update from the same state
@@ -2969,6 +2971,7 @@ def spikformer_train_phase(torch, dev) -> dict:
             firing = float(last_residual[0].mean())
             steps.append({"step": i, "loss": float(loss), "acc": float(acc),
                           "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"]),
                           "grad_norm_conv0": conv0,
                           "grad_norm_last_block": last,
                           "finite": finite and math.isfinite(float(loss)),
@@ -3003,7 +3006,11 @@ def spikformer_train_phase(torch, dev) -> dict:
     check(changed > 0, "training changed no trainable parameter")
     check(out["final_residual_firing"] > 0,
           "the final residual stream is silent under train-mode BN")
-    del params, opt, grads, batches, first
+    del grads, batches, first
+    torch.cuda.empty_cache()
+    out["graphed"] = train_graph_against_eager(torch, dev, cfg, ocfg, dcfg,
+                                               steps, params, opt)
+    del params, opt
     torch.cuda.empty_cache()
 
     out["reduced_vs_cpu"] = train_reduced_against_cpu(torch, dev)
@@ -3024,6 +3031,139 @@ def spikformer_train_phase(torch, dev) -> dict:
     check(classify["packed_matches_reference_exactly"] is True,
           "classify: packed logits differ from reference")
     return out
+
+
+TRAIN_METRIC_KEYS = {"loss": "loss", "accuracy": "acc",
+                     "grad_norm": "grad_norm", "lr": "lr"}
+
+
+def train_graph_against_eager(torch, dev, cfg, ocfg, dcfg, steps, params,
+                              opt) -> dict:
+    """The training phase's steps again from the same seeded params and
+    batches through ``make_train_step``: first its in-place body eagerly
+    (``jit=False``), then as one CUDA graph (the capture's warm-up is the
+    first step, the others replay), each fed the host batches as the
+    example feeds them (the graphed step copies them into its static
+    inputs through pinned buffers). ``steps``, ``params`` and ``opt`` are
+    the phase's eager loop's per-step readings and final state.
+
+    Gates, in order: the eager body equals the eager loop bit for bit
+    (the eager step reproduces from the same state, and the body is the
+    loop's step); the graphed steps equal the eager loop bit for bit:
+    each step's loss, accuracy, grad norm and learning rate, and at the
+    end every param, both moments, the step counter and every BN running
+    mean and variance; one graph was captured; a replay makes no eager
+    kernel launch (``torch.profiler``'s runtime calls over one call: one
+    ``cudaGraphLaunch``, no kernel launch). Reported: ms a step on the
+    host clock, synced after each step as the eager loop's ``ms`` (the
+    first step left out: the graphed run's holds the capture), images/s,
+    the first graphed call's seconds (its eager warm-up step and the
+    recording), peak allocated and reserved memory (the graph's pool
+    included), ``profile_fn``'s device ms and idle share of one eager
+    and one graphed step, and the pass's own seconds."""
+    from repro_torch.core.spikformer import (TRAIN_METRICS, init,
+                                             make_train_step)
+    from repro_torch.data.pipeline import image_batch
+    from repro_torch.optim import adamw
+
+    t_pass = time.perf_counter()
+    host = [{k: torch.from_numpy(v) for k, v in image_batch(dcfg, i).items()}
+            for i in range(TRAIN_STEPS)]
+    start = init(torch.Generator().manual_seed(SEED), cfg)
+    want = {"params": dict(tree_leaves(params)),
+            "opt": dict(tree_leaves(opt))}
+
+    def run(jit: bool):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(start, adamw.init(start, ocfg), cfg, ocfg,
+                               device=dev, jit=jit)
+        captures = []
+        if jit:
+            capture = step._capture
+
+            def counted(body, what):
+                captures.append(what)
+                return capture(body, what)
+            step._capture = counted
+        rows = []
+        for batch in host:
+            t0 = time.perf_counter()
+            got = step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({**{TRAIN_METRIC_KEYS[k]: float(got[k])
+                            for k in TRAIN_METRICS}, "ms": ms})
+        memory = {"peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                  "reserved_mib": torch.cuda.memory_reserved() / 2 ** 20}
+        return step, rows, captures, memory
+
+    def differences(step, rows) -> list:
+        bad = [f"step {i} {k}: {r[k]!r} != {s[k]!r}"
+               for i, (r, s) in enumerate(zip(rows, steps))
+               for k in TRAIN_METRIC_KEYS.values() if r[k] != s[k]]
+        for tree, leaves in want.items():
+            got = dict(tree_leaves(getattr(step, tree)))
+            check(sorted(got) == sorted(leaves), f"{tree}: other leaves")
+            bad += [f"{tree}{k}" for k, v in got.items()
+                    if not torch.equal(v, leaves[k])]
+        return bad
+
+    def readings(step, rows, memory) -> dict:
+        ms = [r["ms"] for r in rows[1:]]
+        prof = profile_fn(torch, lambda: step(host[0]), 1)
+        return {"rows": rows, "ms_per_step": sum(ms) / len(ms),
+                "images_per_s": TRAIN_BATCH * len(ms) / (sum(ms) / 1e3),
+                **memory,
+                "profile": {k: v for k, v in prof.items()
+                            if k != "by_kernel"},
+                "top_kernels": [(r["kernel"][:48], round(r["ms_per_step"], 3))
+                                for r in prof["by_kernel"][:8]]}
+
+    eager, rows, _, memory = run(False)
+    bad = differences(eager, rows)
+    check(not bad, f"the eager step does not reproduce from the same state "
+                   f"(the in-place body against the phase's loop; first "
+                   f"differences): {bad[:8]}")
+    out = {"eager": {**readings(eager, rows, memory),
+                     "runtime_calls": runtime_calls(
+                         torch, lambda: eager(host[0]))}}
+    del eager
+    graph, rows, captures, memory = run(True)
+    bad = differences(graph, rows)
+    check(not bad, f"graphed training differs from eager: {bad[:8]}")
+    check(captures == ["the training step"] and graph.graph is not None
+          and graph.graph.replays == TRAIN_STEPS - 1,
+          f"graphed training: captures {captures}, replays "
+          f"{graph.graph and graph.graph.replays}")
+    calls = runtime_calls(torch, lambda: graph(host[0]))
+    launched = {k: n for k, n in calls.items()
+                if k.startswith(("cudaLaunch", "cuLaunch"))}
+    check(calls.get("cudaGraphLaunch") == 1 and not launched,
+          f"a graphed training call: runtime calls {calls} (want one "
+          f"cudaGraphLaunch and no kernel launch)")
+    out["graph"] = {**readings(graph, rows, memory),
+                    "capture_s": rows[0]["ms"] / 1e3,
+                    "captures": len(captures), "runtime_calls": calls}
+    out["bit_for_bit"] = True
+    out["eager_over_graph_ms"] = (out["eager"]["ms_per_step"]
+                                  / out["graph"]["ms_per_step"])
+    del graph
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_pass
+    return out
+
+
+def runtime_calls(torch, fn) -> dict:
+    """CUDA API calls (``cuda*``, ``cu*``) that one ``fn()`` makes that
+    launch work (kernels, graphs, copies, fills), by name and count
+    (``torch.profiler``'s CPU-side records), after a traced warm-up
+    call."""
+    averages, _ = traced(torch, fn, fn)
+    return {ev.key: ev.count for ev in averages
+            if ev.key.startswith("cu") and any(
+                w in ev.key for w in ("Launch", "Memcpy", "Memset"))}
 
 
 def train_lm_100m_example(torch) -> dict:
@@ -3138,6 +3278,9 @@ SHARDED_ENGINE_PROMPTS = (2048, 77, 1000, 300, 1536, 512)
 SHARDED_ENGINE_SLOTS = 4
 DRYRUN_DEMO = ("qwen3-moe-30b-a3b", "train_4k")   # 2x16x16, the demo's cell
 DRYRUN_DEMO_TIMEOUT_S = 240    # a subprocess: ~54 s of trace, ~67 in all
+# tied embeddings: the train_4k cells on 16x16 that the card's torch
+# refused before their table's gradients came back in its layout (~20 s)
+DRYRUN_TIED_CELLS = ("smollm-360m", "mamba2-130m")
 
 
 def lm_grads(torch, params, batch, cfg):
@@ -4122,7 +4265,11 @@ def dryrun_phase(torch, dev, sharded: dict) -> dict:
     cell (qwen3-moe-30b-a3b train_4k on 2x16x16) in a subprocess, its
     trace seconds reported: it must end within DRYRUN_DEMO_TIMEOUT_S, or
     the phase fails (the cell pins the reduction of mixed partials one
-    mesh axis at a time, which only the card's torch refuses otherwise)."""
+    mesh axis at a time, which only the card's torch refuses otherwise).
+    Beside it, in processes of their own under the same limit, the CLI
+    on the DRYRUN_TIED_CELLS' train_4k on 16x16: each must end ``[ok]``
+    (they pin the tied table's gradients in its own layout, which only
+    the card's torch refuses otherwise)."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4184,20 +4331,62 @@ def dryrun_phase(torch, dev, sharded: dict) -> dict:
             "'fits_80gb': rec['memory']['fits_80gb'], "
             "'roofline': rec['roofline'], 'cost': rec['cost'], "
             "'collectives': rec['collectives']}))")
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    outdir = ROOT / "build" / "dryrun"
+    # the demo and the tied-embedding train cells in processes of their
+    # own, all started at once, each held to DRYRUN_DEMO_TIMEOUT_S
+    runs = {"demo": [sys.executable, "-c", code]}
+    for arch in DRYRUN_TIED_CELLS:
+        runs[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", arch, "--shape", "train_4k",
+                      "--out", str(outdir)]
+    outdir.mkdir(parents=True, exist_ok=True)
+    logs = {k: [outdir / f"{k}.{x}" for x in ("out", "err")] for k in runs}
     t0 = time.perf_counter()
+    procs = {}
+    done = {}
     try:
-        res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                             capture_output=True, text=True,
-                             timeout=DRYRUN_DEMO_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        raise CheckFailed(f"the demo cell's dry run did not end within "
-                          f"{DRYRUN_DEMO_TIMEOUT_S} s") from None
-    check(res.returncode == 0, f"the demo cell's dry run failed: "
-                               f"{res.stderr[-1500:]}")
-    demo = json.loads(res.stdout.strip().splitlines()[-1])
-    demo["process_s"] = time.perf_counter() - t0
+        for k, cmd in runs.items():
+            with open(logs[k][0], "w") as fo, open(logs[k][1], "w") as fe:
+                procs[k] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                            stdout=fo, stderr=fe)
+        while len(done) < len(procs):
+            for k, proc in procs.items():
+                if k not in done and proc.poll() is not None:
+                    check(proc.returncode == 0,
+                          f"the dry run of {k} failed: "
+                          f"{logs[k][1].read_text()[-1500:]}")
+                    done[k] = (logs[k][0].read_text(),
+                               time.perf_counter() - t0)
+            check(time.perf_counter() - t0 < DRYRUN_DEMO_TIMEOUT_S,
+                  f"the dry run of {sorted(set(procs) - set(done))} did "
+                  f"not end within {DRYRUN_DEMO_TIMEOUT_S} s")
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    stdout, seconds = done["demo"]
+    demo = json.loads(stdout.strip().splitlines()[-1])
+    demo["process_s"] = seconds
     out["production_cell"] = {"arch": DRYRUN_DEMO[0], "shape": DRYRUN_DEMO[1],
                               "mesh": "2x16x16", **demo}
+    out["tied_train_cells"] = {}
+    for arch in DRYRUN_TIED_CELLS:
+        stdout, seconds = done[arch]
+        line = stdout.strip().splitlines()[-1]
+        check(line.startswith(f"[ok] {arch}_train_4k_16x16:"),
+              f"the dry run of {arch} train_4k on 16x16 did not end [ok]: "
+              f"{line}")
+        rec = json.loads((outdir / f"{arch}_train_4k_16x16.json").read_text())
+        out["tied_train_cells"][arch] = {
+            "line": line, "process_s": seconds,
+            "mesh_device_type": rec["mesh_device_type"],
+            "peak_gb_per_chip": rec["memory"]["peak_gb_per_chip"],
+            "roofline": rec["roofline"], "cost": rec["cost"],
+            "collective_bytes": rec["collectives"]["total_bytes"]}
     out["launches"] = {}
     return out
 

@@ -16,18 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.spikformer import (SpikformerConfig, init,
-                                         merge_bn_stats, value_and_grad)
+                                         make_train_step)
 from repro_torch.data.pipeline import DataConfig, image_batch
 from repro_torch.device import resolve_device
 from repro_torch.infer import ExecutionPlan, MicroBatchEngine, compile
-from repro_torch.infer.compile import to_device
 from repro_torch.infer.engine import to_host
 from repro_torch.optim import adamw
-
-
-def batch_on(raw: dict, dev) -> dict:
-    return {"image": torch.from_numpy(raw["image"]).to(dev),
-            "label": torch.from_numpy(raw["label"]).to(dev)}
 
 
 def main(argv=None) -> dict:
@@ -46,21 +40,20 @@ def main(argv=None) -> dict:
     cfg = SpikformerConfig().scaled(classes=args.classes)
     dcfg = DataConfig(global_batch=args.batch, image_size=32,
                       n_classes=args.classes, seed=0)
-    params = to_device(init(torch.Generator().manual_seed(0), cfg), dev)
+    params = init(torch.Generator().manual_seed(0), cfg)
     opt_cfg = adamw.OptConfig(peak_lr=2e-3, warmup_steps=10,
                               decay_steps=args.train_steps, weight_decay=0.01)
-    opt = adamw.init(params, opt_cfg)
+    # the reference jits its step: one CUDA graph on the card
+    step = make_train_step(params, adamw.init(params, opt_cfg), cfg, opt_cfg,
+                           device=dev)
 
     losses = []
     for i in range(args.train_steps):
-        (loss, (_, stats)), grads = value_and_grad(
-            params, batch_on(image_batch(dcfg, i), dev), cfg)
-        params, opt, _ = adamw.update(grads, opt, params, opt_cfg)
-        params = merge_bn_stats(params, stats)
-        losses.append(float(loss))
+        losses.append(float(step(image_batch(dcfg, i))["loss"]))
         if i % 20 == 0:
-            print(json.dumps({"train_step": i, "loss": round(float(loss), 4)}),
+            print(json.dumps({"train_step": i, "loss": round(losses[-1], 4)}),
                   flush=True)
+    params, _ = step.state()
 
     # --- packed inference: compile once, serve through the engine ----------
     plan = ExecutionPlan(backend="packed",

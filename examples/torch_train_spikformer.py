@@ -1,9 +1,10 @@
 """Train Spikformer V2 (reduced) on the PyTorch/CUDA port by
 surrogate-gradient BPTT on synthetic class-conditional images, on the card
-unless ``--device cpu`` asks for the CPU. The step is eager autograd
-through the float graph (atan surrogate at every LIF, BN on batch
-statistics), AdamW, then the EMA'd BN stats written back, as the
-reference's example jits it.
+unless ``--device cpu`` asks for the CPU. The step is autograd through
+the float graph (atan surrogate at every LIF, BN on batch statistics),
+AdamW, then the EMA'd BN stats written back (``core.spikformer.
+train_step``). The reference's example jits it; here it runs as one CUDA
+graph on the card (``make_train_step``), eagerly on the CPU.
 
   PYTHONPATH=src python examples/torch_train_spikformer.py [--steps 300]
       [--device cpu]
@@ -15,23 +16,15 @@ import time
 import torch
 
 from repro_torch.core.spikformer import (SpikformerConfig, init, loss_fn,
-                                         merge_bn_stats, value_and_grad)
+                                         make_train_step)
 from repro_torch.data.pipeline import DataConfig, image_batch
 from repro_torch.device import resolve_device
-from repro_torch.infer.compile import to_device
 from repro_torch.optim import adamw
 
 
 def batch_on(raw: dict, dev) -> dict:
     return {"image": torch.from_numpy(raw["image"]).to(dev),
             "label": torch.from_numpy(raw["label"]).to(dev)}
-
-
-def train_step(params, opt, batch, cfg, opt_cfg):
-    """One step: ``(params, opt, loss, accuracy, metrics)``."""
-    (loss, (acc, stats)), grads = value_and_grad(params, batch, cfg)
-    params, opt, metrics = adamw.update(grads, opt, params, opt_cfg)
-    return merge_bn_stats(params, stats), opt, loss, acc, metrics
 
 
 def main(argv=None) -> dict:
@@ -51,22 +44,24 @@ def main(argv=None) -> dict:
                                     classes=args.classes)
     dcfg = DataConfig(global_batch=args.batch, image_size=32,
                       n_classes=args.classes, seed=0)
-    params = to_device(init(torch.Generator().manual_seed(0), cfg), dev)
+    params = init(torch.Generator().manual_seed(0), cfg)
     opt_cfg = adamw.OptConfig(peak_lr=args.lr, warmup_steps=20,
                               decay_steps=args.steps, weight_decay=0.01)
-    opt = adamw.init(params, opt_cfg)
+    step = make_train_step(params, adamw.init(params, opt_cfg), cfg, opt_cfg,
+                           device=dev)
 
     t0 = time.time()
     losses = []
     for i in range(args.steps):
-        params, opt, loss, acc, _ = train_step(
-            params, opt, batch_on(image_batch(dcfg, i), dev), cfg, opt_cfg)
-        losses.append(float(loss))
+        # host batches: the graphed step copies them into its static input
+        out = step(image_batch(dcfg, i))
+        losses.append(float(out["loss"]))
         if i % 20 == 0 or i == args.steps - 1:
-            print(json.dumps({"step": i, "loss": round(float(loss), 4),
-                              "acc": round(float(acc), 3),
+            print(json.dumps({"step": i, "loss": round(losses[-1], 4),
+                              "acc": round(float(out["accuracy"]), 3),
                               "wall_s": round(time.time() - t0, 1)}),
                   flush=True)
+    params, _ = step.state()
 
     # eval on held-out steps
     correct = total = 0

@@ -1,8 +1,9 @@
 """Where the port's entry points run (the card unless the caller asks for
 the CPU), the constants a step keeps on its device, the CUDA streams its
 serving threads and graph captures borrow, and the CUDA graph capture
-that the Spikformer step (``infer/compile.py:GraphedStep``) and the LM
-engine (``launch/serve.py:Engine``) share."""
+that the Spikformer step (``infer/compile.py:GraphedStep``), the LM
+engine (``launch/serve.py:Engine``) and the Spikformer training step
+(``core/spikformer.py:TrainStep``) share."""
 from __future__ import annotations
 
 import contextlib
@@ -111,10 +112,11 @@ def _failed_at(err: BaseException) -> str:
 
 class GraphCapturer:
     """Captures one owner's CUDA graphs (a ``GraphedStep``'s buckets, an LM
-    engine's steps): on a side stream the owner holds alone while it lives
-    (``borrow_stream``, at the first capture: a cuBLAS call captured on a
-    stream keeps that stream's workspace, which two owners replaying at
-    once must not share), into one graph memory pool its graphs share."""
+    engine's steps, a training step): on a side stream the owner holds
+    alone while it lives (``borrow_stream``, at the first capture: a
+    cuBLAS call captured on a stream keeps that stream's workspace, which
+    two owners replaying at once must not share), into one graph memory
+    pool its graphs share."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -209,41 +211,56 @@ def _stop_allocating_to(pool, device: torch.device) -> None:
 
 
 class StepGraph:
-    """One captured step: the graph, its static input and output, a pinned
-    staging buffer for host inputs, the kernel launches its capture
-    recorded (each replay launches them again) and its replays since the
-    last reset."""
+    """One captured step: the graph, its static input (a tensor, or a
+    tuple of them: a training step's images and labels) and output, a
+    pinned staging buffer for each host input, the kernel launches its
+    capture recorded (each replay launches them again) and its replays
+    since the last reset."""
 
     def __init__(self, graph, static_in, out, launches):
         self.graph = graph
         self.static_in = static_in
         self.out = out
         self.launches = launches
-        self.host = torch.empty(static_in.shape, dtype=static_in.dtype,
-                                pin_memory=True)
+        self._staged = [(t, torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True))
+                        for t in _as_tuple(static_in)]
         self.copied = torch.cuda.Event()
         self.replays = 0
 
-    def load(self, x: torch.Tensor) -> None:
-        """Copy an input into the static input: from the card in place,
-        from the host through the pinned buffer without a host wait (only
-        the previous copy out of that buffer must be done before it is
-        refilled)."""
-        if x.device.type == "cuda":
-            self.static_in.copy_(x)
+    def load(self, x) -> None:
+        """Copy an input (a tuple, where the static input is one) into the
+        static input: from the card in place, from the host through the
+        pinned buffers without a host wait (only the previous copy out of
+        those buffers must be done before they are refilled)."""
+        xs = _as_tuple(x)
+        if len(xs) != len(self._staged):
+            raise ValueError(f"{len(xs)} inputs for a step that takes "
+                             f"{len(self._staged)}")
+        if all(t.device.type == "cuda" for t in xs):
+            for (static, _), t in zip(self._staged, xs):
+                static.copy_(t)
             return
         self.copied.synchronize()
-        self.host.copy_(x)
-        self.static_in.copy_(self.host, non_blocking=True)
+        for (static, host), t in zip(self._staged, xs):
+            if t.device.type == "cuda":
+                static.copy_(t)
+            else:
+                host.copy_(t)
+                static.copy_(host, non_blocking=True)
         self.copied.record()
 
-    def replay(self, x: torch.Tensor):
+    def replay(self, x):
         """Load ``x``, replay on the current stream; returns the static
         output, which the next replay overwrites."""
         self.load(x)
         self.graph.replay()
         self.replays += 1
         return self.out
+
+
+def _as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
 
 
 def graph_launch_counts(graphs) -> dict:

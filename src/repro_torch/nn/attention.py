@@ -178,6 +178,16 @@ def _decode_grouped(q, k, v, *, scale, causal, q_positions, k_positions,
     if seq_ok:
         k = shard_hint(k, "dp", None, "model", None)
         v = shard_hint(v, "dp", None, "model", None)
+    if isinstance(q, DTensor):
+        # a view cannot split q's heads into KV groups where the heads are
+        # sharded over more ranks than there are groups (whisper's cross
+        # attention at 2 KV heads over a model axis of 4): gather the
+        # one-token query's heads there (XLA reshards by itself)
+        mesh = q.device_mesh
+        want = tuple(Replicate() if pl.is_shard(1) and kvh % mesh.size(i)
+                     else pl for i, pl in enumerate(q.placements))
+        if want != tuple(q.placements):
+            q = q.redistribute(mesh, want)
     qg = q.reshape(b, kvh, hq // kvh, dh)
     s = torch.einsum("bkgd,bksd->bkgs", qg.to(torch.float32),
                      k.to(torch.float32)) * scale            # (B, KV, g, S)

@@ -97,18 +97,24 @@ def embed(p, ids, *, compute_dtype=None):
     dp are gathered first, and the caller's hint lays the rows out over dp
     again: torch 2.11's DTensor has no rule for an index by ids split over
     two mesh dims (dp over ``("pod", "data")``), and its rule for the
-    gradient of one by ids split over one fails."""
+    gradient of one by ids split over one fails. The table's gradient
+    comes back in the table's layout (``hints.grad_like``), as
+    ``unembed``'s does: a tied table adds the two there, which torch
+    2.11's DTensor cannot do from the index's replicated gradient and the
+    head's partial one."""
     if isinstance(ids, DTensor) and any(pl.is_shard()
                                         for pl in ids.placements):
         ids = ids.redistribute(ids.device_mesh,
                                [Replicate()] * ids.device_mesh.ndim)
-    rows = p["embedding"][ids]
+    rows = grad_like(p["embedding"])[ids]
     return rows if compute_dtype is None else rows.to(compute_dtype)
 
 
 def unembed(p, x):
-    """Tied LM head: logits in f32 for a stable softmax."""
-    return matmul(x.to(torch.float32), p["embedding"].to(torch.float32).T)
+    """Tied LM head: logits in f32 for a stable softmax. The table's
+    gradient comes back in its layout (see ``embed``)."""
+    return matmul(x.to(torch.float32),
+                  grad_like(p["embedding"]).to(torch.float32).T)
 
 
 # ---------------------------------------------------------------------------

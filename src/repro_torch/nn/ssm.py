@@ -103,6 +103,19 @@ def _cumsum(x, dim: int):
                      redistribute_inputs=True)(x)
 
 
+def _pad_seq(x, pad: int):
+    """``x`` with ``pad`` rows of zeros after its dim 1 (the sequence); on
+    a DTensor per rank under ``local_map``, dim 1 whole (torch 2.11's
+    DTensor fails to plan the pad)."""
+    def pad_rows(t):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    if not isinstance(x, DTensor):
+        return pad_rows(x)
+    pl = tuple(Replicate() if q.is_shard(1) else q for q in x.placements)
+    return local_map(pad_rows, out_placements=list(pl), in_placements=(pl,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)
+
+
 def _segsum(a):
     """a: (..., Q) -> (..., Q, Q) lower-triangular cumulative sums:
     L[i, j] = sum a[j+1..i], -inf above the diagonal."""
@@ -222,10 +235,8 @@ def ssm_apply(p, x, cfg, *, state=None, conv_state=None, decode: bool = False,
     else:
         pad = (-s) % chunk
         if pad:
-            xs_p = F.pad(xs, (0, 0, 0, 0, 0, pad))
-            dt_p = F.pad(dt, (0, 0, 0, pad))
-            bmat = F.pad(bmat, (0, 0, 0, 0, 0, pad))
-            cmat = F.pad(cmat, (0, 0, 0, 0, 0, pad))
+            xs_p, dt_p, bmat, cmat = (_pad_seq(t, pad)
+                                      for t in (xs, dt, bmat, cmat))
         else:
             xs_p, dt_p = xs, dt
         y, new_state = ssd_chunked(xs_p, dt_p, a, bmat, cmat, chunk=chunk,

@@ -1724,6 +1724,91 @@ def test_reduced_training_step_on_the_card_equals_the_cpu(cuda):
         torch.testing.assert_close(v.cpu(), want_p[k], rtol=1e-4, atol=1e-4)
 
 
+def test_graphed_training_step_equals_eager_and_the_cpu(cuda):
+    """``make_train_step`` at the reduced config: three steps as one CUDA
+    graph (the capture's warm-up is the first step, two replays) against
+    three eager steps of the same body on the card, bit for bit (every
+    step's loss, accuracy, grad norm and learning rate; at the end every
+    param, moment, the step counter and BN running stat), and against
+    three on the CPU within the card-vs-CPU tolerances of the test above
+    (loss rtol 1e-5, params 1e-4)."""
+    from repro_torch.core.spikformer import TRAIN_METRICS, make_train_step
+    from repro_torch.data.pipeline import DataConfig, image_batch
+    from repro_torch.optim import adamw
+
+    def leaves(t, pre=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from leaves(v, f"{pre}/{k}")
+        else:
+            yield pre, t
+
+    cfg = SpikformerConfig().scaled(classes=4)
+    raws = [image_batch(DataConfig(global_batch=8, image_size=32,
+                                   n_classes=4), i) for i in range(3)]
+    params = init(torch.Generator().manual_seed(0), cfg)
+    ocfg = adamw.OptConfig(peak_lr=2e-3, warmup_steps=1, decay_steps=4)
+    runs = {}
+    for name, dev, jit in (("graph", cuda, True), ("eager", cuda, False),
+                           ("cpu", "cpu", True)):
+        step = make_train_step(params, adamw.init(params, ocfg), cfg, ocfg,
+                               device=dev, jit=jit)
+        metrics = [{k: v.clone() for k, v in step(raw).items()}
+                   for raw in raws]
+        runs[name] = (step, metrics)
+    graph, eager, cpu = (runs[k][0] for k in ("graph", "eager", "cpu"))
+    assert graph.graphed and graph.graph.replays == 2
+    assert not eager.graphed and eager.graph is None
+    for i in range(3):
+        for k in TRAIN_METRICS:
+            assert torch.equal(runs["graph"][1][i][k],
+                               runs["eager"][1][i][k]), (i, k)
+        got, want = (float(runs[r][1][i]["loss"]) for r in ("graph", "cpu"))
+        assert abs(got - want) <= 1e-5 * abs(want), i
+    for tree in ("params", "opt"):
+        want_eager = dict(leaves(getattr(eager, tree)))
+        want_cpu = dict(leaves(getattr(cpu, tree)))
+        for k, v in leaves(getattr(graph, tree)):
+            assert torch.equal(v, want_eager[k]), f"{tree}{k}"
+            torch.testing.assert_close(v.cpu(), want_cpu[k], rtol=1e-4,
+                                       atol=1e-4)
+    assert int(graph.opt["step"]) == 3
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m"])
+def test_dry_run_train_cell_on_a_cuda_fake_world(cuda, arch):
+    """The tied-embedding train_4k cells on the 16x16 fake world, which
+    the card's host types ``cuda`` (NCCL's collectives): the sharded
+    backward lowers. On torch 2.11 it stopped at the tied table, where
+    the index's replicated gradient met the head's partial one ("redistribute
+    from S(1) to P(sum) not supported yet"); both now come back in the
+    table's layout (``nn/layers.py:embed``, ``unembed``)."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    rec, _ = dryrun.lower_cell(arch, "train_4k")
+    assert rec["mesh"] == "16x16" and rec["mesh_device_type"] == "cuda"
+    assert rec["memory"]["fits_80gb"] and rec["cost"]["flops_per_chip"] > 0
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_dry_run_reduced_ssm_train_step_on_a_cuda_fake_world(cuda, arch):
+    """The reduced SSM and hybrid train steps (32 tokens: the SSD's chunk
+    of 64 pads the sequence) on a fake (2, 4) world typed ``cuda`` on the
+    card's host. torch 2.11's DTensor failed to plan the pad ("list index
+    out of range"); it now runs per rank (``nn/ssm.py:_pad_seq``)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    rec, _ = dryrun.dry_run(get_config(arch).reduced(),
+                            ShapeSpec("train", "train", 32, 8), (2, 4),
+                            ("data", "model"), microbatch=4)
+    assert rec["mesh_device_type"] == "cuda"
+    assert rec["cost"]["flops_per_chip"] > 0
+    assert not dist.is_initialized()
+
+
 # ---------------------------------------------------------------------------
 # LM training
 # ---------------------------------------------------------------------------

@@ -390,3 +390,53 @@ def test_mixed_partials_reduce_one_axis_at_a_time():
     cost = analyze(tr, axes)
     assert cost.coll_counts["all-reduce"] == 2
     assert set(cost.coll_axis_bytes) == {"data", "model"}
+
+
+@pytest.mark.parametrize("use", ["embed", "unembed"])
+def test_tied_table_gradient_comes_back_in_the_table_layout(use):
+    """A tied embedding table (smollm's and mamba2's: vocab over "model",
+    d_model over "data") is read by the embedding's index and by the LM
+    head's product, and its two gradients are added. Each comes back in
+    the table's own layout. Before, the index's came back replicated and
+    the head's as a partial sum over "data": torch 2.11's DTensor then
+    refused their sum ("redistribute from S(1) to P(sum) not supported
+    yet"), which stopped both models' train_4k cells on 16x16 on the
+    card's host (torch 2.13 sums them)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.nn import layers
+    with fake_world((2, 4), ("data", "model"), device_type="cpu") as mesh:
+        def meta(shape, placements, dtype=torch.float32):
+            local = list(shape)
+            for axis, pl in enumerate(placements):
+                if pl.is_shard():
+                    local[pl.dim] //= mesh.size(axis)
+            return DTensor.from_local(torch.empty(local, dtype=dtype,
+                                                  device="meta"),
+                                      mesh, placements, run_check=False)
+
+        layout = (Shard(1), Shard(0))
+        table = meta((512, 128), layout).requires_grad_()
+        if use == "embed":
+            ids = meta((4, 32), (Shard(0), Replicate()), torch.int64)
+            out = layers.embed({"embedding": table}, ids)
+        else:
+            x = meta((4, 32, 128), (Shard(0), Replicate()))
+            out = layers.unembed({"embedding": table}, x)
+        (grad,) = torch.autograd.grad(out.sum(), [table])
+        assert tuple(grad.placements) == layout
+    assert not dist.is_initialized()
+
+
+def test_grouped_decode_gathers_heads_split_past_the_kv_groups():
+    """Reduced whisper's decode step on a fake (2, 4) world: its cross
+    attention's one-token query comes with its 4 heads over the model
+    axis of 4, and its 2 KV groups cannot split them in a view (DTensor
+    refused on both torches: "Cannot unflatten unevenly sharded tensor";
+    torch 2.11: "Attempted to split the sharded dimension 1"). The grouped
+    decode gathers those heads first, as XLA reshards the reference's."""
+    cfg = get_config("whisper-large-v3").reduced()
+    assert cfg.n_heads == 4 and cfg.n_kv_heads == 2
+    rec, _ = dryrun.dry_run(cfg, ShapeSpec("decode", "decode", 64, 8),
+                            (2, 4), ("data", "model"), device_type="cpu")
+    assert rec["cost"]["flops_per_chip"] > 0
+    assert not dist.is_initialized()
