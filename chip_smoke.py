@@ -144,17 +144,26 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    experts differ between the flash and plain routes;
 9. trains smollm-360m at full width and depth through the port's
    ``launch.train.main`` (global batch 8 of 2048 tokens in microbatches of
-   4, remat, 6 AdamW steps, a checkpoint every 3 steps), uninterrupted
-   and again with a failure injected at step 4, the counters at 0 before
-   and read after: finite losses and gradient norms, the loss falls,
-   ``wq``/``wk``/``wv`` gradients nonzero in layers 0 and 31, the first
-   update past weight decay alone in every (leaf, layer), no launch of
-   kernel 7 (training runs the plain attention), the failed run restores
-   the tree it saved bit for bit and then logs the uninterrupted run's
-   losses within 1e-4, no ``.tmp`` left and at most 3 commits; reports ms
-   a step, tokens/s, peak memory, the checkpoint seconds and a profiled
-   step; then each ported family's reduced train step on the card against
-   the CPU (f32 compute: loss, every gradient leaf, the updated params);
+   4, remat, 6 AdamW steps, a checkpoint every 3 steps) and its graphed
+   step (one CUDA graph), uninterrupted and again with a failure injected
+   at step 4, then the same 6 steps eagerly (``jit=False``), the counters
+   at 0 before and read after: graphed bit for bit with eager (every
+   step's metrics, every leaf at the end), one capture a graphed run
+   (the restart included), a graphed call one ``cudaGraphLaunch`` and no
+   kernel launch, finite losses and gradient norms, the loss falls,
+   ``wq``/``wk``/``wv`` gradients nonzero in layers 0 and 31 and the
+   first update past weight decay alone in every (leaf, layer) (both read
+   in the eager run), no launch of kernel 7 (training runs the plain
+   attention), the failed run restores the tree it saved bit for bit and
+   then logs the uninterrupted run's losses bit for bit with peak
+   allocated and reserved memory over its start within 256 MiB of the
+   uninterrupted run's (the restore goes into the step's own tensors),
+   no ``.tmp`` left
+   and at most 3 commits; reports ms a step, tokens/s, first-call
+   seconds, peak and reserved memory, the checkpoint seconds and a
+   profiled graphed and eager step; then each ported family's reduced
+   train step on the card against the CPU (f32 compute: loss, every
+   gradient leaf, the updated params);
 10. drives the encoder-decoder and VLM families at full width and depth,
    last, one large model alive at a time: whisper-large-v3 (32 encoder
    and 32 decoder layers, d_model 1280, 20 heads at Dh 64, 1500 seeded
@@ -3252,13 +3261,17 @@ LM_TRAIN_STEPS = 6
 LM_TRAIN_CKPT_EVERY = 3
 LM_TRAIN_FAIL_AT = 4
 LM_TRAIN_KEEP = 3                            # the Checkpointer's default
+# a restarted run's peak allocated and reserved memory over its start may
+# exceed the uninterrupted run's by this much at most: the restore goes
+# through the host into the step's own tensors, so the card holds no
+# second copy of the state (~4.1 GiB here); replays allocate nothing
+LM_TRAIN_PEAK_MARGIN_MIB = 256
 LM_TRAIN_ARGS = ("--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
                  "--global-batch", str(LM_TRAIN_BATCH),
                  "--seq", str(LM_TRAIN_SEQ), "--microbatch", "4",
                  "--lr", "3e-4", "--warmup", "2",
                  "--ckpt-every", str(LM_TRAIN_CKPT_EVERY),
                  "--log-every", "1", "--seed", str(SEED))
-LM_TRAIN_RESTORE_RTOL = 1e-4   # losses after the restore vs uninterrupted
 # the reduced step of each ported family, card against CPU (arch,
 # reduced() overrides); the bars are TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL and
 # TRAIN_PARAM_TOL
@@ -3272,7 +3285,7 @@ SHARDED_ARCH = "qwen1.5-110b"
 SHARDED_LAYERS = 16          # of its 80: 2.72 GB a layer in bf16
 SHARDED_ROWS, SHARDED_LEN = 4, 2048
 SHARDED_MAX_NEW = 32
-SHARDED_TRAIN_STEPS = 2
+SHARDED_TRAIN_STEPS = 3
 # the sharded engine: more requests than slots, prompts of other lengths
 SHARDED_ENGINE_PROMPTS = (2048, 77, 1000, 300, 1536, 512)
 SHARDED_ENGINE_SLOTS = 4
@@ -3383,35 +3396,41 @@ def train_lm_reduced_against_cpu(torch, dev) -> dict:
 
 
 @contextlib.contextmanager
-def recorded_training(torch, rec: dict):
-    """While the block runs, ``launch.train`` builds its checkpointer, its
-    train step and its AdamW update through recording wrappers (the real
-    ones put back after):
+def recorded_training(torch, rec: dict, *, jit: bool):
+    """While the block runs, ``launch.train`` builds its checkpointer and
+    its train step (``steps.graph_train_step``, with ``jit``) through
+    recording wrappers, and, where ``jit`` is off, its AdamW update too
+    (the real ones put back after):
+      - the ``TrainStep`` that ``train.main`` built (``rec["step"]``) and
+        each graph it captured (``rec["captures"]``);
       - each step's device-synced ms and its exact loss, gradient norm
         and learning rate (``rec["steps"]``);
-      - the gradient norms of ``wq``, ``wk``, ``wv`` in the first and the
-        last layer at every step (``rec["attn_grad_norms"]``);
-      - at the first update, each (leaf, layer) whose update equals the
-        update of zero gradients from the same state, i.e. what weight
-        decay alone does (``rec["not_past_decay"]``);
+      - eager runs only (they read the device inside the step, which a
+        capture refuses): the gradient norms of ``wq``, ``wk``, ``wv`` in
+        the first and the last layer at every step
+        (``rec["attn_grad_norms"]``), and, at the first update, each
+        (leaf, layer) whose update equals the update of zero gradients
+        from the same state, i.e. what weight decay alone does
+        (``rec["not_past_decay"]``);
       - each save's seconds (the call: the host copy, and the write too
         with ``block``) and each wait on a write in flight; at
-        ``rec["snapshot_at"]`` a device copy of
-        the saved tree, held against what ``restore`` returns
-        (``rec["restores"]``: ``equal_to_saved``) and the restore's
-        seconds."""
+        ``rec["snapshot_at"]`` a host copy of the saved tree, held
+        against what ``restore`` returns (``rec["restores"]``:
+        ``equal_to_saved``) and the restore's seconds."""
     from repro_torch.launch import steps, train
     from repro_torch.nn import module
     from repro_torch.optim import adamw
-    real_make, real_update, real_ckpt = (steps.make_train_step,
-                                         adamw.update, train.Checkpointer)
-    rec.update(steps=[], attn_grad_norms=[], saves=[], waits=[],
-               restores=[])
+    real_build, real_update, real_ckpt = (steps.graph_train_step,
+                                          adamw.update, train.Checkpointer)
+    rec.update(steps=[], captures=[], attn_grad_norms=[], saves=[],
+               waits=[], restores=[])
 
     class RecordingCheckpointer(real_ckpt):
         def save(self, step, tree, **kw):
             if step == rec.get("snapshot_at") and "snapshot" not in rec:
-                rec["snapshot"] = {p: t.detach().clone()
+                # on the host: a copy on the card would raise the run's
+                # peak memory, which the phase gates
+                rec["snapshot"] = {p: t.detach().to("cpu", copy=True)
                                    for p, t in module.tree_paths(tree)}
             t0 = time.perf_counter()
             super().save(step, tree, **kw)
@@ -3438,12 +3457,20 @@ def recorded_training(torch, rec: dict):
             rec["restores"].append({
                 "step": extra["step"], "s": dt, "leaves": len(got),
                 "equal_to_saved": sorted(snap) == sorted(got) and all(
-                    t.dtype == got[p].dtype and torch.equal(t, got[p])
+                    t.dtype == got[p].dtype
+                    and torch.equal(t, got[p].cpu())
                     for p, t in snap.items())})
             return tree, extra
 
-    def make_train_step(cfg, ts):
-        step = real_make(cfg, ts)
+    def graph_train_step(cfg, ts, *, device=None, **_):
+        step = rec["step"] = real_build(cfg, ts, device=device, jit=jit)
+        if step.graphed:
+            capture = step._capture
+
+            def counted(body, what):
+                rec["captures"].append(what)
+                return capture(body, what)
+            step._capture = counted
 
         def timed(params, opt_state, batch):
             torch.cuda.synchronize()
@@ -3479,13 +3506,14 @@ def recorded_training(torch, rec: dict):
         return new
 
     train.Checkpointer = RecordingCheckpointer
-    steps.make_train_step = make_train_step
-    adamw.update = update
+    steps.graph_train_step = graph_train_step
+    if not jit:
+        adamw.update = update
     try:
         yield rec
     finally:
         train.Checkpointer = real_ckpt
-        steps.make_train_step = real_make
+        steps.graph_train_step = real_build
         adamw.update = real_update
 
 
@@ -3494,99 +3522,185 @@ def lm_train_phase(torch, dev) -> dict:
     repro_torch.launch.train`` (``train.main``) on smollm-360m (32 layers,
     d_model 960, 15 heads over 5 KV heads, d_ff 2560, vocab 49152, tied
     embeddings, f32 params, bf16 compute, remat), global batch 8 of 2048
-    tokens in two microbatches of 4, 6 AdamW steps (lr 3e-4, warmup 2), a
-    checkpoint every 3 steps into a directory under ``build/``; run
+    tokens in two microbatches of 4, 6 AdamW steps (lr 3e-4, warmup 2).
+    ``train.main`` trains through its graphed step (``steps.
+    graph_train_step``: one CUDA graph, captured at the first step), with
+    a checkpoint every 3 steps into a directory under ``build/``: run
     uninterrupted, then again with a failure injected at step 4, which the
-    supervisor recovers from step 3's checkpoint. Counters set to 0
-    before the two runs and read after them. Gates: every loss and
-    gradient norm finite; the last loss below the first; ``wq``, ``wk``,
-    ``wv`` gradients nonzero in layers 0 and 31 at every step; the first
-    update moved every (leaf, layer) past where weight decay alone takes
-    it; no launch of kernel 7 (training runs the plain chunked softmax);
-    the failed run restarted once and completed, restored exactly the
-    tree it saved, and its losses after the restore are the uninterrupted
-    run's within LM_TRAIN_RESTORE_RTOL; no ``.tmp`` directory left and at
-    most LM_TRAIN_KEEP commits. Then each family's reduced step on the
-    card against the CPU."""
+    supervisor recovers from step 3's checkpoint into the same step. Then
+    the same 6 steps eagerly (``jit=False``: the same in-place body, from
+    the same seeded init and data stream, no checkpoints), which alone
+    records the attention gradients and the first update. Counters set to
+    0 before the three runs and read after them.
+
+    Gates: the graphed run against the eager one bit for bit (every
+    step's loss, gradient norm and learning rate; every param and moment
+    and the step counter at the end); one capture in each graphed run, the
+    restart included; a graphed call makes one ``cudaGraphLaunch`` and no
+    kernel launch; every loss and gradient norm finite; the last loss
+    below the first; ``wq``, ``wk``, ``wv`` gradients nonzero in layers 0
+    and 31 at every step; the first update moved every (leaf, layer) past
+    where weight decay alone takes it; no launch of kernel 7 (training
+    runs the plain chunked softmax), eagerly or in a graph; the failed
+    run restarted once and completed, restored exactly the tree it saved,
+    and its losses after the restore are the uninterrupted run's bit for
+    bit, and its peak allocated and reserved memory over its start are
+    the uninterrupted run's within LM_TRAIN_PEAK_MARGIN_MIB (the restore
+    goes into the step's own tensors); no ``.tmp`` directory left and at
+    most LM_TRAIN_KEEP commits.
+    Each run reports ms a step (the first left out), tokens/s, the first
+    call's seconds and peak allocated and reserved memory; the graphed
+    and the eager step are profiled (``profile_train_step``) and their
+    runtime calls counted. Then each family's reduced step on the card
+    against the CPU."""
+    import gc
     import io
     import math
     import shutil
     from repro_torch.kernels import ops
+    from repro_torch.nn import module
     from repro_torch.launch import train
 
     root = ROOT / "build" / "lm_train_ckpt"
     shutil.rmtree(root, ignore_errors=True)
-    runs = {}
+    runs, final, graph_launches, profiles = {}, None, {}, {}
     ops.reset_launch_counts()
     try:
-        for name, extra in (("uninterrupted", []), ("failed", [
-                "--inject-failure-at", str(LM_TRAIN_FAIL_AT)])):
-            rec = {"snapshot_at": LM_TRAIN_CKPT_EVERY if extra else None}
+        for name, jit, extra in (
+                ("uninterrupted", True, ["--ckpt-dir",
+                                         str(root / "uninterrupted")]),
+                ("failed", True, ["--ckpt-dir", str(root / "failed"),
+                                  "--inject-failure-at",
+                                  str(LM_TRAIN_FAIL_AT)]),
+                ("eager", False, [])):
+            rec = {"snapshot_at": LM_TRAIN_CKPT_EVERY if name == "failed"
+                   else None}
             out = io.StringIO()
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            base_reserved = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
-            with recorded_training(torch, rec), \
+            with recorded_training(torch, rec, jit=jit), \
                     contextlib.redirect_stdout(out):
-                train.main(list(LM_TRAIN_ARGS)
-                           + ["--ckpt-dir", str(root / name)] + extra)
+                train.main(list(LM_TRAIN_ARGS) + extra)
             lines = out.getvalue().splitlines()
             ms = [s["ms"] for s in rec["steps"][1:]]
-            runs[name] = {
+            step = rec.pop("step")
+            run = runs[name] = {
                 "wall_s": time.perf_counter() - t0,
                 "result": json.loads(lines[-1])["result"],
                 "restore_lines": [x for x in lines
                                   if x.startswith("[restore]")],
-                "steps": rec["steps"],
+                "steps": rec["steps"], "captures": rec["captures"],
                 "ms_per_step": sum(ms) / len(ms),
                 "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ
                 * len(ms) / (sum(ms) / 1e3),
+                "first_call_s": rec["steps"][0]["ms"] / 1e3,
                 "peak_mem_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
-                "attn_grad_norms": rec["attn_grad_norms"],
+                "peak_over_start_mib": (torch.cuda.max_memory_allocated()
+                                        - base) / 2 ** 20,
+                "peak_reserved_over_start_mib": (
+                    torch.cuda.max_memory_reserved() - base_reserved)
+                / 2 ** 20,
+                "reserved_mib": torch.cuda.memory_reserved() / 2 ** 20,
                 "saves": rec["saves"], "waits_s": rec["waits"],
                 "restores": rec["restores"],
-                "ckpt_dirs": sorted(p.name for p in (root / name).iterdir())}
+                "ckpt_dirs": sorted(p.name for p in (root / name).iterdir())
+                if extra else []}
+            if step.graphed:
+                graph_launches[name] = dict(step.graph.launches)
+            leaves = {p: t.detach().clone() for p, t in module.tree_paths(
+                {"params": step.params, "opt": step.opt})
+                if name != "failed"}
             if name == "uninterrupted":
-                runs[name]["not_past_decay"] = rec["not_past_decay"]
-                runs[name]["leaves_checked_past_decay"] = rec["leaves_checked"]
-            del rec
+                final = leaves
+            elif name == "eager":
+                run["attn_grad_norms"] = rec["attn_grad_norms"]
+                run["not_past_decay"] = rec["not_past_decay"]
+                run["leaves_checked_past_decay"] = rec["leaves_checked"]
+                run["leaves_differing_from_graphed"] = [
+                    p for p, t in leaves.items()
+                    if final is None or p not in final
+                    or t.dtype != final[p].dtype
+                    or not torch.equal(t, final[p])]
+                run["leaves"] = len(leaves)
+                final = None
+            del leaves
+            if name != "failed":
+                profiles["graphed" if jit else "eager"] = \
+                    profile_train_step(torch, step, dev)
+            del rec, step
+            gc.collect()
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {k: v for k, v in ops.launch_counts().items() if v}
-    clean, failed = runs["uninterrupted"], runs["failed"]
+    clean, failed, eager = (runs[k] for k in ("uninterrupted", "failed",
+                                              "eager"))
     # the failed run's steps 0-3, then 3-5 again from step 3's checkpoint
     after = failed["steps"][LM_TRAIN_FAIL_AT:]
     want = clean["steps"][LM_TRAIN_CKPT_EVERY:]
     rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
            for a, b in zip(after, want)]
+    metric_keys = ("loss", "grad_norm", "lr")
+    graph_vs_eager = [
+        f"step {i} {k}: {g[k]!r} != {e[k]!r}"
+        for i, (g, e) in enumerate(zip(clean["steps"], eager["steps"]))
+        for k in metric_keys if g[k] != e[k]]
     out = {"config": f"{LM_TRAIN_ARCH} at full width and depth, f32 params, "
                      "bf16 compute, remat; train.main "
                      + " ".join(LM_TRAIN_ARGS),
            "runs": runs, "launches": launches,
+           "graph_launches": graph_launches,
            "losses_after_restore_rel_err": rel,
            "losses_after_restore_bit_for_bit": all(
-               a["loss"] == b["loss"] for a, b in zip(after, want))}
+               a["loss"] == b["loss"] for a, b in zip(after, want)),
+           "graph_bit_for_bit_with_eager": not graph_vs_eager
+           and not eager["leaves_differing_from_graphed"],
+           "profile_step": profiles,
+           "graphed_over_eager_ms": (clean["ms_per_step"]
+                                     / eager["ms_per_step"])}
     for name, r in runs.items():
         check(all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
                   for s in r["steps"]),
               f"{name}: a loss or gradient norm is not finite: {r['steps']}")
-        check(all(v > 0 for n in r["attn_grad_norms"] for v in n.values()),
-              f"{name}: a zero attention gradient: {r['attn_grad_norms']}")
         check(not any(d.endswith(".tmp") for d in r["ckpt_dirs"])
               and len(r["ckpt_dirs"]) <= LM_TRAIN_KEEP,
               f"{name}: checkpoint directories left: {r['ckpt_dirs']}")
-    check(len(clean["steps"]) == LM_TRAIN_STEPS
-          and clean["result"] == {"restarts": 0, "completed": True},
-          f"uninterrupted run: {clean['result']}, {len(clean['steps'])} "
-          "steps")
+    for name in ("uninterrupted", "failed"):
+        check(runs[name]["captures"] == ["the LM training step"],
+              f"{name}: captures {runs[name]['captures']} (want one a "
+              "train.main run, the restart included)")
+    check(not eager["captures"], f"the eager run captured: {eager}")
+    check(all(len(r["steps"]) == LM_TRAIN_STEPS
+              and r["result"] == {"restarts": 0, "completed": True}
+              for r in (clean, eager)),
+          f"uninterrupted runs: {clean['result']}, {eager['result']}, "
+          f"{len(clean['steps'])} and {len(eager['steps'])} steps")
+    check(not graph_vs_eager,
+          f"graphed training differs from eager: {graph_vs_eager[:8]}")
+    check(eager["leaves"] > 0 and not eager["leaves_differing_from_graphed"],
+          "graphed training's final leaves differ from eager: "
+          f"{eager['leaves_differing_from_graphed'][:8]}")
     check(clean["steps"][-1]["loss"] < clean["steps"][0]["loss"],
           f"the loss did not fall: {clean['steps']}")
-    check(not clean["not_past_decay"],
+    check(all(v > 0 for n in eager["attn_grad_norms"] for v in n.values())
+          and len(eager["attn_grad_norms"]) == LM_TRAIN_STEPS,
+          f"a zero attention gradient: {eager['attn_grad_norms']}")
+    check(not eager["not_past_decay"],
           "the first update moved these (leaf, layer) only as weight decay "
-          f"does: {clean['not_past_decay']}")
-    check(all(launches.get(k, 0) == 0 for k in FLASH_KERNELS),
-          f"training launched the flash kernel: {launches}")
+          f"does: {eager['not_past_decay']}")
+    check(all(launches.get(k, 0) == 0 and g.get(k, 0) == 0
+              for k in FLASH_KERNELS for g in graph_launches.values()),
+          f"training launched the flash kernel: {launches}, in its graphs "
+          f"{graph_launches}")
+    calls = profiles["graphed"]["runtime_calls"]
+    check(calls.get("cudaGraphLaunch") == 1 and not any(
+        k.startswith(("cudaLaunch", "cuLaunch")) for k in calls),
+        f"a graphed training call: runtime calls {calls} (want one "
+        f"cudaGraphLaunch and no kernel launch)")
     check(failed["result"] == {"restarts": 1, "completed": True}
           and len(failed["restore_lines"]) == 1
           and [r["step"] for r in failed["restores"]] == [LM_TRAIN_CKPT_EVERY]
@@ -3594,37 +3708,38 @@ def lm_train_phase(torch, dev) -> dict:
           f"failed run: {failed['result']}, {failed['restore_lines']}, "
           f"{failed['restores']}")
     check(len(after) == len(want) == LM_TRAIN_STEPS - LM_TRAIN_CKPT_EVERY
-          and max(rel) <= LM_TRAIN_RESTORE_RTOL,
+          and out["losses_after_restore_bit_for_bit"],
           f"losses after the restore: {after} against {want}")
-    out["profile_step"] = profile_train_step(torch, dev)
+    for key in ("peak_over_start_mib", "peak_reserved_over_start_mib"):
+        check(failed[key] <= clean[key] + LM_TRAIN_PEAK_MARGIN_MIB,
+              f"the restarted run's {key} {failed[key]:.0f} exceeds the "
+              f"uninterrupted run's {clean[key]:.0f} by more than "
+              f"{LM_TRAIN_PEAK_MARGIN_MIB}")
     out["reduced_vs_cpu"] = train_lm_reduced_against_cpu(torch, dev)
     return out
 
 
-def profile_train_step(torch, dev) -> dict:
-    """Where a full-width train step's time goes: the phase's step
-    (smollm-360m, batch 8 x 2048 in microbatches of 4, remat, AdamW) from
-    a seeded ``init_model`` on one synthetic batch, under ``profile_fn``
-    (device ms by kernel, idle share, peak memory)."""
+def profile_train_step(torch, step, dev) -> dict:
+    """Where a full-width train step's time goes: ``train.main``'s own
+    step after its run (graphed or eager; the phase's smollm-360m, batch 8
+    x 2048 in microbatches of 4, remat, AdamW) on one synthetic batch of
+    the run's shapes, under ``profile_fn`` (device ms by kernel, launches,
+    idle share, peak memory), and the CUDA runtime calls of one call
+    (``runtime_calls``). Each call steps the step's own state on."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, synthetic_lm_batch
-    from repro_torch.launch import steps
-    from repro_torch.nn import transformer as T
-    from repro_torch.optim import adamw
     cfg = get_config(LM_TRAIN_ARCH)
-    ts = steps.TrainSettings(microbatch=4, opt=adamw.OptConfig(
-        peak_lr=3e-4, warmup_steps=2, decay_steps=LM_TRAIN_STEPS))
-    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg,
-                          device=dev)
-    opt = adamw.init(params, steps.opt_config(cfg, ts))
     raw = synthetic_lm_batch(DataConfig(seq=LM_TRAIN_SEQ,
                                         global_batch=LM_TRAIN_BATCH,
                                         vocab=cfg.padded_vocab, seed=SEED), 0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
-    step = steps.make_train_step(cfg, ts)
-    prof = profile_fn(torch, lambda: step(params, opt, batch), 1)
-    del params, opt, batch
-    torch.cuda.empty_cache()
+
+    def call():
+        step(step.params, step.opt, batch)
+
+    prof = profile_fn(torch, call, 1)
+    prof["reserved_mib"] = torch.cuda.memory_reserved() / 2 ** 20
+    prof["runtime_calls"] = runtime_calls(torch, call)
     return prof
 
 
@@ -4119,12 +4234,16 @@ def sharded_engine(torch, dev, mesh, cfg, params) -> dict:
 
 def sharded_train(torch, dev, mesh) -> dict:
     """smollm-360m at full width and depth: SHARDED_TRAIN_STEPS steps of
-    ``jit_train_step`` on the mesh and of ``make_train_step`` from the
+    ``make_train_step``, of ``jit_train_step`` on the mesh (the eager
+    mesh step) and of ``graph_jit_train_step`` (the mesh step as one CUDA
+    graph over the tree it owns, captured at the first step) from the
     same seeded params, moments and batches (8 x 2048 in microbatches of
-    4). Gates: the loss, the gradient norm, the learning rate and every
-    updated param and moment bit for bit. Then the sharded run's tree
-    saved and restored elastically onto the mesh (``restore(...,
-    shardings=...)``): bit for bit, each leaf a DTensor."""
+    4), ms a step of each (the graphed step's first holds the capture).
+    Gates: the loss, the gradient norm, the learning rate and every
+    updated param and moment bit for bit across the three; the graphed
+    step replays one graph. Then the eager sharded run's tree saved and
+    restored elastically onto the mesh (``restore(..., shardings=...)``):
+    bit for bit, each leaf a DTensor."""
     import shutil
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs import get_config
@@ -4171,7 +4290,31 @@ def sharded_train(torch, dev, mesh) -> dict:
     check(not differ and len(got) == len(want),
           f"sharded train step: leaves differ from the unsharded step's: "
           f"{differ[:8]}")
-    del p1, o1, want
+    # the same steps through the graphed mesh step, which takes the
+    # seeded tree as its own (donated: nothing reads it after)
+    graphed, _, _ = steps.graph_jit_train_step(cfg, mesh, ts, shapes)
+    p3, o3, ms["graphed"] = params, opt, []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p3, o3, m3 = graphed(p3, o3, b)
+        torch.cuda.synchronize()
+        ms["graphed"].append((time.perf_counter() - t0) * 1e3)
+        for k, v in m3.items():
+            rows[i][k].append(float(rules.full_value(v)))
+        check(all(r[2] == r[0] for r in rows[i].values()),
+              f"graphed sharded train step {i}: metrics {rows[i]}")
+    check(graphed.graphed and graphed.graph.replays
+          == SHARDED_TRAIN_STEPS - 1,
+          "the graphed sharded train step did not replay one graph")
+    third = dict(tree_leaves({"p": p3, "o": o3}))
+    differ = [k for k in want if not (
+        torch.equal(want[k], third[k].to_local())
+        and torch.equal(got[k].to_local(), third[k].to_local()))]
+    check(not differ and len(third) == len(want),
+          f"graphed sharded train step: leaves differ from the unsharded and "
+          f"the eager sharded step's: {differ[:8]}")
+    del p1, o1, want, graphed, p3, o3, third, params, opt
     torch.cuda.empty_cache()
 
     root = ROOT / "build" / "sharded_ckpt"
@@ -4198,7 +4341,8 @@ def sharded_train(torch, dev, mesh) -> dict:
     return {"config": f"{LM_TRAIN_ARCH} at full width and depth, f32 params, "
                       f"bf16 compute, remat; batch {LM_TRAIN_BATCH} x "
                       f"{LM_TRAIN_SEQ} in microbatches of 4",
-            "steps": rows, "metrics_bit_for_bit": True,
+            "steps": rows, "step_columns": ["plain", "sharded", "graphed"],
+            "metrics_bit_for_bit": True,
             "leaves_bit_for_bit": len(got), "ms_per_step": ms,
             "checkpoint": {"leaves": len(back), "save_s": save_s,
                            "restore_s": restore_s, "bit_for_bit": True}}
@@ -4688,19 +4832,21 @@ def main() -> int:
         "serve_events", "serve_lm", "engine_model", "train_lm_100m")}}))
     lt = report["lm_train"]
     print(json.dumps({"lm_train": {
-        **{k: lt[k] for k in ("config", "launches",
+        **{k: lt[k] for k in ("config", "launches", "graph_launches",
                               "losses_after_restore_rel_err",
                               "losses_after_restore_bit_for_bit",
-                              "reduced_vs_cpu")},
+                              "graph_bit_for_bit_with_eager",
+                              "graphed_over_eager_ms", "reduced_vs_cpu")},
         "runs": {name: {k: v for k, v in r.items()
                         if k not in ("attn_grad_norms", "not_past_decay")}
                  for name, r in lt["runs"].items()},
-        "attn_grad_norms_step0": lt["runs"]["uninterrupted"][
-            "attn_grad_norms"][0],
-        "profile_step": {k: v for k, v in lt["profile_step"].items()
-                         if k != "by_kernel"},
+        "attn_grad_norms_step0": lt["runs"]["eager"]["attn_grad_norms"][0],
+        "profile_step": {name: {k: v for k, v in p.items()
+                                if k != "by_kernel"}
+                         for name, p in lt["profile_step"].items()},
         "top_kernels": [(k["kernel"][:48], round(k["ms_per_step"], 2))
-                        for k in lt["profile_step"]["by_kernel"][:10]]}}))
+                        for k in lt["profile_step"]["graphed"]["by_kernel"][
+                            :10]]}}))
     ed = report["lm_encdec"]
     print(json.dumps({"lm_encdec": {
         **{k: v for k, v in ed.items() if not k.startswith("profile")},

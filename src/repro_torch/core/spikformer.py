@@ -19,7 +19,8 @@ import math
 
 import torch
 
-from ..device import GraphCapturer, StepGraph, resolve_device
+from ..device import TrainStep as OwnedStateStep, resolve_device
+from ..nn.module import map_with_path
 from ..optim import adamw
 from .lif import bn_apply, bn_init, bn_train_apply, fold_bn, tflif
 from .spike import rate_decode
@@ -216,94 +217,24 @@ def train_step(params: dict, opt: dict, batch: dict, cfg: SpikformerConfig,
 TRAIN_METRICS = ("loss", "accuracy", "grad_norm", "lr")
 
 
-def _owned(tree, device):
-    """A copy of ``tree`` on ``device`` that shares no storage with it."""
-    if isinstance(tree, dict):
-        return {k: _owned(v, device) for k, v in tree.items()}
-    return tree.detach().to(device, copy=True)
+class TrainStep(OwnedStateStep):
+    """``train_step`` over state the step owns (``device.TrainStep``):
+    params, AdamW moments, the step counter and the BN running stats live
+    in tensors that never move, and each call writes the step's new values
+    into them. ``graphed`` (``make_train_step(jit=True)`` on the card):
+    one CUDA graph replays the whole step (forward, BPTT, AdamW, the BN
+    merge), as the reference jits it; else the same body runs eagerly.
 
-
-def _write(dst, src) -> None:
-    """Every leaf of ``src`` copied into the same leaf of ``dst``."""
-    if isinstance(dst, dict):
-        for k in dst:
-            _write(dst[k], src[k])
-    else:
-        dst.copy_(src)
-
-
-class TrainStep:
-    """``train_step`` over state the step owns: params, AdamW moments, the
-    step counter and the BN running stats live in tensors that never move
-    (``params``, ``opt``), and each call writes the step's new values into
-    them. ``graphed`` (``make_train_step(jit=True)`` on the card): one
-    CUDA graph replays the whole step (forward, BPTT, AdamW, the BN merge),
-    as the reference jits it; else the same body runs eagerly.
-
-    A call loads a batch (uint8 images, integer labels; on the host or the
-    card) and returns the 0-d f32 ``loss``, ``accuracy``, ``grad_norm`` and
-    ``lr`` of the step on the device, unread: static tensors that the next
-    call rewrites. ``state()`` hands back a copy of the params and the
-    optimizer state.
-
-    The first graphed call captures the graph through a
-    ``device.GraphCapturer`` (a side stream, a pool of its own, the
-    collector held off, thread-local capture; a capture that fails raises
-    and names the op). The capture's warm-up runs the body once eagerly on
-    the real state and batch: that run is the first step, and its metrics
-    are that call's result; the recording runs nothing, and every later
-    call replays. The learning rate and the bias corrections come from the
-    device's step counter, so a replay reads nothing on the host."""
-
-    def __init__(self, params: dict, opt: dict, cfg: SpikformerConfig,
-                 opt_cfg: adamw.OptConfig, *, device: torch.device,
-                 graphed: bool):
-        self.cfg, self.opt_cfg, self.device = cfg, opt_cfg, device
-        self.params = _owned(params, device)
-        self.opt = _owned(opt, device)
-        self.metrics = {k: torch.zeros((), dtype=torch.float32,
-                                       device=device) for k in TRAIN_METRICS}
-        self.graphed = graphed
-        self.graph = None           # a device.StepGraph once captured
-        self._capture = GraphCapturer(device) if graphed else None
-
-    def body(self, image: torch.Tensor, label: torch.Tensor) -> dict:
-        """One step in place on the owned state. ``train_step`` computes
-        every new leaf before the first one is written: the BN EMA and
-        AdamW read the old params, AdamW the old moments and counter.
-        Returns the static metric tensors. No host read and no
-        host-to-device copy: a CUDA graph records it."""
-        params, opt, loss, acc, m = train_step(
-            self.params, self.opt, {"image": image, "label": label},
-            self.cfg, self.opt_cfg)
-        _write(self.params, params)
-        _write(self.opt, opt)
-        for k, v in zip(TRAIN_METRICS, (loss, acc, m["grad_norm"], m["lr"])):
-            self.metrics[k].copy_(v)
-        return self.metrics
+    Called as the port's examples call it: ``step(batch)`` loads a batch
+    (uint8 images, integer labels; on the host or the card) and returns
+    the 0-d f32 ``loss``, ``accuracy``, ``grad_norm`` and ``lr`` of the
+    step on the device, unread. ``state()`` hands back a copy of the
+    params and the optimizer state. The learning rate and the bias
+    corrections come from the device's step counter, so a replay reads
+    nothing on the host."""
 
     def __call__(self, batch: dict) -> dict:
-        image, label = (torch.as_tensor(batch[k]) for k in ("image", "label"))
-        if not self.graphed:
-            return self.body(image.to(self.device), label.to(self.device))
-        if self.graph is None:
-            static = (image.to(self.device, copy=True),
-                      label.to(self.device, copy=True))
-            graph, out, launches = self._capture(lambda: self.body(*static),
-                                                 "the training step")
-            self.graph = StepGraph(graph, static, out, launches)
-            return self.metrics
-        for x, s in zip((image, label), self.graph.static_in):
-            if x.shape != s.shape or x.dtype != s.dtype:
-                raise ValueError(
-                    f"the graphed step was captured for {tuple(s.shape)} "
-                    f"{s.dtype}, not {tuple(x.shape)} {x.dtype}")
-        return self.graph.replay((image, label))
-
-    def state(self) -> tuple:
-        """``(params, opt)``: a copy of the current state."""
-        return _owned(self.params, self.device), _owned(self.opt,
-                                                        self.device)
+        return self.run(batch)
 
 
 def make_train_step(params: dict, opt: dict, cfg: SpikformerConfig,
@@ -314,8 +245,20 @@ def make_train_step(params: dict, opt: dict, cfg: SpikformerConfig,
     is the card unless the caller asks for the CPU; ``params`` and ``opt``
     (``adamw.init``'s tree) are copied there and left as they are."""
     device = resolve_device(device)
-    return TrainStep(params, opt, cfg, opt_cfg, device=device,
-                     graphed=jit and device.type == "cuda")
+
+    def fn(params, opt, batch):
+        params, opt, loss, acc, m = train_step(params, opt, batch, cfg,
+                                               opt_cfg)
+        return params, opt, {"loss": loss, "accuracy": acc, **m}
+
+    def owned(_, t):
+        return t.detach().to(device, copy=True)
+
+    step = TrainStep(fn, TRAIN_METRICS, ("image", "label"), device=device,
+                     graphed=jit and device.type == "cuda",
+                     what="the training step")
+    step.own(map_with_path(owned, params), map_with_path(owned, opt))
+    return step
 
 
 def fold_inference_params(params: dict, cfg: SpikformerConfig) -> dict:

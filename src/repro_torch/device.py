@@ -2,8 +2,9 @@
 the CPU), the constants a step keeps on its device, the CUDA streams its
 serving threads and graph captures borrow, and the CUDA graph capture
 that the Spikformer step (``infer/compile.py:GraphedStep``), the LM
-engine (``launch/serve.py:Engine``) and the Spikformer training step
-(``core/spikformer.py:TrainStep``) share."""
+engine (``launch/serve.py:Engine``) and the training steps share, with
+the training step over state it owns (``TrainStep``: the Spikformer's,
+``core/spikformer.py``, and the LM's, ``launch/steps.py``)."""
 from __future__ import annotations
 
 import contextlib
@@ -13,6 +14,8 @@ import traceback
 import weakref
 
 import torch
+
+from .nn.module import copy_tree, map_with_path, tree_paths
 
 
 def resolve_device(device=None) -> torch.device:
@@ -271,3 +274,155 @@ def graph_launch_counts(graphs) -> dict:
         for name, n in g.launches.items():
             counts[name] = counts.get(name, 0) + n * g.replays
     return counts
+
+
+# ---------------------------------------------------------------------------
+# a training step over state it owns
+# ---------------------------------------------------------------------------
+
+def _signature(tree) -> list:
+    """Each leaf's path, shape and dtype."""
+    return [(p, tuple(t.shape), t.dtype) for p, t in tree_paths(tree)]
+
+
+class TrainStep:
+    """A functional training step ``fn(params, opt, batch) -> (params,
+    opt, metrics)`` as the reference jits it (``jax.jit(...,
+    donate_argnums=(0, 1))``): over params and optimizer state that the
+    step owns, in tensors that never move. Each step writes its new values
+    into them in place; ``fn`` computes every new leaf before the first
+    one is written. The metrics (``metrics``, names of ``fn``'s scalar
+    outputs) come back as static 0-d f32 tensors that the next step
+    rewrites: read them before it.
+
+    ``step(params, opt, batch) -> (params, opt, metrics)`` is the
+    reference's calling convention. The first call takes ``params`` and
+    ``opt`` as the step's own (donated: the caller uses them again only
+    through what the step returns); a call with the trees the step
+    returned runs on them as they are; a call with other trees of the
+    same leaves (a restored checkpoint) copies them in first. ``own``
+    hands the step its state up front, ``run(batch)`` steps it and
+    returns the metrics, ``state()`` returns a copy of it.
+
+    ``graphed`` (the card): the first step captures the whole step as one
+    CUDA graph through a ``GraphCapturer`` (``what`` names it; a capture
+    that fails raises and names the op, and nothing runs eagerly in its
+    place). The capture's warm-up runs the body once eagerly on the real
+    state and batch: that run is the first step, and its metrics are that
+    call's result; every later step replays. Else the same body runs
+    eagerly.
+
+    The batch is a dict of ``batch_keys`` (tensors on the host or the
+    device, or arrays); the keys, shapes and dtypes of the first are
+    fixed, and a batch of other ones raises. The graph reads it from
+    static tensors in ``batch_keys`` order (contiguous copies, an expanded
+    view's too), loaded in place each step (``StepGraph.load``).
+
+    ``shardings`` (a mesh): ``(params, opt, batch, metric)``
+    ``sharding.rules.NamedSharding``s (trees for the first three, one for
+    every metric). The owned state is placed once by them, and each batch
+    is placed into DTensors before it is loaded, outside the graph."""
+
+    def __init__(self, fn, metrics, batch_keys, *, device, graphed: bool,
+                 what: str, shardings=None):
+        self.fn, self.metric_names = fn, tuple(metrics)
+        self.batch_keys = tuple(batch_keys)
+        self.device, self.graphed, self.what = device, graphed, what
+        self.shardings = shardings
+        self.params = self.opt = self.metrics = None
+        self.batch_spec = None          # [(key, shape, dtype)] of the batch
+        self.graph = None               # a StepGraph once captured
+        self._capture = GraphCapturer(device) if graphed else None
+
+    def __call__(self, params, opt, batch: dict) -> tuple:
+        if self.params is None:
+            self.own(params, opt)
+        elif params is not self.params or opt is not self.opt:
+            self._take(params, opt)
+        self.run(batch)
+        return self.params, self.opt, self.metrics
+
+    def own(self, params, opt) -> None:
+        """``params`` and ``opt`` become the step's state (placed by the
+        shardings on a mesh)."""
+        params, opt = self._placed(params, opt)
+        metrics = {k: torch.zeros((), dtype=torch.float32,
+                                  device=self.device)
+                   for k in self.metric_names}
+        if self.shardings is not None:
+            from .sharding import rules
+            metrics = {k: rules.place(v, self.shardings[3])
+                       for k, v in metrics.items()}
+        self.params, self.opt, self.metrics = params, opt, metrics
+
+    def run(self, batch: dict) -> dict:
+        """One step on the owned state; returns the static metrics."""
+        batch = self._batch(batch)
+        if not self.graphed:
+            return self.body(batch)
+        if self.graph is None:
+            static = {k: t.to(self.device).clone(
+                memory_format=torch.contiguous_format)
+                for k, t in batch.items()}
+            graph, out, launches = self._capture(lambda: self.body(static),
+                                                 self.what)
+            self.graph = StepGraph(graph, tuple(static.values()), out,
+                                   launches)
+            return self.metrics
+        return self.graph.replay(tuple(batch.values()))
+
+    def body(self, batch: dict) -> dict:
+        """One step in place on the owned state, ``batch`` on the device.
+        Returns the static metric tensors. No host read and no
+        host-to-device copy: a CUDA graph records it."""
+        params, opt, metrics = self.fn(self.params, self.opt, batch)
+        copy_tree(self.params, params)
+        copy_tree(self.opt, opt)
+        for k in self.metric_names:
+            self.metrics[k].copy_(metrics[k])
+        return self.metrics
+
+    def state(self) -> tuple:
+        """``(params, opt)``: a copy of the current state."""
+        def copy(_, t):
+            return t.detach().clone()
+        return map_with_path(copy, self.params), map_with_path(copy,
+                                                               self.opt)
+
+    def _batch(self, batch: dict) -> dict:
+        """The batch's tensors by ``batch_keys``, checked against the first
+        batch's; placed by the batch shardings on a mesh."""
+        other = sorted(set(batch) - set(self.batch_keys))
+        if other:
+            raise ValueError(f"the train step takes no batch key {other}")
+        batch = {k: torch.as_tensor(batch[k]) for k in self.batch_keys
+                 if k in batch}
+        spec = [(k, tuple(t.shape), t.dtype) for k, t in batch.items()]
+        if self.batch_spec is None:
+            self.batch_spec = spec
+        elif spec != self.batch_spec:
+            raise ValueError(f"the train step was built for a batch of "
+                             f"{self.batch_spec}, not {spec}")
+        if self.shardings is not None:
+            from .sharding import rules
+            return {k: rules.place(t.to(self.device), self.shardings[2][k])
+                    for k, t in batch.items()}
+        if self.graphed:        # a replay loads host values itself
+            return batch
+        return {k: t.to(self.device) for k, t in batch.items()}
+
+    def _placed(self, params, opt) -> tuple:
+        if self.shardings is None:
+            return params, opt
+        from .sharding import rules
+        return (rules.place_tree(params, self.shardings[0]),
+                rules.place_tree(opt, self.shardings[1]))
+
+    def _take(self, params, opt) -> None:
+        """Other trees of the same leaves copied into the step's own."""
+        params, opt = self._placed(params, opt)
+        for mine, theirs in ((self.params, params), (self.opt, opt)):
+            if _signature(theirs) != _signature(mine):
+                raise ValueError("the train step's state has other leaves, "
+                                 "shapes or dtypes than the trees passed in")
+            copy_tree(mine, theirs)

@@ -8,6 +8,17 @@ logits only ever exist for one microbatch at a time. Gradients come from
 runs ``lm_loss(..., flash=False)``: the reference's chunked softmax, its
 own training formulation, since the flash kernel has no backward.
 
+``make_train_step`` is the functional step. ``graph_train_step`` (one
+rank) and ``graph_jit_train_step`` (a mesh) are the step as the reference
+jits it (``jax.jit(..., donate_argnums=(0, 1))``): a ``device.TrainStep``
+that takes the params and optimizer state of its first call as its own
+(donation), writes each step's new values into them in place, and on the
+card records the whole step (forward, backward, AdamW, compression) as one
+CUDA graph that every later call replays; on the CPU or a gloo mesh the
+same in-place body runs eagerly. The mesh's graph has run on the (1, 1)
+NCCL mesh only, where every redistribution is the identity and no
+collective is recorded.
+
 ``jit_train_step``, ``jit_serve_step`` and ``jit_prefill`` are the
 reference's sharded builders: each returns the step, its abstract inputs
 (meta tensors) and its input shardings (``sharding.rules``). The step
@@ -17,9 +28,9 @@ eagerly on them with the mesh active (``sharding.set_mesh``: the model's
 ``shard_hint`` calls pin the reference's activation layouts) and returns
 its outputs in the reference's output layouts. Plain tensors that the
 model makes on the way (positions, masks) count as replicated
-(``implicit_replication``). Nothing is compiled: the reference's ``jit``
-is the XLA program, here DTensor dispatch runs op by op. Donation
-(``donate_argnums``) has no counterpart: the inputs stay valid.
+(``implicit_replication``). These three are not compiled: DTensor
+dispatch runs op by op, and their inputs stay valid (no donation);
+``graph_jit_train_step`` is the train step's graphed form.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from ..device import TrainStep, resolve_device
 from ..nn import transformer as T
 from ..nn.module import map_with_path, tree_paths
 from ..optim import adamw
@@ -144,6 +156,27 @@ def _constrain(g, like):
     return g.redistribute(like.device_mesh, like.placements)
 
 
+TRAIN_METRICS = ("loss", "grad_norm", "lr")
+# a batch's keys in the order of the graph's static inputs: every
+# family's tokens and labels, a VLM's image embeddings and M-RoPE
+# positions, an encoder-decoder's frames
+BATCH_KEYS = ("tokens", "labels", "image_embeds", "mrope_positions",
+              "frames")
+
+
+def graph_train_step(cfg, ts: TrainSettings, *, device=None,
+                     jit: bool = True) -> TrainStep:
+    """``make_train_step`` as the reference jits it, on one rank: a
+    ``device.TrainStep`` on ``device`` (the card unless the caller asks
+    for the CPU), one CUDA graph on the card with ``jit``, eager with
+    ``jit=False`` or on the CPU. The batch is a dict of ``BATCH_KEYS``
+    (the family's), the metrics ``TRAIN_METRICS``."""
+    device = resolve_device(device)
+    return TrainStep(make_train_step(cfg, ts), TRAIN_METRICS, BATCH_KEYS,
+                     device=device, graphed=jit and device.type == "cuda",
+                     what="the LM training step")
+
+
 def make_prefill(cfg, cache_len: int | None = None):
     """``prefill(params, batch) -> (logits, cache)``: a fresh bf16 cache
     the prompt's length (or ``cache_len`` slots, room for the decode
@@ -246,6 +279,25 @@ def jit_train_step(cfg, mesh, ts: TrainSettings, batch_shapes: dict):
         return new_p, new_o, metrics
 
     return step, (p_sh, o_sh, batch_shapes), in_sh
+
+
+def graph_jit_train_step(cfg, mesh, ts: TrainSettings, batch_shapes: dict):
+    """``jit_train_step`` as the reference jits it: a ``device.TrainStep``
+    over the mesh's params and moments, placed once by the input
+    shardings; one CUDA graph on a NCCL mesh, eager on gloo ranks (which
+    cannot capture). The card has run it on the (1, 1) NCCL mesh only,
+    where no collective is recorded. Returns ``(step, (params_shapes,
+    opt_shapes, batch_shapes), in_shardings)`` as ``jit_train_step``
+    does."""
+    fn, shapes, in_sh = jit_train_step(cfg, mesh, ts, batch_shapes)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device(
+                  mesh.device_type))
+    step = TrainStep(fn, TRAIN_METRICS, BATCH_KEYS, device=device,
+                     graphed=device.type == "cuda",
+                     what="the LM training step",
+                     shardings=(*in_sh, rules.NamedSharding(mesh, rules.P())))
+    return step, shapes, in_sh
 
 
 def jit_serve_step(cfg, mesh, cache_shapes, batch_shapes):

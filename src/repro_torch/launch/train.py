@@ -6,8 +6,21 @@ token-file data with the full loop: the microbatched train step
 guard, straggler bookkeeping and a metrics log, on the card unless
 ``--device`` names another.
 
+The step runs as the reference jits it (``steps.graph_train_step``): on
+the card the whole step (forward, backward, AdamW) is one CUDA graph,
+captured at the first step and replayed at every later one, the params
+and moments the step's own tensors, written in place (the reference's
+donation); a restart restores the checkpoint into those tensors (leaf
+by leaf from the host on one rank, so the card never holds a second copy
+of the state) and replays the same graph. A capture that fails raises
+and names the op. With ``--device cpu`` the same in-place step runs
+eagerly.
+
 ``--mesh DATA,MODEL`` shards the run as the reference's ``main`` does:
-the step is ``steps.jit_train_step`` over ``make_cpu_mesh(DATA, MODEL)``
+the step is ``steps.graph_jit_train_step`` (``jit_train_step`` over
+state it owns: one CUDA graph on a NCCL mesh, run on the card on the
+(1, 1) mesh only, where no collective is recorded; eager on gloo ranks,
+which cannot capture) over ``make_cpu_mesh(DATA, MODEL)``
 (a ``DeviceMesh`` over the caller's process group of DATA x MODEL ranks,
 or one made from a launcher's environment, ``torchrun``'s ``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``), params and moments
@@ -15,7 +28,7 @@ are placed by ``rules.param_shardings`` / ``opt_state_shardings`` and a
 restart restores through them, each rank reading only its shard of each
 leaf. Every rank draws the full initial tree before it keeps its shard:
 a sharded init is not ported. Rank 0 prints. On one rank (the default)
-the step is ``make_train_step`` on plain tensors: a mesh of one rank
+the step is ``graph_train_step`` on plain tensors: a mesh of one rank
 would make every redistribution the identity and compute the same
 values, at DTensor's cost of dispatch on every op. The encoder-decoder
 and VLM families train on the synthetic stream plus the reference's stub
@@ -53,6 +66,7 @@ from ..configs.base import get_config
 from ..data.pipeline import DataConfig, DataPipeline
 from ..device import resolve_device
 from ..nn import transformer as T
+from ..nn.module import copy_tree
 from ..optim import adamw
 from ..optim.compression import ef_init
 from ..runtime.fault_tolerance import (LossGuard, NodeFailure, RestartPolicy,
@@ -192,9 +206,9 @@ def _main(args, cfg, device, mesh):
         opt=adamw.OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                             decay_steps=max(args.steps, 2 * args.warmup)))
     if mesh is None:
-        step_fn, in_sh = steps.make_train_step(cfg, ts), None
+        step_fn, in_sh = steps.graph_train_step(cfg, ts, device=device), None
     else:
-        step_fn, _, in_sh = steps.jit_train_step(
+        step_fn, _, in_sh = steps.graph_jit_train_step(
             cfg, mesh, ts, batch_shapes(cfg, args.global_batch, args.seq))
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
@@ -202,6 +216,7 @@ def _main(args, cfg, device, mesh):
     straggler = StragglerDetector(n_nodes=1)
     metrics_log: list[dict] = []
     injected = {"done": False}
+    live: dict = {}     # the trees the step returned: its own tensors
 
     def make_state(restore):
         if (restore is not None or args.resume) and ckpt is not None:
@@ -213,8 +228,13 @@ def _main(args, cfg, device, mesh):
                 skel_o = steps.abstract_opt_state(cfg, skel_p, ts)
                 tree, extra = ckpt.restore(
                     skeleton={"params": skel_p, "opt": skel_o},
-                    device=device, shardings=None if in_sh is None else
+                    device="cpu" if live else device,
+                    shardings=None if in_sh is None else
                     {"params": in_sh[0], "opt": in_sh[1]})
+                if live:
+                    # into the step's own tensors, which its graph reads
+                    copy_tree(live, tree)
+                    tree = live
                 data = DataPipeline.restore(dcfg, extra["data"],
                                             device=device)
                 say(f"[restore] step {extra['step']} from {ckpt.dir}")
@@ -240,6 +260,7 @@ def _main(args, cfg, device, mesh):
             t0 = time.time()
             batch = augment(next(data), cfg)
             params, opt_state, m = step_fn(params, opt_state, batch)
+            live.update(params=params, opt=opt_state)
             m = {k: rules.full_value(v) for k, v in m.items()}
             loss = float(m["loss"])
             dt = time.time() - t0

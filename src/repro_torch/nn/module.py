@@ -153,6 +153,16 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: Params) -> Params:
     return walk(tree, ())
 
 
+def copy_tree(dst: Params, src: Params) -> None:
+    """Every leaf of ``src`` copied in place into the same leaf of ``dst``
+    (a tree of the same paths; a leaf that already is ``dst``'s is left
+    as it is)."""
+    new = dict(tree_paths(src))
+    for p, t in tree_paths(dst):
+        if new[p] is not t:
+            t.copy_(new[p])
+
+
 def cast_tree(tree: Params, dtype) -> Params:
     """Floating leaves cast to ``dtype``; the others kept."""
     return map_with_path(

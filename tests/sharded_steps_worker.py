@@ -222,6 +222,7 @@ def run(rank: int, d: pathlib.Path):
                                        module.tree_paths(ref_cache)))
 
     res["rows"] = rows_layout(d, mesh, batch, ts)
+    res["graph_body"] = graph_body_runs(mesh, batch, ts)
     res["train_main"] = train_main_runs(d, rank)
 
     # the other families, port against port in f32 compute, from the
@@ -339,6 +340,54 @@ def rows_layout(d, mesh, batch, ts) -> dict:
             "calls": calls,
             "max_diff": float((rules.full_value(logits) - want).abs().max())}
     return out
+
+
+def graph_body_runs(mesh, batch, ts) -> dict:
+    """``graph_jit_train_step`` on the (2, 4) gloo mesh (its in-place
+    body, eagerly: gloo ranks cannot capture) against the functional
+    ``jit_train_step``, reduced smollm from the port's seeded init, three
+    steps on three batches: each step's metrics (full values), whether
+    every rank's shard of every param and moment is equal at the end and
+    whether the owned local tensors kept their addresses."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.nn import module
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+
+    cfg = get_config("smollm-360m").reduced(**REDUCED)
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batch.items()}
+
+    def state():
+        params = T.init_model(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+        return params, adamw.init(params, steps.opt_config(cfg, ts))
+
+    fn = steps.jit_train_step(cfg, mesh, ts, shapes)[0]
+    step, _, _ = steps.graph_jit_train_step(cfg, mesh, ts, shapes)
+    (p1, o1), (p2, o2) = state(), state()
+    metrics, ptrs = [], []
+    for i in range(3):
+        b = {k: torch.roll(v, i, dims=1) for k, v in batch.items()}
+        p1, o1, m1 = fn(p1, o1, b)
+        p2, o2, m2 = step(p2, o2, b)
+        metrics.append({k: [float(rules.full_value(m1[k])),
+                            float(rules.full_value(m2[k]))]
+                        for k in steps.TRAIN_METRICS})
+        ptrs.append([t.to_local().data_ptr() for _, t in
+                     module.tree_paths({"p": p2, "o": o2})])
+    equal = all(
+        torch.equal(a.to_local(), b_.to_local())
+        for (_, a), (_, b_) in zip(module.tree_paths({"p": p1, "o": o1}),
+                                   module.tree_paths({"p": p2, "o": o2})))
+    ok = torch.tensor([equal and ptrs[0] == ptrs[-1]], dtype=torch.int32)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return {"metrics": metrics, "leaves_equal_and_fixed": bool(ok.item()),
+            "graphed": step.graphed, "owned": p2 is step.params,
+            "mesh_leaves": all(hasattr(t, "placements") for _, t in
+                               module.tree_paths(p2))}
 
 
 def train_main_runs(d, rank: int) -> dict:

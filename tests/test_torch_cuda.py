@@ -2152,3 +2152,171 @@ def test_sharded_engine_on_one_card_serves_the_unsharded_tokens(
     assert got == want
     assert sharded.graphed and ("decode", 2) in sharded.graphs
     assert sum(1 for k in sharded.graphs if k[0] == "prefill") == 5
+
+
+# the graphed LM training step: each family's reduced step, plus dense
+# smollm with int8 and with top-k compression (case -> (arch, reduced()
+# overrides, compression))
+LM_GRAPH_CASES = {
+    "dense": ("smollm-360m", {}, "none"),
+    "moe": ("qwen3-moe-30b-a3b", {}, "none"),
+    "ssm": ("mamba2-130m", {}, "none"),
+    "hybrid": ("hymba-1.5b", {"n_layers": 3}, "none"),
+    "encdec": ("whisper-large-v3", {}, "none"),
+    "vlm": ("qwen2-vl-7b", {}, "none"),
+    "dense_int8": ("smollm-360m", {}, "int8"),
+    "dense_topk": ("smollm-360m", {}, "topk")}
+
+
+def _runtime_calls(fn) -> dict:
+    """CUDA API calls (``cuda*``, ``cu*``) that launch work (kernels, graphs,
+    copies, fills) in one ``fn()``, by name, after a traced warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.key.startswith("cu") and any(
+                w in ev.key for w in ("Launch", "Memcpy", "Memset"))}
+
+
+def _lm_graph_setup(case, dev):
+    """A case's reduced config, a seeded tree on ``dev`` with its moments
+    (and error feedback), its settings and three batches (8 x 32 in
+    microbatches of 4) on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.nn import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import ef_init
+    arch, kw, comp = LM_GRAPH_CASES[case]
+    cfg = get_config(arch).reduced(**kw)
+    ts = steps.TrainSettings(microbatch=4, compression=comp,
+                             opt=adamw.OptConfig(peak_lr=1e-3,
+                                                 warmup_steps=1,
+                                                 decay_steps=4))
+
+    def state():
+        params = T.init_model(gen(dev, 0), cfg, device=dev)
+        opt = adamw.init(params, steps.opt_config(cfg, ts))
+        if comp != "none":
+            opt["ef"] = ef_init(params)
+        return params, opt
+
+    batches = []
+    for i in range(3):
+        raw = synthetic_lm_batch(DataConfig(seq=32, global_batch=8,
+                                            vocab=cfg.padded_vocab), i)
+        raw = {k: torch.from_numpy(v) for k, v in raw.items()}
+        raw.update(_stub_inputs(cfg, 8, 32))
+        batches.append({k: v.to(dev) for k, v in raw.items()})
+    return cfg, ts, state, batches
+
+
+@pytest.mark.parametrize("case", list(LM_GRAPH_CASES))
+def test_lm_graphed_train_step_equals_eager(cuda, case):
+    """``steps.graph_train_step`` on each family's reduced step (and dense
+    with int8 and top-k compression): three steps as one CUDA graph (the
+    capture's warm-up is the first step) against three eager steps of the
+    same body, bit for bit: every step's loss, gradient norm and learning
+    rate, and at the end every param, moment, the step counter and the
+    error feedback. One capture; a graphed call makes one
+    ``cudaGraphLaunch`` and no kernel launch; a call with another tree
+    (the first state again) copies it in and replays without a second
+    capture, equal to the eager step from that tree; a batch of another
+    shape raises."""
+    from repro_torch.launch import steps
+    from repro_torch.nn import module
+    cfg, ts, state, batches = _lm_graph_setup(case, cuda)
+    runs = {}
+    for jit in (True, False):
+        step = steps.graph_train_step(cfg, ts, device=cuda, jit=jit)
+        captures = []
+        if jit:
+            capture = step._capture
+            step._capture = lambda body, what: (captures.append(what),
+                                                capture(body, what))[1]
+        params, opt = state()
+        metrics = []
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            metrics.append({k: v.clone() for k, v in m.items()})
+        leaves = {p: t.clone() for p, t in module.tree_paths(
+            {"p": params, "o": opt})}
+        # another tree: the first state again
+        p0, o0 = state()
+        _, _, m = step(p0, o0, batches[0])
+        again = ({k: v.clone() for k, v in m.items()},
+                 {p: t.clone() for p, t in module.tree_paths(
+                     {"p": step.params, "o": step.opt})})
+        runs[jit] = (step, metrics, leaves, again, captures)
+    graph, eager = runs[True], runs[False]
+    assert graph[0].graphed and not eager[0].graphed
+    assert graph[4] == ["the LM training step"]
+    assert graph[0].graph.replays == 3
+    for i in range(3):
+        for k in steps.TRAIN_METRICS:
+            assert torch.equal(graph[1][i][k], eager[1][i][k]), (i, k)
+    assert list(graph[2]) == list(eager[2])
+    for k, t in graph[2].items():
+        assert torch.equal(t, eager[2][k]), k
+    assert int(graph[2]["o/step"]) == 3
+    for k in steps.TRAIN_METRICS:
+        assert torch.equal(graph[3][0][k], eager[3][0][k]), k
+    for k, t in graph[3][1].items():
+        assert torch.equal(t, eager[3][1][k]), k
+    step = graph[0]
+    calls = _runtime_calls(lambda: step(step.params, step.opt, batches[1]))
+    launched = {k: n for k, n in calls.items()
+                if k.startswith(("cudaLaunch", "cuLaunch"))}
+    assert calls.get("cudaGraphLaunch") == 1 and not launched, calls
+    assert graph[4] == ["the LM training step"]
+    short = {k: v[:4] for k, v in batches[0].items()}
+    if "mrope_positions" in short:
+        short["mrope_positions"] = batches[0]["mrope_positions"][:, :4]
+    with pytest.raises(ValueError, match="built for a batch"):
+        step(step.params, step.opt, short)
+
+
+def test_lm_graphed_train_step_on_the_nccl_mesh_equals_eager(cuda,
+                                                             nccl_mesh):
+    """``steps.graph_jit_train_step`` on the (1, 1) NCCL mesh, reduced
+    smollm: three steps graphed against the eager mesh step (the
+    functional ``jit_train_step``) and the plain step from the same tree,
+    bit for bit (metrics every step, every leaf at the end); one
+    capture."""
+    from repro_torch.launch import steps
+    from repro_torch.nn import module
+    cfg, ts, state, batches = _lm_graph_setup("dense", cuda)
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batches[0].items()}
+    runs = {}
+    for name in ("graph", "eager", "plain"):
+        if name == "plain":
+            step = steps.make_train_step(cfg, ts)
+        elif name == "eager":
+            step, _, _ = steps.jit_train_step(cfg, nccl_mesh, ts, shapes)
+        else:
+            step, _, _ = steps.graph_jit_train_step(cfg, nccl_mesh, ts,
+                                                    shapes)
+        params, opt = state()
+        metrics = []
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            metrics.append({k: getattr(v, "full_tensor", lambda v=v: v)()
+                            .clone() for k, v in m.items()})
+        runs[name] = (step, metrics, {
+            p: getattr(t, "to_local", lambda t=t: t)().clone()
+            for p, t in module.tree_paths({"p": params, "o": opt})})
+    assert runs["graph"][0].graphed and runs["graph"][0].graph.replays == 2
+    for name in ("eager", "plain"):
+        for i in range(3):
+            for k in steps.TRAIN_METRICS:
+                assert torch.equal(runs["graph"][1][i][k],
+                                   runs[name][1][i][k]), (name, i, k)
+        for k, t in runs["graph"][2].items():
+            assert torch.equal(t, runs[name][2][k]), (name, k)

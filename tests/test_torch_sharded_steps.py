@@ -256,6 +256,23 @@ def test_train_main_over_the_mesh(run):
                                got["unsharded"]["losses"], rtol=2e-4)
 
 
+def test_mesh_in_place_body_equals_the_functional_mesh_step(run):
+    """``graph_jit_train_step`` on the (2, 4) gloo mesh runs its in-place
+    body eagerly (gloo ranks cannot capture) on the DTensors it owns: three
+    steps of reduced smollm against the functional ``jit_train_step``,
+    each step's loss, gradient norm and learning rate and at the end every
+    rank's shard of every param and moment bit for bit, the owned shards
+    at the addresses of the first step."""
+    _, _, res, _ = run
+    got = res["graph_body"]
+    assert not got["graphed"] and got["owned"] and got["mesh_leaves"]
+    assert got["leaves_equal_and_fixed"]
+    assert len(got["metrics"]) == 3
+    for m in got["metrics"]:
+        for k, (want, have) in m.items():
+            assert have == want, (k, m)
+
+
 def test_compressed_psum_int8_matches_the_reference(run):
     _, ref, _, arrays = run
     np.testing.assert_allclose(arrays["psum_mean"], ref["psum"][0],

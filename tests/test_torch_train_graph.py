@@ -172,21 +172,21 @@ def test_body_makes_no_host_read(setup, monkeypatch):
     patch stops a body whose learning rate reads the step counter on the
     host."""
     _, cfg, _, tp, ocfg, batches = setup
-    batch = [torch.from_numpy(batches[0][k]) for k in ("image", "label")]
+    batch = {k: torch.from_numpy(batches[0][k]) for k in ("image", "label")}
 
     def make():
         return make_train_step(tp, adamw.init(tp, ocfg), cfg, ocfg,
                                device="cpu")
 
-    want = {k: v.clone() for k, v in make().body(*batch).items()}
+    want = {k: v.clone() for k, v in make().body(batch).items()}
     step = make()
     for name in HOST_READS:
         monkeypatch.setattr(torch.Tensor, name, _host_read)
-    got = {k: v.clone() for k, v in step.body(*batch).items()}
+    got = {k: v.clone() for k, v in step.body(batch).items()}
     monkeypatch.setattr(adamw, "schedule", lambda cfg, count: torch.tensor(
         cfg.peak_lr * min(1.0, int(count) / cfg.warmup_steps)))
     with pytest.raises(AssertionError, match="host read"):
-        step.body(*batch)
+        step.body(batch)
     monkeypatch.undo()
     assert all(torch.equal(got[k], want[k]) for k in TRAIN_METRICS)
 
