@@ -20,10 +20,14 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    4 at Dh 128, qwen2-vl-7b's, 28 over 4 at Dh 128, and whisper-large-v3's
    three layouts of a 4-row, 440-token prefill over 1500 frames: the
    encoder's and the cross-attention's non-causal, the decoder's causal),
-   the f32 unpack
+   and Qwen3-Next-80B-A3B's, 16 over 2 at Dh 256), the f32 unpack
    dot on the bf16 tensor cores, and the f32 STDP (spikes, then real
    values) and f32 flash attention in split TF32 on the tensor cores, at
-   (15, 2048, 64) and at stablelm-12b's prefill layout, Dh 160),
+   (15, 2048, 64) and at the prefill layouts of stablelm-12b (Dh 160),
+   glm4-9b (Dh 128), phi-3-mini's head dim (32 over 32 at Dh 96) and
+   Qwen3-Next-80B-A3B (Dh 256); both flash kernels also over the head
+   dims 8, 48, 60, 96, 112, 200, 224 and 256 at a small shape, each held
+   to the plain version),
    holds it
    against its plain PyTorch version on the card and times kernel, plain
    version and the nearest single PyTorch call (the kernel by its device
@@ -259,6 +263,13 @@ ENCDEC_DECODE_TOL = 5e-2   # the reference's own prefill + decode bar
 VLM_ARCH = "qwen2-vl-7b"
 VLM_GRID = 16
 VLM_TEXT = 512
+
+# kernel 7 at head dims no config of the repo has: Qwen3-Next-80B-A3B's
+# (its published config.json: 16 heads over 2 KV heads, head_dim 256) and
+# phi-3-mini's (3072 / 32 heads, no grouping), and a sweep of head dims
+QWEN3NEXT_MODEL = "Qwen3-Next-80B-A3B-Instruct"
+DH96_MODEL = "phi-3-mini"
+SWEEP_HEAD_DIMS = (8, 48, 60, 96, 112, 200, 224, 256)
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -838,8 +849,12 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     440 queries over the 1500 frames' keys (``at_whisper_cross_shape``),
     and at qwen2-vl-7b's 2048-token prefill (``at_qwen2vl_shape``: 28 over
     4, group 7, Dh 128) and qwen1.5-110b's (``at_qwen110b_shape``: 64 over
-    8, group 8, Dh 128, the sharded path's); SDPA beside each with
-    ``is_causal`` as the kernel's."""
+    8, group 8, Dh 128, the sharded path's); both dtypes at
+    Qwen3-Next-80B-A3B's (``at_qwen3next_shape``: 16 over 2, group 8, Dh
+    256), f32 also at glm4-9b's (``at_glm4_shape``) and at phi-3-mini's
+    head dim (``at_dh96_shape``: 32 over 32, Dh 96); SDPA beside each with
+    ``is_causal`` as the kernel's. Then each dtype over ``SWEEP_HEAD_DIMS``
+    (``head_dim_sweep``)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -965,7 +980,50 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
         library_ms=graph_ms(torch, lambda: sdpa(
             q3[None], k3[None], v3[None], is_causal=True, scale=scale)))
     f32["at_stablelm_shape"] = at(32, 8, 160, DENSE12B_ARCH, torch.float32)
+    f32["at_glm4_shape"] = at(32, 2, 128, DENSE9B_ARCH, torch.float32)
+    f32["at_dh96_shape"] = at(32, 32, 96, DH96_MODEL, torch.float32)
+    for row, dtype in ((tc, torch.bfloat16), (f32, torch.float32)):
+        row["at_qwen3next_shape"] = at(16, 2, 256, QWEN3NEXT_MODEL, dtype)
+        row["head_dim_sweep"] = head_dim_sweep(dtype, held)
     return {"flash_attention_tc": tc, "flash_attention_f32": f32}
+
+
+def head_dim_sweep(dtype, held) -> dict:
+    """Kernel 7 of ``dtype`` at each of ``SWEEP_HEAD_DIMS`` on a ragged
+    (1, 2 over 1, 70 over 133) shape, causal and not, each held to the
+    plain version by ``held``: the head dims between and past the
+    configs', those TMA cannot read row by row (60 in bf16) zero-padded by
+    the wrapper. Correctness and launches only."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    name = str(dtype).removeprefix("torch.")
+    ops.reset_launch_counts()
+    worst, calls = 0.0, 0
+    for dh in SWEEP_HEAD_DIMS:
+        for causal in (True, False):
+            q = torch.randn((1, 2, 70, dh), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((1, 1, 133, dh), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            worst = max(worst, held(
+                flash_attention(q, k, v, scale=dh ** -0.5, causal=causal),
+                flash_attention_plain(q, k, v, scale=dh ** -0.5,
+                                      causal=causal),
+                f"{name}, Dh {dh}, causal={causal}"))
+            calls += 1
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    want = "flash_attention_tc" if dtype == torch.bfloat16 else \
+        "flash_attention_f32"
+    check(launches == {want: calls},
+          f"head-dim sweep ({name}) launched {launches}, not {calls} {want}")
+    ops.reset_launch_counts()
+    return {"head_dims": list(SWEEP_HEAD_DIMS), "calls": calls,
+            "launches": launches[want], "max_abs_err": worst,
+            "tolerance": f"atol = rtol = {FLASH_TOL}"}
 
 
 class LayerRecorder:
@@ -4395,7 +4453,78 @@ def sharded_phase(torch, dev) -> dict:
     return out
 
 
-def dryrun_phase(torch, dev, sharded: dict) -> dict:
+def start_dryrun_cells() -> dict:
+    """Starts the dry run's cells, each in a process of its own, all at
+    once: the demo's production cell (``dryrun.lower_cell`` of
+    DRYRUN_DEMO on 2x16x16) and the CLI on the DRYRUN_TIED_CELLS'
+    train_4k on 16x16. They trace on meta tensors on the host, so they run
+    beside the card's later phases, and ``dryrun_phase`` collects them. A
+    thread records each one's seconds from the start to its end
+    (``ended``) and kills one still running after DRYRUN_DEMO_TIMEOUT_S
+    (its ``ended`` None)."""
+    import os
+    import threading
+    code = ("import json, sys, time; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch import dryrun; t0 = time.perf_counter(); "
+            f"rec, _ = dryrun.lower_cell({DRYRUN_DEMO[0]!r}, "
+            f"{DRYRUN_DEMO[1]!r}, multi_pod=True); "
+            "print(json.dumps({'seconds': time.perf_counter() - t0, "
+            "'compile_s': rec['compile_s'], 'lower_s': rec['lower_s'], "
+            "'mesh_device_type': rec['mesh_device_type'], "
+            "'peak_gb_per_chip': rec['memory']['peak_gb_per_chip'], "
+            "'fits_80gb': rec['memory']['fits_80gb'], "
+            "'roofline': rec['roofline'], 'cost': rec['cost'], "
+            "'collectives': rec['collectives']}))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    outdir = ROOT / "build" / "dryrun"
+    runs = {"demo": [sys.executable, "-c", code]}
+    for arch in DRYRUN_TIED_CELLS:
+        runs[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", arch, "--shape", "train_4k",
+                      "--out", str(outdir)]
+    outdir.mkdir(parents=True, exist_ok=True)
+    logs = {k: [outdir / f"{k}.{x}" for x in ("out", "err")] for k in runs}
+    procs, ended = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for k, cmd in runs.items():
+            with open(logs[k][0], "w") as fo, open(logs[k][1], "w") as fe:
+                procs[k] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                            stdout=fo, stderr=fe)
+    except BaseException:
+        stop_dryrun_cells({"procs": procs})
+        raise
+
+    def watch():
+        while len(ended) < len(procs):
+            for k, proc in procs.items():
+                if k in ended:
+                    continue
+                if proc.poll() is not None:
+                    ended[k] = time.perf_counter() - t0
+                elif time.perf_counter() - t0 > DRYRUN_DEMO_TIMEOUT_S:
+                    proc.kill()
+                    proc.wait()
+                    ended[k] = None
+            time.sleep(0.2)
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    return {"procs": procs, "logs": logs, "ended": ended, "watch": thread,
+            "outdir": outdir}
+
+
+def stop_dryrun_cells(cells: dict) -> None:
+    """Kills every process of ``start_dryrun_cells`` still running."""
+    for proc in cells["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if "watch" in cells:
+        cells["watch"].join()
+
+
+def dryrun_phase(torch, dev, sharded: dict, cells: dict) -> dict:
     """The dry run (``launch/dryrun.py``) on the card's host, after the
     sharded phase's group is gone: the sharded phase's own prefill (4 x
     2048 into a cache of 2080) and decode step (4 rows at 2080) of
@@ -4405,15 +4534,15 @@ def dryrun_phase(torch, dev, sharded: dict) -> dict:
     and the cache (decode) equal exactly what the card allocated for
     them. Reported: the predicted peak beside ``max_memory_allocated`` of
     the profiled calls, and the predicted FLOPs and ``bound_s`` beside the
-    measured device ms, each gap as a ratio. Then the demo's production
-    cell (qwen3-moe-30b-a3b train_4k on 2x16x16) in a subprocess, its
-    trace seconds reported: it must end within DRYRUN_DEMO_TIMEOUT_S, or
-    the phase fails (the cell pins the reduction of mixed partials one
-    mesh axis at a time, which only the card's torch refuses otherwise).
-    Beside it, in processes of their own under the same limit, the CLI
-    on the DRYRUN_TIED_CELLS' train_4k on 16x16: each must end ``[ok]``
-    (they pin the tied table's gradients in its own layout, which only
-    the card's torch refuses otherwise)."""
+    measured device ms, each gap as a ratio. Then it collects the cells
+    that ``start_dryrun_cells`` started: the demo's production cell
+    (qwen3-moe-30b-a3b train_4k on 2x16x16), its trace seconds reported,
+    must have ended within DRYRUN_DEMO_TIMEOUT_S, or the phase fails (the
+    cell pins the reduction of mixed partials one mesh axis at a time,
+    which only the card's torch refuses otherwise); the CLI on the
+    DRYRUN_TIED_CELLS' train_4k on 16x16, under the same limit, must end
+    ``[ok]`` (they pin the tied table's gradients in its own layout,
+    which only the card's torch refuses otherwise)."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4464,54 +4593,16 @@ def dryrun_phase(torch, dev, sharded: dict) -> dict:
                                      / (device_ms / 1e3)
                                      if isinstance(device_ms, float)
                                      else None)}
-    code = ("import json, sys, time; sys.path.insert(0, 'src'); "
-            "from repro_torch.launch import dryrun; t0 = time.perf_counter(); "
-            f"rec, _ = dryrun.lower_cell({DRYRUN_DEMO[0]!r}, "
-            f"{DRYRUN_DEMO[1]!r}, multi_pod=True); "
-            "print(json.dumps({'seconds': time.perf_counter() - t0, "
-            "'compile_s': rec['compile_s'], 'lower_s': rec['lower_s'], "
-            "'mesh_device_type': rec['mesh_device_type'], "
-            "'peak_gb_per_chip': rec['memory']['peak_gb_per_chip'], "
-            "'fits_80gb': rec['memory']['fits_80gb'], "
-            "'roofline': rec['roofline'], 'cost': rec['cost'], "
-            "'collectives': rec['collectives']}))")
-    import os
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    outdir = ROOT / "build" / "dryrun"
-    # the demo and the tied-embedding train cells in processes of their
-    # own, all started at once, each held to DRYRUN_DEMO_TIMEOUT_S
-    runs = {"demo": [sys.executable, "-c", code]}
-    for arch in DRYRUN_TIED_CELLS:
-        runs[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                      "--arch", arch, "--shape", "train_4k",
-                      "--out", str(outdir)]
-    outdir.mkdir(parents=True, exist_ok=True)
-    logs = {k: [outdir / f"{k}.{x}" for x in ("out", "err")] for k in runs}
-    t0 = time.perf_counter()
-    procs = {}
+    cells["watch"].join()
     done = {}
-    try:
-        for k, cmd in runs.items():
-            with open(logs[k][0], "w") as fo, open(logs[k][1], "w") as fe:
-                procs[k] = subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                            stdout=fo, stderr=fe)
-        while len(done) < len(procs):
-            for k, proc in procs.items():
-                if k not in done and proc.poll() is not None:
-                    check(proc.returncode == 0,
-                          f"the dry run of {k} failed: "
-                          f"{logs[k][1].read_text()[-1500:]}")
-                    done[k] = (logs[k][0].read_text(),
-                               time.perf_counter() - t0)
-            check(time.perf_counter() - t0 < DRYRUN_DEMO_TIMEOUT_S,
-                  f"the dry run of {sorted(set(procs) - set(done))} did "
-                  f"not end within {DRYRUN_DEMO_TIMEOUT_S} s")
-            time.sleep(0.2)
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    for k, proc in cells["procs"].items():
+        check(cells["ended"][k] is not None,
+              f"the dry run of {k} did not end within "
+              f"{DRYRUN_DEMO_TIMEOUT_S} s")
+        out_log, err_log = cells["logs"][k]
+        check(proc.returncode == 0,
+              f"the dry run of {k} failed: {err_log.read_text()[-1500:]}")
+        done[k] = (out_log.read_text(), cells["ended"][k])
     stdout, seconds = done["demo"]
     demo = json.loads(stdout.strip().splitlines()[-1])
     demo["process_s"] = seconds
@@ -4524,7 +4615,8 @@ def dryrun_phase(torch, dev, sharded: dict) -> dict:
         check(line.startswith(f"[ok] {arch}_train_4k_16x16:"),
               f"the dry run of {arch} train_4k on 16x16 did not end [ok]: "
               f"{line}")
-        rec = json.loads((outdir / f"{arch}_train_4k_16x16.json").read_text())
+        rec = json.loads((cells["outdir"] / f"{arch}_train_4k_16x16.json")
+                         .read_text())
         out["tied_train_cells"][arch] = {
             "line": line, "process_s": seconds,
             "mesh_device_type": rec["mesh_device_type"],
@@ -4614,6 +4706,7 @@ def main() -> int:
              "lm_encdec_gate", "lm_vlm", "lm_vlm_gate", "sharded", "dryrun")
     phase_s = report["phase_s"] = {}     # wall seconds, build excluded
     t_phase = [time.perf_counter()]
+    cells = None
 
     def timed(name):
         now = time.perf_counter()
@@ -4715,6 +4808,9 @@ def main() -> int:
             timed(gate_path)
             del lm_engine
             torch.cuda.empty_cache()
+        # the dry run's cells trace on the host beside the card's phases
+        # from here on; dryrun_phase collects them
+        cells = start_dryrun_cells()
         report[paths[21]] = lm_train_phase(torch, dev)
         timed(paths[21])
         torch.cuda.empty_cache()
@@ -4741,13 +4837,16 @@ def main() -> int:
         timed(paths[26])
         torch.cuda.empty_cache()
         # the dry run after the sharded phase's group is destroyed
-        report[paths[27]] = dryrun_phase(torch, dev, report[paths[26]])
+        report[paths[27]] = dryrun_phase(torch, dev, report[paths[26]],
+                                         cells)
         timed(paths[27])
         table = kernel_table(report, paths)
     except CheckFailed as e:
         print(f"chip_smoke.py: CHECK FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        if cells is not None:
+            stop_dryrun_cells(cells)
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "chip_smoke.json").write_text(
             json.dumps(report, indent=1, default=str))

@@ -5,53 +5,63 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention for f32 operands (bf16 operands run
 // csrc/flash_attention_tc.cu). q: (B, Hq, Nq, Dh); k, v: (B, KV, Nkv, Dh),
-// Hq a multiple of KV, q head h reading KV head h / (Hq / KV); any strides
-// with a unit last stride, every stride a multiple of 4 elements and every
-// base 16-byte aligned (TMA). Query row i sits at position Nkv - Nq + i, key
-// j at position j. Per KV tile, as the reference: s = (q * scale) . k (q
-// scaled in f32 before the dot), masked entries set to NEG_INF = -1e30 (not
-// -inf), m_new = max(m, rowmax s), alpha = exp(m - m_new), p = exp(s -
-// m_new), l = l * alpha + rowsum p, acc = acc * alpha + p v; out = acc /
-// max(l, 1e-30). Keys past Nkv are masked in both modes (the reference's
-// wrapper refuses the non-causal case with KV padding; this kernel masks
-// it, which is the exact softmax of flash_attention_ref).
+// Hq a multiple of KV, q head h reading KV head h / (Hq / KV); Dh a
+// multiple of 4 from 4 to 256; any strides with a unit last stride, every
+// stride a multiple of 4 elements and every base 16-byte aligned (TMA).
+// Query row i sits at position Nkv - Nq + i, key j at position j. Per KV
+// tile, as the reference: s = (q * scale) . k (q scaled in f32 before the
+// dot), masked entries set to NEG_INF = -1e30 (not -inf), m_new = max(m,
+// rowmax s), alpha = exp(m - m_new), p = exp(s - m_new), l = l * alpha +
+// rowsum p, acc = acc * alpha + p v; out = acc / max(l, 1e-30). Keys past
+// Nkv are masked in both modes (the reference's wrapper refuses the
+// non-causal case with KV padding; this kernel masks it, which is the
+// exact softmax of flash_attention_ref).
 //
 // Bound on this card: at smollm's prefill shape (15 heads, 2048 tokens, Dh
 // 64) the causal product is 8.06e9 operations for 31 MB of f32 moved. As
 // three TF32 products they take 0.0489 ms at 495 TFLOP/s; the bytes take
-// 0.0094 ms; the f32 units (67 TFLOP/s) would need 0.1203 ms.
+// 0.0094 ms; the f32 units (67 TFLOP/s) would need 0.1203 ms. Every head
+// dim is bound the same way: the operations grow with Dh, the bytes too.
 // Numerics: both products are 3xTF32 with two accumulators each: S from
 // the split q * scale and k, P V from the split p and v. The sums keep
 // ~2^-21 of each product, well inside the 2e-4 the kernel is held to. expf
 // (not __expf), no fast-math flags.
 // Design (the skeleton of csrc/flash_attention_tc.cu): one block of three
 // warpgroups per (query tile, batch, head); blocks with the longest
-// causal rows launch first. Warpgroup 2 is the producer: one thread loads
-// the Q tile once and then K and V tiles of 64 keys by TMA, completion on
-// mbarriers; each box has padded rows (TMA zero-fills the columns past Dh).
-// The consumer warpgroups 0 and 1 scale the q tile in place once, and
-// per KV tile compute S = Q K^T, mask the blocks that cross the
-// diagonal or Nkv, run the online softmax on the accumulator fragments
-// with quad shuffles for the row max and sum, and accumulate O += P V with
-// P straight from the S fragments. Tiles wholly above a consumer's
-// diagonal are skipped (they would add exact zeros). Two designs share
-// this, by head dim:
-// - Dh 32 and 64 (smollm's 64): flash_attention_kernel_wgmma, the block
-//   pipeline of tf32x3::Pipe: the producer warpgroup also splits each K
-//   and V tile once into big and small K and V^T, which 3xTF32 wgmma
-//   products read from shared memory.
-// - Dh 128 and 160 (stablelm-12b's 160): flash_attention_kernel,
-//   mma.sync over fragments each warp splits in registers (the split K and
-//   V^T of 64 keys would not fit in shared memory beside the ring); the K
-//   and V tiles come through a ring of two stages, with rows of Dh + 8
-//   (q, k) and Dh + 4 (v) floats that keep every fragment load free of
-//   bank conflicts, and each warp skips the 8-key blocks wholly above its
-//   own rows. At Dh 160 a block takes 64 query rows, and the two warps of
-//   each 16 rows both compute S and its softmax (the same values) and
-//   each accumulate half of Dh's output columns: with 128 rows the q tile
-//   and two stages (255 KB) would not fit the 227 KB a block has, and a
-//   warp's 2 x 160 split accumulators would not fit its registers. The
-//   cost is S taken twice: 1.5 times Dh 128's products a column.
+// causal rows launch first. Warpgroup 2 is the producer: it loads the Q
+// tile once and K and V tiles by TMA, completion on mbarriers, TMA
+// zero-filling the columns past Dh and the rows past the sequence, and
+// splits each K and V tile once a block into big and small parts that
+// 3xTF32 wgmma products read from shared memory (tf32 wgmma reads B only
+// K-major, so V is stored transposed). The consumer warpgroups 0 and 1
+// scale the q tile in place once, and per KV tile compute S = Q K^T with
+// A fragments split from the q tile in registers, mask the tiles that
+// cross the diagonal or Nkv, run the online softmax on the accumulator
+// fragments with quad shuffles for the row max and sum, and accumulate
+// O += P V with P straight from the S fragments. Tiles wholly above a
+// consumer's diagonal are skipped (they would add exact zeros). Two
+// pipelines, by head dim:
+// - Dh up to 64 (smollm's 64): flash_attention_kernel_wgmma, the block
+//   pipeline of tf32x3::Pipe at Dh 32 or 64 (a smaller Dh runs the next
+//   one up, its columns past Dh zero-filled): raw tiles with padded rows,
+//   split into a ring of two stages in the unswizzled core-matrix layout.
+// - Dh 65 to 256 (glm4's 128, stablelm-12b's 160, Qwen3-Next's 256):
+//   flash_attention_kernel_wide, the pipeline of Wide<DH> below at every
+//   multiple of 32 from 96 to 256 (a Dh in between runs the next one up).
+//   At these head dims the Pipe layout does not fit: at Dh 160 its q tile,
+//   raw tiles and two stages of split K and V^T would take 484 KiB of the
+//   227 KiB a block has. So the tiles come by TMA in 32-column boxes with
+//   the 128-byte swizzle, which is the K-major layout wgmma reads: K is
+//   split in place (big over the raw tile, small beside it), only V keeps
+//   a raw tile (its transpose cannot be written over itself), and KV tiles
+//   hold 64 keys up to Dh 128 and 32 past it. K and V have rings of their
+//   own, so that the next K tile is loaded and split while the consumers
+//   take P V of this one. The swizzle also keeps the consumers' q fragment
+//   reads and the producer's transposed V^T writes free of bank
+//   conflicts. Past Dh 160 the two consumer warpgroups share 64 query rows
+//   and split Dh's output columns, both taking S (1.5 times the products
+//   of one S); the q fragments are split from the q tile anew each KV
+//   tile, which is why larger tiles run faster where they fit.
 // The shared-memory size is set once a device, not at every launch.
 #include <atomic>
 #include <cstdint>
@@ -64,8 +74,7 @@
 namespace {
 
 using tf32x3::FragA;
-using tf32x3::FragB;
-using tf32x3::mma3;
+using tf32x3::split_tf32;
 using tma::mbar_arrive;
 using tma::mbar_expect_tx;
 using tma::mbar_init;
@@ -73,12 +82,29 @@ using tma::mbar_wait;
 using tma::smem_addr;
 using tma::tma_load_4d;
 
-constexpr int BQ = 128, BKV = 64, KB = BKV / 8, THREADS = 384;
+constexpr int BQ = 128, BKV = 64, THREADS = 384;
 constexpr int CONSUMER_WARPS = 8;
 constexpr float NEG_INF = -1e30f;
+constexpr size_t SMEM_LIMIT = 232448;   // the H100's shared memory a block
+// Dh 65..256 (Wide<DH>). A consumer thread holds 64 x DC / 128 output
+// values, DC the output columns of its warpgroup, in each of two
+// accumulators, beside S (KEYS / 2 values in each of two) and one k-step's
+// split A fragments (8 registers): up to Dh 160 a warpgroup takes every
+// column of its 64 query rows; past it the two consumer warpgroups split
+// Dh's columns and both take S of the same 64 rows, since 2 x Dh / 2
+// accumulators would not fit. KV tiles hold 64 keys where shared memory
+// and registers allow (up to Dh 128), else 32: each tile splits the q
+// fragments anew, so more keys a tile split them less often a key.
+// setmaxnreg hands the 65,536 registers to 2 x 128 consumer threads and
+// 128 producer threads (168 each at launch): 232 and 40, or 240 and 24 at
+// Dh 160, whose 160 accumulators a thread leave too few for wgmma to run
+// without serializing at 232.
+constexpr int wide_split(int dh) { return dh > 160 ? 2 : 1; }
+constexpr int wide_keys(int dh) { return dh <= 128 ? 64 : 32; }
+constexpr int wide_consumer_regs(int dc) { return dc > 128 ? 240 : 232; }
 
 struct Params {
-  int heads, group, nq, nkv, n_qtiles, n_bh;
+  int heads, group, nq, nkv, dh, n_qtiles, n_bh;
   int dim_q[3], dim_kv[3];   // TMA dimension of (row, head, batch)
   float scale;
   int causal;
@@ -86,190 +112,344 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// Dh 128: mma.sync over fragments split in registers
+// Dh 65 to 256: wgmma over K split in place and V^T split once a block
 // ---------------------------------------------------------------------------
 
 template <int DH>
-struct Layout {
-  static constexpr int DB = DH / 8;
-  // Dh 128: the block's 128 query rows, 16 a consumer warp. Dh 160: 64
-  // rows, each 16 shared by two warps that own half of Dh's output
-  // columns each (both take the whole S): 128 rows would not fit two
-  // stages in shared memory, nor Dh 160's accumulators in registers.
-  static constexpr int SPLIT = DH > 128 ? 2 : 1;
-  static constexpr int ROWS = 128 / SPLIT;
-  static constexpr int DBW = DB / SPLIT;   // a warp's 8-column output blocks
-  static constexpr int STAGES = 2;
-  // row strides in floats: 8 (q, k) and 4 (v) past a multiple of 32
-  static constexpr int QS = DH + 8, KS = DH + 8, VS = DH + 4;
-  static constexpr uint32_t Q_BYTES = ROWS * QS * 4;
-  static constexpr uint32_t K_BYTES = BKV * KS * 4;
-  static constexpr uint32_t V_BYTES = BKV * VS * 4;
-  static constexpr size_t SMEM = 128 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) +
-                                 (2 * STAGES + 1) * sizeof(uint64_t);
-  static_assert(DB % SPLIT == 0 && ROWS / 16 * SPLIT == CONSUMER_WARPS,
-                "every consumer warp owns 16 rows and DB / SPLIT blocks");
-  static_assert(SMEM <= 232448, "over the H100's shared memory a block");
+struct Wide {
+  static_assert(DH % 32 == 0 && DH > 64 && DH <= 256, "Dh 96..256 by 32");
+  static constexpr int SPLIT = wide_split(DH);
+  static constexpr int ROWS = 128 / SPLIT;   // query rows a block
+  static constexpr int DC = DH / SPLIT;      // a warpgroup's output columns
+  static constexpr int KEYS = wide_keys(DH);
+  static constexpr int NB = DH / 32;         // 32-column (128-byte) boxes
+  static constexpr int CONSUMER_REGS = wide_consumer_regs(DC);
+  static constexpr int PRODUCER_REGS = 168 - 2 * (CONSUMER_REGS - 168);
+  static constexpr uint32_t Q_BYTES = ROWS * DH * 4;
+  static constexpr uint32_t TILE = KEYS * DH * 4;   // a K or V tile, a part
+  static constexpr int SLOTS = (int)((SMEM_LIMIT - 2048 - Q_BYTES - TILE) /
+                                     (2 * TILE));
+  // ring stages: split K (big in place, small) and split V^T (big, small)
+  static constexpr int K_STAGES = SLOTS >= 3 ? 2 : 1;
+  static constexpr int V_STAGES = SLOTS >= 4 ? 2 : 1;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + TILE +
+                                 2 * TILE * (K_STAGES + V_STAGES) +
+                                 (2 + 3 * K_STAGES + 2 * V_STAGES) * 8;
+  static_assert(SLOTS >= 2 && SMEM <= SMEM_LIMIT, "over shared memory");
+
+  float* q;         // ROWS rows, NB boxes of ROWS x 32 (q * scale)
+  float* v_raw;     // one raw V tile, NB boxes of KEYS x 32
+  uint8_t* k_ring;  // K_STAGES x (K big over the raw tile, K small)
+  uint8_t* v_ring;  // V_STAGES x (V^T big, V^T small): boxes of 32 keys
+  uint64_t* q_bar;
+  uint64_t* v_loaded;   // the raw V tile has landed
+  uint64_t* k_loaded;   // K_STAGES: a raw K tile has landed
+  uint64_t* k_full;     // K_STAGES: its split is ready
+  uint64_t* k_empty;    // K_STAGES: its consumers are done with it
+  uint64_t* v_full;     // V_STAGES
+  uint64_t* v_empty;    // V_STAGES
+
+  __device__ explicit Wide(uint8_t* smem) {
+    // the 128-byte swizzle pattern repeats every 1024 bytes
+    uint8_t* base = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+    q = reinterpret_cast<float*>(base);
+    v_raw = reinterpret_cast<float*>(base + Q_BYTES);
+    k_ring = base + Q_BYTES + TILE;
+    v_ring = k_ring + 2 * TILE * K_STAGES;
+    q_bar = reinterpret_cast<uint64_t*>(v_ring + 2 * TILE * V_STAGES);
+    v_loaded = q_bar + 1;
+    k_loaded = v_loaded + 1;
+    k_full = k_loaded + K_STAGES;
+    k_empty = k_full + K_STAGES;
+    v_full = k_empty + K_STAGES;
+    v_empty = v_full + V_STAGES;
+  }
+  __device__ uint8_t* k_big(int s) const { return k_ring + 2 * s * TILE; }
+  __device__ uint8_t* k_small(int s) const { return k_big(s) + TILE; }
+  __device__ uint8_t* v_big(int s) const { return v_ring + 2 * s * TILE; }
+  __device__ uint8_t* v_small(int s) const { return v_big(s) + TILE; }
+
+  __device__ void init() const {
+    mbar_init(q_bar, 1);
+    mbar_init(v_loaded, 1);
+    for (int s = 0; s < K_STAGES; ++s) {
+      mbar_init(&k_loaded[s], 1);
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], CONSUMER_WARPS);
+    }
+    for (int s = 0; s < V_STAGES; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // NB boxes of 32 columns of `rows` rows at TMA coordinates c (c[0] the
+  // column) into dst, on bar
+  __device__ static void load(void* dst, const CUtensorMap* map,
+                              uint64_t* bar, int (&c)[4], int rows) {
+#pragma unroll 1
+    for (int b = 0; b < NB; ++b) {
+      c[0] = 32 * b;
+      tma_load_4d(static_cast<uint8_t*>(dst) + b * rows * 128, map, bar,
+                  c[0], c[1], c[2], c[3]);
+    }
+  }
+
+  // The producer warpgroup (ct = 0..127): cq the TMA coordinates of the q
+  // rows, ckv those of KV tile 0, whose dimension `row` steps KEYS a tile.
+  __device__ void produce(const CUtensorMap* map_q, const CUtensorMap* map_k,
+                          const CUtensorMap* map_v, int (&cq)[4],
+                          int (&ckv)[4], int row, int n_tiles,
+                          int ct) const {
+    const int kv0 = ckv[row];
+    auto load_k = [&](int j) {
+      const int s = j % K_STAGES;
+      mbar_expect_tx(&k_loaded[s], TILE);
+      ckv[row] = kv0 + j * KEYS;
+      load(k_big(s), map_k, &k_loaded[s], ckv, KEYS);
+    };
+    if (ct == 0) {
+      mbar_expect_tx(q_bar, Q_BYTES);
+      load(q, map_q, q_bar, cq, ROWS);
+      for (int j = 0; j < K_STAGES && j < n_tiles; ++j) load_k(j);
+      if (n_tiles > 0) {
+        mbar_expect_tx(v_loaded, TILE);
+        ckv[row] = kv0;
+        load(v_raw, map_v, v_loaded, ckv, KEYS);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int sk = j % K_STAGES, sv = j % V_STAGES;
+      // K: big over the raw tile, small beside it, elementwise (the split
+      // keeps the swizzled layout TMA wrote)
+      mbar_wait(&k_loaded[sk], (j / K_STAGES) & 1);
+      for (int e = ct; e < TILE / 16; e += 128) {
+        uint4* x = reinterpret_cast<uint4*>(k_big(sk)) + e;
+        const uint4 raw = *x;
+        uint4 hi, lo;
+        split_tf32(__uint_as_float(raw.x), hi.x, lo.x);
+        split_tf32(__uint_as_float(raw.y), hi.y, lo.y);
+        split_tf32(__uint_as_float(raw.z), hi.z, lo.z);
+        split_tf32(__uint_as_float(raw.w), hi.w, lo.w);
+        *x = hi;
+        reinterpret_cast<uint4*>(k_small(sk))[e] = lo;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (ct == 0) mbar_arrive(&k_full[sk]);
+
+      // V^T: row d holds the tile's keys in the order P's A fragments take
+      // them (slot 4c + i of 16-byte chunk c is key 8 (c / 2) + c % 2 +
+      // 2i), in boxes of 32 keys (DH rows of 128 bytes) swizzled as TMA
+      // swizzles (chunk c % 8 of row d at (c % 8) ^ (d % 8)). A thread
+      // takes one chunk of one row; a warp's 32 rows read one 128-byte row
+      // of a raw box.
+      mbar_wait(v_loaded, j & 1);
+      if (j >= V_STAGES) mbar_wait(&v_empty[sv], ((j / V_STAGES) & 1) ^ 1);
+      for (int e = ct; e < DH * (KEYS / 4); e += 128) {
+        const int d = e % DH, c = e / DH;
+        const int key0 = 8 * (c / 2) + c % 2;
+        const float* box = v_raw + (d / 32) * KEYS * 32;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = key0 + 2 * i;
+          split_tf32(box[key * 32 + ((((d % 32) / 4) ^ (key % 8)) * 4) +
+                         d % 4],
+                     hi[i], lo[i]);
+        }
+        const uint32_t off =
+            (c / 8) * DH * 128 + d * 128 + (((c % 8) ^ (d % 8)) * 16);
+        *reinterpret_cast<uint4*>(v_big(sv) + off) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(v_small(sv) + off) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      // wgmma (the async proxy) reads the split; the raw tile is free
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (ct == 0) {
+        mbar_arrive(&v_full[sv]);
+        if (j + 1 < n_tiles) {
+          mbar_expect_tx(v_loaded, TILE);
+          ckv[row] = kv0 + (j + 1) * KEYS;
+          load(v_raw, map_v, v_loaded, ckv, KEYS);
+        }
+        // the next K tile of this stage, once S of this one is taken
+        if (j + K_STAGES < n_tiles) {
+          mbar_wait(&k_empty[sk], (j / K_STAGES) & 1);
+          load_k(j + K_STAGES);
+        }
+      }
+    }
+  }
+
+  // S = Q K^T of stage s for a consumer warpgroup, into hi and lo: qa the
+  // thread's q row g + column t in box 0 (rows 32 floats apart, box
+  // ROWS x 32 floats), g its row in the 8-row swizzle group. One k-step a
+  // group: its fragment's 8 registers live till the wait.
+  __device__ void qk(const float* qa, int g, int s, float (&hi)[KEYS / 2],
+                     float (&lo)[KEYS / 2]) const {
+    const uint32_t big = smem_addr(k_big(s)) / 16, small = big + TILE / 16;
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      const float* x = qa + (kk / 4) * ROWS * 32;
+      const int c0 = ((2 * (kk % 4)) ^ g) * 4;
+      const int c1 = ((2 * (kk % 4) + 1) ^ g) * 4;
+      FragA a;
+      a.set(x[c0], x[8 * 32 + c0], x[c1], x[8 * 32 + c1]);
+      const uint32_t off = ((kk / 4) * KEYS * 128 + (kk % 4) * 32) / 16;
+      tf32x3::wgmma_fence();
+      tf32x3::wgmma3<KEYS>(hi, lo, a, tf32x3::smem_desc_sw128(big + off),
+                           tf32x3::smem_desc_sw128(small + off), kk == 0);
+      tf32x3::wgmma_commit();
+      tf32x3::wgmma_wait_all();
+    }
+    tf32x3::fence_regs(hi);
+    tf32x3::fence_regs(lo);
+  }
+
+  // O += P V of stage s over a warpgroup's DC columns from col0, P the S
+  // accumulator's layout, in groups of 4 k-steps (32 fragment registers)
+  __device__ void pv(const float (&p)[KEYS / 2], int s, int col0,
+                     float (&hi)[DC / 2], float (&lo)[DC / 2]) const {
+    constexpr int STEPS = 4;
+    const uint32_t big = smem_addr(v_big(s)) / 16, small = big + TILE / 16;
+#pragma unroll
+    for (int k0 = 0; k0 < KEYS / 8; k0 += STEPS) {
+      FragA a[STEPS];
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) {
+        const int kk = k0 + i;
+        a[i].set(p[4 * kk], p[4 * kk + 2], p[4 * kk + 1], p[4 * kk + 3]);
+      }
+      tf32x3::fence_regs(hi);
+      tf32x3::fence_regs(lo);
+      tf32x3::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) {
+        const int kk = k0 + i;
+        const uint32_t off =
+            ((kk / 4) * DH * 128 + col0 * 128 + (kk % 4) * 32) / 16;
+        tf32x3::wgmma3<DC>(hi, lo, a[i], tf32x3::smem_desc_sw128(big + off),
+                           tf32x3::smem_desc_sw128(small + off), false);
+      }
+      tf32x3::wgmma_commit();
+      tf32x3::wgmma_wait_all();
+      tf32x3::fence_regs(hi);
+      tf32x3::fence_regs(lo);
+    }
+  }
 };
 
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_attention_kernel(const __grid_constant__ CUtensorMap map_q,
-                           const __grid_constant__ CUtensorMap map_k,
-                           const __grid_constant__ CUtensorMap map_v,
-                           const Params p) {
-  using L = Layout<DH>;
-  constexpr int DB = L::DB, DBW = L::DBW, ROWS = L::ROWS, STAGES = L::STAGES;
+    flash_attention_kernel_wide(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const Params p) {
+  using W = Wide<DH>;
+  constexpr int KEYS = W::KEYS;
   extern __shared__ uint8_t smem_raw[];
-  // TMA writes shared memory at 128-byte aligned addresses
-  uint8_t* base = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
-  float* q_s = reinterpret_cast<float*>(base);
-  uint8_t* k_ring = base + L::Q_BYTES;
-  uint8_t* v_ring = k_ring + STAGES * L::K_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_ring + STAGES * L::V_BYTES);
-  uint64_t* empty = full + STAGES;
-  uint64_t* q_bar = empty + STAGES;
+  const W w(smem_raw);
 
   // longest causal rows first: the last query tiles of every head lead
   const int bh = blockIdx.x % p.n_bh;
   const int qt = p.n_qtiles - 1 - blockIdx.x / p.n_bh;
   const int b = bh / p.heads, h = bh % p.heads, kvh = h / p.group;
-  const int q0 = qt * ROWS;
+  const int q0 = qt * W::ROWS;
   const int q_offset = p.nkv - p.nq;
-  const int kv_end = p.causal ? min(p.nkv, q_offset + min(q0 + ROWS, p.nq))
-                              : p.nkv;
-  const int n_tiles = (kv_end + BKV - 1) / BKV;
+  const int kv_end = p.causal
+                         ? min(p.nkv, q_offset + min(q0 + W::ROWS, p.nq))
+                         : p.nkv;
+  const int n_tiles = (kv_end + KEYS - 1) / KEYS;
 
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);   // one arrival a consumer warp
-    }
-    mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) w.init();
   __syncthreads();
 
   if (tid >= 256) {
-    // ---------------- producer ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid == 256) {
-      int cq[4] = {0, 0, 0, 0}, ckv[4] = {0, 0, 0, 0};
-      cq[p.dim_q[0]] = q0;
-      cq[p.dim_q[1]] = h;
-      cq[p.dim_q[2]] = b;
-      ckv[p.dim_kv[1]] = kvh;
-      ckv[p.dim_kv[2]] = b;
-      mbar_expect_tx(q_bar, L::Q_BYTES);
-      tma_load_4d(q_s, &map_q, q_bar, cq[0], cq[1], cq[2], cq[3]);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % STAGES;
-        if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], L::K_BYTES + L::V_BYTES);
-        ckv[p.dim_kv[0]] = j * BKV;
-        tma_load_4d(k_ring + s * L::K_BYTES, &map_k, &full[s], ckv[0],
-                    ckv[1], ckv[2], ckv[3]);
-        tma_load_4d(v_ring + s * L::V_BYTES, &map_v, &full[s], ckv[0],
-                    ckv[1], ckv[2], ckv[3]);
-      }
-    }
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        W::PRODUCER_REGS));
+    int cq[4] = {0, 0, 0, 0}, ckv[4] = {0, 0, 0, 0};
+    cq[p.dim_q[0]] = q0;
+    cq[p.dim_q[1]] = h;
+    cq[p.dim_q[2]] = b;
+    ckv[p.dim_kv[1]] = kvh;
+    ckv[p.dim_kv[2]] = b;
+    w.produce(&map_q, &map_k, &map_v, cq, ckv, p.dim_kv[0], n_tiles,
+              tid - 256);
     return;
   }
 
-  // ---------------- consumers: 16 query rows a warp ----------------
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int lane = tid % 32, warp = tid / 32;
+  // ---------------- consumers ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      W::CONSUMER_REGS));
+  const int lane = tid % 32, warp = tid / 32, wg = tid / 128;
   const int g = lane / 4, t = lane % 4;
-  const int row0 = 16 * (warp % (ROWS / 16));   // the warp's rows in the tile
-  const int col0 = 8 * DBW * (warp / (ROWS / 16));   // its output columns
-  const int wq0 = q0 + row0;     // its first query
-  const int w_end =
-      wq0 >= p.nq ? 0
-                  : (p.causal ? min(p.nkv, q_offset + min(wq0 + 16, p.nq))
-                              : p.nkv);
-  const int my_tiles = (w_end + BKV - 1) / BKV;
+  // SPLIT 1: warpgroup wg owns rows 64 wg.. and every column; SPLIT 2:
+  // both own rows 0..63, warpgroup wg the columns DC wg..
+  const int rows0 = W::SPLIT == 1 ? 64 * wg : 0;
+  const int col0 = W::SPLIT == 1 ? 0 : W::DC * wg;
+  const int row0 = rows0 + 16 * (warp % 4);   // the warp's rows in the tile
+  const int wg_q0 = q0 + rows0;
+  const int wg_end =
+      wg_q0 >= p.nq ? 0
+                    : (p.causal ? min(p.nkv, q_offset + min(wg_q0 + 64, p.nq))
+                                : p.nkv);
+  const int my_tiles = (wg_end + KEYS - 1) / KEYS;
 
-  mbar_wait(q_bar, 0);
-  for (int e = tid; e < ROWS * DH; e += 256) {   // q * scale, once
-    float* x = q_s + (e / DH) * L::QS + e % DH;
-    *x *= p.scale;
+  mbar_wait(w.q_bar, 0);
+  for (int e = tid; e < (int)(W::Q_BYTES / 16); e += 256) {   // q * scale
+    float4* x = reinterpret_cast<float4*>(w.q) + e;
+    float4 y = *x;
+    y.x *= p.scale;
+    y.y *= p.scale;
+    y.z *= p.scale;
+    y.w *= p.scale;
+    *x = y;
   }
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");   // the consumers
-  const float* qa = q_s + (row0 + g) * L::QS + 2 * t;
+  asm volatile("bar.sync 2, 256;\n" ::: "memory");   // the consumers
+  const float* qa = w.q + (row0 + g) * 32 + t;
 
-  float o_hi[DBW][4], o_lo[DBW][4];
+  float o_hi[W::DC / 2], o_lo[W::DC / 2];
 #pragma unroll
-  for (int nd = 0; nd < DBW; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o_hi[nd][i] = o_lo[nd][i] = 0.f;
-  // rows g (fragment entries 0, 1) and g + 8 (entries 2, 3)
+  for (int i = 0; i < W::DC / 2; ++i) o_hi[i] = o_lo[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(&full[s], (j / STAGES) & 1);
+    const int sk = j % W::K_STAGES, sv = j % W::V_STAGES;
+    mbar_wait(&w.k_full[sk], (j / W::K_STAGES) & 1);
+    float sc[KEYS / 2];
     if (j < my_tiles) {
-      const float* ks =
-          reinterpret_cast<const float*>(k_ring + s * L::K_BYTES);
-      const float* vs =
-          reinterpret_cast<const float*>(v_ring + s * L::V_BYTES);
-      const int k0 = j * BKV;
-      const int nkb = min(KB, (w_end - k0 + 7) / 8);   // live 8-key blocks
-
-      // S = (q * scale) K^T: columns 2t, 2t + 1 of each 8-column step are
-      // its k = t, t + 4 for both operands
-      float sc[KB][4];
-      {
-        float s_lo[KB][4];
+      float sl[KEYS / 2];
+      w.qk(qa, g, sk, sc, sl);
+      // add the corrections; mask the tiles that cross the diagonal or Nkv
+      const int k0 = j * KEYS;
+      const bool edge = k0 + KEYS > p.nkv ||
+                        (p.causal && k0 + KEYS - 1 > q_offset + wg_q0);
 #pragma unroll
-        for (int nb = 0; nb < KB; ++nb)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) sc[nb][i] = s_lo[nb][i] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DB; ++kk) {
-          const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kk);
-          const float2 x1 =
-              *reinterpret_cast<const float2*>(qa + 8 * L::QS + 8 * kk);
-          FragA a;
-          a.set(x0.x, x1.x, x0.y, x1.y);
-#pragma unroll
-          for (int nb = 0; nb < KB; ++nb)
-            if (nb < nkb) {
-              const float2 y = *reinterpret_cast<const float2*>(
-                  ks + (8 * nb + g) * L::KS + 8 * kk + 2 * t);
-              FragB bf;
-              bf.set(y.x, y.y);
-              mma3(sc[nb], s_lo[nb], a, bf);
-            }
+      for (int i = 0; i < KEYS / 2; ++i) {
+        float x = sc[i] + sl[i];
+        if (edge) {
+          const int kpos = k0 + (i / 4) * 8 + 2 * t + (i % 2);
+          const int qpos = q_offset + q0 + row0 + g + ((i / 2) % 2) * 8;
+          if (kpos >= p.nkv || (p.causal && kpos > qpos)) x = NEG_INF;
         }
-        // add the corrections; mask the blocks that cross the diagonal or
-        // Nkv, and the skipped ones
-        const bool edge = k0 + BKV > p.nkv ||
-                          (p.causal && k0 + BKV - 1 > q_offset + wq0);
-#pragma unroll
-        for (int nb = 0; nb < KB; ++nb)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float x = sc[nb][i] + s_lo[nb][i];
-            if (nb >= nkb) {
-              x = NEG_INF;
-            } else if (edge) {
-              const int kpos = k0 + 8 * nb + 2 * t + (i & 1);
-              const int qpos = q_offset + wq0 + g + 8 * (i >> 1);
-              if (kpos >= p.nkv || (p.causal && kpos > qpos)) x = NEG_INF;
-            }
-            sc[nb][i] = x;
-          }
+        sc[i] = x;
       }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&w.k_empty[sk]);
 
-      // online softmax; the four lanes of a quad hold a row's 64 keys
+    if (j < my_tiles) {
+      // online softmax, rows g (i % 4 < 2) and g + 8 (i % 4 >= 2); the
+      // four lanes of a quad hold a row's keys
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int nb = 0; nb < KB; ++nb)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          mx[i >> 1] = fmaxf(mx[i >> 1], sc[nb][i]);
+      for (int i = 0; i < KEYS / 2; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
       float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -280,63 +460,52 @@ __global__ void __launch_bounds__(THREADS, 1)
         m_run[r] = m_new;
       }
 #pragma unroll
-      for (int nb = 0; nb < KB; ++nb)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sc[nb][i] = expf(sc[nb][i] - m_run[i >> 1]);
-          sum[i >> 1] += sc[nb][i];
-        }
+      for (int i = 0; i < KEYS / 2; ++i) {
+        const int r = (i / 2) % 2;
+        sc[i] = expf(sc[i] - m_run[r]);
+        sum[r] += sc[i];
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
         sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
         l_run[r] = l_run[r] * alpha[r] + sum[r];
       }
+      // (a warp whose rows kept their maxima multiplies by exactly 1: skip)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int nd = 0; nd < DBW; ++nd)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o_hi[nd][i] *= alpha[i >> 1];
-          o_lo[nd][i] *= alpha[i >> 1];
+        for (int i = 0; i < W::DC / 2; ++i) {
+          o_hi[i] *= alpha[(i / 2) % 2];
+          o_lo[i] *= alpha[(i / 2) % 2];
         }
-
-      // O += P V: the accumulator's keys 2t, 2t + 1 are the A fragment's
-      // k = t, t + 4, so V's rows 2t, 2t + 1 are B's
-#pragma unroll
-      for (int nb = 0; nb < KB; ++nb)
-        if (nb < nkb) {
-          FragA a;
-          a.set(sc[nb][0], sc[nb][2], sc[nb][1], sc[nb][3]);
-          const float* v0 = vs + (8 * nb + 2 * t) * L::VS + col0 + g;
-#pragma unroll
-          for (int nd = 0; nd < DBW; ++nd) {
-            FragB bf;
-            bf.set(v0[8 * nd], v0[L::VS + 8 * nd]);
-            mma3(o_hi[nd], o_lo[nd], a, bf);
-          }
-        }
+      }
     }
+    mbar_wait(&w.v_full[sv], (j / W::V_STAGES) & 1);
+    if (j < my_tiles) w.pv(sc, sv, col0, o_hi, o_lo);
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
+    if (lane == 0) mbar_arrive(&w.v_empty[sv]);
   }
 
-  // out = acc / max(l, 1e-30), rows inside Nq
+  // out = acc / max(l, 1e-30), rows inside Nq, columns inside Dh
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = wq0 + g + 8 * r;
+    const int qi = q0 + row0 + g + 8 * r;
     if (qi >= p.nq) continue;
     const float l = fmaxf(l_run[r], 1e-30f);
-    float* row = p.out + ((long long)bh * p.nq + qi) * DH + col0 + 2 * t;
+    float* row = p.out + ((long long)bh * p.nq + qi) * p.dh;
 #pragma unroll
-    for (int nd = 0; nd < DBW; ++nd)
-      *reinterpret_cast<float2*>(row + 8 * nd) =
-          make_float2((o_hi[nd][2 * r] + o_lo[nd][2 * r]) / l,
-                      (o_hi[nd][2 * r + 1] + o_lo[nd][2 * r + 1]) / l);
+    for (int nb = 0; nb < W::DC / 8; ++nb) {
+      const int col = col0 + nb * 8 + 2 * t;
+      if (col < p.dh)
+        *reinterpret_cast<float2*>(row + col) = make_float2(
+            (o_hi[4 * nb + 2 * r] + o_lo[4 * nb + 2 * r]) / l,
+            (o_hi[4 * nb + 2 * r + 1] + o_lo[4 * nb + 2 * r + 1]) / l);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Dh 32 and 64: wgmma over operands split once a block (tf32x3::Pipe)
+// Dh up to 64: wgmma over operands split once a block (tf32x3::Pipe)
 // ---------------------------------------------------------------------------
 
 template <int DH>
@@ -467,13 +636,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int qi = q0 + row0 + g + 8 * r;
     if (qi >= p.nq) continue;
     const float l = fmaxf(l_run[r], 1e-30f);
-    float* row = p.out + ((long long)bh * p.nq + qi) * DH;
+    float* row = p.out + ((long long)bh * p.nq + qi) * p.dh;
 #pragma unroll
-    for (int nb = 0; nb < DH / 8; ++nb)
-      *reinterpret_cast<float2*>(row + nb * 8 + 2 * t) =
-          make_float2((o_hi[4 * nb + 2 * r] + o_lo[4 * nb + 2 * r]) / l,
-                      (o_hi[4 * nb + 2 * r + 1] + o_lo[4 * nb + 2 * r + 1]) /
-                          l);
+    for (int nb = 0; nb < DH / 8; ++nb) {
+      const int col = nb * 8 + 2 * t;
+      if (col < p.dh)
+        *reinterpret_cast<float2*>(row + col) = make_float2(
+            (o_hi[4 * nb + 2 * r] + o_lo[4 * nb + 2 * r]) / l,
+            (o_hi[4 * nb + 2 * r + 1] + o_lo[4 * nb + 2 * r + 1]) / l);
+    }
   }
 }
 
@@ -489,6 +660,14 @@ int launch(Kernel kernel, size_t smem, std::atomic<unsigned long long>& sized,
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+int launch_wide(std::atomic<unsigned long long>& sized, const CUtensorMap& mq,
+                const CUtensorMap& mk, const CUtensorMap& mv,
+                const Params& prm, cudaStream_t stream) {
+  return launch(flash_attention_kernel_wide<DH>, Wide<DH>::SMEM, sized, mq,
+                mk, mv, prm, stream);
+}
+
 }  // namespace
 
 extern "C" const char* error_string(int err) {
@@ -498,9 +677,9 @@ extern "C" const char* error_string(int err) {
 // q: (batch, heads, nq, dh) f32 with element strides (qs_b, qs_h, qs_r, 1);
 // k, v: (batch, kv_heads, nkv, dh) f32, strides (ks_*, 1) and (vs_*, 1), k
 // and v in one order of strides; every stride a multiple of 4 and every
-// base 16-byte aligned (TMA); heads a multiple of kv_heads; dh in {32, 64,
-// 128, 160}; nkv >= 1, nq <= nkv when causal. out: (batch, heads, nq, dh)
-// f32, contiguous.
+// base 16-byte aligned (TMA); heads a multiple of kv_heads; dh a multiple
+// of 4 from 4 to 256; nkv >= 1, nq <= nkv when causal. out: (batch, heads,
+// nq, dh) f32, contiguous.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, float* out, int batch,
     int heads, int kv_heads, int nq, int nkv, int dh, long long qs_b,
@@ -508,28 +687,39 @@ extern "C" int flash_attention_launch(
     long long ks_r, long long vs_b, long long vs_h, long long vs_r,
     float scale, int causal, void* stream) {
   if (batch == 0 || heads == 0 || nq == 0) return 0;
-  if ((dh != 32 && dh != 64 && dh != 128 && dh != 160) || kv_heads <= 0 ||
-      heads % kv_heads)
+  if (dh < 4 || dh > 256 || dh % 4 || kv_heads <= 0 || heads % kv_heads)
     return (int)cudaErrorInvalidValue;
+  // the instantiation that runs: Pipe at 32 or 64, Wide at a multiple of 32
+  const int inst = dh <= 32 ? 32 : dh <= 64 ? 64 : (dh + 31) / 32 * 32;
   CUtensorMap mq, mk, mv;
   Params prm;
   int dim_v[3];
-  // unswizzled boxes of padded rows (TMA zero-fills the columns past Dh):
-  // Dh + 4 columns for every operand of the wgmma kernel (Dh 32, 64);
-  // Dh + 8 (q, k) and Dh + 4 (v) for the mma.sync kernel (Dh 128 in q
-  // tiles of 128 rows, Dh 160 in q tiles of 64)
   constexpr auto F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  constexpr auto FLAT = CU_TENSOR_MAP_SWIZZLE_NONE;
-  const bool mma_sync = dh > 64;
-  const int qk_cols = mma_sync ? dh + 8 : dh + 4;
-  const int rows = dh == 160 ? Layout<160>::ROWS : BQ;
-  if (!tma::make_map(&mq, F32, 4, FLAT, q, dh, qk_cols, nq, heads, batch,
-                     qs_r, qs_h, qs_b, rows, prm.dim_q) ||
-      !tma::make_map(&mk, F32, 4, FLAT, k, dh, qk_cols, nkv, kv_heads, batch,
-                     ks_r, ks_h, ks_b, BKV, prm.dim_kv) ||
-      !tma::make_map(&mv, F32, 4, FLAT, v, dh, dh + 4, nkv, kv_heads, batch,
-                     vs_r, vs_h, vs_b, BKV, dim_v))
-    return (int)cudaErrorInvalidValue;
+  bool ok;
+  int rows;
+  if (inst <= 64) {
+    // unswizzled boxes of padded rows, Dh + 4 columns (TMA zero-fills
+    // the columns past Dh)
+    constexpr auto FLAT = CU_TENSOR_MAP_SWIZZLE_NONE;
+    rows = BQ;
+    ok = tma::make_map(&mq, F32, 4, FLAT, q, dh, inst + 4, nq, heads, batch,
+                       qs_r, qs_h, qs_b, BQ, prm.dim_q) &&
+         tma::make_map(&mk, F32, 4, FLAT, k, dh, inst + 4, nkv, kv_heads,
+                       batch, ks_r, ks_h, ks_b, BKV, prm.dim_kv) &&
+         tma::make_map(&mv, F32, 4, FLAT, v, dh, inst + 4, nkv, kv_heads,
+                       batch, vs_r, vs_h, vs_b, BKV, dim_v);
+  } else {
+    // 128-byte swizzled boxes of 32 columns
+    constexpr auto SW128 = CU_TENSOR_MAP_SWIZZLE_128B;
+    rows = 128 / wide_split(inst);   // Wide<inst>::ROWS
+    ok = tma::make_map(&mq, F32, 4, SW128, q, dh, 32, nq, heads, batch, qs_r,
+                       qs_h, qs_b, rows, prm.dim_q) &&
+         tma::make_map(&mk, F32, 4, SW128, k, dh, 32, nkv, kv_heads, batch,
+                       ks_r, ks_h, ks_b, wide_keys(inst), prm.dim_kv) &&
+         tma::make_map(&mv, F32, 4, SW128, v, dh, 32, nkv, kv_heads, batch,
+                       vs_r, vs_h, vs_b, wide_keys(inst), dim_v);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   // k and v share one coordinate order (the wrapper gives them one layout)
   for (int i = 0; i < 3; ++i)
     if (dim_v[i] != prm.dim_kv[i]) return (int)cudaErrorInvalidValue;
@@ -537,22 +727,26 @@ extern "C" int flash_attention_launch(
   prm.group = heads / kv_heads;
   prm.nq = nq;
   prm.nkv = nkv;
+  prm.dh = dh;
   prm.n_qtiles = (nq + rows - 1) / rows;
   prm.n_bh = batch * heads;
   prm.scale = scale;
   prm.causal = causal;
   prm.out = out;
   const cudaStream_t s = (cudaStream_t)stream;
-  static std::atomic<unsigned long long> sized[4];   // a bit a device
-  if (dh == 32)
-    return launch(flash_attention_kernel_wgmma<32>, tf32x3::Pipe<32>::SMEM,
-                  sized[0], mq, mk, mv, prm, s);
-  if (dh == 64)
-    return launch(flash_attention_kernel_wgmma<64>, tf32x3::Pipe<64>::SMEM,
-                  sized[1], mq, mk, mv, prm, s);
-  if (dh == 128)
-    return launch(flash_attention_kernel<128>, Layout<128>::SMEM, sized[2],
-                  mq, mk, mv, prm, s);
-  return launch(flash_attention_kernel<160>, Layout<160>::SMEM, sized[3], mq,
-                mk, mv, prm, s);
+  static std::atomic<unsigned long long> sized[8];   // a bit a device
+  switch (inst) {
+    case 32:
+      return launch(flash_attention_kernel_wgmma<32>, tf32x3::Pipe<32>::SMEM,
+                    sized[0], mq, mk, mv, prm, s);
+    case 64:
+      return launch(flash_attention_kernel_wgmma<64>, tf32x3::Pipe<64>::SMEM,
+                    sized[1], mq, mk, mv, prm, s);
+    case 96: return launch_wide<96>(sized[2], mq, mk, mv, prm, s);
+    case 128: return launch_wide<128>(sized[3], mq, mk, mv, prm, s);
+    case 160: return launch_wide<160>(sized[4], mq, mk, mv, prm, s);
+    case 192: return launch_wide<192>(sized[5], mq, mk, mv, prm, s);
+    case 224: return launch_wide<224>(sized[6], mq, mk, mv, prm, s);
+    default: return launch_wide<256>(sized[7], mq, mk, mv, prm, s);
+  }
 }

@@ -41,10 +41,13 @@
 // masked. Dh is tiled in NH = ceil(Dh / 64) boxes of 64 columns, and TMA
 // fills the columns past Dh with zeros (which add exact zeros to S and
 // are never stored): Dh 32 is one half-filled box, Dh 64 one, Dh 128 two,
-// Dh 160 (stablelm-12b) three, the last half filled. Any Dh that is a
-// multiple of 8 (TMA's 16-byte row stride) up to 192 runs: at NH 3 the
-// block holds 1 KiB + 3 x (2 + 2 x STAGES) x 8 KiB = 193 KiB of shared
-// memory and a consumer thread 96 f32 output accumulators.
+// Dh 160 (stablelm-12b) three, the last half filled, Dh 256 (Qwen3-Next)
+// four. Any Dh that is a multiple of 8 (TMA's 16-byte row stride) up to
+// 256 runs. The ring has three stages up to NH 3 (1 KiB + 3 x (2 + 2 x 3)
+// x 8 KiB = 193 KiB of shared memory at NH 3) and two at NH 4 (1 KiB + 4 x
+// (2 + 2 x 2) x 8 KiB = 193 KiB; three would take 257 KiB); a consumer
+// thread holds NH x 32 f32 output accumulators, 128 at NH 4, beside S and
+// the split P.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -61,7 +64,7 @@ using tma::mbar_wait;
 using tma::smem_addr;
 using tma::tma_load_4d;
 
-constexpr int BQ = 128, BKV = 64, STAGES = 3, THREADS = 384;
+constexpr int BQ = 128, BKV = 64, THREADS = 384;
 constexpr int TILE_BYTES = 64 * 128;   // 64 rows of 64 bf16
 constexpr float NEG_INF = -1e30f;
 
@@ -141,7 +144,8 @@ struct Params {
   float* out;   // (B, Hq, Nq, Dh) f32, contiguous
 };
 
-template <int NH>   // 64-column boxes of Dh
+// NH 64-column boxes of Dh, a ring of STAGES stages
+template <int NH, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -367,7 +371,7 @@ extern "C" const char* error_string(int err) {
 // q: (batch, heads, nq, dh) bf16 with element strides (qs_b, qs_h, qs_r, 1);
 // k, v: (batch, kv_heads, nkv, dh) bf16, strides (ks_*, 1) and (vs_*, 1);
 // every stride a multiple of 8 and every base 16-byte aligned (TMA); heads a
-// multiple of kv_heads; dh a multiple of 8 from 8 to 192; nkv >= 1, nq <=
+// multiple of kv_heads; dh a multiple of 8 from 8 to 256; nkv >= 1, nq <=
 // nkv when causal. out: (batch, heads, nq, dh) f32, contiguous.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, float* out, int batch,
@@ -376,7 +380,7 @@ extern "C" int flash_attention_tc_launch(
     long long ks_r, long long vs_b, long long vs_h, long long vs_r,
     float scale, int causal, void* stream) {
   if (batch == 0 || heads == 0 || nq == 0) return 0;
-  if (dh < 8 || dh > 192 || dh % 8 || kv_heads <= 0 || heads % kv_heads)
+  if (dh < 8 || dh > 256 || dh % 8 || kv_heads <= 0 || heads % kv_heads)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   Params prm;
@@ -404,11 +408,13 @@ extern "C" int flash_attention_tc_launch(
   prm.causal = causal;
   prm.out = out;
   const int nh = (dh + 63) / 64;
-  const size_t smem = 1024 + (size_t)nh * (2 + 2 * STAGES) * TILE_BYTES +
-                      (2 * STAGES + 1) * sizeof(uint64_t);
-  auto kernel = nh == 3   ? flash_tc_kernel<3>
-                : nh == 2 ? flash_tc_kernel<2>
-                          : flash_tc_kernel<1>;
+  const int stages = nh == 4 ? 2 : 3;
+  const size_t smem = 1024 + (size_t)nh * (2 + 2 * stages) * TILE_BYTES +
+                      (2 * stages + 1) * sizeof(uint64_t);
+  auto kernel = nh == 4   ? flash_tc_kernel<4, 2>
+                : nh == 3 ? flash_tc_kernel<3, 3>
+                : nh == 2 ? flash_tc_kernel<2, 3>
+                          : flash_tc_kernel<1, 3>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

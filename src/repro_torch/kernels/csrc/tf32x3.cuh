@@ -13,20 +13,21 @@
 // the big terms keep their low bits. For {0,1} operands small is 0 and
 // every big product is exact, so integer sums below 2^24 are exact.
 //
-// Two ways to take the products, both here. wgmma m64n64k8 tf32 over a
-// block pipeline (Pipe, below) for Dh 32 and 64: the producer warpgroup
-// splits each K and V tile once, into K-major copies that wgmma reads from
-// shared memory (tf32 wgmma reads B only K-major, so V is stored
-// transposed). mma.sync m16n8k8 tf32 for the other head dims, where those
-// split copies would not fit in shared memory beside the tile ring, and
-// for STDP operands TMA cannot read: each warp loads its fragments from the
-// raw f32 tiles and splits them in registers. In both, the S accumulator
-// is P.V's A fragment unchanged: it holds keys 2t and 2t+1 of each 8-key
-// block where the A fragment expects k = t and t + 4, so P.V reads V's
-// rows in that order (rows 2t and 2t+1 as its k = t and t + 4) and nothing
-// moves between lanes. The mma.sync Q.K^T reads both operands' columns 2t
-// and 2t+1 of each 8-column step as k = t and t + 4 (one 8-byte load
-// each), which permutes only the order of the products inside a step.
+// Two ways to take the products, both here. wgmma m64nNk8 tf32
+// (wgmma_tf32, below): a producer warpgroup splits each K and V tile once,
+// into K-major copies that wgmma reads from shared memory (tf32 wgmma
+// reads B only K-major, so V is stored transposed); the block pipeline
+// Pipe (below) does so for Dh 32 and 64 in STDP and flash attention, and
+// csrc/flash_attention.cu's Wide for its other head dims. mma.sync
+// m16n8k8 tf32 for STDP's other head dims and for STDP operands TMA cannot
+// read: each warp loads its fragments from the raw f32 tiles and splits
+// them in registers. In both, the S accumulator is P.V's A fragment
+// unchanged: it holds keys 2t and 2t+1 of each 8-key block where the A
+// fragment expects k = t and t + 4, so P.V reads V's rows in that order
+// (rows 2t and 2t+1 as its k = t and t + 4) and nothing moves between
+// lanes. The mma.sync Q.K^T reads both operands' columns 2t and 2t+1 of
+// each 8-column step as k = t and t + 4 (one 8-byte load each), which
+// permutes only the order of the products inside a step.
 //
 // Fragments (g = lane / 4, t = lane % 4), PTX ISA "mma.m16n8k8 .tf32":
 //   A 16x8: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
@@ -135,21 +136,8 @@ __device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
 // A fragment expects k = t and t + 4: so V^T's slot 4sg + i (k-step sg / 2)
 // holds key 8 (sg / 2) + sg % 2 + 2i. Each tile is split once a block,
 // not once a warp, and B is read from shared memory inside the tensor
-// cores: the f32 flash kernel takes less than half the time of its
-// mma.sync design on an H100 (PERF.md section 6).
-
-#define TF32X3_D32                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define TF32X3_OUT32(d)                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
+// cores: at Dh 64 the f32 flash kernel took less than half the time of
+// its mma.sync design on an H100 (PERF.md section 6).
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -162,9 +150,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 }
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundaries
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // descriptor of a K-major operand in the unswizzled core-matrix layout
@@ -173,26 +162,92 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo) {
          (uint64_t(lbo >> 4) << 16) | (uint64_t(128 >> 4) << 32);
 }
 
-// d (64x64 f32) (+)= a (64x8 tf32 in registers: a warp's 16 rows in the
-// mma.m16n8k8 A layout) * b (8x64 tf32, K-major in shared memory)
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " TF32X3_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : TF32X3_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+// descriptor of a K-major operand in the 128-byte swizzled layout TMA
+// writes (rows of 32 f32, 8-row groups 1024 bytes apart, the tile 1024-byte
+// aligned), from its shared-memory address in 16-byte units (a k-step of 8
+// starts 2 units further)
+__device__ __forceinline__ uint64_t smem_desc_sw128(uint32_t addr16) {
+  return addr16 | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
 }
 
+// d (64xN f32) (+)= a (64x8 tf32 in registers: a warp's 16 rows in the
+// mma.m16n8k8 A layout) * b (8xN tf32, K-major in shared memory), for the
+// N the kernels use: the N / 2 accumulators are %0.., then a, b and the
+// accumulate flag.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate);
+
+#define TF32X3_D8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TF32X3_R0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define TF32X3_R1 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define TF32X3_R2 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define TF32X3_R3 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define TF32X3_R4 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define TF32X3_R5 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define TF32X3_R6 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define TF32X3_R7 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define TF32X3_R8 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define TF32X3_R9 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define TF32X3_WGMMA(N, REGS, A, B, ACC, ...)                              \
+  template <>                                                              \
+  __device__ __forceinline__ void wgmma_tf32<N>(                           \
+      float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,               \
+      int accumulate) {                                                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " ACC ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                    \
+                 "k8.f32.tf32.tf32 {" REGS "}, {" A "}, " B                \
+                 ", p, 1, 1;\n}\n"                                         \
+                 : __VA_ARGS__                                             \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
+                   "r"(accumulate));                                       \
+  }
+TF32X3_WGMMA(32, TF32X3_R0 TF32X3_R1, "%16, %17, %18, %19", "%20", "%21",
+             TF32X3_D8(0), TF32X3_D8(8))
+TF32X3_WGMMA(64, TF32X3_R0 TF32X3_R1 TF32X3_R2 TF32X3_R3, "%32, %33, %34, %35",
+             "%36", "%37", TF32X3_D8(0), TF32X3_D8(8), TF32X3_D8(16),
+             TF32X3_D8(24))
+TF32X3_WGMMA(96, TF32X3_R0 TF32X3_R1 TF32X3_R2 TF32X3_R3 TF32X3_R4 TF32X3_R5,
+             "%48, %49, %50, %51", "%52", "%53", TF32X3_D8(0), TF32X3_D8(8),
+             TF32X3_D8(16), TF32X3_D8(24), TF32X3_D8(32), TF32X3_D8(40))
+TF32X3_WGMMA(112, TF32X3_R0 TF32X3_R1 TF32X3_R2 TF32X3_R3 TF32X3_R4 TF32X3_R5
+             TF32X3_R6, "%56, %57, %58, %59", "%60", "%61", TF32X3_D8(0),
+             TF32X3_D8(8), TF32X3_D8(16), TF32X3_D8(24), TF32X3_D8(32),
+             TF32X3_D8(40), TF32X3_D8(48))
+TF32X3_WGMMA(128, TF32X3_R0 TF32X3_R1 TF32X3_R2 TF32X3_R3 TF32X3_R4 TF32X3_R5
+             TF32X3_R6 TF32X3_R7, "%64, %65, %66, %67", "%68", "%69",
+             TF32X3_D8(0), TF32X3_D8(8), TF32X3_D8(16), TF32X3_D8(24),
+             TF32X3_D8(32), TF32X3_D8(40), TF32X3_D8(48), TF32X3_D8(56))
+TF32X3_WGMMA(160, TF32X3_R0 TF32X3_R1 TF32X3_R2 TF32X3_R3 TF32X3_R4 TF32X3_R5
+             TF32X3_R6 TF32X3_R7 TF32X3_R8 TF32X3_R9, "%80, %81, %82, %83",
+             "%84", "%85", TF32X3_D8(0), TF32X3_D8(8), TF32X3_D8(16),
+             TF32X3_D8(24), TF32X3_D8(32), TF32X3_D8(40), TF32X3_D8(48),
+             TF32X3_D8(56), TF32X3_D8(64), TF32X3_D8(72))
+#undef TF32X3_WGMMA
+#undef TF32X3_D8
+#undef TF32X3_R0
+#undef TF32X3_R1
+#undef TF32X3_R2
+#undef TF32X3_R3
+#undef TF32X3_R4
+#undef TF32X3_R5
+#undef TF32X3_R6
+#undef TF32X3_R7
+#undef TF32X3_R8
+#undef TF32X3_R9
+
 // the 3xTF32 step on a warpgroup; first: hi and lo start from it
-__device__ __forceinline__ void wgmma3(float (&hi)[32], float (&lo)[32],
+template <int N>
+__device__ __forceinline__ void wgmma3(float (&hi)[N / 2], float (&lo)[N / 2],
                                        const FragA& a, uint64_t b_big,
                                        uint64_t b_small, bool first) {
-  wgmma_tf32(hi, a.big, b_big, !first);
-  wgmma_tf32(lo, a.big, b_small, !first);
-  wgmma_tf32(lo, a.small, b_big, 1);
+  wgmma_tf32<N>(hi, a.big, b_big, !first);
+  wgmma_tf32<N>(lo, a.big, b_small, !first);
+  wgmma_tf32<N>(lo, a.small, b_big, 1);
 }
 
 template <int DH>
@@ -334,7 +389,7 @@ struct Pipe {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const uint32_t step = (k0 + i) * 2 * K_LBO;
-        wgmma3(hi, lo, a[i], smem_desc(k_big(s) + step, K_LBO),
+        wgmma3<BKV>(hi, lo, a[i], smem_desc(k_big(s) + step, K_LBO),
                smem_desc(k_small(s) + step, K_LBO), k0 + i == 0);
       }
       wgmma_commit();
@@ -359,7 +414,7 @@ struct Pipe {
     for (int kk = 0; kk < BKV / 8; ++kk)
       if (kk < steps) {
         const uint32_t step = kk * 2 * V_LBO;
-        wgmma3(hi, lo, a[kk], smem_desc(v_big(s) + step, V_LBO),
+        wgmma3<64>(hi, lo, a[kk], smem_desc(v_big(s) + step, V_LBO),
                smem_desc(v_small(s) + step, V_LBO), false);
       }
     wgmma_commit();

@@ -4,14 +4,19 @@ softmax (port of ``repro.kernels.flash_attention``).
 ``flash_attention`` takes grouped-query heads and strided operands and
 dispatches on the operands' dtype: bf16 launches
 ``csrc/flash_attention_tc.cu`` (bf16 wgmma), f32 launches
-``csrc/flash_attention.cu`` (split TF32: wgmma at Dh 32 and 64, mma.sync at
-Dh 128 and 160); both load their tiles by TMA and read each KV head and
-strided view in place. ``HEAD_DIMS`` holds the head dims each kernel
-takes: the bf16 kernel every multiple of 8 from 8 to 192 (64-column TMA
-boxes, zero-filled past Dh), the f32 kernel 32, 64, 128 and 160 (one
-instantiation each). On the card any other Dh raises. CPU operands run
-the plain version, ``flash_attention_plain``, at any Dh. Each kernel's
-wrapper counts its launches."""
+``csrc/flash_attention.cu`` (split TF32 on wgmma); both load their tiles
+by TMA and read each KV head and strided view in place. ``HEAD_DIMS``
+holds the head dims each kernel takes on the card: every Dh from 1 to
+``MAX_HEAD_DIM`` = 256 in both dtypes (the bf16 kernel in 64-column
+boxes, the f32 kernel at Dh 32 and 64 and at every multiple of 32 from
+96 to 256, a Dh in between running the next one up: TMA zero-fills the
+columns past Dh). TMA reads rows of a multiple of 16 bytes, so a Dh that
+is not a multiple of 8 (bf16) or 4 (f32) is zero-padded to one and the
+output cut back: zero columns add zero to every score and every output,
+and the scale is passed as given. A Dh above 256 raises ``ValueError``,
+launching nothing. CPU operands run the plain version,
+``flash_attention_plain``, at any Dh. Each kernel's wrapper counts its
+launches (a padded call is one launch)."""
 from __future__ import annotations
 
 import ctypes
@@ -24,9 +29,9 @@ from .ref import flash_attention_ref
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-HEAD_DIMS = {torch.bfloat16: tuple(range(8, 193, 8)),
-             torch.float32: (32, 64, 128, 160)}
 DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 256
+HEAD_DIMS = {dtype: range(1, MAX_HEAD_DIM + 1) for dtype in DTYPES}
 
 
 def _grouped(q, k, v):
@@ -86,8 +91,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, scale=scale, causal=causal)
     if dh not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"the {q.dtype} flash kernel takes Dh in "
-                         f"{HEAD_DIMS[q.dtype]}, got {tuple(q.shape)}")
+        raise ValueError(f"the {q.dtype} flash kernel takes Dh in 1.."
+                         f"{MAX_HEAD_DIM}, got {tuple(q.shape)}")
     fn = flash_attention_tc if q.dtype == torch.bfloat16 else \
         flash_attention_f32
     return fn(q4, k4, v4, scale=scale, causal=causal).reshape(
@@ -114,8 +119,13 @@ def _strides(z: torch.Tensor) -> list:
 def _launch(wrapper, name: str, symbol: str, q, k, v, *, scale: float,
             causal: bool):
     """Launch ``csrc/<name>.cu`` on (B, Hq, Nq, Dh) over (B, KV, Nkv, Dh),
-    read in place (copied only where TMA cannot read a view) -> (B, Hq,
-    Nq, Dh) f32; count the launch on ``wrapper``."""
+    read in place (copied only where TMA cannot read a view; zero-padded
+    to a Dh of whole 16-byte rows where it is not one) -> (B, Hq, Nq, Dh)
+    f32; count the launch on ``wrapper``."""
+    dh_given = q.shape[-1]
+    pad = -dh_given % (16 // q.element_size())
+    if pad:
+        q, k, v = (torch.nn.functional.pad(z, (0, pad)) for z in (q, k, v))
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     if k.stride() != v.stride():
         k, v = k.contiguous(), v.contiguous()
@@ -128,7 +138,7 @@ def _launch(wrapper, name: str, symbol: str, q, k, v, *, scale: float,
         nq, nkv, dh, *_strides(q), *_strides(k), *_strides(v), scale,
         int(causal), _build.stream(q)))
     _build.count_launch(wrapper)
-    return out
+    return out[..., :dh_given] if pad else out
 
 
 def flash_attention_tc(q, k, v, *, scale: float, causal: bool = True):

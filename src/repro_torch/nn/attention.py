@@ -9,11 +9,11 @@ ones, and whose window (if any) cannot mask a key, runs
 the TPU form of ``chunked_attention``'s schedule: train and prefill
 without a cache, and a prompt into a cache at ``cache_pos == 0``, which
 attends over its own keys. On the card that is
-``csrc/flash_attention_tc.cu`` for bf16 (every head dim a multiple of 8 up
-to 192: the configs' 64, 128 and stablelm-12b's 160) and
-``csrc/flash_attention.cu`` for f32 (32, 64, 128, 160); a head dim the
-kernel does not take raises there (``kernels/flash_attention.py:
-HEAD_DIMS``), with no fallback. Every other case (decode, prefill at an
+``csrc/flash_attention_tc.cu`` for bf16 and ``csrc/flash_attention.cu``
+for f32, each at every head dim from 1 to 256 (the configs' 64, 128 and
+stablelm-12b's 160 among them; ``kernels/flash_attention.py:
+HEAD_DIMS``); a head dim above 256 raises there, with no fallback.
+Every other case (decode, prefill at an
 offset, per-row positions) is the reference's plain chunked softmax, in
 torch. So is a prompt longer than its layer's window: the reference has no
 Pallas kernel for windowed attention, so that branch is the reference's

@@ -438,7 +438,7 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="rows 16"):
         spike_matmul_grouped_s8(xs[..., :12].contiguous(), torch.zeros(
             (4, 12), dtype=torch.int8, device=cuda), t=4)
-    qa = torch.zeros((2, 8, 48), device=cuda)
+    qa = torch.zeros((2, 8, 264), device=cuda)
     with pytest.raises(ValueError, match="Dh in"):
         flash_attention(qa, qa, qa, scale=1.0)
     qb = torch.zeros((2, 8, 64), device=cuda)
@@ -560,12 +560,18 @@ def test_lut_plan_past_the_fused_kernels_steps_runs_two_layers(cuda):
     (2, 100, 333, 64, False), (15, 2048, 2048, 64, True),
     (4, 1000, 1000, 128, False), (3, 100, 333, 160, True),
     (2, 77, 77, 160, True), (3, 1, 512, 160, True),
-    (2, 100, 333, 160, False), (4, 1000, 1000, 160, False)])
+    (2, 100, 333, 160, False), (4, 1000, 1000, 160, False),
+    (3, 100, 333, 96, True), (2, 77, 77, 256, True),
+    (2, 100, 333, 256, False), (3, 1, 512, 224, True),
+    (4, 1000, 1000, 192, True), (2, 100, 333, 60, True),
+    (2, 70, 133, 102, False), (3, 200, 200, 12, True)])
 def test_flash_kernel_matches_plain(cuda, dtype, bh, nq, nkv, dh, causal):
     """Kernel 7 against its plain version (exact softmax in f32 on the same
     values) within atol = rtol = 2e-4, the reference's flash tolerance;
     ragged lengths pad both the query and the key tiles. bf16 runs the
-    bf16 tensor-core kernel, f32 the split-TF32 one."""
+    bf16 tensor-core kernel, f32 the split-TF32 one; head dims up to 256,
+    those TMA cannot read row by row (60 and 12 in bf16, 102) zero-padded
+    by the wrapper, in one launch."""
     g = gen(cuda, nq + nkv + dh)
     q, k, v = (torch.randn((bh, n, dh), generator=g, device=cuda).to(dtype)
                for n in (nq, nkv, nkv))
@@ -616,14 +622,16 @@ def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,kvh,dh", [(32, 8, 160), (32, 2, 128),
-                                      (32, 4, 128), (64, 8, 128)],
+                                      (32, 4, 128), (64, 8, 128),
+                                      (16, 2, 256)],
                          ids=["stablelm-12b", "glm4-9b", "qwen3-moe-30b-a3b",
-                              "qwen1.5-110b"])
+                              "qwen1.5-110b", "qwen3-next-80b-a3b"])
 def test_flash_kernel_at_the_dense_prefills(cuda, dtype, hq, kvh, dh):
     """Kernel 7 at the 2048-token prefills of stablelm-12b (32 heads over 8
     KV heads, Dh 160), glm4-9b (32 over 2, Dh 128, group 16),
-    qwen3-moe-30b-a3b (32 over 4, Dh 128) and qwen1.5-110b (64 over 8, Dh
-    128, the sharded path's), laid out
+    qwen3-moe-30b-a3b (32 over 4, Dh 128), qwen1.5-110b (64 over 8, Dh
+    128, the sharded path's) and Qwen3-Next-80B-A3B (16 over 2, Dh 256,
+    its published ``head_dim``), laid out
     as the LM path hands them over (q transposed from (1, S, Hq, Dh), k and
     v the first S rows of a (1, KV, 2S, Dh) cache), causal: within 2e-4 of
     the plain version and of SDPA in f32 on the same values (KV
@@ -751,34 +759,37 @@ def test_encdec_and_vlm_reduced_prefill_on_the_card_equals_the_cpu(cuda,
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_flash_kernel_takes_every_stated_head_dim(cuda, causal):
-    """Every head dim the bf16 kernel states (multiples of 8 up to 192) at
-    a ragged (2, 70, 133) shape, grouped 2 over 1: within 2e-4 of the plain
-    version."""
+    """Every head dim each kernel states (1 to 256, bf16 and f32) at a
+    ragged (2, 70, 133) shape, grouped 2 over 1: within 2e-4 of the plain
+    version, in one launch of the dtype's kernel each."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
-    assert HEAD_DIMS[torch.bfloat16] == tuple(range(8, 193, 8))
-    for dh in HEAD_DIMS[torch.bfloat16]:
-        g = gen(cuda, dh)
-        q = torch.randn((1, 2, 70, dh), generator=g, device=cuda).to(
-            torch.bfloat16)
-        k, v = (torch.randn((1, 1, 133, dh), generator=g, device=cuda).to(
-            torch.bfloat16) for _ in range(2))
-        got = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
-        torch.cuda.synchronize()
-        want = flash_attention_plain(q, k, v, scale=dh ** -0.5,
-                                     causal=causal)
-        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4,
-                                   msg=lambda m: f"Dh {dh}: {m}")
-    assert flash_attention_tc.launches == len(HEAD_DIMS[torch.bfloat16])
+    for dtype, wrapper in ((torch.bfloat16, flash_attention_tc),
+                           (torch.float32, flash_attention_f32)):
+        assert HEAD_DIMS[dtype] == range(1, 257)
+        for dh in HEAD_DIMS[dtype]:
+            g = gen(cuda, dh)
+            q = torch.randn((1, 2, 70, dh), generator=g, device=cuda).to(
+                dtype)
+            k, v = (torch.randn((1, 1, 133, dh), generator=g,
+                                device=cuda).to(dtype) for _ in range(2))
+            got = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, scale=dh ** -0.5,
+                                         causal=causal)
+            assert got.shape == q.shape
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4,
+                                       msg=lambda m: f"{dtype} Dh {dh}: {m}")
+        assert wrapper.launches == len(HEAD_DIMS[dtype])
 
 
-@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 200),
-                                      (torch.bfloat16, 12),
-                                      (torch.float32, 96),
-                                      (torch.float32, 192)])
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 264),
+                                      (torch.bfloat16, 512),
+                                      (torch.float32, 264),
+                                      (torch.float32, 512)])
 def test_flash_refuses_a_head_dim_outside_its_kernel(cuda, dtype, dh):
-    """A head dim the dtype's kernel does not take raises on the card,
-    launching nothing (no plain or library fallback)."""
+    """A head dim above 256 (DeepSeek-V4's 512 among them) raises on the
+    card, launching nothing (no plain or library fallback)."""
     q = torch.zeros((1, 2, 16, dh), dtype=dtype, device=cuda)
     with pytest.raises(ValueError, match="Dh in"):
         flash_attention(q, q, q, scale=0.125)
@@ -854,20 +865,29 @@ def test_lm_prefill_runs_the_flash_kernel(cuda):
     assert [len(r.out) for r in eng.run()] == [4, 4, 4]
 
 
-DENSE = {"stablelm-12b": dict(head_dim=160), "glm4-9b": {}}
+# the reduced dense configs on the card: (arch, reduced() overrides)
+DENSE = {"stablelm-12b": ("stablelm-12b", dict(head_dim=160)),
+         "glm4-9b": ("glm4-9b", {}),
+         "glm4-9b-dh96": ("glm4-9b", dict(head_dim=96)),
+         "glm4-9b-dh256": ("glm4-9b", dict(head_dim=256))}
+
+
+def dense_config(case):
+    from repro_torch.configs import get_config
+    arch, kw = DENSE[case]
+    return get_config(arch).reduced(**kw)
 
 
 @pytest.mark.parametrize("arch", sorted(DENSE))
 def test_dense_f32_prefill_runs_the_flash_kernel(cuda, arch):
     """Reduced stablelm-12b at its full width's head dim (160: QK-norm, 40
-    rotary columns, layernorm) and reduced glm4-9b (QKV bias) in f32 on
-    the card: a prefill launches the f32 flash kernel once a layer, and
-    its logits and the decode step after it agree with the plain route
-    within 1e-4."""
-    from repro_torch.configs import get_config
+    rotary columns, layernorm) and reduced glm4-9b (QKV bias) at its own
+    head dim, phi-3-mini's 96 and Qwen3-Next's 256, in f32 on the card: a
+    prefill launches the f32 flash kernel once a layer, and its logits and
+    the decode step after it agree with the plain route within 1e-4."""
     from repro_torch.nn import transformer as T
 
-    cfg = get_config(arch).reduced(**DENSE[arch])
+    cfg = dense_config(arch)
     params = T.init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
     toks = torch.randint(0, cfg.vocab, (2, 77), generator=gen(cuda, 1),
                          device=cuda)
@@ -893,15 +913,14 @@ def test_dense_f32_prefill_runs_the_flash_kernel(cuda, arch):
 
 @pytest.mark.parametrize("arch", sorted(DENSE))
 def test_dense_graphed_engine_serves_the_eager_tokens(cuda, arch):
-    """The two dense configs reduced as above, in bf16, two slots, prompts
+    """The dense configs reduced as above, in bf16, two slots, prompts
     of 5, 77, 5 and 130 tokens: the graphed engine's greedy tokens and
     caches equal the eager engine's bit for bit, and captured launches x
     replays equal the eager counts (one bf16 flash launch a layer and
     prefill)."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import Engine
 
-    cfg = get_config(arch).reduced(**DENSE[arch])
+    cfg = dense_config(arch)
     graphed = Engine(cfg, slots=2, cache_len=136, seed=3, device=cuda)
     eager = Engine(cfg, slots=2, cache_len=136, params=graphed.params,
                    device=cuda, jit=False)

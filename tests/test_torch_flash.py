@@ -99,20 +99,27 @@ def test_non_causal_masks_padded_keys_at_wide_heads(nq, nkv, dh):
                           interpret=True))
 
 
-# what each kernel takes on the card (flash_attention.HEAD_DIMS)
-HEAD_DIM_CASES = [(torch.bfloat16, dh, True) for dh in (8, 32, 96, 160, 192)]
-HEAD_DIM_CASES += [(torch.bfloat16, dh, False) for dh in (4, 12, 200, 256)]
-HEAD_DIM_CASES += [(torch.float32, dh, True) for dh in (32, 64, 128, 160)]
-HEAD_DIM_CASES += [(torch.float32, dh, False) for dh in (48, 96, 192, 256)]
+# what each kernel takes on the card (flash_attention.HEAD_DIMS): (dtype,
+# Dh, the Dh the launcher gets, or None where the wrapper refuses): a Dh
+# TMA cannot read row by row (not a multiple of 8 bf16 or 4 f32 values) is
+# zero-padded to one
+HEAD_DIM_CASES = [(torch.bfloat16, dh, dh + -dh % 8)
+                  for dh in (4, 8, 12, 32, 96, 160, 192, 200, 256)]
+HEAD_DIM_CASES += [(torch.float32, dh, dh + -dh % 4)
+                   for dh in (1, 32, 48, 60, 64, 96, 102, 128, 160, 192, 256)]
+HEAD_DIM_CASES += [(dtype, dh, None) for dtype in (torch.bfloat16,
+                                                   torch.float32)
+                   for dh in (264, 512)]
 
 
-@pytest.mark.parametrize("dtype,dh,takes", HEAD_DIM_CASES)
-def test_card_dispatch_by_head_dim(monkeypatch, dtype, dh, takes):
+@pytest.mark.parametrize("dtype,dh,launched", HEAD_DIM_CASES)
+def test_card_dispatch_by_head_dim(monkeypatch, dtype, dh, launched):
     """On card operands (``_build.on_cpu`` patched to say so; the launcher
-    replaced by a recorder) a head dim the dtype's kernel takes goes to
-    that kernel, in one launch with Dh as given; any other raises
-    ``ValueError`` naming the head dims taken, with no launch and no
-    fallback to the plain version."""
+    replaced by a recorder) a head dim up to 256 goes to the dtype's
+    kernel in one launch, with Dh as given or zero-padded to whole 16-byte
+    rows (q, k and v alike), the output cut back to q's shape; a head dim
+    above 256 raises ``ValueError`` naming the head dims taken, with no
+    launch and no fallback to the plain version."""
     calls = []
 
     def kernel_function(name, symbol, argtypes):
@@ -125,19 +132,43 @@ def test_card_dispatch_by_head_dim(monkeypatch, dtype, dh, takes):
     q = torch.zeros((1, 4, 16, dh), dtype=dtype)
     k = torch.zeros((1, 2, 16, dh), dtype=dtype)
     ops.reset_launch_counts()
-    if takes:
+    if launched:
         out = flash_attention(q, k, k, scale=0.125)
         assert out.shape == q.shape
         [(name, args)] = calls
         assert name == ("flash_attention_tc" if dtype == torch.bfloat16
                         else "flash_attention")
-        assert args[9] == dh
+        assert args[9] == launched
+        # (batch, head, row) strides of q, k and v: whole padded rows (a
+        # size-1 batch's stride replaced by 8 rows)
+        assert args[10:19] == (8 * launched, 16 * launched, launched) * 3
     else:
-        with pytest.raises(ValueError, match="Dh in"):
+        with pytest.raises(ValueError, match="Dh in 1..256"):
             flash_attention(q, k, k, scale=0.125)
         assert calls == []
-    assert sum(ops.launch_counts().values()) == int(takes)
+    assert sum(ops.launch_counts().values()) == int(bool(launched))
     ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dh", [60, 96, 112, 200, 256])
+@pytest.mark.parametrize("nq,nkv,causal", [(128, 128, True),
+                                           (100, 333, True),
+                                           (77, 40, False)])
+def test_plain_flash_matches_pallas_interpret_past_dh_160(nq, nkv, causal,
+                                                          dh):
+    """The plain version against the Pallas kernel in interpret mode and
+    the reference's ``flash_attention_ref`` at the head dims the card's
+    kernels take from this slice on: one TMA cannot read row by row in f32
+    (60 is, 102 would be padded), phi-3-mini's 96, 112, two past the old
+    bf16 limit of 192 and Qwen3-Next's 256; causal over a square and a
+    ragged shape, non-causal over fewer keys than queries (one KV tile,
+    which the Pallas wrapper takes unpadded)."""
+    q, k, v = qkv(nq * 7 + nkv + dh, 2, nq, nkv, dh)
+    scale = dh ** -0.5
+    got = flash_attention(*t_(q, k, v), scale=scale, causal=causal)
+    assert got.shape == (2, nq, dh)
+    close(got, jref(q, k, v, scale=scale, causal=causal))
+    close(got, jflash(q, k, v, scale=scale, causal=causal, interpret=True))
 
 
 def test_bf16_operands_compute_in_f32():

@@ -8,8 +8,9 @@ rna(x - big). A product a b is big_a big_b, summed in one f32 accumulator,
 plus big_a small_b + small_a big_b, summed in a second, the two added when
 the sums are done (``csrc/tf32x3.cuh``). The emulation below does the same
 with f32 matmuls: STDP as S = Q K^T in three products, S split, O = S V in
-three products, times the scale; flash attention as the kernel's 64-key
-tiles with the reference's online softmax, s from the split ``q * scale``
+three products, times the scale; flash attention as the kernel's KV tiles
+(64 keys, or 32 past Dh 128) with the reference's online softmax, s from
+the split ``q * scale``
 and k, P V from the split p and v, the two P V sums rescaled apart. Inputs
 come from seeded numpy.
 
@@ -71,9 +72,9 @@ def stdp_emulated(q, k, v, *, scale, dot=dot3):
 
 def flash_emulated(q, k, v, *, scale, causal, split_p=True, bkv=64):
     """The f32 flash kernel's arithmetic on (BH, Nq, Dh) over (BH, Nkv,
-    Dh): ascending 64-key tiles, the reference's online-softmax update
-    (NEG_INF = -1e30, exp, max(l, 1e-30)); ``split_p=False`` takes one
-    unsplit TF32 product a step in both dots."""
+    Dh): ascending tiles of ``bkv`` keys, the reference's online-softmax
+    update (NEG_INF = -1e30, exp, max(l, 1e-30)); ``split_p=False`` takes
+    one unsplit TF32 product a step in both dots."""
     dot = dot3 if split_p else dot1
     qs = q * scale
     bh, nq, dh = q.shape
@@ -188,6 +189,29 @@ def test_flash_scheme_holds_the_flash_tolerance(nq, nkv, causal, dh):
     q, k, v = normal(nq + dh, 3, nq, dh), *(normal(nkv + dh + i, 3, nkv, dh)
                                             for i in (1, 2))
     got = flash_emulated(*t_(q, k, v), scale=dh ** -0.5, causal=causal)
+    for want in (np.asarray(jref.flash_attention_ref(
+            q, k, v, scale=dh ** -0.5, causal=causal)),
+                 ref.flash_attention_ref(*t_(q, k, v), scale=dh ** -0.5,
+                                         causal=causal).numpy()):
+        np.testing.assert_allclose(got.numpy(), want, atol=FLASH_TOL,
+                                   rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("nq,nkv,causal", [(65, 65, True), (196, 196, True),
+                                           (1, 196, True), (196, 65, False)])
+@pytest.mark.parametrize("dh,bkv", [(96, 64), (128, 64), (160, 32),
+                                    (224, 32), (256, 32)])
+def test_wide_flash_scheme_holds_the_flash_tolerance(nq, nkv, causal, dh,
+                                                     bkv):
+    """Past Dh 64 the f32 kernel takes KV tiles of 64 keys up to Dh 128 and
+    of 32 past it (``Wide`` in ``csrc/flash_attention.cu``): the same
+    scheme at those tiles, at phi-3-mini's, glm4's, stablelm-12b's and
+    Qwen3-Next's head dims and 224, within atol = rtol = 2e-4 of both
+    references."""
+    q, k, v = normal(nq + dh, 2, nq, dh), *(normal(nkv + dh + i, 2, nkv, dh)
+                                            for i in (1, 2))
+    got = flash_emulated(*t_(q, k, v), scale=dh ** -0.5, causal=causal,
+                         bkv=bkv)
     for want in (np.asarray(jref.flash_attention_ref(
             q, k, v, scale=dh ** -0.5, causal=causal)),
                  ref.flash_attention_ref(*t_(q, k, v), scale=dh ** -0.5,
