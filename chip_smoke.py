@@ -20,14 +20,17 @@ Needs one CUDA card and ``nvcc``; fails without them. It
    4 at Dh 128, qwen2-vl-7b's, 28 over 4 at Dh 128, and whisper-large-v3's
    three layouts of a 4-row, 440-token prefill over 1500 frames: the
    encoder's and the cross-attention's non-causal, the decoder's causal),
-   and Qwen3-Next-80B-A3B's, 16 over 2 at Dh 256), the f32 unpack
+   Qwen3-Next-80B-A3B's, 16 over 2 at Dh 256, and DeepSeek-V4-Flash's, 64
+   over 1 at Dh 512, in column slices), the f32 unpack
    dot on the bf16 tensor cores, and the f32 STDP (spikes, then real
    values) and f32 flash attention in split TF32 on the tensor cores, at
    (15, 2048, 64) and at the prefill layouts of stablelm-12b (Dh 160),
-   glm4-9b (Dh 128), phi-3-mini's head dim (32 over 32 at Dh 96) and
-   Qwen3-Next-80B-A3B (Dh 256); both flash kernels also over the head
-   dims 8, 48, 60, 96, 112, 200, 224 and 256 at a small shape, each held
-   to the plain version),
+   glm4-9b (Dh 128), phi-3-mini's head dim (32 over 32 at Dh 96),
+   Qwen3-Next-80B-A3B (Dh 256) and DeepSeek-V4-Flash (Dh 512), then one f32
+   prefill of glm4-9b reduced at head dim 512 through the kernel against
+   the plain route; both flash kernels also over the head dims 8, 48, 60,
+   96, 112, 200, 224, 256, 264, 320, 512, 576 and 1024 at a small shape,
+   each held to the plain version),
    holds it
    against its plain PyTorch version on the card and times kernel, plain
    version and the nearest single PyTorch call (the kernel by its device
@@ -265,11 +268,16 @@ VLM_GRID = 16
 VLM_TEXT = 512
 
 # kernel 7 at head dims no config of the repo has: Qwen3-Next-80B-A3B's
-# (its published config.json: 16 heads over 2 KV heads, head_dim 256) and
-# phi-3-mini's (3072 / 32 heads, no grouping), and a sweep of head dims
+# (its published config.json: 16 heads over 2 KV heads, head_dim 256),
+# phi-3-mini's (3072 / 32 heads, no grouping) and DeepSeek-V4-Flash's (its
+# published config.json: 64 heads over 1 KV head, head_dim 512), and a
+# sweep of head dims (past 256 the kernels' column slices)
 QWEN3NEXT_MODEL = "Qwen3-Next-80B-A3B-Instruct"
 DH96_MODEL = "phi-3-mini"
-SWEEP_HEAD_DIMS = (8, 48, 60, 96, 112, 200, 224, 256)
+V4_MODEL, V4_HEADS, V4_KV_HEADS, V4_HEAD_DIM = "DeepSeek-V4-Flash", 64, 1, 512
+SWEEP_HEAD_DIMS = (8, 48, 60, 96, 112, 200, 224, 256, 264, 320, 512, 576,
+                   1024)
+WIDE_GATE_ARCH, WIDE_GATE_HEAD_DIM, WIDE_GATE_LEN = "glm4-9b", 512, 2048
 
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -851,10 +859,15 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     4, group 7, Dh 128) and qwen1.5-110b's (``at_qwen110b_shape``: 64 over
     8, group 8, Dh 128, the sharded path's); both dtypes at
     Qwen3-Next-80B-A3B's (``at_qwen3next_shape``: 16 over 2, group 8, Dh
-    256), f32 also at glm4-9b's (``at_glm4_shape``) and at phi-3-mini's
-    head dim (``at_dh96_shape``: 32 over 32, Dh 96); SDPA beside each with
-    ``is_causal`` as the kernel's. Then each dtype over ``SWEEP_HEAD_DIMS``
-    (``head_dim_sweep``)."""
+    256) and DeepSeek-V4-Flash's (``at_deepseek_v4_flash_shape``: 64 over
+    1, group 64, Dh 512: the column-sliced kernels), f32 also at
+    glm4-9b's (``at_glm4_shape``) and at phi-3-mini's head dim
+    (``at_dh96_shape``: 32 over 32, Dh 96); SDPA beside each with
+    ``is_causal`` as the kernel's, with the backend it takes
+    (``library_backend``; ``library_ms`` None where none takes the
+    shape), and each row's ``bound_share``. Then each dtype over
+    ``SWEEP_HEAD_DIMS`` (``head_dim_sweep``), and f32 once more through a
+    reduced glm4-9b at head dim 512 (``wide_head_dim_gate``)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
@@ -916,6 +929,7 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
             q, k, v, scale=scale, causal=causal)
         views = "cache slices" if kv == "cache" else "transposed views"
         what = what or f"{model}'s 2048-token prefill"
+        backend = sdpa_backend(torch, qc, ke, ve, causal, scale)
         row = dict(
             shape=f"q {tuple(q.shape)} {name} (transposed view) over k, v "
                   f"{tuple(k.shape)} {name} ({views}), "
@@ -928,8 +942,11 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
                 q, k, v, scale=scale, causal=causal)),
             bound_ms=b_ms, bound_by=b_by,
             bytes_bound_ms=bound_ms(nbytes, 0, BF16_OPS_PER_S)[0],
-            library_ms=graph_ms(torch, lambda: sdpa(
-                qc, ke, ve, is_causal=causal, scale=scale)))
+            library_ms=None if backend == "ERROR" else graph_ms(
+                torch, lambda: sdpa(qc, ke, ve, is_causal=causal,
+                                    scale=scale)),
+            library_backend=backend)
+        row["bound_share"] = b_ms / row["ms"]
         if dtype == torch.float32:
             row["bound_ms_f32_units"] = bound_ms(nbytes, ops_h,
                                                  F32_OPS_PER_S)[0]
@@ -984,8 +1001,51 @@ def flash_kernel_phase(torch, dev, gen) -> dict:
     f32["at_dh96_shape"] = at(32, 32, 96, DH96_MODEL, torch.float32)
     for row, dtype in ((tc, torch.bfloat16), (f32, torch.float32)):
         row["at_qwen3next_shape"] = at(16, 2, 256, QWEN3NEXT_MODEL, dtype)
+        row["at_deepseek_v4_flash_shape"] = at(
+            V4_HEADS, V4_KV_HEADS, V4_HEAD_DIM, V4_MODEL, dtype)
         row["head_dim_sweep"] = head_dim_sweep(dtype, held)
+    f32["wide_head_dim_gate"] = wide_head_dim_gate(torch, dev)
     return {"flash_attention_tc": tc, "flash_attention_f32": f32}
+
+
+def sdpa_backend(torch, q, k, v, causal: bool, scale: float) -> str:
+    """The backend ``scaled_dot_product_attention`` takes for these
+    operands, by its own dispatcher (``torch._fused_sdp_choice``): FLASH,
+    EFFICIENT, CUDNN or MATH, or ERROR where none takes them."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, None, 0.0, causal, scale=scale)).name.removesuffix(
+            "_ATTENTION")
+
+
+def wide_head_dim_gate(torch, dev) -> dict:
+    """glm4-9b at ``reduced(head_dim=WIDE_GATE_HEAD_DIM)`` (the reduced
+    widths, 4 heads over 2 at Dh 512, half rotary), seeded on the card:
+    one f32 prefill of WIDE_GATE_LEN tokens through the flash route and
+    through the plain route, held as the LM paths' f32 gates are
+    (``check_f32_gate``: one ``flash_attention_f32`` launch a layer and
+    nothing else, each handed its views in place, logits within atol =
+    rtol = LM_LOGITS_TOL). No config of the repo has a head dim past 256;
+    this drives the column-sliced f32 kernel through the LM path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.nn import transformer as T
+
+    cfg = get_config(WIDE_GATE_ARCH).reduced(head_dim=WIDE_GATE_HEAD_DIM)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    tokens = torch.tensor([lm_prompts(cfg.vocab, (WIDE_GATE_LEN,))[0]],
+                          device=dev)
+    run = f32_prefill_routes(torch, cfg, params, {"tokens": tokens},
+                             WIDE_GATE_LEN, dev)
+    err = check_f32_gate(torch, cfg, run, cfg.n_layers,
+                         f"at {WIDE_GATE_LEN}, head dim {cfg.head_dim}")
+    ops.reset_launch_counts()
+    return dict(config=f"{cfg.name}: {cfg.n_layers} layers, d_model "
+                       f"{cfg.d_model}, {cfg.n_heads} heads over "
+                       f"{cfg.n_kv_heads} at Dh {cfg.head_dim}",
+                prompt_len=WIDE_GATE_LEN, launches=run["launches"],
+                max_abs_err=err, operands_in_place=run["in_place"],
+                tolerance=f"atol = rtol = {LM_LOGITS_TOL}")
 
 
 def head_dim_sweep(dtype, held) -> dict:
@@ -4967,6 +5027,14 @@ def main() -> int:
            for k, v in sh["serve"].items() if k.startswith("profile")},
         "train": sh["train"], "psum": sh["psum"]}}))
     print(json.dumps({"dryrun": report["dryrun"]}))
+    flash = {k: report["kernels"][k] for k in ("flash_attention_tc",
+                                               "flash_attention_f32")}
+    print(json.dumps({"flash_past_dh256": {
+        **{k: {x: row[x] for x in ("at_deepseek_v4_flash_shape",
+                                   "head_dim_sweep")}
+           for k, row in flash.items()},
+        "wide_head_dim_gate":
+            flash["flash_attention_f32"]["wide_head_dim_gate"]}}))
     print(json.dumps({"phase_s": phase_s, "build_s": build_s}))
     print(smi)
     print(json.dumps({"kernels": table}))

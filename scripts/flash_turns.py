@@ -14,15 +14,19 @@ rows of a (1, KV, 2S, Dh) cache), in f32 and in bf16:
 
 - smollm-360m (15 over 5 heads, Dh 64), glm4-9b (32 over 2, Dh 128),
   stablelm-12b (32 over 8, Dh 160), qwen3-moe-30b-a3b (32 over 4, Dh
-  128), phi-3-mini's head dim (32 over 32, Dh 96) and
-  Qwen3-Next-80B-A3B (16 over 2, Dh 256, its published ``head_dim``).
+  128), phi-3-mini's head dim (32 over 32, Dh 96),
+  Qwen3-Next-80B-A3B (16 over 2, Dh 256, its published ``head_dim``),
+  DeepSeek-V4-Flash (64 over 1, Dh 512, its published attention layout)
+  and sarvam-105b's MLA in its absorbed form (64 heads over one latent of
+  576: ``kv_lora_rank`` 512 + ``qk_rope_head_dim`` 64, its ``head_dim``).
 
 A layout's kernel is held to its plain version within atol = rtol = 2e-4
 (``max_abs_err``); a tree that refuses the head dim gets ``"refused"``.
 Times: ``ms``, device time of one launch by ``torch.profiler`` over 20
 calls after 3 warm-ups; ``sdpa_ms``, the same for
 ``scaled_dot_product_attention`` in the operands' dtype on KV expanded to
-the q heads beforehand (every kernel of one call); ``bound_ms``, the
+the q heads beforehand (every kernel of one call), beside the backend
+SDPA takes for those operands (``sdpa_backend``); ``bound_ms``, the
 larger of the bytes (q, k, v read once, the f32 output written once) at
 3.35 TB/s and the kept (query, key) pairs' products (four operations a
 pair and column; f32 counts three TF32 products at 495 TFLOP/s, bf16 one
@@ -49,6 +53,8 @@ LAYOUTS = {          # name: (q heads, KV heads, Dh)
     "qwen3-moe-30b-a3b": (32, 4, 128),
     "dh96": (32, 32, 96),
     "qwen3-next-80b-a3b": (16, 2, 256),
+    "deepseek-v4-flash": (64, 1, 512),
+    "sarvam-105b": (64, 1, 576),
 }
 
 
@@ -77,6 +83,14 @@ def device_ms(torch, fn, name: str = "") -> float:
         if n >= REPS:
             return us / 1e3 / (n if name else REPS)
     raise SystemExit(f"{n} launches of {name!r} in {REPS} calls")
+
+
+def sdpa_backend(torch, q, k, v, scale: float) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these causal
+    operands (its own dispatcher's choice, ``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, None, 0.0, True, scale=scale)).name
 
 
 def nvcc_seconds(build, source: Path) -> float:
@@ -160,6 +174,7 @@ def main() -> int:
             qc = q.contiguous()
             row["sdpa_ms"] = device_ms(torch, lambda: sdpa(
                 qc, ke, ve, is_causal=True, scale=scale))
+            row["sdpa_backend"] = sdpa_backend(torch, qc, ke, ve, scale)
             nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() \
                 + q.numel() * 4
             ops_n = 4 * hq * (s * (s + 1) // 2) * dh

@@ -5,17 +5,18 @@ softmax (port of ``repro.kernels.flash_attention``).
 dispatches on the operands' dtype: bf16 launches
 ``csrc/flash_attention_tc.cu`` (bf16 wgmma), f32 launches
 ``csrc/flash_attention.cu`` (split TF32 on wgmma); both load their tiles
-by TMA and read each KV head and strided view in place. ``HEAD_DIMS``
-holds the head dims each kernel takes on the card: every Dh from 1 to
-``MAX_HEAD_DIM`` = 256 in both dtypes (the bf16 kernel in 64-column
-boxes, the f32 kernel at Dh 32 and 64 and at every multiple of 32 from
-96 to 256, a Dh in between running the next one up: TMA zero-fills the
-columns past Dh). TMA reads rows of a multiple of 16 bytes, so a Dh that
-is not a multiple of 8 (bf16) or 4 (f32) is zero-padded to one and the
-output cut back: zero columns add zero to every score and every output,
-and the scale is passed as given. A Dh above 256 raises ``ValueError``,
-launching nothing. CPU operands run the plain version,
-``flash_attention_plain``, at any Dh. Each kernel's wrapper counts its
+by TMA and read each KV head and strided view in place. Each takes every
+head dim from 1 up, as the reference's Pallas kernel does, in one launch:
+up to Dh 256 a block holds all of Dh's output columns (the bf16 kernel in
+64-column boxes, the f32 kernel at Dh 32 and 64 and at every multiple of
+32 from 96 to 256, a Dh in between running the next one up: TMA
+zero-fills the columns past Dh); past 256 the output columns are cut into
+slices of at most 256 (bf16) or 128 (f32), a block a slice, each taking
+S = Q K^T over the whole of Dh. TMA reads rows of a multiple of 16 bytes,
+so a Dh that is not a multiple of 8 (bf16) or 4 (f32) is zero-padded to
+one and the output cut back: zero columns add zero to every score and
+every output, and the scale is passed as given. CPU operands run the
+plain version, ``flash_attention_plain``. Each kernel's wrapper counts its
 launches (a padded call is one launch)."""
 from __future__ import annotations
 
@@ -30,8 +31,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 256
-HEAD_DIMS = {dtype: range(1, MAX_HEAD_DIM + 1) for dtype in DTYPES}
 
 
 def _grouped(q, k, v):
@@ -90,9 +89,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"causal={causal}")
     if _build.on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, scale=scale, causal=causal)
-    if dh not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"the {q.dtype} flash kernel takes Dh in 1.."
-                         f"{MAX_HEAD_DIM}, got {tuple(q.shape)}")
+    if dh == 0:
+        raise ValueError(f"the flash kernels take Dh >= 1, got "
+                         f"{tuple(q.shape)}")
     fn = flash_attention_tc if q.dtype == torch.bfloat16 else \
         flash_attention_f32
     return fn(q4, k4, v4, scale=scale, causal=causal).reshape(

@@ -10,9 +10,9 @@ the TPU form of ``chunked_attention``'s schedule: train and prefill
 without a cache, and a prompt into a cache at ``cache_pos == 0``, which
 attends over its own keys. On the card that is
 ``csrc/flash_attention_tc.cu`` for bf16 and ``csrc/flash_attention.cu``
-for f32, each at every head dim from 1 to 256 (the configs' 64, 128 and
-stablelm-12b's 160 among them; ``kernels/flash_attention.py:
-HEAD_DIMS``); a head dim above 256 raises there, with no fallback.
+for f32, each at every head dim from 1 up (the configs' 64, 128 and
+stablelm-12b's 160 among them, and past 256 in column slices: DeepSeek-V4's
+512, sarvam-105b's 576), in one launch, with no fallback.
 Every other case (decode, prefill at an
 offset, per-row positions) is the reference's plain chunked softmax, in
 torch. So is a prompt longer than its layer's window: the reference has no

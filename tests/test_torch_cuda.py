@@ -438,8 +438,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="rows 16"):
         spike_matmul_grouped_s8(xs[..., :12].contiguous(), torch.zeros(
             (4, 12), dtype=torch.int8, device=cuda), t=4)
-    qa = torch.zeros((2, 8, 264), device=cuda)
-    with pytest.raises(ValueError, match="Dh in"):
+    qa = torch.zeros((2, 8, 0), device=cuda)
+    with pytest.raises(ValueError, match="Dh >= 1"):
         flash_attention(qa, qa, qa, scale=1.0)
     qb = torch.zeros((2, 8, 64), device=cuda)
     with pytest.raises(ValueError, match="several devices"):
@@ -623,15 +623,17 @@ def test_flash_kernel_grouped_heads_and_strided_views(cuda, dtype, b, hq,
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,kvh,dh", [(32, 8, 160), (32, 2, 128),
                                       (32, 4, 128), (64, 8, 128),
-                                      (16, 2, 256)],
+                                      (16, 2, 256), (64, 1, 512)],
                          ids=["stablelm-12b", "glm4-9b", "qwen3-moe-30b-a3b",
-                              "qwen1.5-110b", "qwen3-next-80b-a3b"])
+                              "qwen1.5-110b", "qwen3-next-80b-a3b",
+                              "deepseek-v4-flash"])
 def test_flash_kernel_at_the_dense_prefills(cuda, dtype, hq, kvh, dh):
     """Kernel 7 at the 2048-token prefills of stablelm-12b (32 heads over 8
     KV heads, Dh 160), glm4-9b (32 over 2, Dh 128, group 16),
     qwen3-moe-30b-a3b (32 over 4, Dh 128), qwen1.5-110b (64 over 8, Dh
-    128, the sharded path's) and Qwen3-Next-80B-A3B (16 over 2, Dh 256,
-    its published ``head_dim``), laid out
+    128, the sharded path's), Qwen3-Next-80B-A3B (16 over 2, Dh 256, its
+    published ``head_dim``) and DeepSeek-V4-Flash (64 over 1, Dh 512, its
+    published attention layout: the column-sliced kernels), laid out
     as the LM path hands them over (q transposed from (1, S, Hq, Dh), k and
     v the first S rows of a (1, KV, 2S, Dh) cache), causal: within 2e-4 of
     the plain version and of SDPA in f32 on the same values (KV
@@ -759,15 +761,13 @@ def test_encdec_and_vlm_reduced_prefill_on_the_card_equals_the_cpu(cuda,
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_flash_kernel_takes_every_stated_head_dim(cuda, causal):
-    """Every head dim each kernel states (1 to 256, bf16 and f32) at a
-    ragged (2, 70, 133) shape, grouped 2 over 1: within 2e-4 of the plain
-    version, in one launch of the dtype's kernel each."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
-
+    """Every head dim from 1 to 512 in bf16 and f32 (past 256 the column
+    slices: two of 3 or 4 boxes, the second cut at Dh) at a ragged (2, 70,
+    133) shape, grouped 2 over 1: within 2e-4 of the plain version, in one
+    launch of the dtype's kernel each."""
     for dtype, wrapper in ((torch.bfloat16, flash_attention_tc),
                            (torch.float32, flash_attention_f32)):
-        assert HEAD_DIMS[dtype] == range(1, 257)
-        for dh in HEAD_DIMS[dtype]:
+        for dh in range(1, 513):
             g = gen(cuda, dh)
             q = torch.randn((1, 2, 70, dh), generator=g, device=cuda).to(
                 dtype)
@@ -780,20 +780,34 @@ def test_bf16_flash_kernel_takes_every_stated_head_dim(cuda, causal):
             assert got.shape == q.shape
             torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4,
                                        msg=lambda m: f"{dtype} Dh {dh}: {m}")
-        assert wrapper.launches == len(HEAD_DIMS[dtype])
+        assert wrapper.launches == 512
 
 
-@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 264),
-                                      (torch.bfloat16, 512),
-                                      (torch.float32, 264),
-                                      (torch.float32, 512)])
-def test_flash_refuses_a_head_dim_outside_its_kernel(cuda, dtype, dh):
-    """A head dim above 256 (DeepSeek-V4's 512 among them) raises on the
-    card, launching nothing (no plain or library fallback)."""
-    q = torch.zeros((1, 2, 16, dh), dtype=dtype, device=cuda)
-    with pytest.raises(ValueError, match="Dh in"):
-        flash_attention(q, q, q, scale=0.125)
-    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [264, 320, 512, 576, 1024, 2048])
+def test_flash_kernel_past_dh_256(cuda, dtype, causal, dh):
+    """Head dims past 256, where each block takes a slice of the output
+    columns and S over all of Dh (DeepSeek-V4's 512, sarvam-105b's 576,
+    and 1024 and 2048, where the bf16 kernel streams q instead of holding
+    it): a ragged 70 over 133 keys, 4 q heads over 2 KV heads, q
+    transposed from (B, Nq, H, Dh), k and v the first rows of a longer
+    cache, read in place: one launch of the dtype's kernel, within 2e-4 of
+    the plain version."""
+    g = gen(cuda, dh + causal)
+    q = torch.randn((2, 70, 4, dh), generator=g, device=cuda).to(
+        dtype).transpose(1, 2)
+    k, v = (torch.randn((2, 2, 150, dh), generator=g, device=cuda).to(
+        dtype)[:, :, :133] for _ in range(2))
+    got = flash_attention(q, k, v, scale=dh ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (flash_attention_tc.launches, flash_attention_f32.launches) == (
+        int(bf16), int(not bf16))
+    assert got.shape == (2, 4, 70, dh) and got.dtype == torch.float32
+    want = flash_attention_plain(q, k, v, scale=dh ** -0.5, causal=causal)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 
 def test_flash_f32_kernel_reads_grouped_strided_views_in_place(cuda,
@@ -869,7 +883,9 @@ def test_lm_prefill_runs_the_flash_kernel(cuda):
 DENSE = {"stablelm-12b": ("stablelm-12b", dict(head_dim=160)),
          "glm4-9b": ("glm4-9b", {}),
          "glm4-9b-dh96": ("glm4-9b", dict(head_dim=96)),
-         "glm4-9b-dh256": ("glm4-9b", dict(head_dim=256))}
+         "glm4-9b-dh256": ("glm4-9b", dict(head_dim=256)),
+         "glm4-9b-dh512": ("glm4-9b", dict(head_dim=512)),
+         "glm4-9b-dh576": ("glm4-9b", dict(head_dim=576))}
 
 
 def dense_config(case):
@@ -882,7 +898,8 @@ def dense_config(case):
 def test_dense_f32_prefill_runs_the_flash_kernel(cuda, arch):
     """Reduced stablelm-12b at its full width's head dim (160: QK-norm, 40
     rotary columns, layernorm) and reduced glm4-9b (QKV bias) at its own
-    head dim, phi-3-mini's 96 and Qwen3-Next's 256, in f32 on the card: a
+    head dim, phi-3-mini's 96, Qwen3-Next's 256, DeepSeek-V4's 512 and
+    sarvam-105b's 576, in f32 on the card: a
     prefill launches the f32 flash kernel once a layer, and its logits and
     the decode step after it agree with the plain route within 1e-4."""
     from repro_torch.nn import transformer as T

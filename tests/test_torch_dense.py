@@ -5,9 +5,11 @@ qwen1.5-110b (QKV bias, 64 q heads over 8, bf16 params and moments; three
 train steps too), against the JAX reference at ``reduced()`` in f32
 compute, stablelm again at ``reduced(head_dim=160)`` so that the CPU
 route sees the full width's head dim (a rotary width of 40), and glm4 at
-``reduced(head_dim=96)`` and ``reduced(head_dim=256)`` (rotary widths 48
-and 128): phi-3-mini's head dim and Qwen3-Next's, which kernel 7 takes on
-the card in both dtypes. One reference ``init_model`` tree is carried
+``reduced(head_dim=96)``, ``reduced(head_dim=256)``,
+``reduced(head_dim=512)`` and ``reduced(head_dim=576)`` (rotary widths
+48, 128, 256 and 288): phi-3-mini's head dim, Qwen3-Next's,
+DeepSeek-V4's and sarvam-105b's, which kernel 7 takes on the card in
+both dtypes (past 256 in column slices). One reference ``init_model`` tree is carried
 across by ``weights.lm_from_reference``, after its zero biases and unit
 scales (QKV biases, layernorm scales and biases, QK-norm and the other
 norms' scales) are set to seeded nonzero values: the reference's init
@@ -54,6 +56,8 @@ CASES = {"stablelm": ("stablelm-12b", {}), "glm4": ("glm4-9b", {}),
          "stablelm_dh160": ("stablelm-12b", {"head_dim": 160}),
          "glm4_dh96": ("glm4-9b", {"head_dim": 96}),
          "glm4_dh256": ("glm4-9b", {"head_dim": 256}),
+         "glm4_dh512": ("glm4-9b", {"head_dim": 512}),
+         "glm4_dh576": ("glm4-9b", {"head_dim": 576}),
          "qwen110b": ("qwen1.5-110b", {})}
 
 
@@ -97,20 +101,21 @@ def test_config_matches_reference(arch, reduced):
 def test_full_width_head_dims():
     """stablelm-12b's head dim is 160 (5120 / 32) and a quarter of it, 40,
     rotates; glm4-9b's is 128 with half rotated, over 2 KV heads (group
-    16). Kernel 7 takes every head dim from 1 to 256 in both dtypes
-    (``HEAD_DIMS``), these two, phi-3-mini's 96 and Qwen3-Next's 256 among
-    them, and none above."""
+    16). Kernel 7 takes every head dim from 1 up in both dtypes, with no
+    table of head dims left to consult (the reduced glm4 cases carry 512
+    and 576 with rotary widths 256 and 288)."""
     s, g = get_config("stablelm-12b"), get_config("glm4-9b")
     assert layers.rope_freqs(s.head_dim, rotary_frac=s.rotary_frac)[1] == 40
     assert (s.head_dim, s.n_heads // s.n_kv_heads) == (160, 4)
     assert layers.rope_freqs(g.head_dim, rotary_frac=g.rotary_frac)[1] == 64
     assert (g.head_dim, g.n_heads // g.n_kv_heads) == (128, 16)
-    for dtype in (torch.bfloat16, torch.float32):
-        assert flash_kernels.HEAD_DIMS[dtype] == range(1, 257)
-        assert flash_kernels.MAX_HEAD_DIM == 256
-        for dh in (s.head_dim, g.head_dim, 96, 256):
-            assert dh in flash_kernels.HEAD_DIMS[dtype]
-        assert 264 not in flash_kernels.HEAD_DIMS[dtype]
+    for dh, rotary in ((512, 256), (576, 288)):
+        cfg = get_config("glm4-9b").reduced(head_dim=dh)
+        assert cfg.head_dim == dh
+        assert layers.rope_freqs(dh, rotary_frac=cfg.rotary_frac)[1] == \
+            rotary
+    assert not hasattr(flash_kernels, "HEAD_DIMS")
+    assert not hasattr(flash_kernels, "MAX_HEAD_DIM")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

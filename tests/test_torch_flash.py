@@ -99,27 +99,28 @@ def test_non_causal_masks_padded_keys_at_wide_heads(nq, nkv, dh):
                           interpret=True))
 
 
-# what each kernel takes on the card (flash_attention.HEAD_DIMS): (dtype,
-# Dh, the Dh the launcher gets, or None where the wrapper refuses): a Dh
-# TMA cannot read row by row (not a multiple of 8 bf16 or 4 f32 values) is
-# zero-padded to one
+# what each kernel takes on the card: (dtype, Dh, the Dh the launcher
+# gets, or None where the wrapper refuses): every Dh from 1 up, past 256
+# (DeepSeek-V4's 512, sarvam-105b's 576) too; a Dh TMA cannot read row by
+# row (not a multiple of 8 bf16 or 4 f32 values) is zero-padded to one
 HEAD_DIM_CASES = [(torch.bfloat16, dh, dh + -dh % 8)
-                  for dh in (4, 8, 12, 32, 96, 160, 192, 200, 256)]
+                  for dh in (4, 8, 12, 32, 96, 160, 192, 200, 256, 264, 300,
+                             512, 576, 1024)]
 HEAD_DIM_CASES += [(torch.float32, dh, dh + -dh % 4)
-                   for dh in (1, 32, 48, 60, 64, 96, 102, 128, 160, 192, 256)]
-HEAD_DIM_CASES += [(dtype, dh, None) for dtype in (torch.bfloat16,
-                                                   torch.float32)
-                   for dh in (264, 512)]
+                   for dh in (1, 32, 48, 60, 64, 96, 102, 128, 160, 192, 256,
+                              264, 298, 512, 576, 1024)]
+HEAD_DIM_CASES += [(dtype, 0, None) for dtype in (torch.bfloat16,
+                                                  torch.float32)]
 
 
 @pytest.mark.parametrize("dtype,dh,launched", HEAD_DIM_CASES)
 def test_card_dispatch_by_head_dim(monkeypatch, dtype, dh, launched):
     """On card operands (``_build.on_cpu`` patched to say so; the launcher
-    replaced by a recorder) a head dim up to 256 goes to the dtype's
+    replaced by a recorder) every head dim from 1 up goes to the dtype's
     kernel in one launch, with Dh as given or zero-padded to whole 16-byte
-    rows (q, k and v alike), the output cut back to q's shape; a head dim
-    above 256 raises ``ValueError`` naming the head dims taken, with no
-    launch and no fallback to the plain version."""
+    rows (q, k and v alike), the output cut back to q's shape; an empty
+    head dim raises ``ValueError``, with no launch and no fallback to the
+    plain version."""
     calls = []
 
     def kernel_function(name, symbol, argtypes):
@@ -143,7 +144,7 @@ def test_card_dispatch_by_head_dim(monkeypatch, dtype, dh, launched):
         # size-1 batch's stride replaced by 8 rows)
         assert args[10:19] == (8 * launched, 16 * launched, launched) * 3
     else:
-        with pytest.raises(ValueError, match="Dh in 1..256"):
+        with pytest.raises(ValueError, match="Dh >= 1"):
             flash_attention(q, k, k, scale=0.125)
         assert calls == []
     assert sum(ops.launch_counts().values()) == int(bool(launched))
@@ -169,6 +170,33 @@ def test_plain_flash_matches_pallas_interpret_past_dh_160(nq, nkv, causal,
     assert got.shape == (2, nq, dh)
     close(got, jref(q, k, v, scale=scale, causal=causal))
     close(got, jflash(q, k, v, scale=scale, causal=causal, interpret=True))
+
+
+@pytest.mark.parametrize("dh", [264, 512, 576])
+@pytest.mark.parametrize("nq,nkv,causal", [(70, 133, True),
+                                           (70, 133, False),
+                                           (128, 128, True),
+                                           (128, 128, False)])
+def test_plain_flash_matches_pallas_interpret_past_dh_256(nq, nkv, causal,
+                                                          dh):
+    """The head dims past 256 that the card's kernels take in column
+    slices (264, DeepSeek-V4's 512, sarvam-105b's 576): the port's call
+    with q's two heads grouped over one KV head, against the Pallas kernel
+    in interpret mode and the reference's ``flash_attention_ref`` on KV
+    expanded to the q heads (the Pallas wrapper refuses the non-causal
+    ragged case, whose keys it would pad: there only the reference)."""
+    r = np.random.default_rng(nq * 5 + nkv + dh + causal)
+    q = r.normal(size=(1, 2, nq, dh)).astype(np.float32)
+    k, v = (r.normal(size=(1, 1, nkv, dh)).astype(np.float32)
+            for _ in range(2))
+    scale = dh ** -0.5
+    got = flash_attention(*t_(q, k, v), scale=scale, causal=causal)
+    assert got.shape == (1, 2, nq, dh) and got.dtype == torch.float32
+    eq, ek, ev = q[0], np.repeat(k[0], 2, axis=0), np.repeat(v[0], 2, axis=0)
+    close(got[0], jref(eq, ek, ev, scale=scale, causal=causal))
+    if causal or nkv % 128 == 0:
+        close(got[0], jflash(eq, ek, ev, scale=scale, causal=causal,
+                             interpret=True))
 
 
 def test_bf16_operands_compute_in_f32():

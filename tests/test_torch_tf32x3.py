@@ -9,7 +9,7 @@ plus big_a small_b + small_a big_b, summed in a second, the two added when
 the sums are done (``csrc/tf32x3.cuh``). The emulation below does the same
 with f32 matmuls: STDP as S = Q K^T in three products, S split, O = S V in
 three products, times the scale; flash attention as the kernel's KV tiles
-(64 keys, or 32 past Dh 128) with the reference's online softmax, s from
+(64 keys, or 32 from Dh 129 to 256) with the reference's online softmax, s from
 the split ``q * scale``
 and k, P V from the split p and v, the two P V sums rescaled apart. Inputs
 come from seeded numpy.
@@ -200,13 +200,16 @@ def test_flash_scheme_holds_the_flash_tolerance(nq, nkv, causal, dh):
 @pytest.mark.parametrize("nq,nkv,causal", [(65, 65, True), (196, 196, True),
                                            (1, 196, True), (196, 65, False)])
 @pytest.mark.parametrize("dh,bkv", [(96, 64), (128, 64), (160, 32),
-                                    (224, 32), (256, 32)])
+                                    (224, 32), (256, 32), (512, 64),
+                                    (576, 64)])
 def test_wide_flash_scheme_holds_the_flash_tolerance(nq, nkv, causal, dh,
                                                      bkv):
-    """Past Dh 64 the f32 kernel takes KV tiles of 64 keys up to Dh 128 and
-    of 32 past it (``Wide`` in ``csrc/flash_attention.cu``): the same
-    scheme at those tiles, at phi-3-mini's, glm4's, stablelm-12b's and
-    Qwen3-Next's head dims and 224, within atol = rtol = 2e-4 of both
+    """Past Dh 64 the f32 kernel takes KV tiles of 64 keys up to Dh 128, of
+    32 up to 256 (``Wide`` in ``csrc/flash_attention.cu``) and of 64 past
+    it (``Sliced``: a block's column slice sums S over every box of Dh in
+    the same ascending k-steps): the same scheme at those tiles, at
+    phi-3-mini's, glm4's, stablelm-12b's, Qwen3-Next's, DeepSeek-V4's and
+    sarvam-105b's head dims and 224, within atol = rtol = 2e-4 of both
     references."""
     q, k, v = normal(nq + dh, 2, nq, dh), *(normal(nkv + dh + i, 2, nkv, dh)
                                             for i in (1, 2))
